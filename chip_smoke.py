@@ -1,0 +1,343 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. print the card's `nvidia-smi --query-gpu=name,power.limit` line;
+2. build the kernels from `scheduler_plugins_tpu_torch/csrc` (one `nvcc`
+   per source, in parallel);
+3. hold each kernel against its plain PyTorch version on the card at S = 8
+   blocks and W in {256, 1024, 8192}: exact equality (tolerance 0 — the
+   kernels move and compare integers), with kernel, plain and library times;
+4. the north-star problem — `allocatable_scenario(10_240, 102_400)`, queue
+   sorted by creation time, 8192-pod chunks, rescue window 256 — through
+   `sharded_wave_solve` with 8 rank blocks, bit-identical to the unblocked
+   `batch_solve` on the same snapshot, every kernel launched, hard
+   constraints checked on the host;
+5. `gang_quota_scenario(32, 64, 1024)` the same way (gang and quota
+   admission, quota prefix and quorum tail), plus a tight problem (40
+   nodes, 3000 pods: rescue waves and hopeless pods) solved on the card and
+   on the CPU with identical results;
+6. the kernel table as one JSON line (times at the shapes the north-star
+   path launched), then the card's line, then the result line
+   `{"ok": true, "device": {...}}` last.
+
+Imports nothing of JAX. Importing this module runs nothing.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+S_BLOCKS = 8
+GRID_W = (256, 1024, 8192)
+#: HBM rate of an H100 SXM, bytes/s (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+SOURCE = "scheduler_plugins_tpu_torch/csrc/election.cu"
+REPLACES = {
+    "block_offsets": "scheduler_plugins_tpu/parallel/kernels.py:370",
+    "elect_min": "scheduler_plugins_tpu/parallel/kernels.py:387",
+    "fused_election": "scheduler_plugins_tpu/parallel/kernels.py:411",
+}
+NORTH_STAR = dict(n_nodes=10_240, n_pods=102_400, chunk=8192, rescue_window=256)
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    """Mean milliseconds per call on the card: CUDA events around `iters`
+    calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_inputs(name: str, shape: tuple, device, seed: int):
+    """Random inputs in each kernel's domain at `shape` — block_offsets
+    (S, L) int64 below 2^40; elect_min (S, H, L) int32 with some INT32_MAX
+    padding; fused_election keys (S, L) unique per block with the sentinel
+    S*L where a block does not propose (zero payload there) and payload
+    (S, H, L) int64."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if name == "block_offsets":
+        S, L = shape
+        return (torch.randint(0, 1 << 40, (S, L), generator=g).to(device),)
+    if name == "elect_min":
+        S, H, L = shape
+        x = torch.randint(0, 1 << 30, (S, H, L), generator=g, dtype=torch.int32)
+        x[torch.rand((S, H, L), generator=g) < 0.1] = torch.iinfo(torch.int32).max
+        return (x.to(device),)
+    S, H, L = shape
+    sentinel = S * L
+    propose = torch.rand((S, L), generator=g) < 0.4
+    keys = torch.arange(S)[:, None] * L + torch.randint(0, L, (S, L), generator=g)
+    keys = torch.where(propose, keys, sentinel).to(torch.int32)
+    payload = torch.randint(1, 1 << 40, (S, H, L), generator=g)
+    payload = torch.where(propose[:, None, :], payload, 0)
+    return keys.to(device), payload.to(device)
+
+
+def check_kernel(name: str, shape: tuple, device, seed: int = 0) -> dict:
+    """Kernel vs plain version on one input: exact equality, and times of
+    the kernel, the plain version and the library yardstick."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    args = kernel_inputs(name, shape, device, seed)
+    kernel = getattr(pk, name)
+    plain = getattr(pk, f"{name}_plain")
+    got, want = kernel(*args), plain(*args)
+    _sync(device)
+    pairs = [(got, want)] if isinstance(got, torch.Tensor) else list(zip(got, want))
+    err = max(
+        float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+        for a, b in pairs
+    )
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{name} {shape}: kernel != plain (max err {err})")
+    library = {
+        "block_offsets": lambda: torch.cumsum(args[0], dim=0),
+        "elect_min": lambda: torch.amin(args[0], dim=0),
+    }.get(name)
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: kernel(*args)),
+        "plain_ms": time_ms(lambda: plain(*args)),
+        "library_ms": time_ms(library) if library else None,
+        "bound_ms": bytes_moved(name, shape) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def bytes_moved(name: str, shape: tuple) -> int:
+    """Bytes the function must move: each input it needs read once, each
+    output written once. fused_election needs all S keys of a column but
+    only the winning block's payload column, so it reads H*L payload
+    values, not S*H*L."""
+    if name == "block_offsets":
+        S, L = shape
+        return 8 * (S * L + S * L + L)
+    if name == "elect_min":
+        S, H, L = shape
+        return 4 * (S * H * L + H * L)
+    S, H, L = shape
+    return 4 * S * L + 8 * H * L + 4 * L + 8 * H * L
+
+
+def grid_shapes(R: int):
+    """The phase-3 grid at S blocks: the shapes the solve gives each kernel
+    at window W."""
+    for W in GRID_W:
+        yield "block_offsets", (S_BLOCKS, W)
+        yield "elect_min", (S_BLOCKS, R, W)
+        yield "fused_election", (S_BLOCKS, 1 + R, W)
+
+
+def fit_violations(snap, assignment) -> int:
+    """Host-side hard-constraint check, independent of the solver: every
+    placed pod on a real schedulable node, and no node's summed fit demand
+    (pods slot 1 per pod) above its free capacity."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.ops import PODS_I
+
+    a = assignment.cpu().numpy().astype(np.int64)
+    alloc = snap.nodes.alloc.cpu().numpy()
+    free = alloc - snap.nodes.requested.cpu().numpy()
+    mask = snap.nodes.mask.cpu().numpy()
+    demand = snap.pods.req.cpu().numpy().copy()
+    demand[:, PODS_I] = 1
+    placed = a >= 0
+    bad = int((placed & (a >= alloc.shape[0])).sum())
+    nodes = a[placed & (a < alloc.shape[0])]
+    bad += int((~mask[nodes]).sum())
+    used = np.zeros_like(free)
+    np.add.at(used, nodes, demand[placed & (a < alloc.shape[0])])
+    return bad + int((used > free).any(axis=1).sum())
+
+
+def drive(label: str, cluster, device, n_blocks: int, chunk=None,
+          rescue_window: int = 512, pad_to=None):
+    """Snapshot `cluster` on `device`, solve it unblocked and in rank
+    blocks, and require identical results. The launch counts are reset just
+    before the blocked solve and read just after it."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        batch_solve,
+        sharded_wave_solve,
+    )
+
+    t0 = time.perf_counter()
+    pending = sorted(cluster.pending_pods(), key=lambda p: p.creation_ms)
+    pad_pods = None
+    if pad_to:
+        pad_pods = -(-len(pending) // pad_to) * pad_to
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device,
+                                  pad_pods=pad_pods)
+    weights = meta.index.encode({"cpu": 1 << 20, "memory": 1})
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    kw = dict(chunk=chunk, rescue_window=rescue_window)
+
+    t0 = time.perf_counter()
+    a_ref, ad_ref, w_ref = batch_solve(snap, weights, **kw)
+    _sync(device)
+    ref_s = time.perf_counter() - t0
+
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    a, ad, wt, stats = sharded_wave_solve(
+        snap, weights, n_blocks, collect_stats=True, **kw
+    )
+    _sync(device)
+    solve_s = time.perf_counter() - t0
+    launches = pk.launches()
+    shapes = {k: dict(v) for k, v in pk.LAUNCH_SHAPES.items()}
+
+    same = (torch.equal(a, a_ref) and torch.equal(ad, ad_ref)
+            and torch.equal(wt, w_ref))
+    placed = int((a >= 0).sum())
+    viol = fit_violations(snap, a)
+    print(
+        f"[{label}] nodes={len(meta.node_names)} pods={len(pending)} "
+        f"blocks={n_blocks} setup_s={setup_s:.3f} unblocked_s={ref_s:.3f} "
+        f"blocked_s={solve_s:.3f} placed={placed} admitted={int(ad.sum())} "
+        f"wait={int(wt.sum())} pods_per_s={placed / solve_s:.1f} "
+        f"waves={stats['waves']} identical={same} fit_violations={viol} "
+        f"launches={launches}",
+        flush=True,
+    )
+    if not same:
+        raise AssertionError(f"{label}: blocked solve diverged from unblocked")
+    if viol:
+        raise AssertionError(f"{label}: {viol} hard-constraint violations")
+    if placed == 0:
+        raise AssertionError(f"{label}: nothing placed")
+    if device.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"{label}: a kernel was never launched: {launches}")
+    return {"launches": launches, "shapes": shapes, "assignment": a,
+            "wait": wt, "admitted": ad}
+
+
+def kernel_table(north: dict, device) -> list:
+    """One row per kernel: launches on the north-star path, and times
+    averaged per launch over the shapes that path gave the kernel."""
+    rows = []
+    for name, replaces in REPLACES.items():
+        shapes = north["shapes"][name]
+        n = sum(shapes.values())
+        acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        err = 0.0
+        for i, (shape, count) in enumerate(sorted(shapes.items())):
+            r = check_kernel(name, shape, device, seed=100 + i)
+            err = max(err, r["max_abs_err"])
+            print(f"[kernel@path] {name} shape={shape} launches={count} "
+                  + " ".join(f"{k}={v}" for k, v in r.items()), flush=True)
+            for k in acc:
+                if r[k] is not None:
+                    acc[k] += r[k] * count / n
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": north["launches"][name],
+            "max_abs_err": err, "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"], "bound_by": "bytes",
+            "library_ms": acc["library_ms"] if name != "fused_election" else None,
+        })
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(f"[card] {smi} torch={torch.__version__} cuda={torch.version.cuda}",
+          flush=True)
+
+    # 2. build
+    from scheduler_plugins_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all(verbose=True)
+    print(f"[build] {sorted(str(p) for p in libs.values())} "
+          f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+
+    # 3. each kernel against its plain version on the grid
+    from scheduler_plugins_tpu_torch.models import (
+        allocatable_scenario,
+        gang_quota_scenario,
+    )
+
+    for i, (name, shape) in enumerate(grid_shapes(4)):
+        r = check_kernel(name, shape, device, seed=i)
+        print(f"[kernel] {name} shape={shape} "
+              + " ".join(f"{k}={v}" for k, v in r.items()), flush=True)
+
+    # 4. north star through the blocked path
+    t0 = time.perf_counter()
+    cluster = allocatable_scenario(NORTH_STAR["n_nodes"], NORTH_STAR["n_pods"])
+    print(f"[north_star] scenario_s={time.perf_counter() - t0:.3f}", flush=True)
+    north = drive(
+        "north_star", cluster, device, S_BLOCKS, chunk=NORTH_STAR["chunk"],
+        rescue_window=NORTH_STAR["rescue_window"], pad_to=NORTH_STAR["chunk"],
+    )
+    del cluster
+
+    # 5. gang + quota, and a tight problem (rescue waves, hopeless pods)
+    # solved on the card and, through the plain versions, on the CPU
+    drive("gang_quota", gang_quota_scenario(32, 64, 1024), device, S_BLOCKS)
+    tight = allocatable_scenario(40, 3000)
+    kw = dict(chunk=1024, rescue_window=NORTH_STAR["rescue_window"],
+              pad_to=1024)
+    on_card = drive("tight_cuda", tight, device, 3, **kw)
+    on_cpu = drive("tight_cpu", tight, torch.device("cpu"), 3, **kw)
+    for key in ("assignment", "admitted", "wait"):
+        if not torch.equal(on_card[key].cpu(), on_cpu[key]):
+            raise AssertionError(f"tight problem: card != CPU ({key})")
+
+    # 6. the kernel table, the card, the result
+    print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Host-side cluster object model (port of `scheduler_plugins_tpu.api.objects`).
+
+The types the flagship slice needs: `Node`, `Pod` with its `Container`s,
+and the two CRDs the admission reads, `PodGroup` (gang) and
+`ElasticQuota`. Derived-request semantics follow the reference: the
+effective request is max(sum of app containers, max over init containers)
+plus overhead (upstream pkg/util/resource.go:45-85).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Mapping, Optional
+
+from scheduler_plugins_tpu_torch.api.resources import (
+    add_quantities,
+    max_quantities,
+)
+
+#: label that joins a pod to its PodGroup
+POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
+
+DEFAULT_SCHEDULER_NAME = "tpu-scheduler"
+
+
+class PodPhase(enum.StrEnum):
+    PENDING = "Pending"
+    RUNNING = "Running"
+    SUCCEEDED = "Succeeded"
+    FAILED = "Failed"
+    UNKNOWN = "Unknown"
+
+
+@dataclass
+class Container:
+    name: str = "c"
+    requests: Mapping[str, int] = field(default_factory=dict)
+    limits: Mapping[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class Pod:
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    containers: list[Container] = field(default_factory=list)
+    init_containers: list[Container] = field(default_factory=list)
+    overhead: Mapping[str, int] = field(default_factory=dict)
+    priority: int = 0
+    labels: Mapping[str, str] = field(default_factory=dict)
+    node_name: Optional[str] = None
+    #: node the scheduler nominated this pod for after preemption
+    nominated_node_name: Optional[str] = None
+    phase: PodPhase = PodPhase.PENDING
+    scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    creation_ms: int = 0
+    #: non-None marks a terminating pod (deletionTimestamp set)
+    deletion_ms: Optional[int] = None
+    scheduling_gated: bool = False
+
+    def __post_init__(self):
+        if not self.uid:
+            self.uid = f"{self.namespace}/{self.name}"
+
+    def pod_group(self) -> str:
+        return self.labels.get(POD_GROUP_LABEL, "")
+
+    @property
+    def terminating(self) -> bool:
+        return self.deletion_ms is not None
+
+    def effective_request(self) -> dict[str, int]:
+        return effective_request(self)
+
+
+def effective_request(pod: Pod) -> dict[str, int]:
+    """Per resource: max(sum of app containers, max over init containers)
+    plus overhead — GetPodEffectiveRequest (resource.go:45-85)."""
+    resources: dict[str, int] = {}
+    for c in pod.containers:
+        resources = add_quantities(resources, c.requests)
+    init_max: dict[str, int] = {}
+    for ic in pod.init_containers:
+        init_max = max_quantities(init_max, ic.requests)
+    resources = max_quantities(resources, init_max)
+    return add_quantities(resources, pod.overhead)
+
+
+@dataclass
+class Node:
+    name: str
+    allocatable: Mapping[str, int] = field(default_factory=dict)
+    capacity: Mapping[str, int] = field(default_factory=dict)
+    labels: Mapping[str, str] = field(default_factory=dict)
+    unschedulable: bool = False
+
+    def __post_init__(self):
+        if not self.capacity:
+            self.capacity = dict(self.allocatable)
+
+
+@dataclass
+class PodGroup:
+    name: str
+    namespace: str = "default"
+    min_member: int = 1
+    #: guaranteed whole-gang demand; enables the cluster-capacity pre-check
+    #: (upstream pkg/coscheduling/core/core.go:286-305)
+    min_resources: Mapping[str, int] = field(default_factory=dict)
+    creation_ms: int = 0
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class ElasticQuota:
+    """Per-namespace elastic quota: `min` is guaranteed, `max` is the cap."""
+
+    name: str
+    namespace: str = "default"
+    min: Mapping[str, int] = field(default_factory=dict)
+    max: Mapping[str, int] = field(default_factory=dict)

@@ -1,0 +1,6 @@
+"""Synthetic cluster scenario generators."""
+
+from scheduler_plugins_tpu_torch.models.scenarios import (  # noqa: F401
+    allocatable_scenario,
+    gang_quota_scenario,
+)

@@ -1,0 +1,88 @@
+"""Synthetic scenario builders (port of `scheduler_plugins_tpu.models.scenarios`).
+
+Seeded with `np.random.default_rng(seed)` and drawing in the same order as
+the JAX package, so both packages build the same cluster from one seed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from scheduler_plugins_tpu_torch.api.objects import (
+    POD_GROUP_LABEL,
+    Container,
+    ElasticQuota,
+    Node,
+    Pod,
+    PodGroup,
+)
+from scheduler_plugins_tpu_torch.api.resources import CPU, MEMORY, PODS
+from scheduler_plugins_tpu_torch.state.cluster import Cluster
+
+GIB = 1 << 30
+
+
+def _nodes(n, cpu=64_000, mem=256 * GIB, pods=256):
+    return [
+        Node(name=f"node-{i:05d}", allocatable={CPU: cpu, MEMORY: mem, PODS: pods})
+        for i in range(n)
+    ]
+
+
+def _pods(p, rng, cpu_range=(100, 4000), mem_range=(256 << 20, 8 * GIB)):
+    cpus = rng.integers(*cpu_range, size=p)
+    mems = rng.integers(*mem_range, size=p)
+    return [
+        Pod(
+            name=f"pod-{i:06d}",
+            creation_ms=i,
+            containers=[Container(requests={CPU: int(cpus[i]), MEMORY: int(mems[i])})],
+        )
+        for i in range(p)
+    ]
+
+
+def allocatable_scenario(n_nodes=100, n_pods=1000, seed=0) -> Cluster:
+    """Plain allocatable-scored placement: homogeneous nodes, random
+    cpu/memory requests."""
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    for node in _nodes(n_nodes):
+        cluster.add_node(node)
+    for pod in _pods(n_pods, rng):
+        cluster.add_pod(pod)
+    return cluster
+
+
+def gang_quota_scenario(n_gangs=100, gang_size=64, n_nodes=1000, seed=0) -> Cluster:
+    """Gangs in 16 quota-governed namespaces."""
+    cluster = Cluster()
+    for node in _nodes(n_nodes):
+        cluster.add_node(node)
+    for g in range(n_gangs):
+        ns = f"team-{g % 16}"
+        if ns not in cluster.quotas:
+            cluster.add_quota(
+                ElasticQuota(
+                    name=f"eq-{ns}",
+                    namespace=ns,
+                    min={CPU: n_nodes * 4000, MEMORY: n_nodes * 16 * GIB},
+                    max={CPU: n_nodes * 8000, MEMORY: n_nodes * 32 * GIB},
+                )
+            )
+        cluster.add_pod_group(
+            PodGroup(name=f"gang-{g:04d}", namespace=ns, min_member=gang_size)
+        )
+        for m in range(gang_size):
+            cluster.add_pod(
+                Pod(
+                    name=f"gang-{g:04d}-m{m:03d}",
+                    namespace=ns,
+                    creation_ms=g * 1000 + m,
+                    containers=[
+                        Container(requests={CPU: 1000, MEMORY: 2 * GIB})
+                    ],
+                    labels={POD_GROUP_LABEL: f"gang-{g:04d}"},
+                )
+            )
+    return cluster

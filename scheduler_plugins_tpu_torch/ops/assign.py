@@ -1,0 +1,368 @@
+"""Targeted waterfill wave placement (port of the flagship half of
+`scheduler_plugins_tpu.ops.assign`).
+
+Two formulations of one algorithm, returning identical placements:
+
+- `waterfill_assign_targeted` — the whole node axis in one (N, R) tensor
+  (the JAX `waterfill_assign_targeted`, ops/assign.py:557);
+- `waterfill_targeted_sharded` — the node axis in GLOBAL SCORE-RANK ORDER,
+  cut into S contiguous rank blocks held as one (S, BS, R) tensor (the JAX
+  shard_map body `waterfill_targeted_sharded`, ops/assign.py:804, in its
+  kernel formulation). Each cross-block exchange is one launch of a
+  `parallel.kernels` CUDA kernel.
+
+Per solve: one whole-queue lite wave, then lite waves over straggler
+windows of `lite_window` pods, then rescue waves over windows of
+`rescue_window` pods, each phase to quiescence or `max_waves`. The JAX
+`lax.while_loop`s are Python loops here; each wave's loop condition costs
+one device-to-host sync.
+
+Every float64 sum below is of exact integers below 2^53, so its value does
+not depend on summation order: the two formulations, and the JAX package,
+agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from scheduler_plugins_tpu_torch.ops.fit import pod_fit_demand
+from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+#: next-fit probe depth of a lite wave (the JAX `LITE_PROBES`)
+LITE_PROBES = 4
+
+F64 = torch.float64
+
+
+def _segment_prefix(values_sorted: torch.Tensor, first: torch.Tensor):
+    """Inclusive per-segment prefix sums of non-negative (P, R) float64
+    values: one cumsum over the sorted axis, rebased per segment with a
+    running maximum of the segment-start exclusive sums (`torch.cummax`)."""
+    csum = torch.cumsum(values_sorted, dim=0)
+    exclusive = csum - values_sorted
+    base = torch.cummax(
+        torch.where(first[:, None], exclusive, -1.0), dim=0
+    ).values
+    return csum - base
+
+
+def _segments(choice: torch.Tensor, dem: torch.Tensor, n_sentinel: int):
+    """(order, seg, within) of the queue-order admission: `order` sorts by
+    (chosen node, queue position), `seg` is the sorted choice with
+    `n_sentinel` for "no choice", `within` the inclusive per-segment
+    float64 demand prefix."""
+    W = choice.shape[0]
+    seg_choice = torch.where(choice >= 0, choice, n_sentinel).to(torch.int64)
+    order = torch.argsort(
+        seg_choice * W + torch.arange(W, device=choice.device), stable=True
+    )
+    seg = seg_choice[order]
+    first = torch.ones_like(seg, dtype=torch.bool)
+    first[1:] = seg[1:] != seg[:-1]
+    within = _segment_prefix(dem[order].to(F64), first)
+    return order, seg, within
+
+
+def _scatter_verdicts(order, ok_sorted, choice):
+    admitted = torch.zeros_like(ok_sorted)
+    admitted[order] = ok_sorted
+    return (choice >= 0) & admitted
+
+
+def _queue_order_admission_choice(choice, demand, free):
+    """(W,) bool: a pod is admitted iff its chosen node still fits after all
+    earlier same-wave choosers of that node (exact float64 prefix sums)."""
+    N = free.shape[0]
+    order, seg, within = _segments(choice, demand, N)
+    free_row = free[torch.clamp(seg, max=N - 1)].to(F64)
+    ok_sorted = torch.all(within <= free_row, dim=1) & (seg < N)
+    return _scatter_verdicts(order, ok_sorted, choice)
+
+
+def _cumulative_demand_positions(dem, free, order_n):
+    """(W,) first score-ordered node index whose cumulative free capacity
+    covers each row's inclusive cumulative demand, max over resources."""
+    cumdem = torch.cumsum(dem.to(F64), dim=0)  # (W, R)
+    cumfree = torch.cumsum(torch.clamp(free[order_n], min=0).to(F64), dim=0)
+    pos = torch.searchsorted(
+        cumfree.T.contiguous(), cumdem.T.contiguous(), right=False
+    )  # (R, W)
+    return pos.max(dim=0).values
+
+
+def _straggler_window(demand, pod_mask, assignment, hopeless, W: int):
+    """First W still-active pods in queue order: (idx (W,), valid (W,),
+    dem (W, R)). A rank-compaction scatter (`scatter_reduce_` amin) into a
+    W+1 buffer whose last slot takes the overflow."""
+    P = pod_mask.shape[0]
+    device = pod_mask.device
+    active = (assignment == -1) & pod_mask & ~hopeless
+    rank = torch.cumsum(active.to(torch.int64), dim=0) - 1
+    slot = torch.where(active & (rank < W), rank, W)
+    idx = torch.full((W + 1,), P, dtype=torch.int64, device=device)
+    idx.scatter_reduce_(
+        0, slot, torch.arange(P, device=device), reduce="amin"
+    )
+    idx = idx[:W]
+    valid = idx < P
+    dem_w = torch.where(
+        valid[:, None], demand[torch.clamp(idx, max=P - 1)], 0
+    )
+    return idx, valid, dem_w
+
+
+def _commit(assignment, hopeless, idx, admitted, node_plus, hopeless_w):
+    """Write a wave's placements (`node_plus` = node id + 1 of admitted
+    window pods) and hopeless retirements into the pod-axis state, in
+    place. Window fill rows (idx == P) clamp to P - 1 and add zero."""
+    P = assignment.shape[0]
+    safe_idx = torch.clamp(idx, max=P - 1)
+    placed_plus = torch.zeros(P, dtype=torch.int64, device=idx.device)
+    placed_plus.index_add_(0, safe_idx, torch.where(admitted, node_plus, 0))
+    assignment.copy_(torch.where(placed_plus > 0, placed_plus - 1, assignment))
+    hop_add = torch.zeros(P, dtype=torch.int64, device=idx.device)
+    hop_add.index_add_(0, safe_idx, hopeless_w.to(torch.int64))
+    hopeless |= hop_add > 0
+
+
+def _run_phases(wave, P, max_waves, lite_window, rescue_window,
+                lite_choice, rescue_choice):
+    """The three wave phases shared by both formulations. `wave(W,
+    choice_fn)` runs one wave and returns (admitted, retired, still
+    active) counts as one device tensor, so each wave costs one sync."""
+    adm, _, remaining = wave(P, lite_choice).tolist()
+    occupancy = [adm]
+    for W, choice_fn in ((min(P, lite_window), lite_choice),
+                         (min(P, rescue_window), rescue_choice)):
+        for _ in range(max_waves):
+            if remaining == 0:
+                break
+            adm, retired, remaining = wave(W, choice_fn).tolist()
+            occupancy.append(adm)
+            if adm + retired == 0:
+                break
+    return {"waves": len(occupancy), "occupancy": occupancy}
+
+
+def waterfill_assign_targeted(raw_scores, req, pod_mask, free0,
+                              max_waves: int = 8, rescue_window: int = 512,
+                              lite_window: int = 1024):
+    """Waterfill for static per-node scores, the whole node axis in one
+    tensor — plain PyTorch, no kernels. Returns (assignment (P,) int32,
+    free (N, R), stats). `free0` is not modified.
+
+    Per wave each window pod checks fit against a few target nodes (the
+    cumulative-demand bucket node and the next probes) in O(W*R) gathers;
+    rescue waves build a dense (W, N) feasibility row per window pod and
+    spread pods round-robin over their own feasible sets, retiring pods
+    with no feasible node as hopeless."""
+    P = req.shape[0]
+    N = free0.shape[0]
+    device = req.device
+    demand = pod_fit_demand(req)
+    order_n = torch.argsort(-raw_scores, stable=True)  # static ranking
+    free = free0.clone()
+    assignment = torch.full((P,), -1, dtype=torch.int64, device=device)
+    hopeless = torch.zeros(P, dtype=torch.bool, device=device)
+
+    def lite_choice(idx, valid, dem_w):
+        pos = _cumulative_demand_positions(dem_w, free, order_n)
+        choice = torch.full_like(idx, -1)
+        for probe in range(LITE_PROBES):
+            cand = order_n[torch.clamp(pos + probe, max=N - 1)]
+            fit = torch.all(dem_w <= free[cand], dim=1)
+            choice = torch.where((choice < 0) & valid & fit, cand, choice)
+        return choice, torch.zeros_like(valid)
+
+    def rescue_choice(idx, valid, dem_w):
+        W = idx.shape[0]
+        feasible = torch.all(
+            dem_w[:, None, :] <= free[None, :, :], dim=2
+        ) & valid[:, None]
+        counts = torch.cumsum(feasible[:, order_n].to(torch.int32), dim=1)
+        total = counts[:, -1]
+        k = torch.where(
+            total > 0,
+            torch.arange(W, device=device, dtype=torch.int32)
+            % torch.clamp(total, min=1),
+            0,
+        )
+        pos = torch.searchsorted(counts, k[:, None], right=True)[:, 0]
+        choice = torch.where(
+            valid & (total > 0), order_n[torch.clamp(pos, max=N - 1)], -1
+        )
+        return choice, valid & (total == 0)
+
+    def wave(W, choice_fn):
+        idx, valid, dem_w = _straggler_window(
+            demand, pod_mask, assignment, hopeless, W
+        )
+        choice, hopeless_w = choice_fn(idx, valid, dem_w)
+        admitted = _queue_order_admission_choice(choice, dem_w, free)
+        _commit(assignment, hopeless, idx, admitted, choice + 1, hopeless_w)
+        # the free carry is updated in place
+        free.index_add_(
+            0, torch.where(admitted, choice, 0),
+            -torch.where(admitted[:, None], dem_w, 0),
+        )
+        remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
+        return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
+
+    stats = _run_phases(
+        wave, P, max_waves, lite_window, rescue_window, lite_choice,
+        rescue_choice,
+    )
+    return assignment.to(torch.int32), free, stats
+
+
+def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
+                               n_real: int, max_waves: int = 8,
+                               rescue_window: int = 512,
+                               lite_window: int = 1024):
+    """The targeted waterfill with the node axis in S rank blocks.
+
+    `rank_free` (S, BS, R) is free capacity in global score-rank order
+    (block s owns ranks [s*BS, (s+1)*BS)); it is the resident carry and is
+    UPDATED IN PLACE. `node_ids` (S, BS) maps each rank row back to its
+    node index (-1 = padding). `n_real` is the pre-padding rank count: probe
+    clamps saturate at the worst real rank, as the unblocked path's do.
+    Returns (assignment (P,) int32 node indices, stats).
+
+    The five exchange points of the JAX shard_map body (ops/assign.py:944,
+    :961, :984, :1011, :1034) are kernel launches: `block_offsets` for the
+    cumulative-free bases and the rescue feasible-count offsets,
+    `elect_min` for the bucket position, `fused_election` for the first-fit
+    and rescue winners. The fused election carries the winner's node id and
+    free row, so queue-order admission runs on the elected rows with no
+    further exchange. Padding rows have zero capacity and node id -1; every
+    valid pod's demand has a pods slot of 1, so they never win."""
+    S, BS, R = rank_free.shape
+    P = req.shape[0]
+    N = S * BS  # padded global rank count: the "no candidate" sentinel
+    device = req.device
+    demand = pod_fit_demand(req)
+    block_start = torch.arange(S, device=device) * BS  # (S,)
+    flat_free = rank_free.view(N, R)
+    assignment = torch.full((P,), -1, dtype=torch.int64, device=device)
+    hopeless = torch.zeros(P, dtype=torch.bool, device=device)
+
+    def local_rows(rank):
+        """(owned (S, ...), local row (S, ...)) of global `rank` (...)
+        in each block."""
+        local = rank[None] - block_start.view((S,) + (1,) * rank.dim())
+        owned = (local >= 0) & (local < BS)
+        return owned, torch.clamp(local, 0, BS - 1)
+
+    def winner_payload(prop):
+        """(S, 1 + R, W) int64: node id + 1 and the pre-wave free row of
+        each block's own proposal `prop` (S, W); zero where the block does
+        not propose (its key is the sentinel N)."""
+        local = prop - block_start[:, None]
+        has = (local >= 0) & (local < BS) & (prop < N)
+        safe = torch.clamp(local, 0, BS - 1)
+        nid = torch.where(
+            has, torch.gather(node_ids, 1, safe).to(torch.int64) + 1, 0
+        )
+        row = torch.gather(
+            rank_free, 1, safe[:, :, None].expand(-1, -1, R)
+        )  # (S, W, R)
+        row = torch.where(has[:, :, None], row, 0)
+        return torch.cat([nid[:, None, :], row.transpose(1, 2)], dim=1)
+
+    def elect(prop):
+        """Fused election of the blocks' proposals: (rank (W,),
+        node id + 1 (W,), winner free row (W, R))."""
+        rank, pay = pk.fused_election(
+            prop.to(torch.int32).contiguous(),
+            winner_payload(prop).contiguous(),
+        )
+        return rank.to(torch.int64), pay[0], pay[1:].T
+
+    def lite_choice(idx, valid, dem_w):
+        W = idx.shape[0]
+        cumfree = torch.cumsum(torch.clamp(rank_free, min=0).to(F64), dim=1)
+        base, _ = pk.block_offsets(
+            cumfree[:, -1, :].to(torch.int64).contiguous()
+        )
+        abs_cf = cumfree + base.to(F64)[:, None, :]  # (S, BS, R)
+        cumdem = torch.cumsum(dem_w.to(F64), dim=0)  # (W, R)
+        loc = torch.searchsorted(
+            abs_cf.transpose(1, 2).contiguous(),
+            cumdem.T[None].expand(S, R, W).contiguous(),
+            right=False,
+        )  # (S, R, W) local positions
+        cand = torch.where(loc < BS, block_start[:, None, None] + loc, N)
+        pos = pk.elect_min(cand.to(torch.int32).contiguous())  # (R, W)
+        pos = pos.to(torch.int64).max(dim=0).values  # (W,)
+        ranks = torch.clamp(
+            pos[None, :] + torch.arange(LITE_PROBES, device=device)[:, None],
+            max=n_real - 1,
+        )  # (LP, W): saturate at the worst real rank, never the padding
+        owned, local = local_rows(ranks)  # (S, LP, W)
+        row = rank_free[
+            torch.arange(S, device=device)[:, None, None], local
+        ]  # (S, LP, W, R)
+        fit = owned & valid & torch.all(dem_w <= row, dim=3)
+        # first fitting probe == min fitting rank (ranks are nondecreasing
+        # in probe order): each block proposes its min fitting owned rank
+        prop = torch.where(fit, ranks[None], N).min(dim=1).values  # (S, W)
+        rank, nid, win_row = elect(prop)
+        choice = torch.where(valid & (rank < N), rank, -1)
+        # lite misses prove nothing about feasibility: no hopeless delta
+        return choice, torch.zeros_like(valid), nid, win_row
+
+    def rescue_choice(idx, valid, dem_w):
+        W = idx.shape[0]
+        feasible = torch.all(
+            dem_w[None, :, None, :] <= rank_free[:, None, :, :], dim=3
+        ) & valid[None, :, None]  # (S, W, BS)
+        counts = feasible.sum(dim=2)  # (S, W) int64
+        base, total = pk.block_offsets(counts.contiguous())
+        k = torch.where(
+            total > 0,
+            torch.arange(W, device=device) % torch.clamp(total, min=1),
+            0,
+        )
+        k_local = k[None, :] - base  # (S, W)
+        c = torch.cumsum(feasible.to(torch.int32), dim=2)  # (S, W, BS)
+        locpos = torch.searchsorted(
+            c, k_local.to(torch.int32)[:, :, None], right=True
+        )[:, :, 0]  # first local index with count > k_local
+        mine = (k_local >= 0) & (k_local < counts)
+        prop = torch.where(
+            mine & valid & (total > 0), block_start[:, None] + locpos, N
+        )
+        # whenever total > 0 exactly one block proposes the k-th feasible
+        # rank, a real node, so the n_real clamp is a no-op there
+        rank, nid, win_row = elect(prop)
+        choice = torch.where(
+            valid & (total > 0), torch.clamp(rank, max=n_real - 1), -1
+        )
+        return choice, valid & (total == 0), nid, win_row
+
+    def wave(W, choice_fn):
+        idx, valid, dem_w = _straggler_window(
+            demand, pod_mask, assignment, hopeless, W
+        )
+        choice, hopeless_w, nid, win_row = choice_fn(idx, valid, dem_w)
+        order, seg, within = _segments(choice, dem_w, N)
+        ok_sorted = (seg < N) & torch.all(
+            within <= win_row[order].to(F64), dim=1
+        )
+        admitted = _scatter_verdicts(order, ok_sorted, choice)
+        _commit(assignment, hopeless, idx, admitted, nid, hopeless_w)
+        # commit into the owning block's rows of the resident carry, in
+        # place (flat_free is a view of rank_free in global rank order)
+        flat_free.index_add_(
+            0, torch.where(admitted, choice, 0),
+            -torch.where(admitted[:, None], dem_w, 0),
+        )
+        remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
+        return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
+
+    stats = _run_phases(
+        wave, P, max_waves, lite_window, rescue_window, lite_choice,
+        rescue_choice,
+    )
+    return assignment.to(torch.int32), stats

@@ -1,0 +1,240 @@
+"""The batched scheduling step (port of the flagship half of
+`scheduler_plugins_tpu.parallel.solver`).
+
+    PreFilter (gang + elastic quota admission, batched over pods)
+ -> static allocatable ranking
+ -> targeted waterfill wave placement
+ -> queue-order namespace quota prefix
+ -> gang quorum Permit
+
+`batch_solve` places with the whole node axis in one tensor;
+`sharded_wave_solve` places with the node axis in S rank blocks whose
+every cross-block exchange is a CUDA kernel launch (`parallel.kernels`).
+The two give bit-identical results. Hard constraints (fit, queue-order node
+admission, quota caps, gang quorum) hold in both.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from scheduler_plugins_tpu_torch.ops.allocatable import (
+    MODE_LEAST,
+    allocatable_scores,
+    demote_scores_int32,
+)
+from scheduler_plugins_tpu_torch.ops.assign import (
+    _segment_prefix,
+    waterfill_assign_targeted,
+    waterfill_targeted_sharded,
+)
+from scheduler_plugins_tpu_torch.ops.fit import free_capacity
+from scheduler_plugins_tpu_torch.ops.gang import gang_admit
+from scheduler_plugins_tpu_torch.ops.quota import quota_admit
+
+F64 = torch.float64
+
+
+def nominated_aggregates_batch(quota):
+    """(P, R) nominee aggregates from the (M, P) masks x (M, R) requests,
+    as float64 products (exact below 2^53)."""
+    nom_req = quota.nom_req.to(F64)
+    in_eq = (quota.nom_in_eq_mask.to(F64).T @ nom_req).to(torch.int64)
+    total = (quota.nom_total_mask.to(F64).T @ nom_req).to(torch.int64)
+    return in_eq, total
+
+
+def batch_admission(snap, free, eq_used=None):
+    """(P,) PreFilter verdicts for the batch against the carried state."""
+    ok = snap.pods.mask & ~snap.pods.gated
+    if snap.gangs is not None:
+        ok &= gang_admit(snap.gangs, free, snap.pods.gang)
+    if snap.quota is not None:
+        used = eq_used if eq_used is not None else snap.quota.used
+        nom_in_eq, nom_total = nominated_aggregates_batch(snap.quota)
+        ok &= quota_admit(
+            used, snap.quota.min, snap.quota.max, snap.quota.has_quota,
+            snap.pods.ns, snap.pods.req, nom_in_eq, nom_total,
+        )
+    return ok
+
+
+def _namespace_quota_prefix_ok(assignment_order_ok, snap, eq_used):
+    """(P,) queue-order quota admission as a reject-first-violator
+    fixpoint (the JAX `_namespace_quota_prefix_ok`, solver.py:140).
+
+    Every pod's Max / aggregate-Min checks are evaluated against prefix
+    sums over the currently assumed admitted set; the queue-first violator
+    sees an exact prefix, so its rejection is final. Each loop trip drops
+    one true rejection; the trip count is the number of quota-rejected
+    pods (typically 0). Float64 cumsums are exact below 2^53."""
+    quota = snap.quota
+    ns = snap.pods.ns.long()
+    P = ns.shape[0]
+    device = ns.device
+    has_q = quota.has_quota[ns]
+    cand = assignment_order_ok & has_q
+    reqf = snap.pods.req.to(F64)
+    used0_ns = eq_used[ns].to(F64)
+    max_ns = quota.max[ns].to(F64)
+    agg_min = torch.where(quota.has_quota[:, None], quota.min, 0).sum(0).to(F64)
+    agg_used0 = torch.where(
+        quota.has_quota[:, None], eq_used, 0
+    ).sum(0).to(F64)
+
+    # queue-stable namespace grouping: per-namespace prefixes become
+    # 1-D segment cumsums
+    idx = torch.arange(P, device=device)
+    order = torch.argsort(ns * P + idx, stable=True)
+    ns_sorted = ns[order]
+    first = torch.ones(P, dtype=torch.bool, device=device)
+    first[1:] = ns_sorted[1:] != ns_sorted[:-1]
+
+    def verdicts(admitted):
+        charge = torch.where(admitted[:, None], reqf, 0.0)
+        incl_own_sorted = _segment_prefix(charge[order], first)
+        excl_own = torch.zeros_like(charge)
+        excl_own[order] = incl_own_sorted - charge[order]
+        excl_agg = torch.cumsum(charge, dim=0) - charge
+        own_ok = torch.all(used0_ns + excl_own + reqf <= max_ns, dim=1)
+        agg_ok = torch.all(agg_used0 + excl_agg + reqf <= agg_min, dim=1)
+        return own_ok & agg_ok
+
+    def first_violator(admitted):
+        viol = admitted & ~verdicts(admitted)
+        return int(torch.where(viol, idx, P).min())
+
+    admitted = cand
+    v = first_violator(admitted)
+    while v < P:
+        admitted = admitted & (idx != v)
+        v = first_violator(admitted)
+    return ~has_q | verdicts(admitted)
+
+
+def finalize_assignment(assignment, snap):
+    """Shared tail: queue-order namespace quota enforcement + gang quorum
+    Permit over the final placements. Returns (assignment, wait)."""
+    if snap.quota is not None:
+        placed = assignment >= 0
+        quota_ok = _namespace_quota_prefix_ok(placed, snap, snap.quota.used)
+        assignment = torch.where(placed & ~quota_ok, -1, assignment)
+    wait = torch.zeros(snap.num_pods, dtype=torch.bool, device=snap.device)
+    if snap.gangs is not None:
+        placed = (assignment >= 0).to(torch.int32)
+        gang = snap.pods.gang.long()
+        in_gang = gang >= 0
+        G = snap.gangs.min_member.shape[0]
+        sched = torch.zeros(G, dtype=torch.int32, device=snap.device)
+        sched.index_add_(
+            0, torch.clamp(gang, min=0), torch.where(in_gang, placed, 0)
+        )
+        quorum = snap.gangs.assigned + sched >= snap.gangs.min_member
+        pod_quorum = torch.where(
+            in_gang, quorum[torch.clamp(gang, min=0)], True
+        )
+        wait = (assignment >= 0) & ~pod_quorum
+    return assignment, wait
+
+
+def _solve_head(snap, weights):
+    """(free0, admitted, raw int64 scores) — the part both solvers share."""
+    weights = torch.as_tensor(weights, dtype=torch.int64, device=snap.device)
+    free0 = free_capacity(snap.nodes.alloc, snap.nodes.requested)
+    admitted = batch_admission(snap, free0)
+    raw = demote_scores_int32(
+        allocatable_scores(snap.nodes.alloc, weights, MODE_LEAST)
+    ).to(torch.int64)
+    return free0, admitted, raw
+
+
+def _chunks(P: int, chunk):
+    chunk = P if chunk is None else min(chunk, P)
+    if P % chunk != 0:
+        raise ValueError(f"pod count {P} not a multiple of chunk {chunk}")
+    return range(0, P, chunk), chunk
+
+
+def batch_solve(snap, weights, max_waves: int = 8, rescue_window: int = 512,
+                chunk=None):
+    """Full batched step with the node axis in one tensor: admission ->
+    allocatable ranking -> targeted waterfill -> quota prefix -> gang
+    quorum. Pods go through in queue-order chunks of `chunk` (None = one
+    chunk, the JAX `batch_solve`) with the free carry threading from chunk
+    to chunk. Unschedulable nodes get zero free capacity for the solve, so
+    they can never admit a pod. Returns (assignment, admitted, wait)."""
+    free0, admitted, raw = _solve_head(snap, weights)
+    free = torch.where(snap.nodes.mask[:, None], free0, 0)
+    P = snap.num_pods
+    starts, chunk = _chunks(P, chunk)
+    parts = []
+    for lo in starts:
+        a, free, _ = waterfill_assign_targeted(
+            raw, snap.pods.req[lo:lo + chunk], admitted[lo:lo + chunk], free,
+            max_waves=max_waves, rescue_window=rescue_window,
+        )
+        parts.append(a)
+    assignment, wait = finalize_assignment(torch.cat(parts), snap)
+    return assignment, admitted, wait
+
+
+def pad_to_shards(n: int, n_shards: int) -> int:
+    """Smallest multiple of `n_shards` >= n (the JAX
+    `parallel.mesh.pad_to_shards`)."""
+    return ((n + n_shards - 1) // n_shards) * n_shards
+
+
+def rank_order_inputs(raw_scores, free0, node_mask, n_shards: int):
+    """(node_ids (N',) int32, rank_free (N', R)) — the node axis permuted
+    into global score-rank order (stable argsort: the lowest index wins a
+    tie) and padded to a multiple of `n_shards` with zero-capacity rows of
+    node id -1. Masked nodes get zero capacity."""
+    N, R = free0.shape
+    order_n = torch.argsort(-raw_scores, stable=True)
+    rank_free = torch.where(node_mask[:, None], free0, 0)[order_n]
+    node_ids = order_n.to(torch.int32)
+    pad = pad_to_shards(N, n_shards) - N
+    if pad:
+        rank_free = torch.cat(
+            [rank_free, rank_free.new_zeros((pad, R))]
+        )
+        node_ids = torch.cat([node_ids, node_ids.new_full((pad,), -1)])
+    return node_ids, rank_free.contiguous()
+
+
+def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
+                       max_waves: int = 8, rescue_window: int = 512,
+                       collect_stats: bool = False):
+    """`batch_solve`'s semantics with the node axis in `n_blocks` rank
+    blocks (the JAX `sharded_wave_solve` takes a mesh; here the blocks are
+    the leading dimension of one tensor on one card). Pods go through in
+    queue-order chunks; the (S, BS, R) free carry is updated in place from
+    chunk to chunk. Returns (assignment, admitted, wait[, stats])."""
+    free0, admitted, raw = _solve_head(snap, weights)
+    n_real = free0.shape[0]
+    node_ids, rank_free = rank_order_inputs(
+        raw, free0, snap.nodes.mask, n_blocks
+    )
+    BS = rank_free.shape[0] // n_blocks
+    rank_free = rank_free.view(n_blocks, BS, -1)
+    node_ids = node_ids.view(n_blocks, BS)
+    P = snap.num_pods
+    starts, chunk = _chunks(P, chunk)
+    parts, stats = [], []
+    for lo in starts:
+        a, st = waterfill_targeted_sharded(
+            rank_free, node_ids, snap.pods.req[lo:lo + chunk],
+            admitted[lo:lo + chunk], n_real, max_waves=max_waves,
+            rescue_window=rescue_window,
+        )
+        parts.append(a)
+        stats.append(st)
+    assignment, wait = finalize_assignment(torch.cat(parts), snap)
+    if collect_stats:
+        return assignment, admitted, wait, {
+            "waves": sum(s["waves"] for s in stats),
+            "chunks": stats,
+            "rank_free": rank_free,
+            "node_ids": node_ids,
+        }
+    return assignment, admitted, wait

@@ -1,0 +1,380 @@
+"""Dense-tensor cluster snapshot (port of `scheduler_plugins_tpu.state.snapshot`).
+
+The whole scheduling problem is lowered once per cycle into dataclasses of
+int64 tensors with bucketed static shapes:
+
+- nodes: (N, R) allocatable / requested, schedulable mask.
+- pods:  (P, R) effective requests of the pending batch, namespace and gang
+         codes, queue-sort keys.
+- gangs: (G,) PodGroup member counts, (G, R) MinResources.
+- quota: (Q, R) ElasticQuota min/max/used by namespace code, plus the
+         nominated-pod tables.
+
+This slice lowers what the flagship step reads; the JAX snapshot's NUMA,
+network, metrics and syscall tables wait for later slices, and node/pod
+fields nothing here reads are left out. The lowering runs in numpy (the
+same arithmetic as the JAX builder, so both packages produce the same
+tensors) and moves the result to the requested device once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from scheduler_plugins_tpu_torch.api.objects import (
+    ElasticQuota,
+    Node,
+    Pod,
+    PodGroup,
+)
+from scheduler_plugins_tpu_torch.api.resources import PODS, ResourceIndex
+from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.ops.quota import nominee_contribution
+from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
+
+I64 = np.int64
+I32 = np.int32
+
+
+class _Tensors:
+    """Shared helpers for the snapshot's dataclasses of tensors."""
+
+    def to(self, device):
+        return type(self)(**{
+            f.name: _to(getattr(self, f.name), device) for f in fields(self)
+        })
+
+    def numpy(self) -> dict:
+        return {
+            f.name: _numpy(getattr(self, f.name)) for f in fields(self)
+            if getattr(self, f.name) is not None
+        }
+
+
+def _to(value, device):
+    if value is None:
+        return None
+    if isinstance(value, _Tensors):
+        return value.to(device)
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.tensor(np.asarray(value), device=device)  # a copy
+
+
+def _numpy(value):
+    if isinstance(value, _Tensors):
+        return value.numpy()
+    return value.cpu().numpy()
+
+
+@dataclass
+class NodeState(_Tensors):
+    alloc: torch.Tensor  # (N, R) int64 allocatable
+    capacity: torch.Tensor  # (N, R) int64
+    requested: torch.Tensor  # (N, R) int64 sum of assigned pods' requests
+    mask: torch.Tensor  # (N,) bool — real, schedulable node
+    pod_count: torch.Tensor  # (N,) int32 assigned pods
+
+
+@dataclass
+class PodState(_Tensors):
+    req: torch.Tensor  # (P, R) int64 effective request (pods slot = 0)
+    priority: torch.Tensor  # (P,) int64
+    ns: torch.Tensor  # (P,) int32 namespace code
+    gang: torch.Tensor  # (P,) int32 gang code (-1 = not in a PodGroup)
+    mask: torch.Tensor  # (P,) bool
+    creation_ms: torch.Tensor  # (P,) int64 queue-sort timestamp
+    gated: torch.Tensor  # (P,) bool SchedulingGated
+
+
+@dataclass
+class GangState(_Tensors):
+    """PodGroup bookkeeping (upstream pkg/coscheduling/core/core.go)."""
+
+    min_member: torch.Tensor  # (G,) int32
+    total_members: torch.Tensor  # (G,) int32 siblings known cluster-wide
+    assigned: torch.Tensor  # (G,) int32 already bound members
+    gated: torch.Tensor  # (G,) int32 SchedulingGated siblings
+    min_resources: torch.Tensor  # (G, R) int64 whole-gang demand
+    has_min_resources: torch.Tensor  # (G,) bool
+    creation_ms: torch.Tensor  # (G,) int64
+    backed_off: torch.Tensor  # (G,) bool
+    #: (G, R) capacity the gang's own assigned members add back in the
+    #: CheckClusterResource sweep (core.go:433-467)
+    cluster_slack: torch.Tensor
+    mask: torch.Tensor  # (G,) bool
+
+
+@dataclass
+class QuotaState(_Tensors):
+    """ElasticQuota tensors by namespace code, with the nominated-pod
+    tables of capacity_scheduling.go:226-263."""
+
+    min: torch.Tensor  # (Q, R) int64
+    max: torch.Tensor  # (Q, R) int64
+    used: torch.Tensor  # (Q, R) int64
+    has_quota: torch.Tensor  # (Q,) bool
+    nom_req: torch.Tensor  # (M, R) int64
+    nom_in_eq_mask: torch.Tensor  # (M, P) bool
+    nom_total_mask: torch.Tensor  # (M, P) bool
+    nom_batch_idx: torch.Tensor  # (M,) int32
+
+
+@dataclass
+class ClusterSnapshot(_Tensors):
+    nodes: NodeState
+    pods: PodState
+    gangs: Optional[GangState] = None
+    quota: Optional[QuotaState] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.alloc.shape[0]
+
+    @property
+    def num_pods(self) -> int:
+        return self.pods.req.shape[0]
+
+    @property
+    def num_resources(self) -> int:
+        return self.nodes.alloc.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.alloc.device
+
+
+@dataclass
+class SnapshotMeta:
+    """Host-only name <-> code mappings for one snapshot."""
+
+    index: ResourceIndex
+    node_names: list[str] = field(default_factory=list)
+    pod_names: list[str] = field(default_factory=list)
+    namespaces: list[str] = field(default_factory=list)
+    gang_names: list[str] = field(default_factory=list)
+
+
+class _Interner:
+    """O(1) name -> stable code interning over a shared list."""
+
+    def __init__(self, table: list[str]):
+        self.table = table
+        self.pos = {name: i for i, name in enumerate(table)}
+
+    def code(self, name: str) -> int:
+        i = self.pos.get(name)
+        if i is None:
+            i = len(self.table)
+            self.table.append(name)
+            self.pos[name] = i
+        return i
+
+    def get(self, name: str) -> int:
+        return self.pos.get(name, -1)
+
+
+def build_snapshot(
+    nodes: Sequence[Node],
+    pending_pods: Sequence[Pod],
+    assigned_pods: Sequence[Pod] = (),
+    pod_groups: Sequence[PodGroup] = (),
+    quotas: Sequence[ElasticQuota] = (),
+    pad_nodes: Optional[int] = None,
+    pad_pods: Optional[int] = None,
+    backed_off_gangs: Sequence[str] = (),
+    extra_pods: Sequence[Pod] = (),
+    device=None,
+) -> tuple[ClusterSnapshot, SnapshotMeta]:
+    """Lower host objects into a `ClusterSnapshot` on `device`.
+
+    `pending_pods` become the pod batch in the given (queue) order;
+    `assigned_pods` contribute node usage and gang/quota accounting;
+    `extra_pods` (scheduling-gated pods) count toward gang membership
+    only. Codes and padding follow the JAX builder (`build_snapshot`,
+    scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
+    device = resolve_device(device)
+    requests = {p.uid: p.effective_request() for p in
+                list(pending_pods) + list(assigned_pods) + list(extra_pods)}
+    index = ResourceIndex.union(
+        *[n.allocatable for n in nodes],
+        *[pg.min_resources for pg in pod_groups],
+        *[q.min for q in quotas],
+        *[q.max for q in quotas],
+        *[requests[p.uid] for p in list(pending_pods) + list(assigned_pods)],
+    )
+    R = len(index)
+    N = pad_nodes or bucket_size(max(len(nodes), 1))
+    P = pad_pods or bucket_size(max(len(pending_pods), 1))
+    pods_i = index.position(PODS)
+
+    meta = SnapshotMeta(index=index)
+    meta.node_names = [n.name for n in nodes]
+    meta.pod_names = [p.uid for p in pending_pods]
+    ns_in = _Interner(meta.namespaces)
+    gangs_in = _Interner(meta.gang_names)
+
+    # --- nodes ---------------------------------------------------------
+    alloc = np.zeros((N, R), I64)
+    capacity = np.zeros((N, R), I64)
+    requested = np.zeros((N, R), I64)
+    node_mask = np.zeros(N, bool)
+    pod_count = np.zeros(N, I32)
+    node_pos = {}
+    for i, node in enumerate(nodes):
+        node_pos[node.name] = i
+        alloc[i] = index.encode(node.allocatable)
+        capacity[i] = index.encode(node.capacity)
+        node_mask[i] = not node.unschedulable
+    for pod in assigned_pods:
+        if pod.node_name not in node_pos:
+            continue
+        i = node_pos[pod.node_name]
+        requested[i] += index.encode(requests[pod.uid])
+        pod_count[i] += 1
+    # the "pods" resource is accounted as a count, not a request sum
+    requested[:, pods_i] = pod_count
+    node_state = NodeState(
+        alloc=alloc, capacity=capacity, requested=requested,
+        mask=node_mask, pod_count=pod_count,
+    )
+
+    # --- gangs ---------------------------------------------------------
+    gang_pos = {pg.full_name: gangs_in.code(pg.full_name) for pg in pod_groups}
+    G = max(len(gang_pos), 1)
+    backed_off = set(backed_off_gangs)
+    gang_min = np.ones(G, I32)
+    gang_minres = np.zeros((G, R), I64)
+    gang_has_minres = np.zeros(G, bool)
+    gang_created = np.zeros(G, I64)
+    gang_backoff = np.zeros(G, bool)
+    gang_mask = np.zeros(G, bool)
+    for pg in pod_groups:
+        g = gang_pos[pg.full_name]
+        gang_mask[g] = True
+        gang_min[g] = pg.min_member
+        gang_created[g] = pg.creation_ms
+        gang_backoff[g] = pg.full_name in backed_off
+        if pg.min_resources:
+            gang_minres[g] = index.encode(pg.min_resources)
+            gang_has_minres[g] = True
+            # MinResources demand includes a pods slot of MinMember
+            # (core.go:295-297)
+            gang_minres[g, pods_i] = pg.min_member
+
+    def gang_of(pod: Pod) -> int:
+        name = pod.pod_group()
+        if not name:
+            return -1
+        return gang_pos.get(f"{pod.namespace}/{name}", -1)
+
+    gang_total = np.zeros(G, I32)
+    gang_assigned = np.zeros(G, I32)
+    gang_gated = np.zeros(G, I32)
+    gang_slack = np.zeros((G, R), I64)
+    for pod in list(pending_pods) + list(assigned_pods) + list(extra_pods):
+        g = gang_of(pod)
+        if g < 0:
+            continue
+        gang_total[g] += 1
+        if pod.node_name is not None:
+            gang_assigned[g] += 1
+            if pod.node_name in node_pos:
+                vec = index.encode(requests[pod.uid])
+                vec[pods_i] = 1
+                gang_slack[g] += vec
+        elif pod.scheduling_gated:
+            gang_gated[g] += 1
+    gang_state = GangState(
+        min_member=gang_min, total_members=gang_total,
+        assigned=gang_assigned, gated=gang_gated,
+        min_resources=gang_minres, has_min_resources=gang_has_minres,
+        creation_ms=gang_created, backed_off=gang_backoff,
+        cluster_slack=gang_slack, mask=gang_mask,
+    ) if pod_groups else None
+
+    # --- pods (pending batch) -----------------------------------------
+    preq = np.zeros((P, R), I64)
+    ppriority = np.zeros(P, I64)
+    pns = np.zeros(P, I32)
+    pgang = np.full(P, -1, I32)
+    pmask = np.zeros(P, bool)
+    pcreated = np.zeros(P, I64)
+    pgated = np.zeros(P, bool)
+    for i, pod in enumerate(pending_pods):
+        preq[i] = index.encode(requests[pod.uid])
+        ppriority[i] = pod.priority
+        pns[i] = ns_in.code(pod.namespace)
+        pgang[i] = gang_of(pod)
+        pmask[i] = True
+        pcreated[i] = pod.creation_ms
+        pgated[i] = pod.scheduling_gated
+    pod_state = PodState(
+        req=preq, priority=ppriority, ns=pns, gang=pgang, mask=pmask,
+        creation_ms=pcreated, gated=pgated,
+    )
+
+    # --- quota ---------------------------------------------------------
+    quota_state = None
+    if quotas:
+        for q in quotas:
+            ns_in.code(q.namespace)
+        for pod in assigned_pods:
+            ns_in.code(pod.namespace)
+        Q = max(len(meta.namespaces), 1)
+        qmin = np.zeros((Q, R), I64)
+        # absent resources in Max are unbounded (UpperBound semantics,
+        # elasticquota.go:96-120)
+        qmax = np.full((Q, R), np.iinfo(I64).max, I64)
+        qhas = np.zeros(Q, bool)
+        for q in quotas:
+            nsi = ns_in.get(q.namespace)
+            qhas[nsi] = True
+            qmin[nsi] = index.encode(q.min)
+            qmax[nsi] = index.encode(q.max, default=np.iinfo(I64).max)
+        qused = np.zeros((Q, R), I64)
+        for pod in assigned_pods:
+            if pod.node_name is None:
+                continue
+            nsi = ns_in.get(pod.namespace)
+            if qhas[nsi]:
+                qused[nsi] += index.encode(requests[pod.uid])
+        nominated = [
+            p for p in list(pending_pods) + list(extra_pods)
+            if p.nominated_node_name is not None and p.node_name is None
+        ]
+        batch_pos = {p.uid: i for i, p in enumerate(pending_pods)}
+        M = max(len(nominated), 1)
+        nom_req = np.zeros((M, R), I64)
+        nom_in_eq = np.zeros((M, P), bool)
+        nom_total = np.zeros((M, P), bool)
+        nom_batch_idx = np.full(M, -1, I32)
+        over_min = np.any(qused > qmin, axis=1)  # (Q,) usedOverMin
+        for j, m in enumerate(nominated):
+            m_ns = ns_in.get(m.namespace)
+            if m_ns < 0 or not qhas[m_ns]:
+                continue
+            nom_req[j] = index.encode(requests[m.uid])
+            nom_batch_idx[j] = batch_pos.get(m.uid, -1)
+            for i, pod in enumerate(pending_pods):
+                if m.uid == pod.uid:
+                    continue
+                nom_in_eq[j, i], nom_total[j, i] = nominee_contribution(
+                    m.namespace == pod.namespace, m.priority, pod.priority,
+                    bool(over_min[m_ns]),
+                )
+        quota_state = QuotaState(
+            min=qmin, max=qmax, used=qused, has_quota=qhas,
+            nom_req=nom_req, nom_in_eq_mask=nom_in_eq,
+            nom_total_mask=nom_total, nom_batch_idx=nom_batch_idx,
+        )
+
+    snapshot = ClusterSnapshot(
+        nodes=node_state, pods=pod_state, gangs=gang_state,
+        quota=quota_state,
+    )
+    return snapshot.to(device), meta

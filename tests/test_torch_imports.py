@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of
+`scheduler_plugins_tpu_torch`, and `chip_smoke`, loads no JAX and runs
+nothing; its entry points default to the CUDA card and, without one,
+raise an error that names `device="cpu"` instead of falling back."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from scheduler_plugins_tpu_torch.convert import snapshot_from_numpy
+from scheduler_plugins_tpu_torch.models import allocatable_scenario
+from scheduler_plugins_tpu_torch.state import build_snapshot
+
+REPO = Path(__file__).resolve().parent.parent
+
+IMPORT_ALL = """
+import pkgutil, sys
+import scheduler_plugins_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    __import__(name)
+import chip_smoke
+assert len(names) >= 20, names
+bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
+assert not bad, bad
+print("clean", len(names))
+"""
+
+
+def test_no_jax_anywhere():
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    # a directory holding chip_smoke.py and nothing else of the repo
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+class TestDeviceDefault:
+    @pytest.fixture
+    def no_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def test_snapshot_raises(self, no_cuda):
+        cluster = allocatable_scenario(4, 8)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cluster.snapshot(cluster.pending_pods())
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build_snapshot(list(cluster.nodes.values()), cluster.pending_pods())
+
+    def test_carry_across_raises(self, no_cuda):
+        cluster = allocatable_scenario(4, 8)
+        snap, _ = cluster.snapshot(cluster.pending_pods(), device="cpu")
+        tree = snap.numpy() | {"gangs": None, "quota": None}
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            snapshot_from_numpy(tree)
+        carried = snapshot_from_numpy(tree, device="cpu")
+        assert np.array_equal(carried.nodes.alloc.numpy(), tree["nodes"]["alloc"])
+
+    def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
+        assert chip_smoke.main() != 0
+        assert '"ok"' not in capsys.readouterr().out
