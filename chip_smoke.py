@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. build the kernels from `scheduler_plugins_tpu_torch/csrc` (one `nvcc`
    per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card at S = 8
-   blocks and W in {256, 1024, 8192}: exact equality (tolerance 0 — the
-   kernels move and compare integers), with kernel, plain and library times;
+   blocks and W in {256, 1024, 8192}, in every dtype it takes: exact
+   equality (tolerance 0 — the kernels move, add and compare integers,
+   float64 ones below 2^53), with kernel, plain and library times;
 4. the north-star problem — `allocatable_scenario(10_240, 102_400)`, queue
    sorted by creation time, 8192-pod chunks, rescue window 256 — through
    `sharded_wave_solve` with 8 rank blocks, bit-identical to the unblocked
@@ -20,9 +21,17 @@ Phases (any failure exits non-zero and prints no result line):
    admission, quota prefix and quorum tail), plus a tight problem (40
    nodes, 3000 pods: rescue waves and hopeless pods) solved on the card and
    on the CPU with identical results;
-6. the kernel table as one JSON line (times at the shapes the north-star
-   path launched), then the card's line, then the result line
-   `{"ok": true, "device": {...}}` last.
+6. the kernel table as one JSON line (times at the shapes, dtypes and
+   strides the north-star path launched), then the card's line, then the
+   result line `{"ok": true, "device": {...}}` last.
+
+Times: `ms` is the mean of 50 back-to-back calls of the Python wrapper
+between CUDA events, so at these small shapes it is mostly the host's cost
+to dispatch a call; `device_ms` is the same 50 calls captured in one CUDA
+graph and replayed, which removes the host. `library_ms` and
+`library_device_ms` time one PyTorch call for the same function the same
+two ways. Each is the median of 5 rounds that take all the times of an
+input in turn.
 
 Imports nothing of JAX. Importing this module runs nothing.
 """
@@ -30,12 +39,15 @@ Imports nothing of JAX. Importing this module runs nothing.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
 
 S_BLOCKS = 8
 GRID_W = (256, 1024, 8192)
+#: interleaved timing rounds per kernel input; each time is their median
+ROUNDS = 5
 #: HBM rate of an H100 SXM, bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 SOURCE = "scheduler_plugins_tpu_torch/csrc/election.cu"
@@ -55,8 +67,8 @@ def _sync(device):
 
 
 def time_ms(fn, iters: int = 50) -> float:
-    """Mean milliseconds per call on the card: CUDA events around `iters`
-    calls after a warm-up."""
+    """Mean milliseconds per call on the card, host dispatch included:
+    CUDA events around `iters` calls after a warm-up."""
     import torch
 
     fn()
@@ -71,23 +83,55 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_inputs(name: str, shape: tuple, device, seed: int):
-    """Random inputs in each kernel's domain at `shape` — block_offsets
-    (S, L) int64 below 2^40; elect_min (S, H, L) int32 with some INT32_MAX
-    padding; fused_election keys (S, L) unique per block with the sentinel
-    S*L where a block does not propose (zero payload there) and payload
-    (S, H, L) int64."""
+def graph_ms(fn, iters: int = 50, replays: int = 4) -> float:
+    """Mean milliseconds per call on the device alone: `iters` calls
+    captured in one CUDA graph (after a warm-up on a side stream), replayed
+    `replays` times between CUDA events after one warm replay."""
     import torch
 
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def kernel_inputs(name: str, key: tuple, device, seed: int):
+    """Random inputs in each kernel's domain at `key` = (shape, dtype,
+    strides of the first input), as `LAUNCH_SHAPES` records them —
+    block_offsets (S, L) int64 or float64, exact integers below 2^40, with
+    the given row stride; elect_min (S, H, L) int32 or int64 with some of
+    the dtype's maximum as padding; fused_election keys (S, L) int32 unique
+    per block with the sentinel S*L where a block does not propose (zero
+    payload there) and payload (S, H, L) int64."""
+    import torch
+
+    shape, dtype, strides = key
     g = torch.Generator(device="cpu").manual_seed(seed)
+    # a flat buffer viewed with the path's strides: a row stride wider than
+    # the row leaves the path's gaps between rows
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
     if name == "block_offsets":
-        S, L = shape
-        return (torch.randint(0, 1 << 40, (S, L), generator=g).to(device),)
+        flat = torch.randint(0, 1 << 40, (span,), generator=g).to(dtype)
+        return (torch.as_strided(flat.to(device), shape, strides),)
     if name == "elect_min":
-        S, H, L = shape
-        x = torch.randint(0, 1 << 30, (S, H, L), generator=g, dtype=torch.int32)
-        x[torch.rand((S, H, L), generator=g) < 0.1] = torch.iinfo(torch.int32).max
-        return (x.to(device),)
+        flat = torch.randint(0, 1 << 30, (span,), generator=g).to(dtype)
+        flat[torch.rand(span, generator=g) < 0.1] = torch.iinfo(dtype).max
+        return (torch.as_strided(flat.to(device), shape, strides),)
     S, H, L = shape
     sentinel = S * L
     propose = torch.rand((S, L), generator=g) < 0.4
@@ -98,14 +142,17 @@ def kernel_inputs(name: str, shape: tuple, device, seed: int):
     return keys.to(device), payload.to(device)
 
 
-def check_kernel(name: str, shape: tuple, device, seed: int = 0) -> dict:
-    """Kernel vs plain version on one input: exact equality, and times of
-    the kernel, the plain version and the library yardstick."""
+def check_kernel(name: str, key: tuple, device, seed: int = 0) -> dict:
+    """Kernel vs plain version on one input (`key` as in `kernel_inputs`):
+    exact equality, and times of the kernel, the plain version and the
+    library yardstick, each with the host (`ms`) and without it
+    (`device_ms`)."""
     import torch
 
     from scheduler_plugins_tpu_torch.parallel import kernels as pk
 
-    args = kernel_inputs(name, shape, device, seed)
+    shape, dtype, _ = key
+    args = kernel_inputs(name, key, device, seed)
     kernel = getattr(pk, name)
     plain = getattr(pk, f"{name}_plain")
     got, want = kernel(*args), plain(*args)
@@ -116,42 +163,65 @@ def check_kernel(name: str, shape: tuple, device, seed: int = 0) -> dict:
         for a, b in pairs
     )
     if not all(torch.equal(a, b) for a, b in pairs):
-        raise AssertionError(f"{name} {shape}: kernel != plain (max err {err})")
+        raise AssertionError(f"{name} {key}: kernel != plain (max err {err})")
     library = {
         "block_offsets": lambda: torch.cumsum(args[0], dim=0),
         "elect_min": lambda: torch.amin(args[0], dim=0),
     }.get(name)
+    timers = {
+        "ms": (time_ms, lambda: kernel(*args)),
+        "device_ms": (graph_ms, lambda: kernel(*args)),
+        "plain_ms": (time_ms, lambda: plain(*args)),
+    }
+    if library:
+        timers["library_ms"] = (time_ms, library)
+        timers["library_device_ms"] = (graph_ms, library)
+    # the host's speed drifts: take every time in each round, in turn
+    samples = {k: [] for k in timers}
+    for _ in range(ROUNDS):
+        for k, (timer, fn) in timers.items():
+            samples[k].append(timer(fn))
+    times = {k: statistics.median(v) for k, v in samples.items()}
     return {
         "max_abs_err": err,
-        "ms": time_ms(lambda: kernel(*args)),
-        "plain_ms": time_ms(lambda: plain(*args)),
-        "library_ms": time_ms(library) if library else None,
-        "bound_ms": bytes_moved(name, shape) / HBM_BYTES_PER_S * 1e3,
+        "ms": times["ms"],
+        "device_ms": times["device_ms"],
+        "plain_ms": times["plain_ms"],
+        "library_ms": times.get("library_ms"),
+        "library_device_ms": times.get("library_device_ms"),
+        "bound_ms": bytes_moved(name, shape, dtype) / HBM_BYTES_PER_S * 1e3,
     }
 
 
-def bytes_moved(name: str, shape: tuple) -> int:
+def bytes_moved(name: str, shape: tuple, dtype) -> int:
     """Bytes the function must move: each input it needs read once, each
-    output written once. fused_election needs all S keys of a column but
-    only the winning block's payload column, so it reads H*L payload
-    values, not S*H*L."""
+    output written once, at the input's element size (8 bytes for int64
+    and float64, 4 for int32). fused_election needs all S int32 keys of a
+    column but only the winning block's int64 payload column, so it reads
+    H*L payload values, not S*H*L."""
+    item = dtype.itemsize
     if name == "block_offsets":
         S, L = shape
-        return 8 * (S * L + S * L + L)
+        return item * (S * L + S * L + L)
     if name == "elect_min":
         S, H, L = shape
-        return 4 * (S * H * L + H * L)
+        return item * (S * H * L + H * L)
     S, H, L = shape
     return 4 * S * L + 8 * H * L + 4 * L + 8 * H * L
 
 
 def grid_shapes(R: int):
-    """The phase-3 grid at S blocks: the shapes the solve gives each kernel
-    at window W."""
+    """The phase-3 grid at S blocks: each kernel in every dtype it takes,
+    at the shapes the solve gives it at window W, as (name, key)."""
+    import torch
+
+    i32, i64, f64 = torch.int32, torch.int64, torch.float64
     for W in GRID_W:
-        yield "block_offsets", (S_BLOCKS, W)
-        yield "elect_min", (S_BLOCKS, R, W)
-        yield "fused_election", (S_BLOCKS, 1 + R, W)
+        for dtype in (i64, f64):
+            yield "block_offsets", ((S_BLOCKS, W), dtype, (W, 1))
+        for dtype in (i32, i64):
+            yield "elect_min", ((S_BLOCKS, R, W), dtype, (R * W, W, 1))
+        yield "fused_election", ((S_BLOCKS, 1 + R, W), i32, (W, 1))
 
 
 def fit_violations(snap, assignment) -> int:
@@ -244,27 +314,33 @@ def drive(label: str, cluster, device, n_blocks: int, chunk=None,
 
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
-    averaged per launch over the shapes that path gave the kernel."""
+    averaged per launch over the shapes, dtypes and strides that path gave
+    the kernel."""
     rows = []
     for name, replaces in REPLACES.items():
         shapes = north["shapes"][name]
         n = sum(shapes.values())
-        acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        acc = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms",
+                             "library_ms", "library_device_ms"), 0.0)
         err = 0.0
-        for i, (shape, count) in enumerate(sorted(shapes.items())):
-            r = check_kernel(name, shape, device, seed=100 + i)
+        for i, (key, count) in enumerate(sorted(shapes.items(), key=str)):
+            r = check_kernel(name, key, device, seed=100 + i)
             err = max(err, r["max_abs_err"])
-            print(f"[kernel@path] {name} shape={shape} launches={count} "
+            print(f"[kernel@path] {name} shape={key[0]} dtype={key[1]} "
+                  f"strides={key[2]} launches={count} "
                   + " ".join(f"{k}={v}" for k, v in r.items()), flush=True)
             for k in acc:
                 if r[k] is not None:
                     acc[k] += r[k] * count / n
+        library = name != "fused_election"
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": north["launches"][name],
-            "max_abs_err": err, "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "max_abs_err": err, "ms": acc["ms"],
+            "device_ms": acc["device_ms"], "plain_ms": acc["plain_ms"],
             "bound_ms": acc["bound_ms"], "bound_by": "bytes",
-            "library_ms": acc["library_ms"] if name != "fused_election" else None,
+            "library_ms": acc["library_ms"] if library else None,
+            "library_device_ms": acc["library_device_ms"] if library else None,
         })
     return rows
 
@@ -302,9 +378,10 @@ def main() -> int:
         gang_quota_scenario,
     )
 
-    for i, (name, shape) in enumerate(grid_shapes(4)):
-        r = check_kernel(name, shape, device, seed=i)
-        print(f"[kernel] {name} shape={shape} "
+    for i, (name, key) in enumerate(grid_shapes(4)):
+        r = check_kernel(name, key, device, seed=i)
+        print(f"[kernel] {name} shape={key[0]} dtype={key[1]} "
+              f"strides={key[2]} "
               + " ".join(f"{k}={v}" for k, v in r.items()), flush=True)
 
     # 4. north star through the blocked path

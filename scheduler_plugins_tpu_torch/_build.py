@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 #: every kernel source of the port, by library name
 SOURCES = {"election": CSRC / "election.cu"}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.PyDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -83,9 +83,12 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
     return dict(zip(SOURCES, paths))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built on first use."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library `name`, built on first use. Loaded as a `PyDLL`:
+    its entry points only enqueue a launch and touch no Python object, so
+    a call keeps the interpreter lock rather than paying to release and
+    take it again."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+        lib = _LIBS[name] = ctypes.PyDLL(str(build(name)))
     return lib

@@ -282,10 +282,9 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
     def lite_choice(idx, valid, dem_w):
         W = idx.shape[0]
         cumfree = torch.cumsum(torch.clamp(rank_free, min=0).to(F64), dim=1)
-        base, _ = pk.block_offsets(
-            cumfree[:, -1, :].to(torch.int64).contiguous()
-        )
-        abs_cf = cumfree + base.to(F64)[:, None, :]  # (S, BS, R)
+        # the block totals, read in place (row stride BS*R)
+        base, _ = pk.block_offsets(cumfree[:, -1, :])
+        abs_cf = cumfree + base[:, None, :]  # (S, BS, R)
         cumdem = torch.cumsum(dem_w.to(F64), dim=0)  # (W, R)
         loc = torch.searchsorted(
             abs_cf.transpose(1, 2).contiguous(),
@@ -293,8 +292,7 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
             right=False,
         )  # (S, R, W) local positions
         cand = torch.where(loc < BS, block_start[:, None, None] + loc, N)
-        pos = pk.elect_min(cand.to(torch.int32).contiguous())  # (R, W)
-        pos = pos.to(torch.int64).max(dim=0).values  # (W,)
+        pos = pk.elect_min(cand).max(dim=0).values  # (W,)
         ranks = torch.clamp(
             pos[None, :] + torch.arange(LITE_PROBES, device=device)[:, None],
             max=n_real - 1,
@@ -318,7 +316,7 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
             dem_w[None, :, None, :] <= rank_free[:, None, :, :], dim=3
         ) & valid[None, :, None]  # (S, W, BS)
         counts = feasible.sum(dim=2)  # (S, W) int64
-        base, total = pk.block_offsets(counts.contiguous())
+        base, total = pk.block_offsets(counts)
         k = torch.where(
             total > 0,
             torch.arange(W, device=device) % torch.clamp(total, min=1),

@@ -6,17 +6,31 @@ shards (`_ring_call`, scheduler_plugins_tpu/parallel/kernels.py:272). Here
 the S node blocks are the leading dimension of one tensor on one card, and
 each exchange is one launch of a CUDA kernel from `csrc/election.cu`:
 
-- `block_offsets(x (S, L) int64)` -> (exclusive prefix (S, L), total (L))
-  replaces `ring_offsets_f64` and `ring_offsets_i32`;
-- `elect_min(x (S, H, L) int32)` -> (H, L) replaces `elect_min`;
-- `fused_election(keys (S, L) int32, payload (S, H, L) int64)` ->
-  (min key (L), winner payload (H, L)) replaces `fused_election`.
+- `block_offsets(x (S, L) int64 | float64)` -> (exclusive prefix (S, L),
+  total (L)) replaces `ring_offsets_i32` and `ring_offsets_f64`. `x` may
+  be a strided view: any row stride, last stride 1;
+- `elect_min(x (S, H, L) int32 | int64, contiguous)` -> (H, L) replaces
+  `elect_min`;
+- `fused_election(keys (S, L) int32, payload (S, H, L) int64, both
+  contiguous)` -> (min key (L), winner payload (H, L)) replaces
+  `fused_election`.
 
-Beside each wrapper sits its plain PyTorch version (`*_plain`). A wrapper
-takes the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises — there is no fallback. Each wrapper counts
-its kernel launches, by input shape, in `LAUNCH_SHAPES`; `launches()`
-gives the totals.
+Each kernel takes the dtype its producer in `ops/assign.py` gives it, so a
+call needs no cast or copy launch around it; any other dtype or layout
+raises, on the CPU as on the card. Beside each wrapper sits its plain
+PyTorch version (`*_plain`). A wrapper takes the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises —
+there is no fallback.
+
+At the solve's shapes a kernel's device work is a few microseconds, so a
+call costs what the host does to dispatch it. The launch path is kept short:
+the C entry points are bound once, at the first launch; a call allocates
+its output once, reads the current stream's raw handle and makes one
+ctypes call with plain integers.
+
+Each wrapper counts its kernel launches in `LAUNCH_SHAPES`, by the
+problem's shape ((S, L) or (S, H, L)) and the dtype and strides of its
+first input; `launches()` gives the totals.
 """
 
 from __future__ import annotations
@@ -25,12 +39,31 @@ import ctypes
 
 import torch
 
-#: kernel launches since the last `reset_launches()`, by wrapper and input
-#: shape: {kernel: {shape: count}}
+#: kernel launches since the last `reset_launches()`, by wrapper and input:
+#: {kernel: {(shape, dtype, strides): count}}
 LAUNCH_SHAPES: dict = {"block_offsets": {}, "elect_min": {},
                        "fused_election": {}}
 
-_BOUND = False
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: each kernel's C entry point by input dtype, and its argument types
+#: (pointers and the stream as c_void_p, so ctypes never cuts them to 32
+#: bits)
+_ENTRY = {
+    "block_offsets": ({torch.int64: "spt_block_offsets_i64",
+                       torch.float64: "spt_block_offsets_f64"},
+                      [_VP, _I64, _VP, _I32, _I64, _VP]),
+    "elect_min": ({torch.int32: "spt_elect_min_i32",
+                   torch.int64: "spt_elect_min_i64"},
+                  [_VP, _VP, _I32, _I64, _VP]),
+    "fused_election": ({torch.int32: "spt_fused_election"},
+                       [_VP, _VP, _VP, _VP, _I32, _I32, _I64, _VP]),
+}
+
+#: {kernel: {dtype: bound C function}}, filled at the first launch
+_FN: dict = {}
+#: the current CUDA stream's raw handle by device index, set with `_FN`
+_raw_stream = None
 
 
 def reset_launches() -> None:
@@ -44,51 +77,52 @@ def launches() -> dict:
             for name, shapes in LAUNCH_SHAPES.items()}
 
 
-def _count(name: str, shape: tuple) -> None:
+def _count(name: str, key: tuple) -> None:
     shapes = LAUNCH_SHAPES[name]
-    shapes[shape] = shapes.get(shape, 0) + 1
+    shapes[key] = shapes.get(key, 0) + 1
 
 
-def _lib():
-    """The election kernels' library, built on first use, with argtypes
-    bound (pointers and the stream as c_void_p, so ctypes never truncates
-    them to 32 bits)."""
-    global _BOUND
+def _bind() -> dict:
+    """Build and load the election library, bind every entry point once,
+    and take PyTorch's reader of the current stream's raw handle (the
+    stream a graph capture or a user's `torch.cuda.stream` makes current),
+    so that no call builds a `torch.cuda.Stream`."""
+    global _raw_stream
     from scheduler_plugins_tpu_torch import _build
 
     lib = _build.load("election")
-    if not _BOUND:
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.spt_block_offsets.argtypes = [vp, vp, vp, i32, i64, vp]
-        lib.spt_elect_min.argtypes = [vp, vp, i32, i64, vp]
-        lib.spt_fused_election.argtypes = [vp, vp, vp, vp, i32, i32, i64, vp]
-        for fn in (lib.spt_block_offsets, lib.spt_elect_min,
-                   lib.spt_fused_election):
+    bound = {}
+    for name, (symbols, argtypes) in _ENTRY.items():
+        bound[name] = {}
+        for dtype, symbol in symbols.items():
+            fn = bound[name][dtype] = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _BOUND = True
-    return lib
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _FN.update(bound)  # last: a non-empty `_FN` means all of it is bound
+    return _FN
 
 
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (the plain-version path);
-    False when every tensor lies on one CUDA device; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {devices}")
-    device = devices.pop()
-    if device.type == "cpu":
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); raises for any other device."""
+    if x.is_cuda:
         return True
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
     return False
+
+
+def _bad(name: str, x: torch.Tensor, want: str):
+    return ValueError(
+        f"{name}: want {want}, got {tuple(x.shape)} {x.dtype} "
+        f"strides {x.stride()}"
+    )
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str):
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want a contiguous {ndim}-D {dtype} tensor, got "
-            f"{tuple(t.shape)} {t.dtype} contiguous={t.is_contiguous()}"
-        )
+        raise _bad(name, t, f"a contiguous {ndim}-D {dtype} tensor")
     if t.shape[0] < 1:
         raise ValueError(f"{name}: the block axis is empty")
 
@@ -98,17 +132,13 @@ def _raise_on(rc: int, kernel: str):
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 
 def block_offsets_plain(x: torch.Tensor):
-    """(exclusive prefix over dim 0, total over dim 0) of int64 `x`."""
+    """(exclusive prefix over dim 0, total over dim 0) of `x`."""
     csum = torch.cumsum(x, dim=0)
     return csum - x, csum[-1]
 
@@ -132,36 +162,52 @@ def fused_election_plain(keys: torch.Tensor, payload: torch.Tensor):
 
 
 def block_offsets(x: torch.Tensor):
-    """(exclusive prefix (S, L), total (L)) of int64 `x` (S, L) over the
-    block axis. Replaces `ring_offsets_f64`/`ring_offsets_i32`
-    (scheduler_plugins_tpu/parallel/kernels.py:370 / :357)."""
-    if _on_cpu(x):
+    """(exclusive prefix (S, L), total (L)) of `x` (S, L) over the block
+    axis, in `x`'s dtype: int64 (`ring_offsets_i32`,
+    scheduler_plugins_tpu/parallel/kernels.py:357) or float64 holding exact
+    integers (`ring_offsets_f64`, :370). `x` may have any row stride; its
+    last stride must be 1. On the card both results are views of one
+    (S + 1, L) buffer."""
+    on_card = _on_card(x)
+    dtype, strides = x.dtype, x.stride()
+    if (dtype not in _ENTRY["block_offsets"][0] or len(strides) != 2
+            or strides[1] != 1 or x.shape[0] < 1):
+        raise _bad("block_offsets", x,
+                   "a 2-D int64 or float64 tensor with last stride 1 and "
+                   "a non-empty block axis")
+    if not on_card:
         return block_offsets_plain(x)
-    _check(x, torch.int64, 2, "block_offsets")
     S, L = x.shape
-    excl = torch.empty_like(x)
-    total = torch.empty(L, dtype=x.dtype, device=x.device)
-    rc = _lib().spt_block_offsets(
-        x.data_ptr(), excl.data_ptr(), total.data_ptr(), S, L, _stream()
+    out = x.new_empty((S + 1, L))
+    rc = (_FN or _bind())["block_offsets"][dtype](
+        x.data_ptr(), strides[0], out.data_ptr(), S, L,
+        _raw_stream(x.get_device()),
     )
     _raise_on(rc, "block_offsets")
-    _count("block_offsets", (S, L))
-    return excl, total
+    _count("block_offsets", ((S, L), dtype, strides))
+    return out[:S], out[S]
 
 
 def elect_min(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise minimum of int32 `x` (S, H, L) over the block axis.
-    Replaces `elect_min` (scheduler_plugins_tpu/parallel/kernels.py:387)."""
-    if _on_cpu(x):
+    """Elementwise minimum of contiguous int32 or int64 `x` (S, H, L) over
+    the block axis. Replaces `elect_min`
+    (scheduler_plugins_tpu/parallel/kernels.py:387)."""
+    on_card = _on_card(x)
+    dtype = x.dtype
+    if (dtype not in _ENTRY["elect_min"][0] or x.dim() != 3
+            or not x.is_contiguous() or x.shape[0] < 1):
+        raise _bad("elect_min", x,
+                   "a contiguous 3-D int32 or int64 tensor with a "
+                   "non-empty block axis")
+    if not on_card:
         return elect_min_plain(x)
-    _check(x, torch.int32, 3, "elect_min")
     S, H, L = x.shape
-    out = torch.empty((H, L), dtype=x.dtype, device=x.device)
-    rc = _lib().spt_elect_min(
-        x.data_ptr(), out.data_ptr(), S, H * L, _stream()
+    out = x.new_empty((H, L))
+    rc = (_FN or _bind())["elect_min"][dtype](
+        x.data_ptr(), out.data_ptr(), S, H * L, _raw_stream(x.get_device())
     )
     _raise_on(rc, "elect_min")
-    _count("elect_min", (S, H, L))
+    _count("elect_min", ((S, H, L), dtype, x.stride()))
     return out
 
 
@@ -170,8 +216,11 @@ def fused_election(keys: torch.Tensor, payload: torch.Tensor):
     `payload` (S, H, L) int64 -> (min key (L), payload of the first block
     holding the minimum (H, L)). Replaces `fused_election`
     (scheduler_plugins_tpu/parallel/kernels.py:411)."""
-    if _on_cpu(keys, payload):
-        return fused_election_plain(keys, payload)
+    if keys.device != payload.device:
+        raise ValueError(
+            f"tensors on different devices: {keys.device}, {payload.device}"
+        )
+    on_card = _on_card(keys)
     _check(keys, torch.int32, 2, "fused_election keys")
     _check(payload, torch.int64, 3, "fused_election payload")
     S, L = keys.shape
@@ -181,12 +230,14 @@ def fused_election(keys: torch.Tensor, payload: torch.Tensor):
             f"fused_election: payload {tuple(payload.shape)} does not "
             f"match keys {tuple(keys.shape)}"
         )
-    key_out = torch.empty(L, dtype=keys.dtype, device=keys.device)
-    pay_out = torch.empty((H, L), dtype=payload.dtype, device=payload.device)
-    rc = _lib().spt_fused_election(
+    if not on_card:
+        return fused_election_plain(keys, payload)
+    key_out = keys.new_empty(L)
+    pay_out = payload.new_empty((H, L))
+    rc = (_FN or _bind())["fused_election"][torch.int32](
         keys.data_ptr(), payload.data_ptr(), key_out.data_ptr(),
-        pay_out.data_ptr(), S, H, L, _stream(),
+        pay_out.data_ptr(), S, H, L, _raw_stream(keys.get_device()),
     )
     _raise_on(rc, "fused_election")
-    _count("fused_election", (S, H, L))
+    _count("fused_election", ((S, H, L), keys.dtype, keys.stride()))
     return key_out, pay_out
