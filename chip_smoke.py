@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 2. build the kernels from `scheduler_plugins_tpu_torch/csrc` (one `nvcc`
    per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card at S = 8
-   blocks and W in {256, 1024, 8192}, in every dtype it takes: exact
+   blocks and W in {256, 1024, 8192} (fused_election over blocks of
+   BS = 1280 rows, the north star's), in every dtype it takes: exact
    equality (tolerance 0 — the kernels move, add and compare integers,
    float64 ones below 2^53), with kernel, plain and library times;
 4. the north-star problem — `allocatable_scenario(10_240, 102_400)`, queue
@@ -57,6 +58,8 @@ REPLACES = {
     "fused_election": "scheduler_plugins_tpu/parallel/kernels.py:411",
 }
 NORTH_STAR = dict(n_nodes=10_240, n_pods=102_400, chunk=8192, rescue_window=256)
+#: rank rows per block in the fused_election grid: the north star's
+GRID_BS = NORTH_STAR["n_nodes"] // S_BLOCKS
 
 
 def _sync(device):
@@ -115,9 +118,11 @@ def kernel_inputs(name: str, key: tuple, device, seed: int):
     strides of the first input), as `LAUNCH_SHAPES` records them —
     block_offsets (S, L) int64 or float64, exact integers below 2^40, with
     the given row stride; elect_min (S, H, L) int32 or int64 with some of
-    the dtype's maximum as padding; fused_election keys (S, L) int32 unique
-    per block with the sentinel S*L where a block does not propose (zero
-    payload there) and payload (S, H, L) int64."""
+    the dtype's maximum as padding; fused_election at shape (S, BS, R, W):
+    `prop` (S, W) int64 with each block proposing a rank of its own block
+    or the sentinel N = S*BS, `node_ids` (S, BS) int32 a permutation of the
+    real nodes with -1 on the last BS // 2 (padding) rows, and `rank_free`
+    (S, BS, R) int64 below 2^40, zero on the padding rows."""
     import torch
 
     shape, dtype, strides = key
@@ -132,14 +137,18 @@ def kernel_inputs(name: str, key: tuple, device, seed: int):
         flat = torch.randint(0, 1 << 30, (span,), generator=g).to(dtype)
         flat[torch.rand(span, generator=g) < 0.1] = torch.iinfo(dtype).max
         return (torch.as_strided(flat.to(device), shape, strides),)
-    S, H, L = shape
-    sentinel = S * L
-    propose = torch.rand((S, L), generator=g) < 0.4
-    keys = torch.arange(S)[:, None] * L + torch.randint(0, L, (S, L), generator=g)
-    keys = torch.where(propose, keys, sentinel).to(torch.int32)
-    payload = torch.randint(1, 1 << 40, (S, H, L), generator=g)
-    payload = torch.where(propose[:, None, :], payload, 0)
-    return keys.to(device), payload.to(device)
+    S, BS, R, W = shape
+    N = S * BS
+    n_real = N - BS // 2
+    node_ids = torch.full((N,), -1, dtype=torch.int32)
+    node_ids[:n_real] = torch.randperm(n_real, generator=g).to(torch.int32)
+    rank_free = torch.randint(0, 1 << 40, (N, R), generator=g)
+    rank_free[n_real:] = 0
+    propose = torch.rand((S, W), generator=g) < 0.4
+    prop = torch.arange(S)[:, None] * BS + torch.randint(0, BS, (S, W), generator=g)
+    prop = torch.where(propose, prop, N)
+    return (prop.to(device), node_ids.view(S, BS).to(device),
+            rank_free.view(S, BS, R).to(device))
 
 
 def check_kernel(name: str, key: tuple, device, seed: int = 0) -> dict:
@@ -164,6 +173,12 @@ def check_kernel(name: str, key: tuple, device, seed: int = 0) -> dict:
     )
     if not all(torch.equal(a, b) for a, b in pairs):
         raise AssertionError(f"{name} {key}: kernel != plain (max err {err})")
+    winners = None
+    if name == "fused_election":
+        # every proposal lies in its own block: a column whose rank is
+        # real is a column whose winner's id and row are read
+        S, BS = shape[:2]
+        winners = int((want[0] < S * BS).sum())
     library = {
         "block_offsets": lambda: torch.cumsum(args[0], dim=0),
         "elect_min": lambda: torch.amin(args[0], dim=0),
@@ -189,16 +204,19 @@ def check_kernel(name: str, key: tuple, device, seed: int = 0) -> dict:
         "plain_ms": times["plain_ms"],
         "library_ms": times.get("library_ms"),
         "library_device_ms": times.get("library_device_ms"),
-        "bound_ms": bytes_moved(name, shape, dtype) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": (bytes_moved(name, shape, dtype, winners)
+                     / HBM_BYTES_PER_S * 1e3),
     }
 
 
-def bytes_moved(name: str, shape: tuple, dtype) -> int:
+def bytes_moved(name: str, shape: tuple, dtype, winners=None) -> int:
     """Bytes the function must move: each input it needs read once, each
     output written once, at the input's element size (8 bytes for int64
-    and float64, 4 for int32). fused_election needs all S int32 keys of a
-    column but only the winning block's int64 payload column, so it reads
-    H*L payload values, not S*H*L."""
+    and float64, 4 for int32). fused_election at (S, BS, R, W) needs all S
+    int64 keys of a column, and the int32 node id and R int64 free values
+    of the winner only for the `winners` columns that have one (all W if
+    not given); it writes rank, node id + 1 and the row, 8*(2 + R) bytes a
+    column."""
     item = dtype.itemsize
     if name == "block_offsets":
         S, L = shape
@@ -206,8 +224,9 @@ def bytes_moved(name: str, shape: tuple, dtype) -> int:
     if name == "elect_min":
         S, H, L = shape
         return item * (S * H * L + H * L)
-    S, H, L = shape
-    return 4 * S * L + 8 * H * L + 4 * L + 8 * H * L
+    S, _, R, W = shape
+    winners = W if winners is None else winners
+    return 8 * S * W + winners * (4 + 8 * R) + 8 * W * (2 + R)
 
 
 def grid_shapes(R: int):
@@ -221,7 +240,7 @@ def grid_shapes(R: int):
             yield "block_offsets", ((S_BLOCKS, W), dtype, (W, 1))
         for dtype in (i32, i64):
             yield "elect_min", ((S_BLOCKS, R, W), dtype, (R * W, W, 1))
-        yield "fused_election", ((S_BLOCKS, 1 + R, W), i32, (W, 1))
+        yield "fused_election", ((S_BLOCKS, GRID_BS, R, W), i64, (W, 1))
 
 
 def fit_violations(snap, assignment) -> int:

@@ -233,10 +233,11 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
     :961, :984, :1011, :1034) are kernel launches: `block_offsets` for the
     cumulative-free bases and the rescue feasible-count offsets,
     `elect_min` for the bucket position, `fused_election` for the first-fit
-    and rescue winners. The fused election carries the winner's node id and
-    free row, so queue-order admission runs on the elected rows with no
-    further exchange. Padding rows have zero capacity and node id -1; every
-    valid pod's demand has a pods slot of 1, so they never win."""
+    and rescue winners. The fused election reads the winner's node id and
+    pre-wave free row by index from `node_ids` and the resident `rank_free`,
+    so queue-order admission runs on the elected rows with no further
+    exchange. Padding rows have zero capacity and node id -1; every valid
+    pod's demand has a pods slot of 1, so they never win."""
     S, BS, R = rank_free.shape
     P = req.shape[0]
     N = S * BS  # padded global rank count: the "no candidate" sentinel
@@ -253,31 +254,6 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         local = rank[None] - block_start.view((S,) + (1,) * rank.dim())
         owned = (local >= 0) & (local < BS)
         return owned, torch.clamp(local, 0, BS - 1)
-
-    def winner_payload(prop):
-        """(S, 1 + R, W) int64: node id + 1 and the pre-wave free row of
-        each block's own proposal `prop` (S, W); zero where the block does
-        not propose (its key is the sentinel N)."""
-        local = prop - block_start[:, None]
-        has = (local >= 0) & (local < BS) & (prop < N)
-        safe = torch.clamp(local, 0, BS - 1)
-        nid = torch.where(
-            has, torch.gather(node_ids, 1, safe).to(torch.int64) + 1, 0
-        )
-        row = torch.gather(
-            rank_free, 1, safe[:, :, None].expand(-1, -1, R)
-        )  # (S, W, R)
-        row = torch.where(has[:, :, None], row, 0)
-        return torch.cat([nid[:, None, :], row.transpose(1, 2)], dim=1)
-
-    def elect(prop):
-        """Fused election of the blocks' proposals: (rank (W,),
-        node id + 1 (W,), winner free row (W, R))."""
-        rank, pay = pk.fused_election(
-            prop.to(torch.int32).contiguous(),
-            winner_payload(prop).contiguous(),
-        )
-        return rank.to(torch.int64), pay[0], pay[1:].T
 
     def lite_choice(idx, valid, dem_w):
         W = idx.shape[0]
@@ -305,7 +281,7 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         # first fitting probe == min fitting rank (ranks are nondecreasing
         # in probe order): each block proposes its min fitting owned rank
         prop = torch.where(fit, ranks[None], N).min(dim=1).values  # (S, W)
-        rank, nid, win_row = elect(prop)
+        rank, nid, win_row = pk.fused_election(prop, node_ids, rank_free)
         choice = torch.where(valid & (rank < N), rank, -1)
         # lite misses prove nothing about feasibility: no hopeless delta
         return choice, torch.zeros_like(valid), nid, win_row
@@ -333,7 +309,7 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         )
         # whenever total > 0 exactly one block proposes the k-th feasible
         # rank, a real node, so the n_real clamp is a no-op there
-        rank, nid, win_row = elect(prop)
+        rank, nid, win_row = pk.fused_election(prop, node_ids, rank_free)
         choice = torch.where(
             valid & (total > 0), torch.clamp(rank, max=n_real - 1), -1
         )

@@ -11,9 +11,11 @@ each exchange is one launch of a CUDA kernel from `csrc/election.cu`:
   be a strided view: any row stride, last stride 1;
 - `elect_min(x (S, H, L) int32 | int64, contiguous)` -> (H, L) replaces
   `elect_min`;
-- `fused_election(keys (S, L) int32, payload (S, H, L) int64, both
-  contiguous)` -> (min key (L), winner payload (H, L)) replaces
-  `fused_election`.
+- `fused_election(prop (S, W) int64, node_ids (S, BS) int32, rank_free
+  (S, BS, R) int64, all contiguous)` -> (rank (W), node id + 1 (W), free
+  row (W, R)) replaces `fused_election` together with the payload its
+  caller builds: the winner's id and row are read by index from the
+  solve's resident tensors, in place.
 
 Each kernel takes the dtype its producer in `ops/assign.py` gives it, so a
 call needs no cast or copy launch around it; any other dtype or layout
@@ -29,8 +31,9 @@ its output once, reads the current stream's raw handle and makes one
 ctypes call with plain integers.
 
 Each wrapper counts its kernel launches in `LAUNCH_SHAPES`, by the
-problem's shape ((S, L) or (S, H, L)) and the dtype and strides of its
-first input; `launches()` gives the totals.
+problem's shape ((S, L), (S, H, L), or (S, BS, R, W) for fused_election)
+and the dtype and strides of its first input; `launches()` gives the
+totals.
 """
 
 from __future__ import annotations
@@ -56,8 +59,8 @@ _ENTRY = {
     "elect_min": ({torch.int32: "spt_elect_min_i32",
                    torch.int64: "spt_elect_min_i64"},
                   [_VP, _VP, _I32, _I64, _VP]),
-    "fused_election": ({torch.int32: "spt_fused_election"},
-                       [_VP, _VP, _VP, _VP, _I32, _I32, _I64, _VP]),
+    "fused_election": ({torch.int64: "spt_fused_election"},
+                       [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _VP]),
 }
 
 #: {kernel: {dtype: bound C function}}, filled at the first launch
@@ -148,12 +151,19 @@ def elect_min_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.amin(x, dim=0)
 
 
-def fused_election_plain(keys: torch.Tensor, payload: torch.Tensor):
-    """(min key over dim 0, payload column of the first block holding it)."""
-    key, src = torch.min(keys, dim=0)  # first minimal index on ties
-    H = payload.shape[1]
-    win = torch.gather(payload, 0, src[None, None, :].expand(1, H, -1))
-    return key, win[0]
+def fused_election_plain(prop: torch.Tensor, node_ids: torch.Tensor,
+                         rank_free: torch.Tensor):
+    """(min of `prop` over dim 0, node id + 1 and free row of that rank in
+    the first block holding it; zeros where that rank is not a real rank of
+    that block)."""
+    S, BS = node_ids.shape
+    rank, src = torch.min(prop, dim=0)  # first minimal index on ties
+    local = rank - src * BS
+    has = (rank < S * BS) & (local >= 0) & (local < BS)
+    safe = torch.clamp(local, 0, BS - 1)
+    node_plus = torch.where(has, node_ids[src, safe].to(torch.int64) + 1, 0)
+    win_row = torch.where(has[:, None], rank_free[src, safe], 0)
+    return rank, node_plus, win_row
 
 
 # ---------------------------------------------------------------------------
@@ -211,33 +221,45 @@ def elect_min(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_election(keys: torch.Tensor, payload: torch.Tensor):
-    """Min-key election with the winner's payload: `keys` (S, L) int32,
-    `payload` (S, H, L) int64 -> (min key (L), payload of the first block
-    holding the minimum (H, L)). Replaces `fused_election`
-    (scheduler_plugins_tpu/parallel/kernels.py:411)."""
-    if keys.device != payload.device:
+def fused_election(prop: torch.Tensor, node_ids: torch.Tensor,
+                   rank_free: torch.Tensor):
+    """Min-rank election with the winner's node and free row. `prop`
+    (S, W) int64 holds each block's proposed global rank or the sentinel
+    N = S*BS; `node_ids` (S, BS) int32 and `rank_free` (S, BS, R) int64 are
+    the solve's own tensors, read in place and never written. Returns
+    (rank (W,), node id + 1 (W,), free row (W, R)) of the first block
+    holding each column's minimum, the last two zero where that rank is not
+    a real rank of that block. Replaces `fused_election`
+    (scheduler_plugins_tpu/parallel/kernels.py:411) with the payload its
+    caller builds (scheduler_plugins_tpu/ops/assign.py:910). On the card the
+    three results are views of one buffer."""
+    if not prop.device == node_ids.device == rank_free.device:
         raise ValueError(
-            f"tensors on different devices: {keys.device}, {payload.device}"
+            f"tensors on different devices: {prop.device}, "
+            f"{node_ids.device}, {rank_free.device}"
         )
-    on_card = _on_card(keys)
-    _check(keys, torch.int32, 2, "fused_election keys")
-    _check(payload, torch.int64, 3, "fused_election payload")
-    S, L = keys.shape
-    H = payload.shape[1]
-    if payload.shape != (S, H, L):
+    on_card = _on_card(prop)
+    _check(prop, torch.int64, 2, "fused_election prop")
+    _check(node_ids, torch.int32, 2, "fused_election node_ids")
+    _check(rank_free, torch.int64, 3, "fused_election rank_free")
+    S, W = prop.shape
+    BS = node_ids.shape[1]
+    R = rank_free.shape[2]
+    if node_ids.shape[0] != S or rank_free.shape[:2] != (S, BS) or BS < 1:
         raise ValueError(
-            f"fused_election: payload {tuple(payload.shape)} does not "
-            f"match keys {tuple(keys.shape)}"
+            f"fused_election: prop {tuple(prop.shape)}, node_ids "
+            f"{tuple(node_ids.shape)} and rank_free "
+            f"{tuple(rank_free.shape)} do not share S blocks of BS >= 1"
         )
     if not on_card:
-        return fused_election_plain(keys, payload)
-    key_out = keys.new_empty(L)
-    pay_out = payload.new_empty((H, L))
-    rc = (_FN or _bind())["fused_election"][torch.int32](
-        keys.data_ptr(), payload.data_ptr(), key_out.data_ptr(),
-        pay_out.data_ptr(), S, H, L, _raw_stream(keys.get_device()),
+        return fused_election_plain(prop, node_ids, rank_free)
+    out = prop.new_empty((2 + R) * W)
+    rc = (_FN or _bind())["fused_election"][torch.int64](
+        prop.data_ptr(), node_ids.data_ptr(), rank_free.data_ptr(),
+        out.data_ptr(), S, BS, R, W, _raw_stream(prop.get_device()),
     )
     _raise_on(rc, "fused_election")
-    _count("fused_election", ((S, H, L), keys.dtype, keys.stride()))
-    return key_out, pay_out
+    _count("fused_election", ((S, BS, R, W), torch.int64, prop.stride()))
+    # `split_with_sizes` is bound in C++; `Tensor.split` wraps it in Python
+    rank, node_plus, rows = out.split_with_sizes((W, W, R * W))
+    return rank, node_plus, rows.view(W, R)

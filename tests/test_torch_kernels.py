@@ -47,29 +47,37 @@ def pallas_names(monkeypatch):
 
 
 def shard_run(fn, S, x, out_specs):
-    """`fn` per shard over the leading axis of `x` on an S-device mesh."""
+    """`fn` per shard over the leading axis of `x` (an array, or a tuple of
+    arrays each split the same way) on an S-device mesh."""
     mesh = Mesh(np.asarray(jax.devices()[:S]), (AXIS,))
     f = jax.jit(shard_map(fn, mesh=mesh, in_specs=P(AXIS),
                           out_specs=out_specs, check_rep=False))
-    return f(jnp.asarray(x))
+    return f(jax.tree.map(jnp.asarray, x))
 
 
 def t(x):
     return torch.as_tensor(np.ascontiguousarray(x))
 
 
-def election_inputs(rng, S, W, H, sentinel):
-    """Per-block keys (S, W) unique across blocks, the shared sentinel
-    where a block does not propose (zero payload there), payload
-    (S, H, W); the last columns are all-sentinel (the tie edge)."""
-    keys = np.full((S, W), sentinel, np.int32)
-    payload = np.zeros((S, H, W), np.int32)
+def election_inputs(rng, S, BS, R, W):
+    """(prop (S, W) int64, node_ids (S, BS) int32, rank_free (S, BS, R)
+    int64) as the blocked solve gives them: node ids of the real nodes in
+    rank order, -1 on the padding rows (the last BS // 2 ranks, zero free
+    capacity there), free capacity below 2^40, and each block proposing a
+    rank of its own block about half the time, the sentinel N = S*BS
+    elsewhere; the last three columns are all-sentinel (the tie edge)."""
+    N = S * BS
+    n_real = N - BS // 2
+    node_ids = np.full(N, -1, np.int32)
+    node_ids[:n_real] = rng.permutation(n_real)
+    rank_free = rng.integers(0, 1 << 40, (N, R))
+    rank_free[n_real:] = 0
+    prop = np.full((S, W), N, np.int64)
     for s in range(S):
         propose = rng.random(W) < 0.5
         propose[-3:] = False
-        keys[s, propose] = s * 1000 + rng.integers(0, 1000, int(propose.sum()))
-        payload[s][:, propose] = rng.integers(1, 1 << 18, (H, int(propose.sum())))
-    return keys, payload
+        prop[s, propose] = s * BS + rng.integers(0, BS, int(propose.sum()))
+    return prop, node_ids.reshape(S, BS), rank_free.reshape(S, BS, R)
 
 
 @pytest.mark.usefixtures("pallas_names")
@@ -146,24 +154,49 @@ class TestPlainEqualsPallas:
 
     @pytest.mark.parametrize("S", [2, 3, 8])
     def test_fused_election(self, S):
+        """The plain version against JAX `fused_election` fed the per-shard
+        payload the JAX wave builds (`winner_payload`,
+        scheduler_plugins_tpu/ops/assign.py:910: node id + 1 and the free
+        row as base-2^18 limbs, zero where the shard does not propose)."""
         rng = np.random.default_rng(30 + S)
-        W, H = 45, 13  # node id + 1 and four resources as three limbs
-        sentinel = S * 1000
-        keys, payload = election_inputs(rng, S, W, H, sentinel)
-        flat = np.concatenate([keys[:, None, :], payload], axis=1)
+        BS, R, W = 6, 4, 45
+        N = S * BS
+        prop, node_ids, rank_free = election_inputs(rng, S, BS, R, W)
 
         def body(xs):
-            k, p = jk.fused_election(xs[0, 0], xs[0, 1:], AXIS, S,
-                                     interpret=True)
+            prop_s, nid_s, free_s = xs[0][0], xs[1][0], xs[2][0]
+            local = prop_s - jax.lax.axis_index(AXIS) * BS
+            has = (local >= 0) & (local < BS) & (prop_s < N)
+            safe = jnp.clip(local, 0, BS - 1)
+            nid = jnp.where(has, nid_s[safe].astype(jnp.int32) + 1, 0)
+            row = jnp.where(has[:, None], free_s[safe], 0)  # (W, R)
+            limbs = jk.split_limbs(row).transpose(0, 2, 1).reshape(
+                jk.N_LIMBS * R, -1
+            )
+            k, p = jk.fused_election(
+                prop_s.astype(jnp.int32),
+                jnp.concatenate([nid[None], limbs], axis=0),
+                AXIS, S, interpret=True,
+            )
             return jnp.concatenate([k[None], p], axis=0)
 
-        want = np.asarray(shard_run(body, S, flat, P()))
-        key, pay = pk.fused_election(t(keys), t(payload.astype(np.int64)))
-        assert np.array_equal(key.numpy(), want[0])
-        assert np.array_equal(pay.numpy(), want[1:])
+        want = np.asarray(shard_run(
+            body, S, (prop, node_ids, rank_free), P(),
+        ))
+        want_row = np.asarray(jk.join_limbs(
+            want[2:].reshape(jk.N_LIMBS, R, W).transpose(0, 2, 1)
+        )).astype(np.int64)
+        rank, node_plus, win_row = pk.fused_election(
+            t(prop), t(node_ids), t(rank_free)
+        )
+        assert rank.dtype == node_plus.dtype == win_row.dtype == torch.int64
+        assert np.array_equal(rank.numpy(), want[0])
+        assert np.array_equal(node_plus.numpy(), want[1])
+        assert np.array_equal(win_row.numpy(), want_row)
         # the all-sentinel columns elect the sentinel with a zero payload
-        assert (key.numpy()[-3:] == sentinel).all()
-        assert (pay.numpy()[:, -3:] == 0).all()
+        assert (rank.numpy()[-3:] == N).all()
+        assert (node_plus.numpy()[-3:] == 0).all()
+        assert (win_row.numpy()[-3:] == 0).all()
 
 
 class TestPlainEdges:
@@ -172,14 +205,42 @@ class TestPlainEdges:
         excl, tot = pk.block_offsets(x)
         assert excl.tolist() == [[0, 0, 0]] and tot.tolist() == [3, 5, 7]
         assert pk.elect_min(x[:, None].to(torch.int32)).tolist() == [[3, 5, 7]]
-        key, pay = pk.fused_election(x.to(torch.int32), x[:, None])
-        assert key.tolist() == [3, 5, 7] and pay.tolist() == [[3, 5, 7]]
+        # one block: each rank is its own winner, read straight from the
+        # carry (rank 8 = N is the sentinel)
+        node_ids = torch.arange(8, dtype=torch.int32).flip(0)[None]
+        rank_free = torch.arange(16).view(1, 8, 2)
+        rank, node_plus, win_row = pk.fused_election(
+            torch.tensor([[3, 5, 7, 8]]), node_ids, rank_free
+        )
+        assert rank.tolist() == [3, 5, 7, 8]
+        assert node_plus.tolist() == [5, 3, 1, 0]
+        assert win_row.tolist() == [[6, 7], [10, 11], [14, 15], [0, 0]]
 
     def test_tie_takes_the_first_block(self):
-        keys = torch.tensor([[4, 9], [4, 2], [1, 2]], dtype=torch.int32)
-        payload = torch.arange(6).view(3, 1, 2)
-        key, pay = pk.fused_election(keys, payload)
-        assert key.tolist() == [1, 2] and pay.tolist() == [[4, 3]]
+        # S = 3 blocks of BS = 2 (N = 6). Rank 1 (block 0's) is held by
+        # blocks 0 and 1, rank 3 (block 1's) by blocks 1 and 2: the first
+        # holder wins and owns the rank, so its row is read; a later holder
+        # would not own it and would give zeros. The last column is all
+        # sentinels.
+        prop = torch.tensor([[1, 6, 6], [1, 3, 6], [5, 3, 6]])
+        node_ids = torch.tensor([[10, 11], [12, 13], [14, 15]],
+                                dtype=torch.int32)
+        rank_free = torch.arange(12).view(3, 2, 2)
+        rank, node_plus, win_row = pk.fused_election(prop, node_ids, rank_free)
+        assert rank.tolist() == [1, 3, 6]
+        assert node_plus.tolist() == [12, 14, 0]
+        assert win_row.tolist() == [[2, 3], [6, 7], [0, 0]]
+
+    def test_rank_outside_the_holders_block_gives_zeros(self):
+        # block 1 proposes rank 0, which block 0 owns: the rank is elected
+        # but no row is read for it (the JAX payload rule)
+        prop = torch.tensor([[4, 4], [0, 3]])
+        node_ids = torch.tensor([[7, 8], [9, -1]], dtype=torch.int32)
+        rank_free = torch.arange(1, 9).view(2, 2, 2)
+        rank, node_plus, win_row = pk.fused_election(prop, node_ids, rank_free)
+        assert rank.tolist() == [0, 3]
+        assert node_plus.tolist() == [0, 0]  # rank 3 is padding: id -1
+        assert win_row.tolist() == [[0, 0], [7, 8]]
 
 
 class TestWrappers:
@@ -189,7 +250,7 @@ class TestWrappers:
         assert all(torch.equal(a, b) for a, b in
                    zip(pk.block_offsets(x), pk.block_offsets_plain(x)))
         pk.elect_min(x[:, None].to(torch.int32))
-        pk.fused_election(x.to(torch.int32), x[:, None])
+        pk.fused_election(x, x.to(torch.int32), x[:, :, None])
         assert pk.launches() == {name: 0 for name in pk.LAUNCH_SHAPES}
 
     def test_unsupported_dtype_or_layout_raises(self):
@@ -201,24 +262,46 @@ class TestWrappers:
         for bad in (x.float(), x.transpose(1, 2), x[:0], x[0]):
             with pytest.raises(ValueError, match="elect_min: want"):
                 pk.elect_min(bad)
-        with pytest.raises(ValueError, match="keys: want"):
-            pk.fused_election(x[:, 0], x)
+        prop = torch.zeros((2, 4), dtype=torch.int64)
+        node_ids = torch.zeros((2, 3), dtype=torch.int32)
+        rank_free = torch.zeros((2, 3, 4), dtype=torch.int64)
+        for bad in (prop.to(torch.int32), prop.T, prop[:0], x[:, 0]):
+            with pytest.raises(ValueError, match="fused_election prop: "):
+                pk.fused_election(bad, node_ids, rank_free)
+        for bad in (node_ids.long(), node_ids.T, node_ids[:, :, None]):
+            with pytest.raises(ValueError, match="fused_election node_ids: "):
+                pk.fused_election(prop, bad, rank_free)
+        for bad in (rank_free.float(), rank_free.transpose(1, 2), x[:, 0]):
+            with pytest.raises(ValueError, match="fused_election rank_free: "):
+                pk.fused_election(prop, node_ids, bad)
+
+    def test_fused_election_blocks_must_agree(self):
+        prop = torch.zeros((2, 5), dtype=torch.int64)
+        node_ids = torch.zeros((2, 3), dtype=torch.int32)
+        for rank_free in (torch.zeros((3, 3, 4), dtype=torch.int64),
+                          torch.zeros((2, 4, 4), dtype=torch.int64)):
+            with pytest.raises(ValueError, match="do not share S blocks"):
+                pk.fused_election(prop, node_ids, rank_free)
+        with pytest.raises(ValueError, match="do not share S blocks"):
+            pk.fused_election(prop[:1], node_ids,
+                              torch.zeros((2, 3, 4), dtype=torch.int64))
 
     def test_no_kernel_for_other_devices(self):
         x = torch.empty((2, 4), dtype=torch.int64, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
             pk.block_offsets(x)
         with pytest.raises(ValueError, match="different devices"):
-            pk.fused_election(torch.zeros((2, 4), dtype=torch.int32),
-                              torch.empty((2, 1, 4), device="meta"))
+            pk.fused_election(torch.zeros((2, 4), dtype=torch.int64),
+                              torch.zeros((2, 3), dtype=torch.int32),
+                              torch.empty((2, 3, 4), device="meta"))
 
 
 class TestCallSites:
-    def test_blocked_solve_passes_producer_dtypes_in_place(self, monkeypatch):
-        """During a small blocked solve on the CPU, the lite wave hands
-        `block_offsets` its float64 block totals as a strided view (no cast,
-        no copy) and `elect_min` its int64 candidate ranks; the rescue wave
-        hands `block_offsets` its int64 feasible counts."""
+    @staticmethod
+    def record_blocked_solve(monkeypatch):
+        """A small blocked solve on the CPU (S = 3, rescue waves included)
+        with every kernel wrapper recording (kernel, calling function,
+        arguments): returns (calls, stats)."""
         from scheduler_plugins_tpu_torch.models import allocatable_scenario
         from scheduler_plugins_tpu_torch.parallel import solver
 
@@ -227,35 +310,71 @@ class TestCallSites:
         def recording(name):
             kernel = getattr(pk, name)
 
-            def wrapper(x):
+            def wrapper(*args):
                 caller = sys._getframe(1).f_code.co_name
-                calls.append((name, caller, x.dtype, x.stride(),
-                              x.is_contiguous()))
-                return kernel(x)
+                calls.append((name, caller, args))
+                return kernel(*args)
             return wrapper
 
-        for name in ("block_offsets", "elect_min"):
+        for name in pk.LAUNCH_SHAPES:
             monkeypatch.setattr(pk, name, recording(name))
         cluster = allocatable_scenario(12, 400)
         snap, meta = cluster.snapshot(cluster.pending_pods(), device="cpu")
-        S = 3
         _, _, _, stats = solver.sharded_wave_solve(
-            snap, meta.index.encode({"cpu": 1 << 20, "memory": 1}), S,
+            snap, meta.index.encode({"cpu": 1 << 20, "memory": 1}), 3,
             rescue_window=16, collect_stats=True,
         )
-        _, BS, R = stats["rank_free"].shape
+        return calls, stats
+
+    def test_blocked_solve_passes_producer_dtypes_in_place(self, monkeypatch):
+        """During a small blocked solve on the CPU, the lite wave hands
+        `block_offsets` its float64 block totals as a strided view (no cast,
+        no copy) and `elect_min` its int64 candidate ranks; the rescue wave
+        hands `block_offsets` its int64 feasible counts; both waves hand
+        `fused_election` their int64 proposals and the solve's own
+        `node_ids` and resident `rank_free`."""
+        calls, stats = self.record_blocked_solve(monkeypatch)
+        node_ids, rank_free = stats["node_ids"], stats["rank_free"]
+        _, BS, R = rank_free.shape
         assert BS > 1
-        kinds = {(name, caller, dtype) for name, caller, dtype, _, _ in calls}
+        kinds = {(name, caller, args[0].dtype) for name, caller, args in calls}
         assert kinds == {
             ("block_offsets", "lite_choice", torch.float64),
             ("elect_min", "lite_choice", torch.int64),
+            ("fused_election", "lite_choice", torch.int64),
             ("block_offsets", "rescue_choice", torch.int64),
+            ("fused_election", "rescue_choice", torch.int64),
         }
-        for name, caller, dtype, strides, contiguous in calls:
+        for name, caller, args in calls:
+            x = args[0]
             if name == "block_offsets" and caller == "lite_choice":
-                assert strides == (BS * R, 1) and not contiguous
+                assert x.stride() == (BS * R, 1) and not x.is_contiguous()
             else:
-                assert contiguous
+                assert x.is_contiguous()
+            if name == "fused_election":
+                assert len(args) == 3
+                assert args[1].data_ptr() == node_ids.data_ptr()
+                assert args[1].shape == node_ids.shape
+                assert args[1].dtype == torch.int32
+                assert args[2].data_ptr() == rank_free.data_ptr()
+                assert args[2].shape == rank_free.shape
+
+    def test_each_wave_elects_once_on_the_resident_carry(self, monkeypatch):
+        """One `fused_election` call per wave, and no payload built for it:
+        `winner_payload` and the int32 cast of the proposals are gone."""
+        import inspect
+
+        from scheduler_plugins_tpu_torch.ops import assign
+
+        calls, stats = self.record_blocked_solve(monkeypatch)
+        elections = [c for c in calls if c[0] == "fused_election"]
+        assert len(elections) == stats["waves"]
+        assert {caller for _, caller, _ in elections} == {
+            "lite_choice", "rescue_choice"
+        }
+        source = inspect.getsource(assign)
+        assert "winner_payload" not in source
+        assert "prop.to(torch.int32)" not in source
 
 
 @pytest.mark.cuda
@@ -274,9 +393,7 @@ class TestOnCard:
             "block_offsets": (t(rng.integers(0, 1 << 40, (S, W))),),
             "elect_min": (t(rng.integers(0, 1 << 30, (S, R, W)).astype(np.int32)),),
             "fused_election": tuple(
-                t(a.astype(d)) for a, d in zip(
-                    election_inputs(rng, S, W, 1 + R, S * W),
-                    (np.int32, np.int64))
+                t(a) for a in election_inputs(rng, S, 1280, R, W)
             ),
         }
         pk.reset_launches()
@@ -340,6 +457,29 @@ class TestOnCard:
             with pytest.raises(ValueError, match="elect_min: want"):
                 pk.elect_min(bad)
         assert pk.launches() == {name: 0 for name in pk.LAUNCH_SHAPES}
+
+    def test_fused_election_under_graph_capture(self, card):
+        """Captured in a CUDA graph, the election reads the carry in place
+        at each replay: a change to `rank_free` and `node_ids` after the
+        capture shows in the replayed result, and the kernel writes
+        neither."""
+        rng = np.random.default_rng(11)
+        args = tuple(t(a).to(card)
+                     for a in election_inputs(rng, 8, 1280, 4, 1024))
+        prop, node_ids, rank_free = args
+        pk.reset_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = pk.fused_election(*args)
+        assert pk.launches()["fused_election"] == 1
+        rank_free.add_(1)
+        node_ids.add_(1)
+        before = [a.clone() for a in args]
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pk.fused_election_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(captured, want))
+        assert all(torch.equal(a, b) for a, b in zip(args, before))
 
     def test_launches_on_the_current_stream(self, card):
         """A user stream and a captured CUDA graph both see the kernels on

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Count the ATen operations that each wave of the port's blocked solve
+dispatches, on the CPU.
+
+    python tools/wave_op_census.py [--root DIR]
+
+Solves the tight problem of `chip_smoke.py` (`allocatable_scenario(40,
+3000)`, queue sorted by creation time, chunks of 1024, rescue window 256,
+S = 3 rank blocks) with the port package found under `--root` (default:
+this checkout, so a second checkout of another commit can be counted the
+same way) on the CPU, and counts, per wave, with a `TorchDispatchMode`:
+
+- `aten`: every ATen operation the wave dispatches outside the exchange
+  kernels' wrappers;
+- `views`: those of them that only make a view (no launch on a card);
+- `launching`: the rest, each at least one kernel launch on a card;
+- `kernels`: calls of the exchange kernels' wrappers (`block_offsets`,
+  `elect_min`, `fused_election`), one launch each on a card. On the CPU a
+  wrapper runs its plain version; those operations are not counted.
+
+The wave's one device-to-host sync (`.tolist()` of its counts) is outside
+the wave and is not counted. Waves are grouped by kind, lite and rescue;
+every wave of a kind dispatches the same operations (the script checks
+this). Prints one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+KERNELS = ("block_offsets", "elect_min", "fused_election")
+
+
+def census(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    from torch.utils._python_dispatch import (
+        TorchDispatchMode,
+        _disable_current_modes,
+    )
+
+    from scheduler_plugins_tpu_torch.models import allocatable_scenario
+    from scheduler_plugins_tpu_torch.ops import assign
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        sharded_wave_solve,
+    )
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = dict.fromkeys(
+                ("aten", "views", "launching", "kernels"), 0
+            )
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.counts["aten"] += 1
+            self.counts["views" if func.is_view else "launching"] += 1
+            return func(*args, **(kwargs or {}))
+
+    active = []  # the Counter of the wave that is running
+
+    def counted_kernel(kernel):
+        def wrapper(*args):
+            active[-1].counts["kernels"] += 1
+            with _disable_current_modes():
+                return kernel(*args)
+        return wrapper
+
+    for name in KERNELS:
+        setattr(pk, name, counted_kernel(getattr(pk, name)))
+
+    waves = []
+    run_phases = assign._run_phases
+
+    def counted_run_phases(wave, *rest):
+        def counted_wave(W, choice_fn):
+            counter = Counter()
+            active.append(counter)
+            with counter:
+                out = wave(W, choice_fn)
+            active.pop()
+            waves.append((choice_fn.__name__.replace("_choice", ""),
+                          counter.counts))
+            return out
+        return run_phases(counted_wave, *rest)
+
+    assign._run_phases = counted_run_phases
+    cluster = allocatable_scenario(40, 3000)
+    pending = sorted(cluster.pending_pods(), key=lambda p: p.creation_ms)
+    snap, meta = cluster.snapshot(pending, now_ms=0, device="cpu",
+                                  pad_pods=3072)
+    sharded_wave_solve(snap, meta.index.encode({"cpu": 1 << 20, "memory": 1}),
+                       3, chunk=1024, rescue_window=256)
+    by_kind = {}
+    for kind, counts in waves:
+        by_kind.setdefault(kind, []).append(counts)
+    for kind, rows in by_kind.items():
+        if any(r != rows[0] for r in rows):
+            raise AssertionError(f"{kind} waves differ: {rows}")
+    return {
+        "root": str(root),
+        "device": "cpu",
+        "waves": {kind: dict(rows[0], n=len(rows))
+                  for kind, rows in by_kind.items()},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parent.parent,
+                    help="checkout that holds scheduler_plugins_tpu_torch/")
+    args = ap.parse_args(argv)
+    print(json.dumps(census(args.root.resolve())))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
