@@ -22,7 +22,15 @@ Phases (any failure exits non-zero and prints no result line):
    admission, quota prefix and quorum tail), plus a tight problem (40
    nodes, 3000 pods: rescue waves and hopeless pods) solved on the card and
    on the CPU with identical results;
-6. the kernel table as one JSON line (times at the shapes, dtypes and
+6. the sequential parity solve (`Scheduler.solve`, the three-plugin
+   flagship profile) on bench config 4's shape (`gang_quota_scenario(32,
+   64, 1024)`), on the `entry()` problem (`allocatable_scenario(16, 32)`)
+   and on a cluster with nominated pods: each solved on the card under
+   `torch.cuda.set_sync_debug_mode("error")` (a host sync inside the loop
+   raises) and on the CPU, with every output and final carry identical,
+   hard constraints checked on the host, and the CUDA kernels a step
+   launches counted with `torch.profiler`;
+7. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -58,6 +66,10 @@ REPLACES = {
     "fused_election": "scheduler_plugins_tpu/parallel/kernels.py:411",
 }
 NORTH_STAR = dict(n_nodes=10_240, n_pods=102_400, chunk=8192, rescue_window=256)
+#: bench config 4 (`bench.py:4505`): the three-plugin sequential solve
+CONFIG4 = dict(n_gangs=32, gang_size=64, n_nodes=1024)
+#: pods of config 4 whose steps the profiler counts (and twice as many)
+PROFILE_PODS = 64
 #: rank rows per block in the fused_election grid: the north star's
 GRID_BS = NORTH_STAR["n_nodes"] // S_BLOCKS
 
@@ -331,6 +343,219 @@ def drive(label: str, cluster, device, n_blocks: int, chunk=None,
             "wait": wt, "admitted": ad}
 
 
+def flagship_scheduler():
+    """A `Scheduler` of the flagship profile (`__graft_entry__.py:52`)."""
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.plugins import (
+        CapacityScheduling,
+        Coscheduling,
+        NodeResourcesAllocatable,
+    )
+
+    return Scheduler(Profile(plugins=[
+        NodeResourcesAllocatable(), Coscheduling(), CapacityScheduling(),
+    ]))
+
+
+def nominee_cluster(objects, cluster_cls, n_nodes: int = 12,
+                    n_pods: int = 96, seed: int = 0):
+    """A tight cluster with nominated pods inside and outside the batch,
+    built from either package's `objects` module and `Cluster` class:
+    three quota namespaces, gated (so unbatched) pods nominated to the
+    first nodes at high priority, and batch pods of mixed priority of which
+    every eighth is nominated to a node."""
+    import numpy as np
+
+    o = objects
+    gib = 1 << 30
+    rng = np.random.default_rng(seed)
+    cluster = cluster_cls()
+    for i in range(n_nodes):
+        cluster.add_node(o.Node(name=f"node-{i:04d}", allocatable={
+            "cpu": 8000 + 2000 * (i % 3), "memory": (24 + 8 * (i % 2)) * gib,
+            "pods": 12,
+        }))
+    namespaces = ["team-a", "team-b", "team-c"]
+    for k, ns in enumerate(namespaces):
+        cluster.add_quota(o.ElasticQuota(
+            name=f"eq-{ns}", namespace=ns,
+            min={"cpu": 20_000 + 8000 * k, "memory": 80 * gib},
+            max={"cpu": 36_000 + 6000 * k, "memory": 160 * gib},
+        ))
+    for j in range(4):
+        cluster.add_pod(o.Pod(
+            name=f"held-{j}", namespace=namespaces[j % 3], priority=5,
+            creation_ms=-100 + j, scheduling_gated=True,
+            nominated_node_name=f"node-{j:04d}",
+            containers=[o.Container(requests={"cpu": 3000, "memory": 6 * gib})],
+        ))
+    cpus = rng.integers(200, 3000, n_pods)
+    mems = rng.integers(1, 6, n_pods)
+    pris = rng.integers(0, 8, n_pods)
+    for i in range(n_pods):
+        cluster.add_pod(o.Pod(
+            name=f"pod-{i:04d}", namespace=namespaces[i % 3],
+            priority=int(pris[i]), creation_ms=i,
+            nominated_node_name=(f"node-{int(rng.integers(0, n_nodes)):04d}"
+                                 if i % 8 == 3 else None),
+            containers=[o.Container(requests={
+                "cpu": int(cpus[i]), "memory": int(mems[i]) * gib})],
+        ))
+    return cluster
+
+
+def parity_violations(snap, result) -> dict:
+    """Host-side checks of a parity solve's result, independent of the
+    solver: fit (`fit_violations`), no quota namespace over its Max, and
+    no gang member bound without Wait while its gang is below quorum."""
+    import numpy as np
+
+    a = result.assignment.cpu().numpy()
+    wait = result.wait.cpu().numpy()
+    placed = a >= 0
+    out = {"fit": fit_violations(snap, result.assignment), "quota": 0,
+           "gang": 0}
+    if snap.quota is not None:
+        q = snap.quota
+        ns = snap.pods.ns.cpu().numpy()
+        used = q.used.cpu().numpy().copy()
+        np.add.at(used, ns[placed], snap.pods.req.cpu().numpy()[placed])
+        over = (used > q.max.cpu().numpy()).any(axis=1)
+        out["quota"] = int((over & q.has_quota.cpu().numpy()).sum())
+    if snap.gangs is not None:
+        g = snap.pods.gang.cpu().numpy()
+        member = placed & (g >= 0)
+        count = snap.gangs.assigned.cpu().numpy().astype(np.int64)
+        np.add.at(count, g[member], 1)
+        short = count < snap.gangs.min_member.cpu().numpy()
+        out["gang"] = int((member & ~wait & short[np.maximum(g, 0)]).sum())
+    return out
+
+
+def _parity_outputs(result) -> dict:
+    outputs = {k: getattr(result, k) for k in
+               ("assignment", "admitted", "wait", "failed_plugin")}
+    for k in ("free", "eq_used", "gang_scheduled", "gang_inflight",
+              "placed_mask"):
+        outputs[k] = getattr(result.state, k)
+    return outputs
+
+
+def parity_drive(label: str, cluster, device) -> None:
+    """QueueSort, snapshot and `Scheduler.solve` of `cluster` on the card:
+    twice under sync-debug "error" (`cold_s` pays the kernels' first
+    loads, `debug_s` is warm), then once without it (`solve_s`, the time
+    reported per pod); then the same on the CPU (`cpu_s`). Every output and final carry must
+    be identical (tolerance 0) and pass `parity_violations`."""
+    import torch
+
+    t0 = time.perf_counter()
+    sched = flagship_scheduler()
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
+    sched.prepare(meta, cluster)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    runs = []
+    for mode in ("error", "error", "default"):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            result = sched.solve(snap, device=device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync(device)
+        runs.append(time.perf_counter() - t0)
+    cold_s, debug_s, solve_s = runs
+
+    cpu = torch.device("cpu")
+    sched_cpu = flagship_scheduler()
+    snap_cpu, meta_cpu = cluster.snapshot(pending, now_ms=0, device=cpu)
+    sched_cpu.prepare(meta_cpu, cluster)
+    t0 = time.perf_counter()
+    on_cpu = sched_cpu.solve(snap_cpu, device=cpu)
+    cpu_s = time.perf_counter() - t0
+
+    got, want = _parity_outputs(result), _parity_outputs(on_cpu)
+    differ = [k for k in got if (got[k] is None) != (want[k] is None) or (
+        got[k] is not None and not torch.equal(got[k].cpu(), want[k]))]
+    viol = parity_violations(snap_cpu, on_cpu)
+    P = snap.num_pods
+    placed = int((on_cpu.assignment >= 0).sum())
+    print(
+        f"[parity] {label} nodes={len(meta.node_names)} pods={len(pending)} "
+        f"rows={P} setup_s={setup_s:.3f} cold_s={cold_s:.3f} "
+        f"debug_s={debug_s:.3f} "
+        f"solve_s={solve_s:.3f} ms_per_pod={solve_s * 1e3 / P:.4f} "
+        f"pods_per_s={P / solve_s:.1f} cpu_s={cpu_s:.3f} placed={placed} "
+        f"admitted={int(on_cpu.admitted.sum())} "
+        f"wait={int(on_cpu.wait.sum())} identical={not differ} "
+        f"violations={viol}",
+        flush=True,
+    )
+    if differ:
+        raise AssertionError(f"{label}: card != CPU in {differ}")
+    if any(viol.values()):
+        raise AssertionError(f"{label}: hard-constraint violations {viol}")
+    if placed == 0:
+        raise AssertionError(f"{label}: nothing placed")
+
+
+def launches_per_step(cluster, device) -> None:
+    """CUDA kernels a parity step launches, from `torch.profiler`: the
+    solves of config 4's first PROFILE_PODS and 2 * PROFILE_PODS queued
+    pods differ by PROFILE_PODS steps (the set-up and the Permit tail are
+    the same work), so their kernel counts differ by PROFILE_PODS steps'
+    launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sched = flagship_scheduler()
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    counts = {}
+    for n in (PROFILE_PODS, 2 * PROFILE_PODS):
+        snap, meta = cluster.snapshot(pending[:n], now_ms=0, device=device,
+                                      pad_pods=n)
+        sched.prepare(meta, cluster)
+        sched.solve(snap, device=device)  # warm
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sched.solve(snap, device=device)
+            _sync(device)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        counts[n] = (
+            len(kernels),
+            sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel",
+                                                       "cuLaunchKernel")),
+            sum(e.time_range.elapsed_us() for e in kernels),
+        )
+    (k1, l1, us1), (k2, l2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
+    print(
+        f"[parity] launches_per_step device_events={(k2 - k1) / PROFILE_PODS}"
+        f" launch_calls={(l2 - l1) / PROFILE_PODS} "
+        f"device_us_per_step={(us2 - us1) / PROFILE_PODS} (device events "
+        f"{k1} / {k2}, launch calls {l1} / {l2}, device us {us1} / {us2} "
+        f"for {PROFILE_PODS} / {2 * PROFILE_PODS} pods of config 4)",
+        flush=True,
+    )
+    # where the host's time goes: self CPU time by op in the longer run,
+    # per pod (the profiler's own cost included)
+    ops = prof.key_averages()
+    n = 2 * PROFILE_PODS
+    top = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
+    print(
+        f"[parity] host_us_per_step="
+        f"{sum(a.self_cpu_time_total for a in ops) / n} top ops (calls, "
+        f"self CPU us per step): " + ", ".join(
+            f"{a.key} {a.count / n:.2f} {a.self_cpu_time_total / n:.2f}"
+            for a in top),
+        flush=True,
+    )
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -425,7 +650,17 @@ def main() -> int:
         if not torch.equal(on_card[key].cpu(), on_cpu[key]):
             raise AssertionError(f"tight problem: card != CPU ({key})")
 
-    # 6. the kernel table, the card, the result
+    # 6. the sequential parity solve, card against CPU
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    config4 = gang_quota_scenario(**CONFIG4)
+    parity_drive("parity_config4", config4, device)
+    parity_drive("parity_entry", allocatable_scenario(16, 32), device)
+    parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
+    launches_per_step(config4, device)
+
+    # 7. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

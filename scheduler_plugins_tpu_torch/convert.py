@@ -1,11 +1,16 @@
-"""Carry a JAX-package snapshot across to the port.
+"""Carry JAX-package solver inputs across to the port.
 
 `snapshot_from_numpy(tree, device)` takes the JAX `ClusterSnapshot` as a
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
-{...}, "gangs": {...} or None, "quota": {...} or None}` — and returns the
-port's `ClusterSnapshot` on `device`, so both packages can solve the very
-same tensors. Fields the port's slice does not carry are ignored; a field
-the port needs and the tree lacks raises `KeyError`.
+{...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
+or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+packages can solve the very same tensors. Fields the port's slice does not
+carry are ignored; a field the port needs and the tree lacks raises
+`KeyError`; an absent table is None.
+
+`state_from_numpy(tree, device)` does the same for a JAX `SolverState`
+(`Scheduler.initial_state`) given as a dict of numpy arrays or None, so
+both solves can start from the very same carry.
 """
 
 from __future__ import annotations
@@ -13,12 +18,15 @@ from __future__ import annotations
 from dataclasses import fields
 
 import numpy as np
+import torch
 
 from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.framework.plugin import SolverState
 from scheduler_plugins_tpu_torch.state.snapshot import (
     ClusterSnapshot,
     GangState,
     NodeState,
+    NomineeState,
     PodState,
     QuotaState,
 )
@@ -28,6 +36,7 @@ _TABLES = {
     "pods": PodState,
     "gangs": GangState,
     "quota": QuotaState,
+    "nominees": NomineeState,
 }
 
 
@@ -43,3 +52,11 @@ def snapshot_from_numpy(tree: dict, device=None) -> ClusterSnapshot:
             f.name: np.asarray(table[f.name]) for f in fields(cls)
         })
     return ClusterSnapshot(**parts).to(device)
+
+
+def state_from_numpy(tree: dict, device=None) -> SolverState:
+    device = resolve_device(device)
+    return SolverState(**{
+        f.name: torch.tensor(np.asarray(tree[f.name]), device=device)
+        for f in fields(SolverState) if tree.get(f.name) is not None
+    })

@@ -1,0 +1,139 @@
+"""Plugin trait layer (port of `scheduler_plugins_tpu.framework.plugin`).
+
+The reference's extension points see one (pod, nodeInfo) pair at a time.
+Here each is a tensor transformation over the node axis for one pod of
+the batch, evaluated by the sequential solve (`framework.runtime`):
+
+- `admit`       PreFilter verdict for pod `p`: a (1,) bool tensor.
+- `filter`      (N,) node feasibility for pod `p`.
+- `score`       (N,) raw int64 node scores for pod `p`.
+- `normalize`   per-pod transform of the raw scores over feasible nodes.
+- `commit`      Reserve: fold the chosen placement into the SolverState
+                carried from pod to pod.
+- `queue_key`   host-side QueueSort key for a Pod object (lower first).
+
+The tensor methods issue device work only: no host read of a tensor, so
+the solve's loop over the pods never waits for the card. `prepare(meta)`
+runs once per snapshot layout and keeps the plugin's tensors (weight
+vectors) on the snapshot's device; `prepare_solve(snap)` runs once per
+solve, before the loop, and hoists pod-invariant work out of it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from scheduler_plugins_tpu_torch.api import events as ev
+
+
+@dataclass
+class SolverState:
+    """State carried from pod to pod through the sequential solve. The
+    fields of the ported profile; the JAX state's NUMA, network and
+    selector carries come with their plugins.
+
+    `free` mirrors NodeInfo leftover capacity, `eq_used` the
+    ElasticQuotaInfos usage map, `gang_scheduled` the members placed in
+    this cycle per gang."""
+
+    free: torch.Tensor  # (N, R) int64
+    eq_used: Optional[torch.Tensor] = None  # (Q, R) int64
+    gang_scheduled: Optional[torch.Tensor] = None  # (G,) int32
+    #: (G, R) demand placed by each gang earlier in this solve, added back
+    #: in the MinResources cluster check (core.go:433-467)
+    gang_inflight: Optional[torch.Tensor] = None
+    #: (P,) which batch pods have placed so far: a nominee stops holding
+    #: capacity, and leaves the quota aggregates, once it places
+    placed_mask: Optional[torch.Tensor] = None
+
+    def replace(self, **changes) -> "SolverState":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "SolverState":
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
+        })
+
+
+#: cluster events that can free capacity for the framework's built-in
+#: resource-fit Filter (upstream NodeResourcesFit EventsToRegister)
+BUILTIN_EVENTS = (ev.NODE_ADD, ev.NODE_UPDATE, ev.POD_DELETE)
+
+
+class Plugin:
+    """Base plugin: every method is optional; `None` means "not implemented
+    at this extension point" and costs nothing in the solve."""
+
+    name: str = "Plugin"
+    #: score weight: the framework multiplies normalized scores by it
+    #: (upstream plugin weights in the profile config)
+    weight: int = 1
+    _presolve = None
+
+    def prepare(self, meta) -> None:
+        """Build per-snapshot-layout tensors (resource weights) on
+        `meta.device`."""
+
+    def aux(self):
+        """The tensors `prepare` built, or None. The JAX package traces
+        them into its jitted solve as arguments; eager PyTorch reads them
+        from the plugin."""
+        return None
+
+    def prepare_solve(self, snap):
+        """Called once per solve, BEFORE the per-pod loop: derive
+        loop-invariant tensors from the snapshot so they are computed once.
+        Return them (read back via `self._presolve`) or None."""
+        return None
+
+    def bind_presolve(self, ctx) -> None:
+        """Called by the solve with this plugin's `prepare_solve` result."""
+        self._presolve = ctx
+
+    def events_to_register(self) -> tuple:
+        """EnqueueExtensions: cluster-event kinds that may make a pod THIS
+        plugin failed schedulable again. Score-only plugins register
+        nothing (upstream EventsToRegister)."""
+        return ()
+
+    def queue_key(self, pod, cluster):
+        """QueueSort key component for `pod`; tuples compare
+        lexicographically."""
+        return None
+
+    # --- tensor extension points ------------------------------------------
+    def admit(self, state: SolverState, snap, p: int):
+        """PreFilter: (1,) bool verdict for pod index `p`."""
+        return None
+
+    def filter(self, state: SolverState, snap, p: int):
+        """Filter: (N,) bool feasibility for pod `p` against `state`."""
+        return None
+
+    def score(self, state: SolverState, snap, p: int):
+        """Score: (N,) int64 raw scores for pod `p`."""
+        return None
+
+    def static_node_scores(self, snap):
+        """(N,) raw scores when this plugin's `score` is POD-INVARIANT
+        against the cycle-initial state, else None. Only implement it when
+        `normalize` is monotone non-decreasing in the raw score and the
+        weight is positive, so the raw ordering is the normalized-weighted
+        ordering (the batched solvers rank by it)."""
+        return None
+
+    def normalize(self, scores, feasible):
+        """NormalizeScore: transform (N,) raw scores over the feasible
+        mask."""
+        return scores
+
+    def commit(self, state: SolverState, snap, p: int, choice):
+        """Reserve: fold `choice` ((1,) node index, -1 = unplaced) into the
+        carried state; returns the new state."""
+        return state

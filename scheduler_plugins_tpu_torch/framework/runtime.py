@@ -1,0 +1,376 @@
+"""The sequential parity solve (port of `scheduler_plugins_tpu.framework.runtime`).
+
+Reference dataflow per pending pod (SURVEY.md §1): QueueSort -> PreFilter
+-> Filter(x nodes) -> Score(x nodes) -> Normalize -> Reserve -> Permit.
+`Scheduler.solve` runs the pending batch as a Python loop over the pods
+whose body evaluates every enabled plugin for one pod against the carried
+`SolverState` (free capacity, quota usage, gang counts) and commits the
+chosen node before the next pod: the reference's one-pod-at-a-time
+semantics, each step vectorized over the nodes. The JAX package runs the
+same body as a `lax.scan`; the two agree bit for bit.
+
+Each step issues device work only. Every per-pod value (verdicts, the
+chosen node, attribution codes) stays a tensor combined with
+`torch.where`, and a pod's codes are read through one-element slices, so
+the loop never reads a tensor on the host and never waits for the card.
+
+Permit is evaluated after the loop as a reduction over gangs (quorum =
+assigned before + scheduled this cycle >= MinMember, upstream
+core.go:308-345).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
+from scheduler_plugins_tpu_torch.ops.fit import (
+    fits_one,
+    free_capacity,
+    pod_fit_demand,
+)
+
+#: attribution name for failures owned by the framework, not a profile
+#: plugin: scheduling gates and resource-fit exhaustion (the upstream
+#: built-in fit plugin name)
+BUILTIN_FIT = "NodeResourcesFit"
+
+#: the score every infeasible node gets before the argmax
+MASKED_SCORE = -(2 ** 62)
+
+
+@dataclass
+class SolveResult:
+    assignment: torch.Tensor  # (P,) int32 node index, -1 unschedulable
+    admitted: torch.Tensor  # (P,) bool PreFilter verdict
+    wait: torch.Tensor  # (P,) bool Permit said Wait (gang quorum unmet)
+    state: SolverState  # final carried state
+    #: (P,) int32 unschedulability attribution, the upstream
+    #: `UnschedulablePlugins` signal per pod: -1 = placed; 0 = built-in
+    #: (gated, or resource fit exhausted against the carried free
+    #: capacity); 1+i = profile plugin i (its PreFilter rejected the pod,
+    #: or its Filter first emptied the remaining feasible node set in
+    #: profile order). Decoded by `Scheduler.fail_plugin_names`.
+    failed_plugin: Optional[torch.Tensor] = None
+
+
+def solve_output_anomaly(assignment, admitted, wait, n_nodes: int):
+    """Reason string when solve outputs violate the framework contract,
+    else None: integer (P,) assignment in [-1, n_nodes), admitted and wait
+    of the same shape, no NaNs. Reads the outputs on the host."""
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    a = host(assignment)
+    if a.ndim != 1 or not np.issubdtype(a.dtype, np.integer):
+        return f"assignment dtype/rank {a.dtype}/{a.ndim}"
+    if a.size and (int(a.min()) < -1 or int(a.max()) >= n_nodes):
+        return (
+            f"assignment out of range [{int(a.min())}, {int(a.max())}] "
+            f"vs {n_nodes} nodes"
+        )
+    for name, arr in (("admitted", admitted), ("wait", wait)):
+        x = host(arr)
+        if x.shape != a.shape:
+            return f"{name} shape {x.shape} != assignment {a.shape}"
+        if np.issubdtype(x.dtype, np.floating) and np.isnan(x).any():
+            return f"NaN in {name}"
+    return None
+
+
+def _admit_with_attribution(plugins, state, snap, p, ok0):
+    """PreFilter sweep with attribution: (ok, admit_code), both (1,), where
+    `admit_code` is the FIRST plugin (profile order) whose verdict flipped
+    the pod inadmissible, -1 when none did."""
+    ok = ok0
+    admit_code = torch.full_like(ok0, -1, dtype=torch.int32)
+    for i, plugin in enumerate(plugins):
+        verdict = plugin.admit(state, snap, p)
+        if verdict is not None:
+            admit_code = torch.where(
+                (admit_code < 0) & ok & ~verdict, i, admit_code
+            )
+            ok = ok & verdict
+    return ok, admit_code
+
+
+def _filter_with_attribution(plugins, state, snap, p, fit0):
+    """Filter chain with attribution: (feasible (N,), filter_code (1,)),
+    where `filter_code` is the first plugin whose Filter emptied the
+    still-feasible node set, -1 when none did."""
+    feasible = fit0
+    alive = fit0.any(dim=0, keepdim=True)
+    filter_code = torch.full_like(alive, -1, dtype=torch.int32)
+    for i, plugin in enumerate(plugins):
+        mask = plugin.filter(state, snap, p)
+        if mask is not None:
+            feasible = feasible & mask
+            now_alive = feasible.any(dim=0, keepdim=True)
+            filter_code = torch.where(
+                (filter_code < 0) & alive & ~now_alive, i, filter_code
+            )
+            alive = now_alive
+    return feasible, filter_code
+
+
+def _free_with_nominee_holds(state, snap, p):
+    """Effective free capacity pod `p`'s built-in fit sees: nominated
+    pods' demand holds capacity against lower-or-equal-priority pods
+    (upstream AddNominatedPods; the pod's own batch row excluded, and a
+    batch nominee stops holding once placed). Int64 `index_add`, exact in
+    any order."""
+    nm = snap.nominees
+    if nm is None:
+        return state.free
+    live = (
+        nm.mask
+        & (nm.priority >= snap.pods.priority[p])
+        & (nm.batch_idx != p)
+    )
+    if state.placed_mask is not None:
+        placed_in_batch = (nm.batch_idx >= 0) & state.placed_mask[
+            torch.clamp(nm.batch_idx, min=0).long()
+        ]
+        live = live & ~placed_in_batch
+    hold = torch.zeros_like(state.free).index_add_(
+        0, torch.clamp(nm.node, min=0).long(),
+        torch.where(live[:, None], nm.demand, 0),
+    )
+    return state.free - hold
+
+
+def _encode_fail(ok0, admit_code, fit0_any, filter_code, fallback: int):
+    """Merge the stage attributions into one int32 code (see
+    `SolveResult.failed_plugin`): PreFilter rejections name their plugin
+    first (upstream runs PreFilter before the node sweep), then built-in
+    fit, then the first Filter plugin that emptied the feasible set, then
+    `fallback` (0 = built-in for the sequential solve, where reaching it
+    means in-cycle capacity exhaustion)."""
+    code = torch.where(filter_code >= 0, filter_code + 1, fallback)
+    code = torch.where(fit0_any, code, 0)
+    code = torch.where(admit_code >= 0, admit_code + 1, code)
+    return torch.where(ok0, code, 0).to(torch.int32)
+
+
+@dataclass
+class _Hoisted:
+    """Pod-invariant tensors of one solve, computed before the loop."""
+
+    ok0: torch.Tensor  # (P,) bool: a real, ungated pod
+    node_index: torch.Tensor  # (N,) int64 arange
+
+
+def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
+    """One pod of the sequential solve: PreFilter -> built-in fit (nominee
+    holds) -> Filter chain -> Score/Normalize weighted sum -> argmax with
+    the lowest-index tie-break -> Reserve commits. Returns (state, (choice,
+    ok, fail_code)), each output (1,)."""
+    # PreFilter, with per-plugin attribution
+    ok0 = hoisted.ok0[p:p + 1]
+    ok, admit_code = _admit_with_attribution(plugins, state, snap, p, ok0)
+    # Filter: built-in resource fit (nominee capacity holds included) +
+    # the plugin filters, exact against the CARRIED state
+    req = snap.pods.req[p]
+    free_eff = _free_with_nominee_holds(state, snap, p)
+    fit0 = fits_one(req, free_eff, snap.nodes.mask)
+    feasible, filter_code = _filter_with_attribution(
+        plugins, state, snap, p, fit0
+    )
+    feasible = feasible & ok
+    # Score + Normalize, weighted sum
+    total = None
+    for plugin in plugins:
+        raw = plugin.score(state, snap, p)
+        if raw is not None:
+            col = plugin.weight * plugin.normalize(raw, feasible)
+            total = col if total is None else total + col
+    if total is None:
+        total = torch.zeros_like(state.free[:, 0])
+    # select: the highest score among feasible nodes, lowest index on a
+    # tie (the JAX step's `argmax`), made explicit
+    masked = torch.where(feasible, total, MASKED_SCORE)
+    best = masked.amax(dim=0, keepdim=True)
+    N = hoisted.node_index.shape[0]
+    first = torch.where(masked == best, hoisted.node_index, N).amin(
+        dim=0, keepdim=True
+    )
+    choice = torch.where(
+        feasible.any(dim=0, keepdim=True), first, -1
+    ).to(torch.int32)
+    # built-in Reserve: commit capacity
+    placed = choice >= 0
+    demand = torch.where(placed[:, None], pod_fit_demand(req)[None, :], 0)
+    state = state.replace(free=torch.index_add(
+        state.free, 0, torch.clamp(choice, min=0).long(), -demand
+    ))
+    if state.placed_mask is not None:
+        state = state.replace(placed_mask=torch.slice_scatter(
+            state.placed_mask, placed, start=p, end=p + 1
+        ))
+    for plugin in plugins:
+        state = plugin.commit(state, snap, p, choice)
+    # attribution; fallback 0: a failed pod that no stage rejected lost
+    # to in-cycle capacity consumption -> built-in fit
+    fail_code = torch.where(
+        placed, -1,
+        _encode_fail(ok0, admit_code, fit0.any(dim=0, keepdim=True),
+                     filter_code, 0),
+    ).to(torch.int32)
+    return state, (choice, ok, fail_code)
+
+
+def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
+    """The sequential parity solve over one snapshot: hoist presolves, run
+    `_solve_step` pod by pod, reduce gang quorum. No host reads."""
+    for plugin in plugins:
+        plugin.bind_presolve(plugin.prepare_solve(snap))
+    hoisted = _Hoisted(
+        ok0=snap.pods.mask & ~snap.pods.gated,
+        node_index=torch.arange(snap.num_nodes, device=snap.device),
+    )
+    state = state0
+    choices, oks, fails = [], [], []
+    for p in range(snap.num_pods):
+        state, (choice, ok, fail) = _solve_step(plugins, state, p, snap,
+                                                hoisted)
+        choices.append(choice)
+        oks.append(ok)
+        fails.append(fail)
+    assignment = torch.cat(choices)
+    admitted = torch.cat(oks)
+    failed_plugin = torch.cat(fails)
+    wait = torch.zeros_like(admitted)
+    if snap.gangs is not None and state.gang_scheduled is not None:
+        # Permit quorum: previously assigned + this cycle's placements
+        quorum = (snap.gangs.assigned + state.gang_scheduled
+                  >= snap.gangs.min_member)
+        gang = snap.pods.gang.long()
+        pod_quorum = torch.where(
+            gang >= 0, quorum[torch.clamp(gang, min=0)], True
+        )
+        wait = (assignment >= 0) & ~pod_quorum
+    return SolveResult(
+        assignment=assignment, admitted=admitted, wait=wait, state=state,
+        failed_plugin=failed_plugin,
+    )
+
+
+#: the solve modes a profile may select; the packing optimizer
+#: (`ops/packing.py`) comes with the packing slice
+SOLVE_MODES = ("sequential",)
+
+
+@dataclass
+class Profile:
+    """An enabled-plugin set: one KubeSchedulerConfiguration profile."""
+
+    plugins: Sequence[Plugin] = field(default_factory=list)
+    #: queue-sort plugin; None selects the first enabled plugin that
+    #: overrides `queue_key` (a profile enables exactly one QueueSort
+    #: upstream), falling back to upstream PrioritySort semantics
+    queue_sort: Optional[Plugin] = None
+    name: str = "tpu-scheduler"
+    #: which solve serves this profile's cycles (`SOLVE_MODES`)
+    solve_mode: str = "sequential"
+
+    def __post_init__(self):
+        if self.solve_mode not in SOLVE_MODES:
+            raise ValueError(
+                f"solve mode {self.solve_mode!r} is not ported yet: the "
+                f"port has {SOLVE_MODES}; 'packing' comes with the packing "
+                f"slice (ops/packing.py)"
+            )
+        if self.queue_sort is None:
+            for plugin in self.plugins:
+                if type(plugin).queue_key is not Plugin.queue_key or hasattr(
+                    plugin, "queue_compare"
+                ):
+                    self.queue_sort = plugin
+                    break
+
+
+class Scheduler:
+    """Host shell around the solve. Owns nothing but the profile; cluster
+    state comes in as a snapshot and decisions go back to the caller."""
+
+    def __init__(self, profile: Profile):
+        self.profile = profile
+
+    def sort_pending(self, pods, cluster=None):
+        """QueueSort: order the pending list with the profile's comparator
+        (default: upstream PrioritySort — priority desc, then queue time).
+        Plugins exposing a pairwise `queue_compare` are used via
+        cmp_to_key, preserving exact Less() semantics."""
+        qs = self.profile.queue_sort
+        if qs is not None and hasattr(qs, "queue_compare"):
+            return sorted(pods, key=functools.cmp_to_key(
+                lambda a, b: qs.queue_compare(a, b, cluster)
+            ))
+
+        def key(pod):
+            if qs is not None:
+                k = qs.queue_key(pod, cluster)
+                if k is not None:
+                    return k
+            return (-pod.priority, pod.creation_ms,
+                    f"{pod.namespace}/{pod.name}")
+
+        return sorted(pods, key=key)
+
+    def prepare(self, meta, cluster=None):
+        """Bake each plugin's per-layout tensors onto `meta.device`.
+        `cluster` keeps the JAX call's shape: no ported plugin reads host
+        state at prepare time (the JAX `prepare_cluster` hook comes with
+        the plugins that have one)."""
+        for plugin in self.profile.plugins:
+            plugin.prepare(meta)
+
+    def initial_state(self, snap) -> SolverState:
+        gang_sched = gang_inflight = None
+        if snap.gangs is not None:
+            G = snap.gangs.min_member.shape[0]
+            gang_sched = torch.zeros(G, dtype=torch.int32, device=snap.device)
+            gang_inflight = torch.zeros(
+                (G, snap.num_resources), dtype=torch.int64, device=snap.device
+            )
+        placed_mask = None
+        if snap.quota is not None or snap.nominees is not None:
+            placed_mask = torch.zeros(
+                snap.num_pods, dtype=torch.bool, device=snap.device
+            )
+        return SolverState(
+            free=free_capacity(snap.nodes.alloc, snap.nodes.requested),
+            eq_used=snap.quota.used if snap.quota is not None else None,
+            gang_scheduled=gang_sched,
+            gang_inflight=gang_inflight,
+            placed_mask=placed_mask,
+        )
+
+    def solve(self, snap, state0: Optional[SolverState] = None,
+              device=None) -> SolveResult:
+        """Run the profile's plugins over the snapshot's pending batch on
+        `device` (None = the CUDA card; the snapshot and `state0` move
+        there if they live elsewhere). Returns device tensors; nothing is
+        read on the host. Neither `snap` nor `state0` is modified."""
+        device = resolve_device(device)
+        if snap.device != device:
+            snap = snap.to(device)
+        if state0 is None:
+            state0 = self.initial_state(snap)
+        elif state0.free.device != device:
+            state0 = state0.to(device)
+        return sequential_solve_body(tuple(self.profile.plugins), snap,
+                                     state0)
+
+    def fail_plugin_names(self) -> list:
+        """Decoder for `SolveResult.failed_plugin`: code 0 (and any
+        negative code on a failed pod) -> the built-in fit, code 1+i ->
+        profile plugin i."""
+        return [BUILTIN_FIT] + [p.name for p in self.profile.plugins]

@@ -14,7 +14,30 @@ def free_capacity(alloc: torch.Tensor, requested: torch.Tensor) -> torch.Tensor:
 
 
 def pod_fit_demand(req: torch.Tensor) -> torch.Tensor:
-    """The effective request with the pod-count slot set to 1."""
+    """The effective request with the pod-count slot set to 1 (a fill on
+    the device: item assignment of a Python number would copy it from the
+    host and wait for the card)."""
     demand = req.clone()
-    demand[..., PODS_I] = 1
+    demand[..., PODS_I].fill_(1)
     return demand
+
+
+def fits(req, free, pod_mask=None, node_mask=None) -> torch.Tensor:
+    """(P, R) requests vs (N, R) free capacity -> (P, N) feasibility.
+    `free` must already account for assigned pods (alloc - requested)."""
+    demand = pod_fit_demand(req)
+    ok = torch.all(demand[:, None, :] <= free[None, :, :], dim=-1)
+    if pod_mask is not None:
+        ok &= pod_mask[:, None]
+    if node_mask is not None:
+        ok &= node_mask[None, :]
+    return ok
+
+
+def fits_one(req, free, node_mask=None) -> torch.Tensor:
+    """(R,) single-pod request vs (N, R) free -> (N,) feasibility (the
+    sequential step's built-in Filter)."""
+    ok = torch.all(pod_fit_demand(req)[None, :] <= free, dim=-1)
+    if node_mask is not None:
+        ok = ok & node_mask
+    return ok

@@ -14,9 +14,10 @@ import torch
 
 def quota_admit(eq_used, eq_min, eq_max, has_quota, ns, req,
                 nominated_in_eq=None, nominated_total=None):
-    """Admission verdicts for pods with namespace codes `ns` (B,) and
-    requests `req` (B, R); the JAX package vmaps a scalar version over the
-    pods. Pods in namespaces without a quota pass."""
+    """Admission verdicts for pods with namespace codes `ns` (any shape,
+    0-d for one pod) and requests `req` (ns's shape + (R,)); the JAX package
+    vmaps a scalar version over the pods. Pods in namespaces without a
+    quota pass."""
     ns = ns.long()
     in_eq = req if nominated_in_eq is None else req + nominated_in_eq
     total = req if nominated_total is None else req + nominated_total
@@ -25,6 +26,17 @@ def quota_admit(eq_used, eq_min, eq_max, has_quota, ns, req,
     agg_min = torch.where(has_quota[:, None], eq_min, 0).sum(dim=0)
     over_min = torch.any(agg_used + total > agg_min, dim=-1)
     return torch.where(has_quota[ns], ~(over_max | over_min), True)
+
+
+def quota_commit(eq_used, has_quota, ns, req, placed):
+    """Reserve: add `req` to each placed pod's namespace usage when the
+    namespace has a quota (capacity_scheduling.go:350-368). `ns` and
+    `placed` of one shape, `req` that shape + (R,); returns a new tensor."""
+    ns = ns.long()
+    add = torch.where((placed & has_quota[ns])[..., None], req, 0)
+    return torch.index_add(
+        eq_used, 0, ns.reshape(-1), add.reshape(-1, eq_used.shape[1])
+    )
 
 
 def nominee_contribution(same_namespace: bool, nominee_priority: int,

@@ -8,6 +8,7 @@ mirror and permit bookkeeping wait for later slices.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
@@ -32,6 +33,9 @@ class Cluster:
     )
     #: gang name -> wall-clock ms until which the gang stays backed off
     gang_backoff_until_ms: dict[str, int] = field(default_factory=dict)
+    #: gang name -> wall-clock ms of its last scheduling failure: the
+    #: gang's queue-sort time once set
+    gang_last_failure_ms: dict[str, int] = field(default_factory=dict)
 
     def add_node(self, node: Node):
         self.nodes[node.name] = node
@@ -44,6 +48,18 @@ class Cluster:
 
     def add_quota(self, eq: ElasticQuota):
         self.quotas[eq.namespace] = eq
+
+    def pod_group_of(self, pod: Pod) -> Optional[PodGroup]:
+        name = pod.pod_group()
+        if not name:
+            return None
+        return self.pod_groups.get(f"{pod.namespace}/{name}")
+
+    def gang_sort_time(self, pg: PodGroup) -> int:
+        """Queue-sort timestamp for a gang: last schedule-failure time when
+        set (defeats head-of-line blocking, core.go:365-384), else
+        creation."""
+        return self.gang_last_failure_ms.get(pg.full_name, pg.creation_ms)
 
     def _pending_eligible(self, pod: Pod) -> bool:
         return (

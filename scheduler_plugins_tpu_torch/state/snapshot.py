@@ -9,6 +9,8 @@ int64 tensors with bucketed static shapes:
 - gangs: (G,) PodGroup member counts, (G, R) MinResources.
 - quota: (Q, R) ElasticQuota min/max/used by namespace code, plus the
          nominated-pod tables.
+- nominees: (M,) unbound pods nominated to a node, whose demand holds
+         that node's capacity in the sequential solve.
 
 This slice lowers what the flagship step reads; the JAX snapshot's NUMA,
 network, metrics and syscall tables wait for later slices, and node/pod
@@ -125,11 +127,27 @@ class QuotaState(_Tensors):
 
 
 @dataclass
+class NomineeState(_Tensors):
+    """Unbound pods nominated to a node after preemption: their demand
+    HOLDS node capacity against lower-or-equal-priority pods in the
+    sequential solve (the upstream nominator's AddNominatedPods). A
+    nominee inside the pending batch stops holding once it places
+    (`SolverState.placed_mask`)."""
+
+    node: torch.Tensor  # (M,) int32 nominated node index
+    demand: torch.Tensor  # (M, R) int64 fit demand (pods slot = 1)
+    priority: torch.Tensor  # (M,) int64
+    batch_idx: torch.Tensor  # (M,) int32 index in the pending batch, -1 outside
+    mask: torch.Tensor  # (M,) bool
+
+
+@dataclass
 class ClusterSnapshot(_Tensors):
     nodes: NodeState
     pods: PodState
     gangs: Optional[GangState] = None
     quota: Optional[QuotaState] = None
+    nominees: Optional[NomineeState] = None
 
     @property
     def num_nodes(self) -> int:
@@ -157,6 +175,8 @@ class SnapshotMeta:
     pod_names: list[str] = field(default_factory=list)
     namespaces: list[str] = field(default_factory=list)
     gang_names: list[str] = field(default_factory=list)
+    #: where the snapshot's tensors live; plugins put theirs there too
+    device: torch.device = torch.device("cpu")
 
 
 class _Interner:
@@ -212,7 +232,7 @@ def build_snapshot(
     P = pad_pods or bucket_size(max(len(pending_pods), 1))
     pods_i = index.position(PODS)
 
-    meta = SnapshotMeta(index=index)
+    meta = SnapshotMeta(index=index, device=device)
     meta.node_names = [n.name for n in nodes]
     meta.pod_names = [p.uid for p in pending_pods]
     ns_in = _Interner(meta.namespaces)
@@ -238,6 +258,17 @@ def build_snapshot(
         pod_count[i] += 1
     # the "pods" resource is accounted as a count, not a request sum
     requested[:, pods_i] = pod_count
+
+    # nominee capacity holds: every unbound pod nominated to a known node,
+    # wherever it lives (upstream's nominator keeps a popped pod's own
+    # nomination until assume, so the batch is included)
+    nominee_pods = []
+    seen_nominated = set()
+    for pod in list(pending_pods) + list(assigned_pods) + list(extra_pods):
+        if (pod.node_name is None and pod.nominated_node_name in node_pos
+                and pod.uid not in seen_nominated):
+            seen_nominated.add(pod.uid)
+            nominee_pods.append(pod)
     node_state = NodeState(
         alloc=alloc, capacity=capacity, requested=requested,
         mask=node_mask, pod_count=pod_count,
@@ -373,8 +404,27 @@ def build_snapshot(
             nom_total_mask=nom_total, nom_batch_idx=nom_batch_idx,
         )
 
+    nominee_state = None
+    if nominee_pods:
+        M = len(nominee_pods)
+        batch_pos_nom = {p.uid: i for i, p in enumerate(pending_pods)}
+        nom_node = np.zeros(M, I32)
+        nom_demand = np.zeros((M, R), I64)
+        nom_pri = np.zeros(M, I64)
+        nom_batch = np.full(M, -1, I32)
+        for j, p in enumerate(nominee_pods):
+            nom_node[j] = node_pos[p.nominated_node_name]
+            nom_demand[j] = index.encode(requests[p.uid])
+            nom_demand[j, pods_i] = 1
+            nom_pri[j] = p.priority
+            nom_batch[j] = batch_pos_nom.get(p.uid, -1)
+        nominee_state = NomineeState(
+            node=nom_node, demand=nom_demand, priority=nom_pri,
+            batch_idx=nom_batch, mask=np.ones(M, bool),
+        )
+
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
-        quota=quota_state,
+        quota=quota_state, nominees=nominee_state,
     )
     return snapshot.to(device), meta

@@ -14,6 +14,59 @@ def go_div(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def floordiv_exact(a, b) -> torch.Tensor:
+    """Exact floor(a/b) in floating point for integer-valued inputs, b > 0.
+
+    Runs in `a`'s dtype when it is floating (callers guarantee the values
+    and intermediate products are exactly representable there), else
+    float64: a correctly-rounded division, then a one-step correction,
+    since the float quotient can land one off across an integer boundary
+    (the remainder check is exact at these magnitudes). For non-negative
+    `a` this equals Go's truncating division."""
+    a = torch.as_tensor(a)
+    dt = a.dtype if a.is_floating_point() else torch.float64
+    af = a.to(dt)
+    bf = torch.as_tensor(b, device=a.device).to(dt)
+    q = torch.floor(af / bf)
+    r = af - q * bf  # exact: |r| < 2b
+    q = torch.where(r < 0, q - 1.0, q)
+    return torch.where(r >= bf, q + 1.0, q)
+
+
+def round_half_away(x) -> torch.Tensor:
+    """Go `math.Round`: round half away from zero, as int64 (exact for
+    |x| < 2^53). `torch.round` rounds half to even. The fractional part is
+    compared exactly against 0.5 (`x - floor(x)` is exact), never through
+    the `floor(x + 0.5)` idiom, whose addition itself rounds."""
+    x = torch.as_tensor(x)
+    f = torch.floor(x)
+    pos = torch.where(x - f >= 0.5, f + 1, f)
+    c = torch.ceil(x)
+    neg = torch.where(c - x >= 0.5, c - 1, c)
+    return torch.where(x >= 0, pos, neg).to(torch.int64)
+
+
+def _dtype_bounds(dtype):
+    info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
+    return info.min, info.max
+
+
+def masked_min(scores: torch.Tensor, mask, dim: int = -1,
+               keepdim: bool = False) -> torch.Tensor:
+    """Min over `mask`-selected entries; the dtype's max where the mask is
+    empty (the reference's `lowest := math.MaxInt64` loop start)."""
+    _, sentinel = _dtype_bounds(scores.dtype)
+    return torch.where(mask, scores, sentinel).amin(dim=dim, keepdim=keepdim)
+
+
+def masked_max(scores: torch.Tensor, mask, dim: int = -1,
+               keepdim: bool = False) -> torch.Tensor:
+    """Max over `mask`-selected entries; the dtype's min where the mask is
+    empty."""
+    sentinel, _ = _dtype_bounds(scores.dtype)
+    return torch.where(mask, scores, sentinel).amax(dim=dim, keepdim=keepdim)
+
+
 def bucket_size(n: int, minimum: int = 8) -> int:
     """Static-shape padding bucket: powers of two up to 1024, then
     multiples of 1024 — the JAX package's rule, kept so both packages pad

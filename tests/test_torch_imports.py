@@ -14,7 +14,10 @@ import pytest
 import torch
 
 import chip_smoke
-from scheduler_plugins_tpu_torch.convert import snapshot_from_numpy
+from scheduler_plugins_tpu_torch.convert import (
+    snapshot_from_numpy,
+    state_from_numpy,
+)
 from scheduler_plugins_tpu_torch.models import allocatable_scenario
 from scheduler_plugins_tpu_torch.state import build_snapshot
 
@@ -27,7 +30,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     __import__(name)
 import chip_smoke
-assert len(names) >= 20, names
+assert len(names) >= 30, names
+assert {"scheduler_plugins_tpu_torch.framework.runtime",
+        "scheduler_plugins_tpu_torch.plugins.coscheduling",
+        "scheduler_plugins_tpu_torch.ops.normalize"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -76,6 +82,22 @@ class TestDeviceDefault:
             snapshot_from_numpy(tree)
         carried = snapshot_from_numpy(tree, device="cpu")
         assert np.array_equal(carried.nodes.alloc.numpy(), tree["nodes"]["alloc"])
+
+    def test_solve_raises(self, no_cuda):
+        cluster = allocatable_scenario(4, 8)
+        sched = chip_smoke.flagship_scheduler()
+        snap, meta = cluster.snapshot(cluster.pending_pods(), device="cpu")
+        sched.prepare(meta, cluster)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            sched.solve(snap)
+        state = sched.initial_state(snap)
+        tree = {"free": state.free.numpy()}
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            state_from_numpy(tree)
+        result = sched.solve(snap, state_from_numpy(tree, device="cpu"),
+                             device="cpu")
+        assert result.assignment.device.type == "cpu"
+        assert (result.assignment >= 0).all()
 
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Count the ATen operations that each wave of the port's blocked solve
-dispatches, on the CPU.
+"""Count the ATen operations that each wave of the port's blocked solve,
+and each step of its sequential parity solve, dispatches, on the CPU.
 
     python tools/wave_op_census.py [--root DIR]
 
@@ -21,7 +21,16 @@ same way) on the CPU, and counts, per wave, with a `TorchDispatchMode`:
 The wave's one device-to-host sync (`.tolist()` of its counts) is outside
 the wave and is not counted. Waves are grouped by kind, lite and rescue;
 every wave of a kind dispatches the same operations (the script checks
-this). Prints one JSON object.
+this).
+
+The parity step: `Scheduler.solve` with the flagship profile over the
+first 64 and the first 128 queued pods of bench config 4's cluster
+(`gang_quota_scenario(32, 64, 1024)`); the two solves differ by 64 steps
+(the set-up and the Permit tail are the same work), so the difference of
+their counts over 64 is one step's `aten` / `views` / `launching` ops.
+`by_op` lists the launching ops a step dispatches, by name.
+
+Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -108,13 +117,67 @@ def census(root: Path) -> dict:
     }
 
 
+def parity_step_census(root: Path, pods: int = 64) -> dict:
+    """Per-step op counts of the parity solve (see the module docstring)."""
+    sys.path.insert(0, str(root))
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.models import gang_quota_scenario
+    from scheduler_plugins_tpu_torch.plugins import (
+        CapacityScheduling,
+        Coscheduling,
+        NodeResourcesAllocatable,
+    )
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {"aten": 0, "views": 0, "launching": 0}
+            self.by_op = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.counts["aten"] += 1
+            self.counts["views" if func.is_view else "launching"] += 1
+            if not func.is_view:
+                name = func.__name__.split(".")[0]
+                self.by_op[name] = self.by_op.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    cluster = gang_quota_scenario(32, 64, 1024)
+    scheduler = Scheduler(Profile(plugins=[
+        NodeResourcesAllocatable(), Coscheduling(), CapacityScheduling(),
+    ]))
+    pending = scheduler.sort_pending(cluster.pending_pods(), cluster)
+    counters = []
+    for n in (pods, 2 * pods):
+        snap, meta = cluster.snapshot(pending[:n], now_ms=0, device="cpu",
+                                      pad_pods=n)
+        scheduler.prepare(meta, cluster)
+        counter = Counter()
+        with counter:
+            scheduler.solve(snap, device="cpu")
+        counters.append(counter)
+    short, long = counters
+    by_op = {k: (v - short.by_op.get(k, 0)) / pods
+             for k, v in long.by_op.items()}
+    return {
+        **{k: (long.counts[k] - short.counts[k]) / pods
+           for k in short.counts},
+        "by_op": {k: v for k, v in sorted(by_op.items(),
+                                          key=lambda kv: -kv[1]) if v},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent,
                     help="checkout that holds scheduler_plugins_tpu_torch/")
     args = ap.parse_args(argv)
-    print(json.dumps(census(args.root.resolve())))
+    root = args.root.resolve()
+    print(json.dumps({**census(root),
+                      "parity_step": parity_step_census(root)}))
     return 0
 
 
