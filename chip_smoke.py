@@ -30,7 +30,16 @@ Phases (any failure exits non-zero and prints no result line):
    raises) and on the CPU, with every output and final carry identical,
    hard constraints checked on the host, and the CUDA kernels a step
    launches counted with `torch.profiler`;
-7. the kernel table as one JSON line (times at the shapes, dtypes and
+7. the scheduling cycle (`run_cycle`): the README quick start on the
+   card; bench config 4's shape through one cycle on the card and, from a
+   fresh cluster, on the CPU, with identical reports and store state, no
+   fit, quota or quorum violation in the store, and each stage's wall time
+   printed; and `cycle_script` (`tests/torch_cycle_scripts.py`, 1024
+   nodes, small batches: Permit Wait then fan-out bind, a permit timeout,
+   a whole-gang rejection with backoff, a parked pod skipped until a
+   Node/Add, a quota preemption whose nominee binds once its victims are
+   gone) card against CPU on every cycle;
+8. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -52,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 S_BLOCKS = 8
 GRID_W = (256, 1024, 8192)
@@ -343,8 +353,9 @@ def drive(label: str, cluster, device, n_blocks: int, chunk=None,
             "wait": wt, "admitted": ad}
 
 
-def flagship_scheduler():
-    """A `Scheduler` of the flagship profile (`__graft_entry__.py:52`)."""
+def flagship_scheduler(**cosched):
+    """A `Scheduler` of the flagship profile (`__graft_entry__.py:52`),
+    Coscheduling built with `cosched`."""
     from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
     from scheduler_plugins_tpu_torch.plugins import (
         CapacityScheduling,
@@ -353,7 +364,8 @@ def flagship_scheduler():
     )
 
     return Scheduler(Profile(plugins=[
-        NodeResourcesAllocatable(), Coscheduling(), CapacityScheduling(),
+        NodeResourcesAllocatable(), Coscheduling(**cosched),
+        CapacityScheduling(),
     ]))
 
 
@@ -556,6 +568,174 @@ def launches_per_step(cluster, device) -> None:
     )
 
 
+def ordered(value):
+    """Dicts as ordered item lists, sequences as lists: == then compares
+    insertion order too."""
+    if isinstance(value, dict):
+        return [(k, ordered(v)) for k, v in value.items()]
+    if isinstance(value, (list, tuple)):
+        return [ordered(v) for v in value]
+    return value
+
+
+def cycle_state(report, cluster):
+    """A cycle's report and the store's bookkeeping, comparable with ==
+    (dicts as ordered item lists)."""
+    from dataclasses import fields
+
+    store = ("reserved", "pod_deadline_ms", "pod_attempts",
+             "pod_backoff_until_ms", "unschedulable_since", "event_seq",
+             "event_last", "gang_backoff_until_ms", "gang_last_failure_ms")
+    return ordered({
+        "report": {f.name: getattr(report, f.name) for f in fields(report)},
+        "store": {k: getattr(cluster, k) for k in store},
+        "pods": {uid: (p.node_name, p.nominated_node_name, p.deletion_ms)
+                 for uid, p in cluster.pods.items()},
+    })
+
+
+def store_violations(cluster) -> dict:
+    """Hard constraints on the store after a cycle, independent of the
+    solver: no node's bound and reserved pods over its allocatable (pods
+    slot 1 each), no quota namespace's bound and reserved pods over its
+    Max, no gang with members bound below MinMember."""
+    held = {}
+    for uid, p in cluster.pods.items():
+        node = p.node_name or cluster.reserved.get(uid)
+        if node is not None:
+            held[uid] = node
+    used, ns_used, gang_bound = {}, {}, {}
+    for uid, node in held.items():
+        p = cluster.pods[uid]
+        req = {**p.effective_request(), "pods": 1}
+        for table, key in ((used, node), (ns_used, p.namespace)):
+            row = table.setdefault(key, {})
+            for r, v in req.items():
+                row[r] = row.get(r, 0) + v
+        pg = cluster.pod_group_of(p)
+        if pg is not None and p.node_name is not None:
+            gang_bound[pg.full_name] = gang_bound.get(pg.full_name, 0) + 1
+    fit = sum(
+        1 for node, row in used.items()
+        if node in cluster.nodes and any(
+            v > cluster.nodes[node].allocatable.get(r, 0)
+            for r, v in row.items() if v)
+    )
+    quota = sum(
+        1 for ns, eq in cluster.quotas.items()
+        if any(ns_used.get(ns, {}).get(r, 0) > cap
+               for r, cap in eq.max.items())
+    )
+    gang = sum(1 for g, n in gang_bound.items()
+               if n < cluster.pod_groups[g].min_member)
+    return {"fit": fit, "quota": quota, "gang": gang}
+
+
+def cycle_phase(device) -> None:
+    """Phase 7: the scheduling cycle on the card, held against the CPU."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.models import gang_quota_scenario
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    # the multi-cycle script the port's tests also hold against JAX
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_cycle_scripts import (
+        SCRIPT_COSCHED,
+        cycle_script,
+        script_outcomes,
+    )
+
+    cpu = torch.device("cpu")
+
+    # the README quick start, on the card by default
+    cluster = Cluster()
+    cluster.add_node(objects.Node(name="n0", allocatable={
+        "cpu": 8000, "memory": 32 << 30, "pods": 110}))
+    cluster.add_pod(objects.Pod(name="web", containers=[
+        objects.Container(requests={"cpu": 500})]))
+    profile = load_profile({"plugins": ["NodeResourcesAllocatable",
+                                        "Coscheduling", "CapacityScheduling"]})
+    report = run_cycle(Scheduler(profile), cluster)
+    print(f"[cycle] quickstart bound={report.bound}", flush=True)
+    if report.bound != {"default/web": "n0"}:
+        raise AssertionError(f"quick start: {report.bound}")
+
+    # config 4's shape through one cycle, card and CPU
+    states, times = [], []
+    for dev in (device, cpu):
+        cluster = gang_quota_scenario(**CONFIG4)
+        timings = {}
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        report = run_cycle(flagship_scheduler(), cluster, now=1000,
+                           device=dev, timings=timings)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        launches = pk.launches()
+        viol = store_violations(cluster)
+        states.append(cycle_state(report, cluster))
+        print(
+            f"[cycle] config4 device={dev.type} nodes={len(cluster.nodes)} "
+            f"pods={len(cluster.pods)} bound={len(report.bound)} "
+            f"reserved={len(report.reserved)} failed={len(report.failed)} "
+            f"cycle_s={times[-1]} stage_s={timings} quality={report.quality} "
+            f"kernel_launches={launches} violations={viol}",
+            flush=True,
+        )
+        if any(viol.values()):
+            raise AssertionError(f"config 4 cycle on {dev}: {viol}")
+        if len(report.bound) != len(cluster.pods):
+            raise AssertionError(f"config 4 cycle on {dev}: not all bound")
+    if states[0] != states[1]:
+        raise AssertionError("config 4 cycle: card != CPU")
+    print(f"[cycle] config4 identical=True card_s={times[0]} "
+          f"cpu_s={times[1]}", flush=True)
+
+    # the multi-cycle script, card and CPU cycle by cycle
+    arms = []
+    for dev in (device, cpu):
+        cluster, steps = cycle_script(objects, Cluster)
+        arms.append((dev, cluster, steps, flagship_scheduler(**SCRIPT_COSCHED),
+                     []))
+    t_card = 0.0
+    for k in range(len(steps)):
+        states = []
+        for dev, cluster, steps, sched, reports in arms:
+            now, mutate = steps[k]
+            if mutate is not None:
+                mutate(objects, cluster)
+            t0 = time.perf_counter()
+            reports.append(run_cycle(sched, cluster, now=now, device=dev))
+            if dev is device:
+                t_card += time.perf_counter() - t0
+            states.append(cycle_state(reports[-1], cluster))
+        r = arms[1][4][k]
+        viol = store_violations(arms[1][1])
+        print(
+            f"[cycle] script cycle={k} now={steps[k][0]} "
+            f"identical={states[0] == states[1]} bound={len(r.bound)} "
+            f"reserved={len(r.reserved)} failed={len(r.failed)} "
+            f"skipped={len(r.skipped)} rejected={r.rejected_gangs} "
+            f"expired={r.expired_gangs} preempted={r.preempted} "
+            f"violations={viol}",
+            flush=True,
+        )
+        if states[0] != states[1]:
+            raise AssertionError(f"cycle script, cycle {k}: card != CPU")
+        if any(viol.values()):
+            raise AssertionError(f"cycle script, cycle {k}: {viol}")
+    missed = script_outcomes(arms[1][4])
+    print(f"[cycle] script cycles={len(steps)} card_s={t_card} "
+          f"outcomes_missed={missed}", flush=True)
+    if missed:
+        raise AssertionError(f"cycle script did not reach {missed}")
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -660,7 +840,10 @@ def main() -> int:
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
     launches_per_step(config4, device)
 
-    # 7. the kernel table, the card, the result
+    # 7. the scheduling cycle, card against CPU
+    cycle_phase(device)
+
+    # 8. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

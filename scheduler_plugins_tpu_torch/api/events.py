@@ -1,18 +1,23 @@
 """Cluster-event kinds (port of `scheduler_plugins_tpu.api.events`).
 
-The "Resource/Action" strings a plugin's `events_to_register()` names: a
-pod that plugin failed re-enters the queue only on one of its events. The
-kinds of the ported plugins only; the rest come with their plugins.
+The "Resource/Action" strings the store's mutators note
+(`Cluster.note_event`) and a plugin's `events_to_register()` names: a pod
+that plugin failed re-enters the queue only on one of its events. The kinds
+of the objects the port's store holds (nodes, pods, PodGroups,
+ElasticQuotas); the rest come with their objects.
 """
 
 from __future__ import annotations
 
 NODE_ADD = "Node/Add"
 NODE_UPDATE = "Node/Update"
+NODE_DELETE = "Node/Delete"
 POD_ADD = "Pod/Add"
+POD_UPDATE = "Pod/Update"
 POD_DELETE = "Pod/Delete"
 POD_GROUP_ADD = "PodGroup/Add"
 POD_GROUP_UPDATE = "PodGroup/Update"
+POD_GROUP_DELETE = "PodGroup/Delete"
 ELASTIC_QUOTA_ADD = "ElasticQuota/Add"
 ELASTIC_QUOTA_UPDATE = "ElasticQuota/Update"
 ELASTIC_QUOTA_DELETE = "ElasticQuota/Delete"

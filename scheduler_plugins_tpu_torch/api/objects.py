@@ -58,6 +58,9 @@ class Pod:
     #: non-None marks a terminating pod (deletionTimestamp set)
     deletion_ms: Optional[int] = None
     scheduling_gated: bool = False
+    #: spec.preemptionPolicy: "Never" disqualifies the pod from preempting
+    #: (capacity_scheduling.go:412-416)
+    preemption_policy: Optional[str] = None
 
     def __post_init__(self):
         if not self.uid:
@@ -108,6 +111,9 @@ class PodGroup:
     #: guaranteed whole-gang demand; enables the cluster-capacity pre-check
     #: (upstream pkg/coscheduling/core/core.go:286-305)
     min_resources: Mapping[str, int] = field(default_factory=dict)
+    #: Permit wait per member; None falls back to Coscheduling's
+    #: PermitWaitingTimeSeconds (GetWaitTimeDuration)
+    schedule_timeout_seconds: Optional[int] = None
     creation_ms: int = 0
 
     @property

@@ -1,0 +1,521 @@
+"""One full scheduling cycle (port of `scheduler_plugins_tpu.framework.cycle`):
+queue -> snapshot -> solve on the card -> one host copy -> apply.
+
+The host side reproduces the reference's Permit / PostFilter machinery
+(coscheduling.go:162-274):
+
+- assigned & quorum met        -> bind (Permit Success); also releases
+  previously-waiting siblings (IterateOverWaitingPods...Allow).
+- assigned & quorum unmet      -> reserve (Permit Wait) with a per-pod
+  deadline: PodGroup.ScheduleTimeoutSeconds or the plugin's
+  PermitWaitingTimeSeconds.
+- unschedulable gang member    -> PostFilter: if the gang can still reach
+  quorum within the reject-percentage slack, the rest retry; otherwise the
+  whole gang is rejected (reservations released, failure time recorded for
+  queue demotion, the group backed off).
+- expired permit deadline      -> the same whole-gang rejection.
+- still-failed pods            -> quota-aware preemption (the profile's
+  engine, `framework.preemption`).
+
+The solve's outputs stay on the card until `_cycle_solve_fence` copies
+them, and the snapshot columns the quality stamp reads, to the host once;
+every later stage reads those numpy copies.
+
+Left out until their slices: the streamed chunk pipeline (`stream_chunk`,
+with `Scheduler.attribution_codes`), the serving engine (`serve`), the
+solve watchdog (`resilience`), the rank-aware gang phase (`gangs`), the
+online tuner (`tuner`), explain, metrics, tracer spans, the pod ledger,
+the flight recorder and the sanitizer. Passing one of those arguments
+raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+
+from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.framework.plugin import BUILTIN_EVENTS
+from scheduler_plugins_tpu_torch.framework.preemption import (
+    GATED,
+    encode_demand,
+    host_view,
+)
+from scheduler_plugins_tpu_torch.framework.runtime import (
+    Scheduler,
+    now_ms as _now_ms,
+)
+from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
+from scheduler_plugins_tpu_torch.state.cluster import Cluster
+from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
+
+#: the `run_cycle` options of the JAX package that later slices bring,
+#: each with the slice that brings it
+_LATER_SLICES = {
+    "stream_chunk": "the streamed chunk pipeline (parallel/pipeline.py)",
+    "serve": "the resident-state serving engine (serving/)",
+    "resilience": "the solve watchdog (resilience/)",
+    "gangs": "the rank-aware gang phase (gangs/)",
+    "tuner": "the online tuner (tuning/shadow.py)",
+}
+
+
+@dataclass
+class CycleReport:
+    bound: dict[str, str] = field(default_factory=dict)  # uid -> node
+    reserved: dict[str, str] = field(default_factory=dict)
+    failed: list[str] = field(default_factory=list)
+    #: uid -> plugin that made the pod unschedulable (the upstream
+    #: `UnschedulablePlugins` signal): the first plugin in profile order
+    #: whose PreFilter rejected it or whose Filter emptied the feasible
+    #: set; "NodeResourcesFit" for built-in fit and capacity failures
+    failed_by: dict[str, str] = field(default_factory=dict)
+    #: pods parked unschedulable with no registered event since their last
+    #: failure (EnqueueExtensions gating), left out of this cycle's batch
+    skipped: list[str] = field(default_factory=list)
+    rejected_gangs: list[str] = field(default_factory=list)
+    expired_gangs: list[str] = field(default_factory=list)
+    #: preemptor uid -> (nominated node, victim uids)
+    preempted: dict[str, tuple[str, list[str]]] = field(default_factory=dict)
+    #: placement-quality objectives of this cycle's solve
+    #: (`tuning.quality.cycle_quality_np` plus the preemption and
+    #: nomination counts); None when the cycle ran no solve
+    quality: Optional[dict] = None
+
+    def explain(self, uid: str, top_k: int = 5) -> dict:
+        raise NotImplementedError(
+            "CycleReport.explain comes with the explain slice "
+            "(utils/flightrec.py explain_solver)"
+        )
+
+
+@dataclass
+class CycleCtx:
+    """Mutable state threaded through one cycle's stages."""
+
+    scheduler: Scheduler
+    cluster: Cluster
+    now: int
+    device: object
+    report: CycleReport
+    cosched: object = None
+    pending: list = field(default_factory=list)
+    snap: object = None
+    meta: object = None
+    result: object = None
+    #: host (numpy) copies made by the fence
+    assignment: object = None
+    admitted: object = None
+    wait: object = None
+    failed_plugin: object = None
+    #: host copies of the snapshot columns `cycle_quality_np` reads
+    quality_view: object = None
+    #: early return taken (empty batch)
+    done: bool = False
+    failed_idx: list = field(default_factory=list)
+    failed_by_gang: dict = field(default_factory=dict)
+
+
+def _cycle_open(scheduler, cluster, now, device) -> CycleCtx:
+    """Cycle prologue: the Coscheduling instance, and permit expiry."""
+    ctx = CycleCtx(scheduler=scheduler, cluster=cluster, now=now,
+                   device=device, report=CycleReport())
+    ctx.cosched = next(
+        (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
+        None,
+    )
+    _expire_gangs(cluster, now, ctx.report)
+    return ctx
+
+
+def _cycle_pending(ctx: CycleCtx) -> None:
+    """Pending batch: requeue gating, then QueueSort. Sets `ctx.done` on
+    an empty batch."""
+    pending = _requeue_eligible(ctx.scheduler, ctx.cluster,
+                                ctx.cluster.pending_pods(), ctx.now,
+                                ctx.report)
+    if not pending:
+        ctx.done = True
+        return
+    ctx.pending = ctx.scheduler.sort_pending(pending, ctx.cluster)
+
+
+def _cycle_snapshot(ctx: CycleCtx) -> None:
+    """Lower the store onto the cycle's device and prepare the plugins."""
+    ctx.snap, ctx.meta = ctx.cluster.snapshot(ctx.pending, now_ms=ctx.now,
+                                              device=ctx.device)
+    ctx.scheduler.prepare(ctx.meta, ctx.cluster)
+
+
+def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
+    """The sequential solve. On the card it only enqueues work: the
+    outputs stay device tensors until the fence."""
+    ctx.result = ctx.scheduler.solve(ctx.snap, device=ctx.device)
+
+
+def _cycle_solve_fence(ctx: CycleCtx) -> None:
+    """The cycle's one host copy: assignment, admitted, wait and the
+    failure codes, and the snapshot columns the quality stamp reads. The
+    first copy waits for the card; later stages read only these."""
+    def host(x):
+        return x.cpu().numpy()
+
+    result, snap = ctx.result, ctx.snap
+    ctx.assignment = host(result.assignment)
+    ctx.admitted = host(result.admitted)
+    ctx.wait = host(result.wait)
+    ctx.failed_plugin = host(result.failed_plugin)
+    ctx.quality_view = SimpleNamespace(
+        nodes=SimpleNamespace(alloc=host(snap.nodes.alloc),
+                              requested=host(snap.nodes.requested),
+                              mask=host(snap.nodes.mask)),
+        pods=SimpleNamespace(req=host(snap.pods.req),
+                             mask=host(snap.pods.mask)),
+    )
+
+
+def _cycle_bind(ctx: CycleCtx) -> None:
+    """The bind stage: flush this cycle's decisions through the store's
+    mutators (bind / reserve / mark_unschedulable)."""
+    cluster, report, now = ctx.cluster, ctx.report, ctx.now
+    meta, cosched = ctx.meta, ctx.cosched
+    assignment, admitted, wait = ctx.assignment, ctx.admitted, ctx.wait
+    for i, pod in enumerate(ctx.pending):
+        node_idx = int(assignment[i])
+        pg = cluster.pod_group_of(pod)
+        if node_idx < 0 or not admitted[i]:
+            report.failed.append(pod.uid)
+            ctx.failed_idx.append((i, pod.uid))
+            cluster.mark_unschedulable(pod.uid, now)
+            if pg is not None:
+                ctx.failed_by_gang.setdefault(pg.full_name, []).append(
+                    pod.uid
+                )
+            continue
+        node_name = meta.node_names[node_idx]
+        if wait[i]:
+            cluster.reserve(pod.uid, node_name)
+            report.reserved[pod.uid] = node_name
+            # per-POD waiting timer from THIS pod's reservation time
+            # (upstream waitingPods, coscheduling.go:227-235;
+            # GetWaitTimeDuration: ScheduleTimeoutSeconds else
+            # PermitWaitingTimeSeconds)
+            timeout_s = pg.schedule_timeout_seconds if pg is not None else None
+            if timeout_s is None and cosched is not None:
+                timeout_s = cosched.permit_waiting_seconds
+            cluster.pod_deadline_ms[pod.uid] = now + 1000 * (timeout_s or 0)
+        else:
+            cluster.bind(pod.uid, node_name, now)
+            report.bound[pod.uid] = node_name
+
+
+def _cycle_postbind(ctx: CycleCtx) -> None:
+    """Post-bind store machinery: failure attribution, Permit fan-out,
+    whole-gang PostFilter rejection and preemption."""
+    cluster, report, now = ctx.cluster, ctx.report, ctx.now
+    cosched = ctx.cosched
+    _attribute_failures(ctx.scheduler, ctx.failed_plugin, ctx.failed_idx,
+                        report)
+
+    # Permit Allow fan-out: quorum reached this cycle releases waiting
+    # siblings
+    for pg in list(cluster.pod_groups.values()):
+        _maybe_release_gang(cluster, pg, report, now)
+
+    # PostFilter: whole-gang rejection (coscheduling.go:160-209)
+    for gang_name in ctx.failed_by_gang:
+        pg = cluster.pod_groups.get(gang_name)
+        if pg is None:
+            continue
+        members = cluster.gang_members(pg)
+        assigned = sum(
+            1 for p in members
+            if p.node_name is not None or p.uid in cluster.reserved
+        )
+        if assigned >= pg.min_member:
+            continue  # quorum already met; stragglers can retry freely
+        # tolerate a small quorum gap: (MinMember - assigned)/MinMember
+        # <= rejectPercentage (coscheduling.go:180-185)
+        reject_pct = cosched.reject_percentage if cosched else 10
+        gap = (pg.min_member - assigned) / max(pg.min_member, 1)
+        if gap <= reject_pct / 100:
+            continue  # a later pod may still complete the quorum
+        _reject_gang(cluster, pg, now, report, cosched, len(members))
+
+    _run_preemption(ctx.scheduler, cluster, ctx.pending, report, now,
+                    ctx.device)
+
+
+def _cycle_finalize(ctx: CycleCtx) -> None:
+    """Report-only epilogue: the placement-quality stamp."""
+    _observe_quality(ctx.report, ctx.quality_view, ctx.assignment,
+                     ctx.admitted, ctx.wait)
+
+
+#: `run_cycle`'s stages after the pending batch, in order, with the names
+#: `timings` records them under
+_STAGES = (
+    ("snapshot", _cycle_snapshot),
+    ("solve", _cycle_solve_dispatch),
+    ("fence", _cycle_solve_fence),
+    ("bind", _cycle_bind),
+    ("postbind", _cycle_postbind),
+    ("finalize", _cycle_finalize),
+)
+
+
+def run_cycle(scheduler: Scheduler, cluster: Cluster,
+              now: Optional[int] = None, device=None, *, timings=None,
+              stream_chunk=None, serve=None, resilience=None, gangs=None,
+              tuner=None) -> CycleReport:
+    """One scheduling cycle of `scheduler` over `cluster` at wall-clock
+    `now` ms (None = the current time), its snapshot and solve on `device`
+    (None = the CUDA card; the CPU only when asked for with "cpu"). The
+    store is mutated in place; the report says what happened.
+
+    `timings`, a dict, receives each stage's wall seconds (`open`,
+    `pending`, then `_STAGES`' names). The JAX package's `stream_chunk`,
+    `serve`, `resilience`, `gangs` and `tuner` options are not ported yet:
+    passing one raises NotImplementedError."""
+    options = dict(stream_chunk=stream_chunk, serve=serve,
+                   resilience=resilience, gangs=gangs, tuner=tuner)
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"run_cycle({name}=...) comes with {_LATER_SLICES[name]}"
+            )
+    device = resolve_device(device)
+    if now is None:
+        now = _now_ms()
+    clock = time.perf_counter
+    t0 = clock()
+    ctx = _cycle_open(scheduler, cluster, now, device)
+    t1 = clock()
+    _cycle_pending(ctx)
+    if timings is not None:
+        timings["open"] = t1 - t0
+        timings["pending"] = clock() - t1
+    if ctx.done:
+        return ctx.report
+    for name, stage in _STAGES:
+        t0 = clock()
+        stage(ctx)
+        if timings is not None:
+            timings[name] = clock() - t0
+    return ctx.report
+
+
+def _observe_quality(report, view, assignment, admitted, wait) -> None:
+    """Stamp the cycle's placement-quality objectives on the report."""
+    q = cycle_quality_np(view, assignment, admitted, wait)
+    q["nominations"] = float(len(report.preempted))
+    q["preemptions"] = float(
+        sum(len(v) for _, v in report.preempted.values())
+    )
+    report.quality = q
+
+
+def _attribute_failures(scheduler, codes, failed_idx, report) -> None:
+    """Fill `CycleReport.failed_by` from the sequential solve's per-pod
+    codes (`SolveResult.failed_plugin`, host copy). Codes <= 0 decode to
+    the built-in fit ("NodeResourcesFit")."""
+    if not failed_idx:
+        return
+    names = scheduler.fail_plugin_names()
+    for i, uid in failed_idx:
+        code = int(codes[i])
+        report.failed_by[uid] = names[code] if code > 0 else names[0]
+
+
+def _requeue_eligible(scheduler, cluster, pending, now, report):
+    """EnqueueExtensions gating (upstream scheduling-queue semantics): a pod
+    parked unschedulable re-enters the batch only when
+
+    - a cluster event registered by an enabled plugin (or the built-in
+      resource fit's Node/Pod events) occurred after its last failure,
+    - it holds a live nomination (nominated pods stay active),
+    - its flush deadline passed (podMaxInUnschedulablePodsDuration), or
+    - a gang sibling is eligible (upstream ActivateSiblings),
+
+    and its requeue backoff window has expired (upstream backoffQ: an
+    event moves a pod to the backoff queue, and it pops into the active
+    queue only once its backoff completes). Nominated pods bypass the
+    backoff as they bypass the event gate. Pods never parked always run."""
+    if not cluster.unschedulable_since:
+        return pending
+    registered = set(BUILTIN_EVENTS)
+    for plugin in scheduler.profile.plugins:
+        registered.update(plugin.events_to_register())
+
+    def eligible(pod):
+        rec = cluster.unschedulable_since.get(pod.uid)
+        if rec is None:
+            return True
+        seq, flush_at = rec
+        if pod.nominated_node_name is not None:
+            return True
+        if now < cluster.pod_backoff_until_ms.get(pod.uid, 0):
+            return False
+        if now >= flush_at:
+            return True
+        return any(
+            cluster.event_last.get(kind, 0) > seq for kind in registered
+        )
+
+    keep = [pod for pod in pending if eligible(pod)]
+    kept_uids = {p.uid for p in keep}
+    # gang activation: one eligible member activates its whole group
+    eligible_gangs = {
+        pg.full_name for p in keep
+        if (pg := cluster.pod_group_of(p)) is not None
+    }
+    for pod in pending:
+        if pod.uid in kept_uids:
+            continue
+        pg = cluster.pod_group_of(pod)
+        if pg is not None and pg.full_name in eligible_gangs:
+            keep.append(pod)
+            kept_uids.add(pod.uid)
+    for pod in pending:
+        if pod.uid not in kept_uids:
+            report.skipped.append(pod.uid)
+    return keep
+
+
+def _run_preemption(scheduler, cluster, pending, report, now, device=None):
+    """PostFilter preemption: for each still-failed pod in queue order, dry
+    run victim removal across all nodes, nominate the best candidate, mark
+    the victims terminating (the apiserver DELETE in the reference) and
+    record the nomination (SURVEY.md §3.3).
+
+    Runs against a FRESH snapshot (this cycle's binds count as node usage,
+    or just-bound pods would double as victims), copied to the host once
+    for the whole pass, and threads the pass's earlier nominations into
+    each dry run so two preemptors cannot claim the same freed capacity."""
+    engine = scheduler.profile.preemption
+    if engine is None or not report.failed:
+        return
+    device = resolve_device(device)
+    rejected = set(report.rejected_gangs)
+    by_uid = {p.uid: p for p in pending}
+    failed_pods = [by_uid[uid] for uid in report.failed if uid in by_uid]
+    snap, meta = cluster.snapshot(failed_pods, now_ms=now, device=device)
+    # re-prepare: the resource axis can differ from the cycle's snapshot
+    scheduler.prepare(meta, cluster)
+    view = host_view(snap)
+    nominated_extra = np.zeros(
+        (len(meta.node_names), len(meta.index)), np.int64
+    )
+    node_pos = {name: i for i, name in enumerate(meta.node_names)}
+    # prior cycles' live nominations and nominations made earlier in this
+    # loop hold capacity in the dry runs, but only against preemptors of
+    # lower-or-equal priority (upstream AddNominatedPods); the capacity
+    # in-flight terminations will free is credited to everyone. Each
+    # preemptor's view is assembled fresh from the hold list, because the
+    # queue order is not priority-descending under every QueueSort
+    for pod in cluster.pods.values():
+        if pod.terminating and pod.node_name in node_pos:
+            nominated_extra[node_pos[pod.node_name]] -= encode_demand(
+                meta.index, pod
+            )
+    holds = [
+        (node_pos[pod.nominated_node_name], encode_demand(meta.index, pod),
+         pod.priority, pod.uid)
+        for pod in cluster.pods.values()
+        if pod.node_name is None and not pod.terminating
+        and pod.nominated_node_name in node_pos
+    ]
+    for pod in failed_pods:
+        pg = cluster.pod_group_of(pod)
+        if pg is not None and pg.full_name in rejected:
+            continue  # the whole gang was rejected: no point preempting
+        extra = nominated_extra.copy()
+        for n_, demand_, prio_, uid_ in holds:
+            if prio_ >= pod.priority and uid_ != pod.uid:
+                extra[n_] += demand_
+        result = engine.preempt(cluster, scheduler, pod, snap, meta, now,
+                                extra_reserved=extra, view=view)
+        if result is GATED:
+            continue  # terminations in flight: the nomination (hold) stays
+        # the pod's nomination now clears or moves: its old hold is dead
+        holds = [h for h in holds if h[3] != pod.uid]
+        if result is None:
+            # the nomination did not help and nothing is terminating:
+            # clear it (upstream clears NominatedNodeName)
+            pod.nominated_node_name = None
+            continue
+        # nominate now, so later preemptors' live nominated aggregates see
+        # this pod exactly once
+        pod.nominated_node_name = result.nominated_node
+        n = node_pos[result.nominated_node]
+        demand = encode_demand(meta.index, pod)
+        victim_freed = np.zeros(len(meta.index), np.int64)
+        for victim_uid in result.victims:
+            victim = cluster.pods.get(victim_uid)
+            if victim is not None:
+                cluster.mark_terminating(victim_uid, now)
+                victim_freed += encode_demand(meta.index, victim)
+        # the nominee holds its demand against later lower-or-equal
+        # priority preemptors; what its victims free is credited to all
+        holds.append((n, demand, pod.priority, pod.uid))
+        nominated_extra[n] -= victim_freed
+        report.preempted[pod.uid] = (result.nominated_node, result.victims)
+
+
+def _maybe_release_gang(cluster: Cluster, pg, report: CycleReport,
+                        now: int = 0):
+    reserved = cluster.gang_reservations(pg)
+    if not reserved:
+        return
+    bound = sum(
+        1 for p in cluster.gang_members(pg) if p.node_name is not None
+    )
+    if bound + len(reserved) >= pg.min_member:
+        for uid in reserved:
+            node = cluster.reserved[uid]
+            cluster.bind(uid, node, now)  # clears the pod's permit timer
+            report.bound[uid] = node
+            report.reserved.pop(uid, None)
+
+
+def _reject_gang(cluster: Cluster, pg, now: int, report: CycleReport,
+                 cosched, member_count: int):
+    """Reject every waiting sibling, record the failure time, back the
+    group off (coscheduling.go:188-209, core.go:174-192). The backoff
+    applies only when the gang has at least MinMember pods
+    (coscheduling.go:196-204): an incomplete gang retries as soon as its
+    members appear."""
+    for uid in cluster.gang_reservations(pg):
+        cluster.release_reservation(uid)  # clears the pod's permit timer
+        report.reserved.pop(uid, None)
+        # released siblings are parked too (Permit-Reject moves waiting
+        # pods to the unschedulable queue)
+        cluster.mark_unschedulable(uid, now)
+    cluster.gang_last_failure_ms[pg.full_name] = now
+    backoff_s = cosched.pod_group_backoff_seconds if cosched else 0
+    if backoff_s > 0 and member_count >= pg.min_member:
+        cluster.gang_backoff_until_ms[pg.full_name] = now + 1000 * backoff_s
+    report.rejected_gangs.append(pg.full_name)
+
+
+def _expire_gangs(cluster: Cluster, now: int, report: CycleReport):
+    """Permit timeout: any waiting pod past its own deadline fires Reject
+    (the upstream per-pod waitingPods timer, coscheduling.go:227-251),
+    which unreserves every sibling: the earliest sibling deadline rejects
+    the whole gang."""
+    for uid, deadline in list(cluster.pod_deadline_ms.items()):
+        if now < deadline or uid not in cluster.pod_deadline_ms:
+            continue  # not due, or already cleared by a sibling's expiry
+        pod = cluster.pods.get(uid)
+        pg = cluster.pod_group_of(pod) if pod is not None else None
+        if pg is None:
+            cluster.release_reservation(uid)  # clears the timer too
+            continue
+        for sibling_uid in cluster.gang_reservations(pg):
+            cluster.release_reservation(sibling_uid)
+        cluster.gang_last_failure_ms[pg.full_name] = now
+        report.expired_gangs.append(pg.full_name)

@@ -22,6 +22,7 @@ core.go:308-345).
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -276,6 +277,10 @@ class Profile:
     #: overrides `queue_key` (a profile enables exactly one QueueSort
     #: upstream), falling back to upstream PrioritySort semantics
     queue_sort: Optional[Plugin] = None
+    #: PostFilter preemption engine (`framework.preemption`); None
+    #: auto-selects from the enabled plugins (CapacityScheduling ->
+    #: quota-aware preemption)
+    preemption: Optional[object] = None
     name: str = "tpu-scheduler"
     #: which solve serves this profile's cycles (`SOLVE_MODES`)
     solve_mode: str = "sequential"
@@ -293,6 +298,11 @@ class Profile:
                     plugin, "queue_compare"
                 ):
                     self.queue_sort = plugin
+                    break
+        if self.preemption is None:
+            for plugin in self.plugins:
+                if hasattr(plugin, "preemption_engine"):
+                    self.preemption = plugin.preemption_engine()
                     break
 
 
@@ -369,8 +379,31 @@ class Scheduler:
         return sequential_solve_body(tuple(self.profile.plugins), snap,
                                      state0)
 
+    def filter_verdicts(self, snap, pod_index: int) -> torch.Tensor:
+        """(N,) AND of the enabled plugins' Filter verdicts for one pod
+        against the cycle-initial state, on the snapshot's device
+        (resource fit excluded: callers handle capacity). The preemption
+        dry run reads it as upstream's RunFilterPluginsWithNominatedPods.
+        The presolve is deliberately unbound: it amortizes a whole batch,
+        and this evaluates one pod."""
+        plugins = tuple(self.profile.plugins)
+        for plugin in plugins:
+            plugin.bind_presolve(None)
+        state0 = self.initial_state(snap)
+        feasible = torch.ones(snap.num_nodes, dtype=torch.bool,
+                              device=snap.device)
+        for plugin in plugins:
+            mask = plugin.filter(state0, snap, pod_index)
+            if mask is not None:
+                feasible = feasible & mask
+        return feasible
+
     def fail_plugin_names(self) -> list:
         """Decoder for `SolveResult.failed_plugin`: code 0 (and any
         negative code on a failed pod) -> the built-in fit, code 1+i ->
         profile plugin i."""
         return [BUILTIN_FIT] + [p.name for p in self.profile.plugins]
+
+
+def now_ms() -> int:
+    return int(time.time() * 1000)

@@ -5,8 +5,8 @@ with AddPod/RemovePod extensions, quota-aware preemption PostFilter,
 Reserve/Unreserve — capacity_scheduling.go:101-105). The (Q, R) `eq_used`
 usage is carried through the solve; PreFilter's two rejects (over own Max,
 aggregate over cluster Min) are `ops.quota.quota_admit`, Reserve is
-`quota_commit`. The quota-aware preemption engine comes with the
-preemption slice.
+`quota_commit`; PostFilter is the quota-aware preemption engine
+(`framework.preemption`, CAPACITY mode).
 """
 
 from __future__ import annotations
@@ -15,35 +15,11 @@ import torch
 
 from scheduler_plugins_tpu_torch.api import events as ev
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin
+from scheduler_plugins_tpu_torch.framework.preemption import (
+    PreemptionEngine,
+    PreemptionMode,
+)
 from scheduler_plugins_tpu_torch.ops.quota import quota_admit, quota_commit
-
-#: the upstream DefaultPreemptionArgs candidate-sampling defaults
-DEFAULT_MIN_CANDIDATE_NODES_PERCENTAGE = 10
-DEFAULT_MIN_CANDIDATE_NODES_ABSOLUTE = 100
-
-
-def validate_sampling_args(pct, absolute):
-    """Upstream ValidateDefaultPreemptionArgs: pct in [0, 100], absolute
-    >= 0, and the pair must yield a positive candidate count. Returns the
-    defaulted (pct, absolute)."""
-    if pct is None:
-        pct = DEFAULT_MIN_CANDIDATE_NODES_PERCENTAGE
-    if absolute is None:
-        absolute = DEFAULT_MIN_CANDIDATE_NODES_ABSOLUTE
-    if not 0 <= pct <= 100:
-        raise ValueError(
-            f"minCandidateNodesPercentage must be in [0, 100], got {pct}"
-        )
-    if absolute < 0:
-        raise ValueError(
-            f"minCandidateNodesAbsolute must be >= 0, got {absolute}"
-        )
-    if pct == 0 and absolute == 0:
-        raise ValueError(
-            "minCandidateNodesPercentage and minCandidateNodesAbsolute "
-            "cannot both be zero"
-        )
-    return pct, absolute
 
 
 class CapacityScheduling(Plugin):
@@ -53,7 +29,7 @@ class CapacityScheduling(Plugin):
                  min_candidate_nodes_absolute: int = None):
         # the candidate-sampling knobs of the upstream evaluator the
         # reference wraps; checked at load time
-        validate_sampling_args(
+        PreemptionEngine.validate_sampling_args(
             min_candidate_nodes_percentage, min_candidate_nodes_absolute
         )
         self.min_candidate_nodes_percentage = min_candidate_nodes_percentage
@@ -64,6 +40,15 @@ class CapacityScheduling(Plugin):
         # the EQ event is ActionType All)
         return (ev.POD_DELETE, ev.ELASTIC_QUOTA_ADD, ev.ELASTIC_QUOTA_UPDATE,
                 ev.ELASTIC_QUOTA_DELETE)
+
+    def preemption_engine(self):
+        """PostFilter = quota-aware preemption (capacity_scheduling.go:
+        331-348 wraps the upstream evaluator with the EQ borrow rules)."""
+        return PreemptionEngine(
+            PreemptionMode.CAPACITY,
+            min_candidate_nodes_percentage=self.min_candidate_nodes_percentage,
+            min_candidate_nodes_absolute=self.min_candidate_nodes_absolute,
+        )
 
     def prepare_solve(self, snap):
         """(M,) batch rows of the nominees inside the batch (clamped) and

@@ -1,15 +1,25 @@
 """Mutable host-side cluster store (port of `scheduler_plugins_tpu.state.cluster`).
 
-Object upserts come in, snapshots go out. This slice keeps the store and
-its queue predicate; the JAX store's event ledger, delta feeds, native
-mirror and permit bookkeeping wait for later slices.
+Object upserts and deletes come in, snapshots go out. The store also owns
+the scheduling-runtime bookkeeping that stays on the host: Permit
+reservations (waiting pods) and their per-pod deadlines, gang backoff and
+failure times (upstream core.go:134-192), the event ledger that gates
+requeues (EnqueueExtensions) and the per-pod requeue backoff.
+
+Every mutator notes its event (`note_event`) in the JAX store's order:
+a parked pod's stamp is compared against these counters, so the order is
+part of the semantics. The JAX store's native mirror, delta sink, pending
+index, NRT cache and ledger hooks come with their slices.
 """
 
 from __future__ import annotations
 
+import copy
+import hashlib
 from dataclasses import dataclass, field
 from typing import Optional
 
+from scheduler_plugins_tpu_torch.api import events as ev
 from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
     ElasticQuota,
@@ -20,6 +30,15 @@ from scheduler_plugins_tpu_torch.api.objects import (
 )
 from scheduler_plugins_tpu_torch.state.snapshot import build_snapshot
 
+#: upstream podMaxInUnschedulablePodsDuration: a parked pod re-enters the
+#: batch after this long even with no event
+REQUEUE_FLUSH_MS = 5 * 60 * 1000
+#: requeue backoff (upstream calculateBackoffDuration: 1 s doubling to 10 s
+#: per attempt), scaled by a deterministic jitter in [0.5, 1.0] drawn from
+#: blake2b(BACKOFF_SEED:uid:attempt)
+BACKOFF_INITIAL_MS = 1000
+BACKOFF_MAX_MS = 10_000
+BACKOFF_SEED = 0
 
 @dataclass
 class Cluster:
@@ -31,24 +50,119 @@ class Cluster:
     scheduler_names: set = field(
         default_factory=lambda: {DEFAULT_SCHEDULER_NAME}
     )
+
+    # scheduling-runtime bookkeeping (host-only)
+    reserved: dict[str, str] = field(default_factory=dict)  # uid -> node
+    #: per-POD permit deadlines (the upstream waitingPods timers,
+    #: coscheduling.go:227-235): uid -> wall-clock ms at which this waiting
+    #: pod's Permit times out
+    pod_deadline_ms: dict[str, int] = field(default_factory=dict)
     #: gang name -> wall-clock ms until which the gang stays backed off
     gang_backoff_until_ms: dict[str, int] = field(default_factory=dict)
     #: gang name -> wall-clock ms of its last scheduling failure: the
     #: gang's queue-sort time once set
     gang_last_failure_ms: dict[str, int] = field(default_factory=dict)
+    #: EnqueueExtensions ledger: a monotonic event counter, the last
+    #: counter value per kind, and per parked pod (counter at failure,
+    #: flush deadline)
+    event_seq: int = 0
+    event_last: dict[str, int] = field(default_factory=dict)
+    unschedulable_since: dict[str, tuple[int, int]] = field(
+        default_factory=dict
+    )
+    #: requeue backoff per pod (`BACKOFF_*`)
+    pod_attempts: dict[str, int] = field(default_factory=dict)
+    pod_backoff_until_ms: dict[str, int] = field(default_factory=dict)
+    #: last failure stamp per pod: one cycle can mark a pod twice (bind
+    #: failure, then whole-gang rejection); only the first is an attempt
+    _pod_last_failure_ms: dict[str, int] = field(default_factory=dict)
 
+    def note_event(self, kind: str) -> None:
+        """Record a cluster event ("Resource/Action", `api.events`) for
+        requeue gating."""
+        self.event_seq += 1
+        self.event_last[kind] = self.event_seq
+
+    def mark_unschedulable(self, uid: str, now_ms: int) -> None:
+        """Park a pod and charge one backoff attempt: min(initial *
+        2^(attempts-1), max) scaled by the jitter. A bind or a delete
+        clears the attempts."""
+        if self._pod_last_failure_ms.get(uid) != now_ms:
+            self._pod_last_failure_ms[uid] = now_ms
+            attempts = self.pod_attempts.get(uid, 0) + 1
+            self.pod_attempts[uid] = attempts
+            base = min(
+                BACKOFF_INITIAL_MS * (1 << min(attempts - 1, 30)),
+                BACKOFF_MAX_MS,
+            )
+            self.pod_backoff_until_ms[uid] = now_ms + int(
+                base * (0.5 + 0.5 * self._backoff_jitter(uid, attempts))
+            )
+        self.unschedulable_since[uid] = (
+            self.event_seq, now_ms + REQUEUE_FLUSH_MS,
+        )
+
+    def _backoff_jitter(self, uid: str, attempt: int) -> float:
+        """[0, 1) from blake2b(seed:uid:attempt): stable across runs and
+        processes, and independent of the order of failures."""
+        h = hashlib.blake2b(
+            f"{BACKOFF_SEED}:{uid}:{attempt}".encode(), digest_size=8
+        ).digest()
+        return int.from_bytes(h, "big") / 2.0 ** 64
+
+    def _clear_backoff(self, uid: str) -> None:
+        self.pod_attempts.pop(uid, None)
+        self.pod_backoff_until_ms.pop(uid, None)
+        self._pod_last_failure_ms.pop(uid, None)
+
+    # -- upserts and deletes -------------------------------------------------
     def add_node(self, node: Node):
+        self.note_event(
+            ev.NODE_UPDATE if node.name in self.nodes else ev.NODE_ADD
+        )
         self.nodes[node.name] = node
 
+    def remove_node(self, name: str):
+        if self.nodes.pop(name, None) is not None:
+            self.note_event(ev.NODE_DELETE)
+
     def add_pod(self, pod: Pod):
+        self.note_event(
+            ev.POD_UPDATE if pod.uid in self.pods else ev.POD_ADD
+        )
         self.pods[pod.uid] = pod
 
+    def remove_pod(self, uid: str):
+        self.release_reservation(uid)
+        self.unschedulable_since.pop(uid, None)
+        self._clear_backoff(uid)
+        if self.pods.pop(uid, None) is not None:
+            self.note_event(ev.POD_DELETE)
+
+    def mark_terminating(self, uid: str, now_ms: int):
+        """DELETE issued (a preemption victim): the pod turns terminating
+        and keeps its node until it is removed."""
+        pod = self.pods.get(uid)
+        if pod is None:
+            return
+        pod.deletion_ms = now_ms
+        self.note_event(ev.POD_UPDATE)
+
     def add_pod_group(self, pg: PodGroup):
+        self.note_event(
+            ev.POD_GROUP_UPDATE if pg.full_name in self.pod_groups
+            else ev.POD_GROUP_ADD
+        )
         self.pod_groups[pg.full_name] = pg
 
     def add_quota(self, eq: ElasticQuota):
+        self.note_event(
+            ev.ELASTIC_QUOTA_UPDATE if eq.namespace in self.quotas
+            else ev.ELASTIC_QUOTA_ADD
+        )
         self.quotas[eq.namespace] = eq
 
+    # -- derived -------------------------------------------------------------
     def pod_group_of(self, pod: Pod) -> Optional[PodGroup]:
         name = pod.pod_group()
         if not name:
@@ -61,9 +175,16 @@ class Cluster:
         creation."""
         return self.gang_last_failure_ms.get(pg.full_name, pg.creation_ms)
 
+    def gang_members(self, pg: PodGroup) -> list[Pod]:
+        return [
+            p for p in self.pods.values()
+            if p.namespace == pg.namespace and p.pod_group() == pg.name
+        ]
+
     def _pending_eligible(self, pod: Pod) -> bool:
         return (
             pod.node_name is None
+            and pod.uid not in self.reserved
             and pod.phase == PodPhase.PENDING
             and not pod.terminating
             and not pod.scheduling_gated
@@ -71,8 +192,9 @@ class Cluster:
         )
 
     def pending_pods(self) -> list[Pod]:
-        """The schedulable queue in insertion order: gated pods stay out,
-        and only pods addressed to one of `scheduler_names` enter."""
+        """The schedulable queue in insertion order: reserved and gated
+        pods stay out, and only pods addressed to one of `scheduler_names`
+        enter."""
         return [p for p in self.pods.values() if self._pending_eligible(p)]
 
     def gated_pods(self) -> list[Pod]:
@@ -81,11 +203,50 @@ class Cluster:
             if p.node_name is None and p.scheduling_gated and not p.terminating
         ]
 
+    # -- binding and reservations ---------------------------------------------
+    def bind(self, uid: str, node_name: str, now_ms: int = 0):
+        self.reserved.pop(uid, None)
+        self.pod_deadline_ms.pop(uid, None)
+        self.unschedulable_since.pop(uid, None)
+        self._clear_backoff(uid)
+        self.note_event(ev.POD_UPDATE)  # assigned: spec.nodeName set
+        self.pods[uid].node_name = node_name
+
+    def reserve(self, uid: str, node_name: str):
+        """Permit said Wait: hold the placement without binding."""
+        self.reserved[uid] = node_name
+
+    def release_reservation(self, uid: str):
+        self.pod_deadline_ms.pop(uid, None)
+        self.reserved.pop(uid, None)
+
+    def gang_reservations(self, pg: PodGroup) -> list[str]:
+        return [
+            uid for uid in self.reserved
+            if (p := self.pods.get(uid)) is not None
+            and p.namespace == pg.namespace and p.pod_group() == pg.name
+        ]
+
+    # -- snapshot ------------------------------------------------------------
+    def _assigned_pods(self) -> list[Pod]:
+        """Bound pods plus reserved (permit-waiting) pods, each reserved
+        one as a copy with its held node set: the stored pod stays
+        unbound."""
+        assigned = [p for p in self.pods.values() if p.node_name is not None]
+        for uid, node in self.reserved.items():
+            pod = self.pods.get(uid)
+            if pod is not None and pod.node_name is None:
+                held = copy.copy(pod)
+                held.node_name = node
+                assigned.append(held)
+        return assigned
+
     def snapshot(self, pending: list[Pod], now_ms: int = 0, device=None,
                  **kwargs):
         """Lower the current state for the solver onto `device` (None =
-        the CUDA card)."""
-        assigned = [p for p in self.pods.values() if p.node_name is not None]
+        the CUDA card). Reserved pods count as assigned to their reserved
+        node: they hold capacity, quota and quorum exactly like the
+        reference's waiting pods."""
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -93,7 +254,7 @@ class Cluster:
         return build_snapshot(
             list(self.nodes.values()),
             pending,
-            assigned_pods=assigned,
+            assigned_pods=self._assigned_pods(),
             pod_groups=list(self.pod_groups.values()),
             quotas=list(self.quotas.values()),
             backed_off_gangs=backed_off,
