@@ -18,11 +18,21 @@ Phases (any failure exits non-zero and prints no result line):
    `sharded_wave_solve` with 8 rank blocks, bit-identical to the unblocked
    `batch_solve` on the same snapshot, every kernel launched, hard
    constraints checked on the host;
-5. `gang_quota_scenario(32, 64, 1024)` the same way (gang and quota
+5. the streamed chunk pipeline (`parallel/pipeline.py`): the same
+   north-star cluster through `run_chunk_pipeline` as `bench.north_star`
+   drives it (host numpy chunks staged a chunk ahead), equal to
+   `batch_solve` on the same snapshot, with its timeline summary; bench
+   config 6 (`allocatable_scenario(10_240, 102_400)`, flagship profile)
+   through one `run_cycle(stream_chunk=4096)` on the card and, from a fresh
+   cluster, on the CPU, with identical reports and store, no store
+   violation, and the streamed solve proved to have served the cycle; and
+   `cycle_script` with `stream_chunk=4`, card against CPU on every cycle.
+   No election kernel lies on these paths: their launch counts print 0;
+6. `gang_quota_scenario(32, 64, 1024)` the same way (gang and quota
    admission, quota prefix and quorum tail), plus a tight problem (40
    nodes, 3000 pods: rescue waves and hopeless pods) solved on the card and
    on the CPU with identical results;
-6. the sequential parity solve (`Scheduler.solve`, the three-plugin
+7. the sequential parity solve (`Scheduler.solve`, the three-plugin
    flagship profile) on bench config 4's shape (`gang_quota_scenario(32,
    64, 1024)`), on the `entry()` problem (`allocatable_scenario(16, 32)`)
    and on a cluster with nominated pods: each solved on the card under
@@ -30,7 +40,7 @@ Phases (any failure exits non-zero and prints no result line):
    raises) and on the CPU, with every output and final carry identical,
    hard constraints checked on the host, and the CUDA kernels a step
    launches counted with `torch.profiler`;
-7. the scheduling cycle (`run_cycle`): the README quick start on the
+8. the scheduling cycle (`run_cycle`): the README quick start on the
    card; bench config 4's shape through one cycle on the card and, from a
    fresh cluster, on the CPU, with identical reports and store state, no
    fit, quota or quorum violation in the store, and each stage's wall time
@@ -39,7 +49,7 @@ Phases (any failure exits non-zero and prints no result line):
    a whole-gang rejection with backoff, a parked pod skipped until a
    Node/Add, a quota preemption whose nominee binds once its victims are
    gone) card against CPU on every cycle;
-8. the kernel table as one JSON line (times at the shapes, dtypes and
+9. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -76,12 +86,24 @@ REPLACES = {
     "fused_election": "scheduler_plugins_tpu/parallel/kernels.py:411",
 }
 NORTH_STAR = dict(n_nodes=10_240, n_pods=102_400, chunk=8192, rescue_window=256)
+#: bench config 6 (`bench.py:762`) through one cycle: the flagship profile
+#: streamed in chunks of 4096 pods (the snapshot pads 102,400 pods to a
+#: multiple of 1024, so 4096 divides the rows and 8192 would not)
+CONFIG6 = dict(n_nodes=10_240, n_pods=102_400, stream_chunk=4096)
 #: bench config 4 (`bench.py:4505`): the three-plugin sequential solve
 CONFIG4 = dict(n_gangs=32, gang_size=64, n_nodes=1024)
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: rank rows per block in the fused_election grid: the north star's
 GRID_BS = NORTH_STAR["n_nodes"] // S_BLOCKS
+
+
+def _tests_on_path() -> None:
+    """Put the repo's `tests/` on `sys.path`: the smoke shares its cases
+    (`torch_cycle_scripts`, `torch_parity_cases`) with the port's tests."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
 
 
 def _sync(device):
@@ -369,53 +391,6 @@ def flagship_scheduler(**cosched):
     ]))
 
 
-def nominee_cluster(objects, cluster_cls, n_nodes: int = 12,
-                    n_pods: int = 96, seed: int = 0):
-    """A tight cluster with nominated pods inside and outside the batch,
-    built from either package's `objects` module and `Cluster` class:
-    three quota namespaces, gated (so unbatched) pods nominated to the
-    first nodes at high priority, and batch pods of mixed priority of which
-    every eighth is nominated to a node."""
-    import numpy as np
-
-    o = objects
-    gib = 1 << 30
-    rng = np.random.default_rng(seed)
-    cluster = cluster_cls()
-    for i in range(n_nodes):
-        cluster.add_node(o.Node(name=f"node-{i:04d}", allocatable={
-            "cpu": 8000 + 2000 * (i % 3), "memory": (24 + 8 * (i % 2)) * gib,
-            "pods": 12,
-        }))
-    namespaces = ["team-a", "team-b", "team-c"]
-    for k, ns in enumerate(namespaces):
-        cluster.add_quota(o.ElasticQuota(
-            name=f"eq-{ns}", namespace=ns,
-            min={"cpu": 20_000 + 8000 * k, "memory": 80 * gib},
-            max={"cpu": 36_000 + 6000 * k, "memory": 160 * gib},
-        ))
-    for j in range(4):
-        cluster.add_pod(o.Pod(
-            name=f"held-{j}", namespace=namespaces[j % 3], priority=5,
-            creation_ms=-100 + j, scheduling_gated=True,
-            nominated_node_name=f"node-{j:04d}",
-            containers=[o.Container(requests={"cpu": 3000, "memory": 6 * gib})],
-        ))
-    cpus = rng.integers(200, 3000, n_pods)
-    mems = rng.integers(1, 6, n_pods)
-    pris = rng.integers(0, 8, n_pods)
-    for i in range(n_pods):
-        cluster.add_pod(o.Pod(
-            name=f"pod-{i:04d}", namespace=namespaces[i % 3],
-            priority=int(pris[i]), creation_ms=i,
-            nominated_node_name=(f"node-{int(rng.integers(0, n_nodes)):04d}"
-                                 if i % 8 == 3 else None),
-            containers=[o.Container(requests={
-                "cpu": int(cpus[i]), "memory": int(mems[i]) * gib})],
-        ))
-    return cluster
-
-
 def parity_violations(snap, result) -> dict:
     """Host-side checks of a parity solve's result, independent of the
     solver: fit (`fit_violations`), no quota namespace over its Max, and
@@ -444,15 +419,6 @@ def parity_violations(snap, result) -> dict:
     return out
 
 
-def _parity_outputs(result) -> dict:
-    outputs = {k: getattr(result, k) for k in
-               ("assignment", "admitted", "wait", "failed_plugin")}
-    for k in ("free", "eq_used", "gang_scheduled", "gang_inflight",
-              "placed_mask"):
-        outputs[k] = getattr(result.state, k)
-    return outputs
-
-
 def parity_drive(label: str, cluster, device) -> None:
     """QueueSort, snapshot and `Scheduler.solve` of `cluster` on the card:
     twice under sync-debug "error" (`cold_s` pays the kernels' first
@@ -460,6 +426,9 @@ def parity_drive(label: str, cluster, device) -> None:
     reported per pod); then the same on the CPU (`cpu_s`). Every output and final carry must
     be identical (tolerance 0) and pass `parity_violations`."""
     import torch
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
 
     t0 = time.perf_counter()
     sched = flagship_scheduler()
@@ -488,7 +457,7 @@ def parity_drive(label: str, cluster, device) -> None:
     on_cpu = sched_cpu.solve(snap_cpu, device=cpu)
     cpu_s = time.perf_counter() - t0
 
-    got, want = _parity_outputs(result), _parity_outputs(on_cpu)
+    got, want = parity_outputs(result), parity_outputs(on_cpu)
     differ = [k for k in got if (got[k] is None) != (want[k] is None) or (
         got[k] is not None and not torch.equal(got[k].cpu(), want[k]))]
     viol = parity_violations(snap_cpu, on_cpu)
@@ -642,14 +611,6 @@ def cycle_phase(device) -> None:
     from scheduler_plugins_tpu_torch.parallel import kernels as pk
     from scheduler_plugins_tpu_torch.state import Cluster
 
-    # the multi-cycle script the port's tests also hold against JAX
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from torch_cycle_scripts import (
-        SCRIPT_COSCHED,
-        cycle_script,
-        script_outcomes,
-    )
-
     cpu = torch.device("cpu")
 
     # the README quick start, on the card by default
@@ -696,13 +657,38 @@ def cycle_phase(device) -> None:
     print(f"[cycle] config4 identical=True card_s={times[0]} "
           f"cpu_s={times[1]}", flush=True)
 
-    # the multi-cycle script, card and CPU cycle by cycle
+    script_phase(device)
+
+
+def script_phase(device, stream_chunk=None) -> None:
+    """`cycle_script` (`tests/torch_cycle_scripts.py`, the multi-cycle
+    script the port's tests also hold against JAX) through `run_cycle`
+    with `stream_chunk`, on the card and on the CPU: every report and the
+    store identical after every cycle, no store violation, every outcome
+    the script is built for reached."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_cycle_scripts import (
+        SCRIPT_COSCHED,
+        cycle_script,
+        script_outcomes,
+    )
+
+    label = "script" if stream_chunk is None else "streamed_script"
+    cpu = torch.device("cpu")
     arms = []
     for dev in (device, cpu):
         cluster, steps = cycle_script(objects, Cluster)
         arms.append((dev, cluster, steps, flagship_scheduler(**SCRIPT_COSCHED),
                      []))
     t_card = 0.0
+    pk.reset_launches()
     for k in range(len(steps)):
         states = []
         for dev, cluster, steps, sched, reports in arms:
@@ -710,14 +696,15 @@ def cycle_phase(device) -> None:
             if mutate is not None:
                 mutate(objects, cluster)
             t0 = time.perf_counter()
-            reports.append(run_cycle(sched, cluster, now=now, device=dev))
+            reports.append(run_cycle(sched, cluster, now, stream_chunk,
+                                     device=dev))
             if dev is device:
                 t_card += time.perf_counter() - t0
             states.append(cycle_state(reports[-1], cluster))
         r = arms[1][4][k]
         viol = store_violations(arms[1][1])
         print(
-            f"[cycle] script cycle={k} now={steps[k][0]} "
+            f"[cycle] {label} cycle={k} now={steps[k][0]} "
             f"identical={states[0] == states[1]} bound={len(r.bound)} "
             f"reserved={len(r.reserved)} failed={len(r.failed)} "
             f"skipped={len(r.skipped)} rejected={r.rejected_gangs} "
@@ -726,14 +713,232 @@ def cycle_phase(device) -> None:
             flush=True,
         )
         if states[0] != states[1]:
-            raise AssertionError(f"cycle script, cycle {k}: card != CPU")
+            raise AssertionError(f"{label}, cycle {k}: card != CPU")
         if any(viol.values()):
-            raise AssertionError(f"cycle script, cycle {k}: {viol}")
+            raise AssertionError(f"{label}, cycle {k}: {viol}")
+    launches = pk.launches()
     missed = script_outcomes(arms[1][4])
-    print(f"[cycle] script cycles={len(steps)} card_s={t_card} "
-          f"outcomes_missed={missed}", flush=True)
+    print(f"[cycle] {label} cycles={len(steps)} card_s={t_card} "
+          f"kernel_launches={launches} outcomes_missed={missed}", flush=True)
     if missed:
-        raise AssertionError(f"cycle script did not reach {missed}")
+        raise AssertionError(f"{label} did not reach {missed}")
+
+
+def north_star_pipeline(cluster, device) -> None:
+    """The north-star problem through `run_chunk_pipeline`, as
+    `bench.north_star` drives it (`bench.py:602-660`): the snapshot padded
+    to a multiple of 8192 pod rows, `raw` the demoted least-allocatable
+    scores under {cpu: 1<<20, memory: 1}, host numpy chunk inputs, and the
+    chunk solver of `bench.north_star_solve_chunk` (masked free, targeted
+    waterfill, 8 waves, rescue window 256). The assignment must equal
+    `batch_solve(chunk=8192, rescue_window=256)` on the same snapshot.
+    CUDA events around each chunk's solve give its window on the device
+    clock (from its first op to its last, the device's waits on the
+    host's per-wave reads inside it included); their sum is the solve time
+    `timeline.summary` charges the bubble against. A calibration chunk is
+    also timed synchronously, as the JAX bench does, and only printed. The
+    launch counts are reset just before the pipeline run and read just
+    after it."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.ops.allocatable import (
+        MODE_LEAST,
+        allocatable_scores,
+        demote_scores_int32,
+    )
+    from scheduler_plugins_tpu_torch.ops.assign import (
+        waterfill_assign_targeted,
+    )
+    from scheduler_plugins_tpu_torch.ops.fit import free_capacity
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.pipeline import (
+        run_chunk_pipeline,
+    )
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        batch_solve,
+        finalize_assignment,
+    )
+
+    chunk, rescue = NORTH_STAR["chunk"], NORTH_STAR["rescue_window"]
+    t0 = time.perf_counter()
+    pending = sorted(cluster.pending_pods(), key=lambda p: p.creation_ms)
+    padded = -(-len(pending) // chunk) * chunk
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device,
+                                  pad_pods=padded)
+    weights = meta.index.encode({"cpu": 1 << 20, "memory": 1})
+    raw = demote_scores_int32(allocatable_scores(
+        snap.nodes.alloc, torch.as_tensor(weights, device=device), MODE_LEAST
+    )).to(torch.int64)
+    node_mask = snap.nodes.mask
+    windows = []  # (start, end) CUDA events of each chunk's solve
+
+    def solve_chunk(raw, node_mask, req_chunk, mask_chunk, free0):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        a, free, stats = waterfill_assign_targeted(
+            raw, req_chunk, mask_chunk,
+            torch.where(node_mask[:, None], free0, 0), max_waves=8,
+            rescue_window=rescue,
+        )
+        end.record()
+        windows.append((start, end))
+        return (a, stats["waves"]), free
+
+    req_np = snap.pods.req.cpu().numpy()
+    mask_np = snap.pods.mask.cpu().numpy()
+    chunk_inputs = [(req_np[lo:lo + chunk], mask_np[lo:lo + chunk])
+                    for lo in range(0, padded, chunk)]
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+
+    def free0():
+        return free_capacity(snap.nodes.alloc, snap.nodes.requested)
+
+    def calibrate():
+        free = free0()
+        _sync(device)
+        t0 = time.perf_counter()
+        (a, waves), _ = solve_chunk(
+            raw, node_mask,
+            *(torch.from_numpy(x).to(device) for x in chunk_inputs[0]), free,
+        )
+        a.cpu()
+        return time.perf_counter() - t0, waves
+
+    calibrate()  # warm: the first solve pays the card's one-time loads
+    cal_s, cal_waves = calibrate()
+
+    free = free0()
+    _sync(device)
+    windows.clear()
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    results, free, done_s, timeline = run_chunk_pipeline(
+        solve_chunk, (raw, node_mask), chunk_inputs, free, device=device
+    )
+    elapsed = time.perf_counter() - t0
+    launches = pk.launches()
+    _sync(device)
+    waves = sum(w for _, w in results)
+    solve_window_ms = sum(a.elapsed_time(b) for a, b in windows)
+    summary = timeline.summary(solve_ms=solve_window_ms)
+
+    assignment = torch.from_numpy(np.concatenate([a for a, _ in results]))
+    a_pipe, wait_pipe = finalize_assignment(assignment.to(device), snap)
+    t0 = time.perf_counter()
+    a_ref, _, wait_ref = batch_solve(snap, weights, chunk=chunk,
+                                     rescue_window=rescue)
+    _sync(device)
+    ref_s = time.perf_counter() - t0
+    same = torch.equal(a_pipe, a_ref) and torch.equal(wait_pipe, wait_ref)
+    placed = int((a_pipe >= 0).sum())
+    viol = fit_violations(snap, a_pipe)
+    n_pods = len(pending)
+    print(
+        f"[pipeline] north_star nodes={len(meta.node_names)} pods={n_pods} "
+        f"rows={padded} chunks={len(chunk_inputs)} setup_s={setup_s:.3f} "
+        f"elapsed_s={elapsed} pods_per_s={n_pods / elapsed} waves={waves} "
+        f"calibration_chunk_s={cal_s} calibration_waves={cal_waves} "
+        f"solve_window_ms={solve_window_ms} "
+        f"batch_solve_s={ref_s} placed={placed} identical={same} "
+        f"fit_violations={viol} done_s_last={done_s[-1]} "
+        f"kernel_launches={launches}",
+        flush=True,
+    )
+    print(f"[pipeline] north_star timeline={json.dumps(summary)}", flush=True)
+    if not same:
+        raise AssertionError("north-star pipeline != batch_solve")
+    if viol or placed == 0:
+        raise AssertionError(f"north-star pipeline: {viol} violations, "
+                             f"{placed} placed")
+
+
+def config6_cycle(device) -> None:
+    """Bench config 6 (`allocatable_scenario(10_240, 102_400)`, the
+    flagship profile) through one `run_cycle(now=1000, stream_chunk=4096)`
+    on the card, then from a fresh cluster on the CPU: identical reports
+    and store, no store violation. The cycle's snapshot and its streamed
+    solve are captured as the cycle takes them, to prove the streamed
+    solve served the cycle and that its placements are the cycle's binds
+    and reservations."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import cycle as cycle_mod
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.models import allocatable_scenario
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    states, times = [], []
+    real_solve = cycle_mod.streamed_profile_solve
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        cluster = allocatable_scenario(CONFIG6["n_nodes"], CONFIG6["n_pods"])
+        scenario_s = time.perf_counter() - t0
+        taken = {"snapshots": [], "solves": []}
+        real_snapshot = cluster.snapshot
+
+        def snapshot(*args, **kw):
+            out = real_snapshot(*args, **kw)
+            taken["snapshots"].append(out)
+            return out
+
+        def streamed(*args, **kw):
+            out = real_solve(*args, **kw)
+            taken["solves"].append(out)
+            return out
+
+        cluster.snapshot = snapshot
+        cycle_mod.streamed_profile_solve = streamed
+        timings = {}
+        pk.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            report = run_cycle(flagship_scheduler(), cluster, now=1000,
+                               stream_chunk=CONFIG6["stream_chunk"],
+                               device=dev, timings=timings)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        finally:
+            cycle_mod.streamed_profile_solve = real_solve
+            del cluster.snapshot
+        launches = pk.launches()
+        if not taken["solves"] or taken["solves"][0] is None:
+            raise AssertionError(f"config 6 cycle on {dev}: the streamed "
+                                 f"solve did not serve the cycle")
+        (snap, meta), (a, admitted, wait) = (taken["snapshots"][0],
+                                             taken["solves"][0])
+        a, admitted, wait = (x.cpu().numpy() for x in (a, admitted, wait))
+        want = ({}, {})  # (bound, reserved) by the streamed solve
+        for i, uid in enumerate(meta.pod_names):
+            if a[i] >= 0 and admitted[i]:
+                want[int(wait[i])][uid] = meta.node_names[a[i]]
+        if (report.bound, report.reserved) != want:
+            raise AssertionError(f"config 6 cycle on {dev}: binds differ "
+                                 f"from the streamed solve's placements")
+        viol = store_violations(cluster)
+        states.append(cycle_state(report, cluster))
+        print(
+            f"[cycle] config6 device={dev.type} nodes={len(cluster.nodes)} "
+            f"pods={len(cluster.pods)} rows={snap.num_pods} "
+            f"stream_chunk={CONFIG6['stream_chunk']} streamed=True "
+            f"scenario_s={scenario_s} cycle_s={times[-1]} stage_s={timings} "
+            f"bound={len(report.bound)} reserved={len(report.reserved)} "
+            f"failed={len(report.failed)} "
+            f"preempted={len(report.preempted)} quality={report.quality} "
+            f"kernel_launches={launches} violations={viol}",
+            flush=True,
+        )
+        if any(viol.values()):
+            raise AssertionError(f"config 6 cycle on {dev}: {viol}")
+        if not report.bound:
+            raise AssertionError(f"config 6 cycle on {dev}: nothing bound")
+        del cluster, snap, meta, taken
+    if states[0] != states[1]:
+        raise AssertionError("config 6 cycle: card != CPU")
+    print(f"[cycle] config6 identical=True card_s={times[0]} "
+          f"cpu_s={times[1]}", flush=True)
 
 
 def kernel_table(north: dict, device) -> list:
@@ -816,9 +1021,15 @@ def main() -> int:
         "north_star", cluster, device, S_BLOCKS, chunk=NORTH_STAR["chunk"],
         rescue_window=NORTH_STAR["rescue_window"], pad_to=NORTH_STAR["chunk"],
     )
-    del cluster
 
-    # 5. gang + quota, and a tight problem (rescue waves, hopeless pods)
+    # 5. the streamed chunk pipeline: the north star as bench drives it,
+    # bench config 6 through one streamed cycle, the streamed script
+    north_star_pipeline(cluster, device)
+    del cluster
+    config6_cycle(device)
+    script_phase(device, stream_chunk=4)
+
+    # 6. gang + quota, and a tight problem (rescue waves, hopeless pods)
     # solved on the card and, through the plain versions, on the CPU
     drive("gang_quota", gang_quota_scenario(32, 64, 1024), device, S_BLOCKS)
     tight = allocatable_scenario(40, 3000)
@@ -830,9 +1041,12 @@ def main() -> int:
         if not torch.equal(on_card[key].cpu(), on_cpu[key]):
             raise AssertionError(f"tight problem: card != CPU ({key})")
 
-    # 6. the sequential parity solve, card against CPU
+    # 7. the sequential parity solve, card against CPU
     from scheduler_plugins_tpu_torch.api import objects
     from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_parity_cases import nominee_cluster
 
     config4 = gang_quota_scenario(**CONFIG4)
     parity_drive("parity_config4", config4, device)
@@ -840,10 +1054,10 @@ def main() -> int:
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
     launches_per_step(config4, device)
 
-    # 7. the scheduling cycle, card against CPU
+    # 8. the scheduling cycle, card against CPU
     cycle_phase(device)
 
-    # 8. the kernel table, the card, the result
+    # 9. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

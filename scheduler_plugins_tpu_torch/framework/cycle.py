@@ -21,12 +21,15 @@ The solve's outputs stay on the card until `_cycle_solve_fence` copies
 them, and the snapshot columns the quality stamp reads, to the host once;
 every later stage reads those numpy copies.
 
-Left out until their slices: the streamed chunk pipeline (`stream_chunk`,
-with `Scheduler.attribution_codes`), the serving engine (`serve`), the
-solve watchdog (`resilience`), the rank-aware gang phase (`gangs`), the
-online tuner (`tuner`), explain, metrics, tracer spans, the pod ledger,
-the flight recorder and the sanitizer. Passing one of those arguments
-raises NotImplementedError.
+`stream_chunk` runs the solve through the streamed chunk pipeline
+(`parallel.pipeline.streamed_profile_solve`) when the profile qualifies;
+its failures are attributed by `Scheduler.attribution_codes`.
+
+Left out until their slices: the serving engine (`serve`), the solve
+watchdog (`resilience`), the rank-aware gang phase (`gangs`), the online
+tuner (`tuner`), explain, metrics, tracer spans, the pod ledger, the
+flight recorder and the sanitizer. Passing one of those arguments raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ from scheduler_plugins_tpu_torch.framework.runtime import (
     Scheduler,
     now_ms as _now_ms,
 )
+from scheduler_plugins_tpu_torch.parallel.pipeline import (
+    streamed_profile_solve,
+)
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
@@ -56,12 +62,24 @@ from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
 #: the `run_cycle` options of the JAX package that later slices bring,
 #: each with the slice that brings it
 _LATER_SLICES = {
-    "stream_chunk": "the streamed chunk pipeline (parallel/pipeline.py)",
     "serve": "the resident-state serving engine (serving/)",
     "resilience": "the solve watchdog (resilience/)",
     "gangs": "the rank-aware gang phase (gangs/)",
     "tuner": "the online tuner (tuning/shadow.py)",
 }
+
+
+@dataclass
+class SolveResultView:
+    """The (assignment, admitted, wait) triple the cycle consumes: what the
+    streamed solve returns (no SolverState carry). `failed_plugin` stays
+    None: the cycle attributes its failures from the cycle-initial
+    per-plugin verdicts (`Scheduler.attribution_codes`)."""
+
+    assignment: object
+    admitted: object
+    wait: object
+    failed_plugin: object = None
 
 
 @dataclass
@@ -102,6 +120,8 @@ class CycleCtx:
     now: int
     device: object
     report: CycleReport
+    #: pods per chunk of the streamed solve; None = the sequential solve
+    stream_chunk: Optional[int] = None
     cosched: object = None
     pending: list = field(default_factory=list)
     snap: object = None
@@ -120,10 +140,12 @@ class CycleCtx:
     failed_by_gang: dict = field(default_factory=dict)
 
 
-def _cycle_open(scheduler, cluster, now, device) -> CycleCtx:
+def _cycle_open(scheduler, cluster, now, device,
+                stream_chunk=None) -> CycleCtx:
     """Cycle prologue: the Coscheduling instance, and permit expiry."""
     ctx = CycleCtx(scheduler=scheduler, cluster=cluster, now=now,
-                   device=device, report=CycleReport())
+                   device=device, report=CycleReport(),
+                   stream_chunk=stream_chunk)
     ctx.cosched = next(
         (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
         None,
@@ -152,9 +174,20 @@ def _cycle_snapshot(ctx: CycleCtx) -> None:
 
 
 def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
-    """The sequential solve. On the card it only enqueues work: the
-    outputs stay device tensors until the fence."""
-    ctx.result = ctx.scheduler.solve(ctx.snap, device=ctx.device)
+    """The streamed solve when `stream_chunk` is set and the profile
+    qualifies, else the sequential solve (which on the card only enqueues
+    work). The outputs stay device tensors until the fence."""
+    result = None
+    if ctx.stream_chunk:
+        streamed = streamed_profile_solve(
+            ctx.scheduler, ctx.snap, chunk=ctx.stream_chunk,
+            device=ctx.device,
+        )
+        if streamed is not None:
+            result = SolveResultView(*streamed)
+    if result is None:
+        result = ctx.scheduler.solve(ctx.snap, device=ctx.device)
+    ctx.result = result
 
 
 def _cycle_solve_fence(ctx: CycleCtx) -> None:
@@ -168,7 +201,8 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
     ctx.assignment = host(result.assignment)
     ctx.admitted = host(result.admitted)
     ctx.wait = host(result.wait)
-    ctx.failed_plugin = host(result.failed_plugin)
+    if result.failed_plugin is not None:
+        ctx.failed_plugin = host(result.failed_plugin)
     ctx.quality_view = SimpleNamespace(
         nodes=SimpleNamespace(alloc=host(snap.nodes.alloc),
                               requested=host(snap.nodes.requested),
@@ -218,8 +252,8 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
     whole-gang PostFilter rejection and preemption."""
     cluster, report, now = ctx.cluster, ctx.report, ctx.now
     cosched = ctx.cosched
-    _attribute_failures(ctx.scheduler, ctx.failed_plugin, ctx.failed_idx,
-                        report)
+    _attribute_failures(ctx.scheduler, ctx.snap, ctx.failed_plugin,
+                        ctx.failed_idx, report)
 
     # Permit Allow fan-out: quorum reached this cycle releases waiting
     # siblings
@@ -269,20 +303,24 @@ _STAGES = (
 
 
 def run_cycle(scheduler: Scheduler, cluster: Cluster,
-              now: Optional[int] = None, device=None, *, timings=None,
-              stream_chunk=None, serve=None, resilience=None, gangs=None,
-              tuner=None) -> CycleReport:
+              now: Optional[int] = None, stream_chunk: Optional[int] = None,
+              serve=None, resilience=None, gangs=None, tuner=None, *,
+              device=None, timings=None) -> CycleReport:
     """One scheduling cycle of `scheduler` over `cluster` at wall-clock
     `now` ms (None = the current time), its snapshot and solve on `device`
     (None = the CUDA card; the CPU only when asked for with "cpu"). The
-    store is mutated in place; the report says what happened.
+    store is mutated in place; the report says what happened. The
+    positional order is the JAX package's.
 
-    `timings`, a dict, receives each stage's wall seconds (`open`,
-    `pending`, then `_STAGES`' names). The JAX package's `stream_chunk`,
+    `stream_chunk` streams the solve through the chunk pipeline in chunks
+    of that many pods when the profile qualifies for the targeted fast
+    path and the snapshot's pod rows are a multiple of it; otherwise the
+    sequential solve runs. `timings`, a dict, receives each stage's wall
+    seconds (`open`, `pending`, then `_STAGES`' names). The JAX package's
     `serve`, `resilience`, `gangs` and `tuner` options are not ported yet:
     passing one raises NotImplementedError."""
-    options = dict(stream_chunk=stream_chunk, serve=serve,
-                   resilience=resilience, gangs=gangs, tuner=tuner)
+    options = dict(serve=serve, resilience=resilience, gangs=gangs,
+                   tuner=tuner)
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(
@@ -293,7 +331,7 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         now = _now_ms()
     clock = time.perf_counter
     t0 = clock()
-    ctx = _cycle_open(scheduler, cluster, now, device)
+    ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk)
     t1 = clock()
     _cycle_pending(ctx)
     if timings is not None:
@@ -319,15 +357,23 @@ def _observe_quality(report, view, assignment, admitted, wait) -> None:
     report.quality = q
 
 
-def _attribute_failures(scheduler, codes, failed_idx, report) -> None:
-    """Fill `CycleReport.failed_by` from the sequential solve's per-pod
-    codes (`SolveResult.failed_plugin`, host copy). Codes <= 0 decode to
-    the built-in fit ("NodeResourcesFit")."""
+def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
+    """Fill `CycleReport.failed_by`: from the sequential solve's per-pod
+    codes (`SolveResult.failed_plugin`, host copy) when it carried them,
+    else from the failed rows' cycle-initial verdicts
+    (`Scheduler.attribution_codes`). Codes <= 0 decode to the built-in
+    fit ("NodeResourcesFit")."""
     if not failed_idx:
         return
+    if codes is not None:
+        per_failure = [codes[i] for i, _ in failed_idx]
+    else:
+        per_failure = scheduler.attribution_codes(
+            snap, [i for i, _ in failed_idx]
+        )
     names = scheduler.fail_plugin_names()
-    for i, uid in failed_idx:
-        code = int(codes[i])
+    for (_, uid), code in zip(failed_idx, per_failure):
+        code = int(code)
         report.failed_by[uid] = names[code] if code > 0 else names[0]
 
 

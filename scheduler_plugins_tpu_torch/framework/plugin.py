@@ -5,6 +5,9 @@ Here each is a tensor transformation over the node axis for one pod of
 the batch, evaluated by the sequential solve (`framework.runtime`):
 
 - `admit`       PreFilter verdict for pod `p`: a (1,) bool tensor.
+- `admit_rows`  the same verdict for a batch of pod rows at once: the
+                streamed solve and failure attribution read it against the
+                cycle-initial state (the JAX package vmaps `admit`).
 - `filter`      (N,) node feasibility for pod `p`.
 - `score`       (N,) raw int64 node scores for pod `p`.
 - `normalize`   per-pod transform of the raw scores over feasible nodes.
@@ -74,6 +77,11 @@ class Plugin:
     #: score weight: the framework multiplies normalized scores by it
     #: (upstream plugin weights in the profile config)
     weight: int = 1
+    #: True when `filter` reads the SolverState carry (its verdict depends
+    #: on earlier in-cycle placements). No ported plugin sets it; the
+    #: streamed solve's gate (`parallel.solver.fast_path_scoring`) refuses
+    #: a profile with one.
+    state_dependent_filter: bool = False
     _presolve = None
 
     def prepare(self, meta) -> None:
@@ -110,6 +118,17 @@ class Plugin:
     # --- tensor extension points ------------------------------------------
     def admit(self, state: SolverState, snap, p: int):
         """PreFilter: (1,) bool verdict for pod index `p`."""
+        return None
+
+    def admit_rows(self, state: SolverState, snap, rows):
+        """Batched PreFilter: (K,) bool verdicts for the pod rows `rows`
+        ((K,) int64, or a slice), each equal to `admit(state, snap, p)` for its row,
+        or None when the plugin has no PreFilter. A plugin that overrides
+        `admit` must override this too."""
+        if type(self).admit is not Plugin.admit:
+            raise NotImplementedError(
+                f"{type(self).__name__} overrides admit but not admit_rows"
+            )
         return None
 
     def filter(self, state: SolverState, snap, p: int):

@@ -32,6 +32,7 @@ import torch
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
 from scheduler_plugins_tpu_torch.ops.fit import (
+    fits,
     fits_one,
     free_capacity,
     pod_fit_demand,
@@ -86,14 +87,15 @@ def solve_output_anomaly(assignment, admitted, wait, n_nodes: int):
     return None
 
 
-def _admit_with_attribution(plugins, state, snap, p, ok0):
-    """PreFilter sweep with attribution: (ok, admit_code), both (1,), where
-    `admit_code` is the FIRST plugin (profile order) whose verdict flipped
-    the pod inadmissible, -1 when none did."""
+def _admit_with_attribution(plugins, verdict_of, ok0):
+    """PreFilter sweep with attribution: (ok, admit_code), each shaped as
+    `ok0`, where `admit_code` is the FIRST plugin (profile order) whose
+    verdict (`verdict_of(plugin)`: its `admit` for one pod or `admit_rows`
+    for a batch) flipped the pod inadmissible, -1 when none did."""
     ok = ok0
     admit_code = torch.full_like(ok0, -1, dtype=torch.int32)
     for i, plugin in enumerate(plugins):
-        verdict = plugin.admit(state, snap, p)
+        verdict = verdict_of(plugin)
         if verdict is not None:
             admit_code = torch.where(
                 (admit_code < 0) & ok & ~verdict, i, admit_code
@@ -147,6 +149,21 @@ def _free_with_nominee_holds(state, snap, p):
     return state.free - hold
 
 
+#: elements of the (K, N, R) comparison `_fits_rows` makes at once
+_FIT_BLOCK = 1 << 26
+
+
+def _fits_rows(req, free, node_mask):
+    """(K, N) built-in fit of the (K, R) requests (`ops.fit.fits`), over
+    blocks of rows so the (K, N, R) comparison stays bounded."""
+    N, R = free.shape
+    step = max(1, _FIT_BLOCK // max(N * R, 1))
+    return torch.cat([
+        fits(req[lo:lo + step], free, node_mask=node_mask)
+        for lo in range(0, req.shape[0], step)
+    ])
+
+
 def _encode_fail(ok0, admit_code, fit0_any, filter_code, fallback: int):
     """Merge the stage attributions into one int32 code (see
     `SolveResult.failed_plugin`): PreFilter rejections name their plugin
@@ -175,7 +192,9 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     ok, fail_code)), each output (1,)."""
     # PreFilter, with per-plugin attribution
     ok0 = hoisted.ok0[p:p + 1]
-    ok, admit_code = _admit_with_attribution(plugins, state, snap, p, ok0)
+    ok, admit_code = _admit_with_attribution(
+        plugins, lambda plugin: plugin.admit(state, snap, p), ok0
+    )
     # Filter: built-in resource fit (nominee capacity holds included) +
     # the plugin filters, exact against the CARRIED state
     req = snap.pods.req[p]
@@ -363,7 +382,7 @@ class Scheduler:
             placed_mask=placed_mask,
         )
 
-    def solve(self, snap, state0: Optional[SolverState] = None,
+    def solve(self, snap, state0: Optional[SolverState] = None, *,
               device=None) -> SolveResult:
         """Run the profile's plugins over the snapshot's pending batch on
         `device` (None = the CUDA card; the snapshot and `state0` move
@@ -399,10 +418,46 @@ class Scheduler:
         return feasible
 
     def fail_plugin_names(self) -> list:
-        """Decoder for `SolveResult.failed_plugin`: code 0 (and any
-        negative code on a failed pod) -> the built-in fit, code 1+i ->
-        profile plugin i."""
+        """Decoder for `SolveResult.failed_plugin` and
+        `attribution_codes`: code 0 (and any negative code on a failed
+        pod) -> the built-in fit, code 1+i -> profile plugin i."""
         return [BUILTIN_FIT] + [p.name for p in self.profile.plugins]
+
+    def attribution_codes(self, snap, indices) -> np.ndarray:
+        """(len(indices),) int32 unschedulability attribution for the pod
+        rows `indices` against the CYCLE-INITIAL state, on the snapshot's
+        device: the failure decode of solves that carry no per-pod codes
+        (the streamed solve). The failed rows go through as one batch:
+        PreFilter in profile order (`admit_rows`, the first flipping
+        plugin named), built-in fit against the initial free capacity
+        (no nominee holds), then the Filter chain.
+
+        Encoding as `SolveResult.failed_plugin`, except that -1 means
+        "feasible cycle-initially": the pod lost to in-cycle capacity
+        consumption, which the cycle decodes to the built-in fit."""
+        plugins = tuple(self.profile.plugins)
+        rows = torch.as_tensor(np.asarray(indices, np.int64),
+                               device=snap.device)
+        if rows.numel() == 0:
+            return np.zeros(0, np.int32)
+        for plugin in plugins:
+            plugin.bind_presolve(plugin.prepare_solve(snap))
+        state0 = self.initial_state(snap)
+        ok0 = snap.pods.mask[rows] & ~snap.pods.gated[rows]
+        _, admit_code = _admit_with_attribution(
+            plugins, lambda plugin: plugin.admit_rows(state0, snap, rows), ok0
+        )
+        fit0 = _fits_rows(snap.pods.req[rows], state0.free, snap.nodes.mask)
+        filter_code = torch.full_like(admit_code, -1)
+        if any(type(p).filter is not Plugin.filter for p in plugins):
+            filter_code = torch.cat([
+                _filter_with_attribution(plugins, state0, snap, p,
+                                         fit0[k])[1]
+                for k, p in enumerate(rows.tolist())
+            ])
+        codes = _encode_fail(ok0, admit_code, fit0.any(dim=1), filter_code,
+                             -1)
+        return codes.cpu().numpy()
 
 
 def now_ms() -> int:

@@ -28,6 +28,15 @@ def quota_admit(eq_used, eq_min, eq_max, has_quota, ns, req,
     return torch.where(has_quota[ns], ~(over_max | over_min), True)
 
 
+def nominee_sums(mask, nom_req):
+    """(K, R) int64 sums of the nominees' (M, R) requests selected by each
+    column of the (M, K) bool `mask`: a float64 product (int64 has no
+    CUDA matmul), exact while every sum stays below 2^53."""
+    return (mask.to(torch.float64).T @ nom_req.to(torch.float64)).to(
+        torch.int64
+    )
+
+
 def quota_commit(eq_used, has_quota, ns, req, placed):
     """Reserve: add `req` to each placed pod's namespace usage when the
     namespace has a quota (capacity_scheduling.go:350-368). `ns` and

@@ -12,6 +12,10 @@
 every cross-block exchange is a CUDA kernel launch (`parallel.kernels`).
 The two give bit-identical results. Hard constraints (fit, queue-order node
 admission, quota caps, gang quorum) hold in both.
+
+`fast_path_scoring` and `fast_solve_head` are the profile-driven head the
+streamed solve (`parallel.pipeline.streamed_profile_solve`) runs instead
+of the fixed allocatable head of the two solvers above.
 """
 
 from __future__ import annotations
@@ -30,18 +34,15 @@ from scheduler_plugins_tpu_torch.ops.assign import (
 )
 from scheduler_plugins_tpu_torch.ops.fit import free_capacity
 from scheduler_plugins_tpu_torch.ops.gang import gang_admit
-from scheduler_plugins_tpu_torch.ops.quota import quota_admit
+from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
 
 F64 = torch.float64
 
 
 def nominated_aggregates_batch(quota):
-    """(P, R) nominee aggregates from the (M, P) masks x (M, R) requests,
-    as float64 products (exact below 2^53)."""
-    nom_req = quota.nom_req.to(F64)
-    in_eq = (quota.nom_in_eq_mask.to(F64).T @ nom_req).to(torch.int64)
-    total = (quota.nom_total_mask.to(F64).T @ nom_req).to(torch.int64)
-    return in_eq, total
+    """(P, R) nominee aggregates from the (M, P) masks x (M, R) requests."""
+    return (nominee_sums(quota.nom_in_eq_mask, quota.nom_req),
+            nominee_sums(quota.nom_total_mask, quota.nom_req))
 
 
 def batch_admission(snap, free, eq_used=None):
@@ -146,6 +147,47 @@ def _solve_head(snap, weights):
         allocatable_scores(snap.nodes.alloc, weights, MODE_LEAST)
     ).to(torch.int64)
     return free0, admitted, raw
+
+
+def fast_path_scoring(plugins):
+    """The single scoring plugin of the targeted fast path, or None when
+    the profile does not qualify: no Filter and no state-dependent filter
+    in the profile, and exactly one scoring plugin, rating nodes
+    pod-invariantly (`static_node_scores`) with a positive weight (only
+    then is the raw order the normalized-weighted order)."""
+    from scheduler_plugins_tpu_torch.framework.plugin import Plugin
+
+    plugins = tuple(plugins)
+    scoring = [p for p in plugins if type(p).score is not Plugin.score]
+    filtering = [p for p in plugins if type(p).filter is not Plugin.filter]
+    ok = (
+        not any(p.state_dependent_filter for p in plugins)
+        and not filtering
+        and len(scoring) == 1
+        and type(scoring[0]).static_node_scores
+        is not Plugin.static_node_scores
+        and scoring[0].weight > 0
+    )
+    return scoring[0] if ok else None
+
+
+def fast_solve_head(plugins, scoring, snap, state0):
+    """The head of the targeted fast path over a profile: each plugin's
+    presolve bound, the batched PreFilter against `state0`, the scoring
+    plugin's full int64 static node ranking (not demoted: the profile's
+    own weights and mode), and the free capacity with masked nodes
+    zeroed. Returns (admitted (P,), raw (N,) int64, free0 (N, R))."""
+    for plugin in plugins:
+        plugin.bind_presolve(plugin.prepare_solve(snap))
+    admitted = snap.pods.mask & ~snap.pods.gated
+    rows = torch.arange(snap.num_pods, device=snap.device)
+    for plugin in plugins:
+        verdict = plugin.admit_rows(state0, snap, rows)
+        if verdict is not None:
+            admitted = admitted & verdict
+    raw = scoring.static_node_scores(snap).to(torch.int64)
+    free0 = torch.where(snap.nodes.mask[:, None], state0.free, 0)
+    return admitted, raw, free0
 
 
 def _chunks(P: int, chunk):

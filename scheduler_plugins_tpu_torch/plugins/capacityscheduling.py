@@ -19,7 +19,11 @@ from scheduler_plugins_tpu_torch.framework.preemption import (
     PreemptionEngine,
     PreemptionMode,
 )
-from scheduler_plugins_tpu_torch.ops.quota import quota_admit, quota_commit
+from scheduler_plugins_tpu_torch.ops.quota import (
+    nominee_sums,
+    quota_admit,
+    quota_commit,
+)
 
 
 class CapacityScheduling(Plugin):
@@ -78,6 +82,24 @@ class CapacityScheduling(Plugin):
         return quota_admit(
             state.eq_used, quota.min, quota.max, quota.has_quota,
             snap.pods.ns[p:p + 1], snap.pods.req[p:p + 1], in_eq, total,
+        )
+
+    def admit_rows(self, state, snap, rows):
+        if snap.quota is None or state.eq_used is None:
+            return None
+        quota = snap.quota
+        row, in_batch = self._presolve or self.prepare_solve(snap)
+        if state.placed_mask is not None:
+            live = ~(state.placed_mask[row] & in_batch)
+        else:
+            live = torch.ones_like(in_batch)
+        in_eq = nominee_sums(quota.nom_in_eq_mask[:, rows] & live[:, None],
+                             quota.nom_req)
+        total = nominee_sums(quota.nom_total_mask[:, rows] & live[:, None],
+                             quota.nom_req)
+        return quota_admit(
+            state.eq_used, quota.min, quota.max, quota.has_quota,
+            snap.pods.ns[rows], snap.pods.req[rows], in_eq, total,
         )
 
     def commit(self, state, snap, p, choice):

@@ -68,12 +68,13 @@ class Coscheduling(Plugin):
         return (-pod.priority, created, tiebreak)
 
     def admit(self, state, snap, p):
+        return self.admit_rows(state, snap, slice(p, p + 1))
+
+    def admit_rows(self, state, snap, rows):
         if snap.gangs is None:
             return None
-        return gang_admit(
-            snap.gangs, state.free, snap.pods.gang[p:p + 1],
-            state.gang_inflight,
-        )
+        return gang_admit(snap.gangs, state.free, snap.pods.gang[rows],
+                          state.gang_inflight)
 
     def commit(self, state, snap, p, choice):
         if snap.gangs is None or state.gang_scheduled is None:

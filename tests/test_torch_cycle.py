@@ -1018,8 +1018,8 @@ def test_filter_verdicts_matches(jax_package):
 
 
 class TestUnportedOptions:
-    @pytest.mark.parametrize("option", ["stream_chunk", "serve", "resilience",
-                                        "gangs", "tuner"])
+    @pytest.mark.parametrize("option", ["serve", "resilience", "gangs",
+                                        "tuner"])
     def test_option_raises(self, option):
         c, s, _ = basic_binds_pending(PORT)
         with pytest.raises(NotImplementedError, match=option):

@@ -37,7 +37,8 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.api.config",
         "scheduler_plugins_tpu_torch.tuning.quality",
         "scheduler_plugins_tpu_torch.plugins.coscheduling",
-        "scheduler_plugins_tpu_torch.ops.normalize"} <= set(names), names
+        "scheduler_plugins_tpu_torch.ops.normalize",
+        "scheduler_plugins_tpu_torch.parallel.pipeline"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))

@@ -22,7 +22,6 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-import chip_smoke
 from scheduler_plugins_tpu_torch.convert import (
     snapshot_from_numpy,
     state_from_numpy,
@@ -44,6 +43,7 @@ from scheduler_plugins_tpu_torch.plugins import (
     NodeResourcesAllocatable,
 )
 from scheduler_plugins_tpu_torch.utils import intmath as t_intmath
+from torch_parity_cases import nominee_cluster
 
 try:
     import jax
@@ -151,8 +151,7 @@ CLUSTERS = {
     "entry": entry_cluster,
     "gang_quota": gang_quota_cluster,
     "cordon_nofit": cordon_nofit_cluster,
-    "nominees": lambda pkg: chip_smoke.nominee_cluster(pkg.objects,
-                                                      pkg.Cluster),
+    "nominees": lambda pkg: nominee_cluster(pkg.objects, pkg.Cluster),
     "mixed_gangs": lambda pkg: mixed_cluster(pkg, 1, gangs=True),
 }
 
@@ -622,7 +621,8 @@ class TestOnCard:
         cluster = allocatable_scenario(n_nodes=16, n_pods=32)
         results = {}
         for device in (card, CPU):
-            sched = chip_smoke.flagship_scheduler()
+            sched = Scheduler(Profile(plugins=[PORT_PLUGINS[n]()
+                                               for n in FLAGSHIP]))
             pending = sched.sort_pending(cluster.pending_pods(), cluster)
             snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
             sched.prepare(meta, cluster)
@@ -633,9 +633,4 @@ class TestOnCard:
             finally:
                 if device.type == "cuda":
                     torch.cuda.set_sync_debug_mode("default")
-        got = chip_smoke._parity_outputs(results["cuda"])
-        want = chip_smoke._parity_outputs(results["cpu"])
-        for k in got:
-            assert (got[k] is None) == (want[k] is None), k
-            if got[k] is not None:
-                assert torch.equal(got[k].cpu(), want[k]), k
+        assert_result_equal(results["cuda"], results["cpu"])
