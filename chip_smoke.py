@@ -25,9 +25,13 @@ Phases (any failure exits non-zero and prints no result line):
    config 6 (`allocatable_scenario(10_240, 102_400)`, flagship profile)
    through one `run_cycle(stream_chunk=4096)` on the card and, from a fresh
    cluster, on the CPU, with identical reports and store, no store
-   violation, and the streamed solve proved to have served the cycle; and
-   `cycle_script` with `stream_chunk=4`, card against CPU on every cycle.
-   No election kernel lies on these paths: their launch counts print 0;
+   violation, and the streamed solve proved to have served the cycle, then
+   `CycleReport.explain(uid, top_k=5)` of the first, the 51,200th and the
+   last pod in queue order on both reports (the card's under sync-debug
+   "error"): identical tables, each candidate's scores summing to its
+   total, each explain's wall time printed; and `cycle_script` with
+   `stream_chunk=4`, card against CPU on every cycle. No election kernel
+   lies on these paths: their launch counts print 0;
 6. `gang_quota_scenario(32, 64, 1024)` the same way (gang and quota
    admission, quota prefix and quorum tail), plus a tight problem (40
    nodes, 3000 pods: rescue waves and hopeless pods) solved on the card and
@@ -39,16 +43,25 @@ Phases (any failure exits non-zero and prints no result line):
    `torch.cuda.set_sync_debug_mode("error")` (a host sync inside the loop
    raises) and on the CPU, with every output and final carry identical,
    hard constraints checked on the host, and the CUDA kernels a step
-   launches counted with `torch.profiler`;
+   launches counted with `torch.profiler`; then config 4 again after
+   `set_live_weights([3, 1, 1])`: on the card under sync-debug "error",
+   equal to the CPU under the same vector, to a profile loaded with
+   `"weights": [3, 1, 1]` and to the CPU after `set_live_weights(None)`,
+   with as many device events a step as the unit-weight run;
 8. the scheduling cycle (`run_cycle`): the README quick start on the
    card; bench config 4's shape through one cycle on the card and, from a
    fresh cluster, on the CPU, with identical reports and store state, no
    fit, quota or quorum violation in the store, and each stage's wall time
-   printed; and `cycle_script` (`tests/torch_cycle_scripts.py`, 1024
-   nodes, small batches: Permit Wait then fan-out bind, a permit timeout,
-   a whole-gang rejection with backoff, a parked pod skipped until a
-   Node/Add, a quota preemption whose nominee binds once its victims are
-   gone) card against CPU on every cycle;
+   printed, then pod 0's explain on both reports (identical, and its
+   winner the node the cycle bound it to); `cycle_script`
+   (`tests/torch_cycle_scripts.py`, 1024 nodes, small batches: Permit
+   Wait then fan-out bind, a permit timeout, a whole-gang rejection with
+   backoff, a parked pod skipped until a Node/Add, a quota preemption
+   whose nominee binds once its victims are gone) card against CPU on
+   every cycle; and `pdb_script`, the same with one more cycle whose
+   preemption a PodDisruptionBudget steers, run with and without the PDB,
+   card against CPU on every cycle, the two nominated nodes printed and
+   required to differ;
 9. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
@@ -66,6 +79,7 @@ Imports nothing of JAX. Importing this module runs nothing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -94,6 +108,12 @@ CONFIG6 = dict(n_nodes=10_240, n_pods=102_400, stream_chunk=4096)
 CONFIG4 = dict(n_gangs=32, gang_size=64, n_nodes=1024)
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
+#: the flagship profile's plugins, and the live weight vector its parity
+#: solve is held to
+FLAGSHIP = ("NodeResourcesAllocatable", "Coscheduling", "CapacityScheduling")
+LIVE_WEIGHTS = [3, 1, 1]
+#: explain at the north-star width: queue positions in config 6's batch
+EXPLAIN_POSITIONS = (0, 51_199, -1)
 #: rank rows per block in the fused_election grid: the north star's
 GRID_BS = NORTH_STAR["n_nodes"] // S_BLOCKS
 
@@ -111,6 +131,22 @@ def _sync(device):
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def sync_errors(device):
+    """On the card, make any host sync inside the block raise
+    (`torch.cuda.set_sync_debug_mode("error")`); on the CPU, nothing."""
+    import torch
+
+    if device.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -482,17 +518,20 @@ def parity_drive(label: str, cluster, device) -> None:
         raise AssertionError(f"{label}: nothing placed")
 
 
-def launches_per_step(cluster, device) -> None:
+def launches_per_step(cluster, device, live_weights=None) -> float:
     """CUDA kernels a parity step launches, from `torch.profiler`: the
     solves of config 4's first PROFILE_PODS and 2 * PROFILE_PODS queued
     pods differ by PROFILE_PODS steps (the set-up and the Permit tail are
     the same work), so their kernel counts differ by PROFILE_PODS steps'
-    launches."""
+    launches. `live_weights` sets the scheduler's live weight vector.
+    Returns the device events a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sched = flagship_scheduler()
+    sched.set_live_weights(live_weights)
+    label = "" if live_weights is None else f"live_weights={live_weights} "
     pending = sched.sort_pending(cluster.pending_pods(), cluster)
     counts = {}
     for n in (PROFILE_PODS, 2 * PROFILE_PODS):
@@ -515,7 +554,8 @@ def launches_per_step(cluster, device) -> None:
         )
     (k1, l1, us1), (k2, l2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
     print(
-        f"[parity] launches_per_step device_events={(k2 - k1) / PROFILE_PODS}"
+        f"[parity] {label}launches_per_step "
+        f"device_events={(k2 - k1) / PROFILE_PODS}"
         f" launch_calls={(l2 - l1) / PROFILE_PODS} "
         f"device_us_per_step={(us2 - us1) / PROFILE_PODS} (device events "
         f"{k1} / {k2}, launch calls {l1} / {l2}, device us {us1} / {us2} "
@@ -528,13 +568,76 @@ def launches_per_step(cluster, device) -> None:
     n = 2 * PROFILE_PODS
     top = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
     print(
-        f"[parity] host_us_per_step="
+        f"[parity] {label}host_us_per_step="
         f"{sum(a.self_cpu_time_total for a in ops) / n} top ops (calls, "
         f"self CPU us per step): " + ", ".join(
             f"{a.key} {a.count / n:.2f} {a.self_cpu_time_total / n:.2f}"
             for a in top),
         flush=True,
     )
+    return (k2 - k1) / PROFILE_PODS
+
+
+def live_weights_phase(cluster, device, unit_events: float) -> None:
+    """Config 4's parity solve again after `set_live_weights(LIVE_WEIGHTS)`:
+    on the card under sync-debug "error", equal to the CPU under the same
+    vector and to a profile loaded with those `weights` (every output and
+    final carry, tolerance 0), with as many device events a step as the
+    unit-weight run (`unit_events`); then `set_live_weights(None)`
+    reverts to the static weights, which keep the vector's ints."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+
+    cpu = torch.device("cpu")
+    outs = {}
+    for label, dev, sched in (
+            ("card", device, flagship_scheduler()),
+            ("cpu", cpu, flagship_scheduler()),
+            ("loaded", cpu, Scheduler(load_profile({
+                "plugins": list(FLAGSHIP), "weights": LIVE_WEIGHTS})))):
+        if label != "loaded":
+            sched.set_live_weights(LIVE_WEIGHTS)
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+        sched.prepare(meta, cluster)
+        t0 = time.perf_counter()
+        with sync_errors(dev):
+            result = sched.solve(snap, device=dev)
+        _sync(dev)
+        outs[label] = {k: None if v is None else v.cpu()
+                       for k, v in parity_outputs(result).items()}
+        print(f"[parity] live_weights={LIVE_WEIGHTS} {label} "
+              f"device={dev.type} solve_s={time.perf_counter() - t0} "
+              f"weights_key={sched.weights_key()} "
+              f"placed={int((result.assignment >= 0).sum())}", flush=True)
+        if label == "cpu":
+            sched.set_live_weights(None)
+            if sched.live_weights is not None or sched.weights_key() != (
+                    "weights", *LIVE_WEIGHTS):
+                raise AssertionError("live weights: None did not revert")
+            reverted = sched.solve(snap, device=cpu)
+            outs["reverted"] = {k: None if v is None else v.cpu()
+                                for k, v in parity_outputs(reverted).items()}
+
+    def differ(a, b):
+        return [k for k in a if (a[k] is None) != (b[k] is None) or (
+            a[k] is not None and not torch.equal(a[k], b[k]))]
+
+    bad = {other: differ(outs["card"], outs[other])
+           for other in ("cpu", "loaded", "reverted")}
+    events = launches_per_step(cluster, device, live_weights=LIVE_WEIGHTS)
+    print(f"[parity] live_weights identical={bad} device_events={events} "
+          f"unit_device_events={unit_events}", flush=True)
+    if any(bad.values()):
+        raise AssertionError(f"live weights: card differs in {bad}")
+    if events != unit_events:
+        raise AssertionError(f"live weights: {events} device events a step, "
+                             f"{unit_events} at unit weights")
 
 
 def ordered(value):
@@ -600,6 +703,40 @@ def store_violations(cluster) -> dict:
     return {"fit": fit, "quota": quota, "gang": gang}
 
 
+def explain_check(label: str, reports: dict, uids) -> None:
+    """`CycleReport.explain(uid, top_k=5)` for each of `uids` on each
+    device's report of one cycle (`reports`: device type -> report), the
+    card's under `sync_errors`: the tables must be identical across the
+    devices, and each candidate's per-plugin scores must sum to its
+    total. Prints each explain's wall time in ms."""
+    import torch
+
+    tables = {}
+    for kind, report in reports.items():
+        for uid in uids:
+            t0 = time.perf_counter()
+            with sync_errors(torch.device(kind)):
+                table = report.explain(uid, top_k=5)
+            ms = (time.perf_counter() - t0) * 1e3
+            bad = [c["node"] for c in table["candidates"]
+                   if sum(c["scores"].values()) != c["total"]]
+            print(f"[explain] {label} device={kind} uid={uid} ms={ms} "
+                  f"winner={table['winner']} assigned={table['assigned']} "
+                  f"placed={table['placed']} "
+                  f"failed_plugin={table['failed_plugin']} "
+                  f"candidates={len(table['candidates'])} "
+                  f"scores_sum_to_total={not bad}", flush=True)
+            if bad:
+                raise AssertionError(f"explain {label} {uid}: scores do not "
+                                     f"sum to the total on {bad}")
+            tables.setdefault(uid, []).append(table)
+    differ = [uid for uid, ts in tables.items() if any(t != ts[0]
+                                                       for t in ts)]
+    print(f"[explain] {label} identical={not differ}", flush=True)
+    if differ:
+        raise AssertionError(f"explain {label}: card != CPU for {differ}")
+
+
 def cycle_phase(device) -> None:
     """Phase 7: the scheduling cycle on the card, held against the CPU."""
     import torch
@@ -627,16 +764,19 @@ def cycle_phase(device) -> None:
         raise AssertionError(f"quick start: {report.bound}")
 
     # config 4's shape through one cycle, card and CPU
-    states, times = [], []
+    states, times, reports = [], [], {}
     for dev in (device, cpu):
         cluster = gang_quota_scenario(**CONFIG4)
+        sched = flagship_scheduler()
+        first = sched.sort_pending(cluster.pending_pods(), cluster)[0].uid
         timings = {}
         pk.reset_launches()
         t0 = time.perf_counter()
-        report = run_cycle(flagship_scheduler(), cluster, now=1000,
-                           device=dev, timings=timings)
+        report = run_cycle(sched, cluster, now=1000, device=dev,
+                           timings=timings)
         _sync(dev)
         times.append(time.perf_counter() - t0)
+        reports[dev.type] = report
         launches = pk.launches()
         viol = store_violations(cluster)
         states.append(cycle_state(report, cluster))
@@ -656,16 +796,37 @@ def cycle_phase(device) -> None:
         raise AssertionError("config 4 cycle: card != CPU")
     print(f"[cycle] config4 identical=True card_s={times[0]} "
           f"cpu_s={times[1]}", flush=True)
+    # pod 0 solved against the cycle-initial state: its explain winner is
+    # the node the cycle bound it to
+    explain_check("config4", reports, [first])
+    winner = reports[device.type].explain(first)["winner"]
+    bound = reports[device.type].bound.get(first)
+    print(f"[explain] config4 pod0={first} winner={winner} bound={bound}",
+          flush=True)
+    if winner is None or winner != bound:
+        raise AssertionError(f"config 4: pod 0's explain winner {winner} "
+                             f"is not its bind {bound}")
 
     script_phase(device)
+    # the same script and one more cycle, in which a PodDisruptionBudget
+    # guards the victim the priority keys alone would take
+    nominated = {guard: script_phase(device, guard=guard)
+                 for guard in (True, False)}
+    print(f"[cycle] pdb_script nominated_with_pdb={nominated[True]} "
+          f"nominated_without_pdb={nominated[False]}", flush=True)
+    if None in nominated.values() or nominated[True] == nominated[False]:
+        raise AssertionError(f"pdb script: the PDB did not move the "
+                             f"nomination {nominated}")
 
 
-def script_phase(device, stream_chunk=None) -> None:
+def script_phase(device, stream_chunk=None, guard=None):
     """`cycle_script` (`tests/torch_cycle_scripts.py`, the multi-cycle
     script the port's tests also hold against JAX) through `run_cycle`
     with `stream_chunk`, on the card and on the CPU: every report and the
     store identical after every cycle, no store violation, every outcome
-    the script is built for reached."""
+    the script is built for reached. With `guard` set, `pdb_script` runs
+    instead (its PodDisruptionBudget added when `guard`), and the phase
+    returns the (node, victims) its last cycle nominated."""
     import torch
 
     from scheduler_plugins_tpu_torch.api import objects
@@ -677,14 +838,21 @@ def script_phase(device, stream_chunk=None) -> None:
     from torch_cycle_scripts import (
         SCRIPT_COSCHED,
         cycle_script,
+        pdb_nomination,
+        pdb_script,
         script_outcomes,
     )
 
     label = "script" if stream_chunk is None else "streamed_script"
+    if guard is not None:
+        label = "pdb_script" if guard else "pdb_script_unguarded"
     cpu = torch.device("cpu")
     arms = []
     for dev in (device, cpu):
-        cluster, steps = cycle_script(objects, Cluster)
+        if guard is None:
+            cluster, steps = cycle_script(objects, Cluster)
+        else:
+            cluster, steps = pdb_script(objects, Cluster, guard=guard)
         arms.append((dev, cluster, steps, flagship_scheduler(**SCRIPT_COSCHED),
                      []))
     t_card = 0.0
@@ -722,6 +890,7 @@ def script_phase(device, stream_chunk=None) -> None:
           f"kernel_launches={launches} outcomes_missed={missed}", flush=True)
     if missed:
         raise AssertionError(f"{label} did not reach {missed}")
+    return None if guard is None else pdb_nomination(arms[1][4])
 
 
 def north_star_pipeline(cluster, device) -> None:
@@ -870,7 +1039,7 @@ def config6_cycle(device) -> None:
     from scheduler_plugins_tpu_torch.models import allocatable_scenario
     from scheduler_plugins_tpu_torch.parallel import kernels as pk
 
-    states, times = [], []
+    states, times, reports = [], [], {}
     real_solve = cycle_mod.streamed_profile_solve
     for dev in (device, torch.device("cpu")):
         t0 = time.perf_counter()
@@ -919,6 +1088,8 @@ def config6_cycle(device) -> None:
                                  f"from the streamed solve's placements")
         viol = store_violations(cluster)
         states.append(cycle_state(report, cluster))
+        reports[dev.type] = report
+        uids = [meta.pod_names[i] for i in EXPLAIN_POSITIONS]
         print(
             f"[cycle] config6 device={dev.type} nodes={len(cluster.nodes)} "
             f"pods={len(cluster.pods)} rows={snap.num_pods} "
@@ -939,6 +1110,9 @@ def config6_cycle(device) -> None:
         raise AssertionError("config 6 cycle: card != CPU")
     print(f"[cycle] config6 identical=True card_s={times[0]} "
           f"cpu_s={times[1]}", flush=True)
+    # explain at the north-star width: the first, the 51,200th and the
+    # last pod in queue order
+    explain_check("config6", reports, uids)
 
 
 def kernel_table(north: dict, device) -> list:
@@ -1052,7 +1226,8 @@ def main() -> int:
     parity_drive("parity_config4", config4, device)
     parity_drive("parity_entry", allocatable_scenario(16, 32), device)
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
-    launches_per_step(config4, device)
+    unit_events = launches_per_step(config4, device)
+    live_weights_phase(config4, device, unit_events)
 
     # 8. the scheduling cycle, card against CPU
     cycle_phase(device)

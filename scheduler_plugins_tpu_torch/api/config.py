@@ -13,8 +13,9 @@ to a `framework.Profile`:
       "weights": [1, 1, 1],
     }
 
-The plugin constructors carry the reference's defaulting and validation
-(each raises ValueError on invalid args, validation_pluginargs.go).
+`profile_spec` is its inverse. The plugin constructors carry the
+reference's defaulting and validation (each raises ValueError on invalid
+args, validation_pluginargs.go).
 Plugins the JAX package has and the port does not yet raise
 NotImplementedError naming them; a name neither knows is a ValueError.
 """
@@ -67,6 +68,69 @@ def _registry():
 def available_plugins() -> tuple[str, ...]:
     """The plugins the port can load, sorted."""
     return tuple(sorted(_registry()))
+
+
+#: arg exporters for the plugins whose constructor args are not stored
+#: under the kwarg's own attribute name (`profile_spec` tries that first)
+_SPEC_OVERRIDES = {
+    "NodeResourcesAllocatable": lambda p: {
+        "resources": [list(r) for r in p.resources],
+        "mode": "Least" if p.mode_sign < 0 else "Most",
+    },
+}
+
+
+def _json_safe(value):
+    """`value` in JSON-encodable form, or None when it has none (tuples
+    become lists; other objects are dropped)."""
+    if isinstance(value, (bool, int, float, str)) or value is None:
+        return value
+    if isinstance(value, (tuple, list)):
+        items = [_json_safe(v) for v in value]
+        return items if all(
+            v is not None or o is None for v, o in zip(items, value)
+        ) else None
+    if isinstance(value, Mapping):
+        out = {}
+        for k, v in value.items():
+            if not isinstance(k, str):
+                return None
+            safe = _json_safe(v)
+            if safe is None and v is not None:
+                return None
+            out[k] = safe
+        return out
+    return None
+
+
+def profile_spec(profile: Profile) -> dict:
+    """The inverse of `load_profile`: a {profileName, plugins,
+    pluginConfig, weights} mapping that rebuilds `profile`'s roster. Args
+    come from the attributes the constructors keep (`_SPEC_OVERRIDES` for
+    the renamed ones); what is not JSON-able is left out. `weights` is
+    exported only when some weight differs from its class default. The
+    port's profiles are all "sequential", so no `solveMode` is exported."""
+    names = []
+    plugin_config = []
+    for plugin in profile.plugins:
+        cls = type(plugin).__name__
+        names.append(cls)
+        override = _SPEC_OVERRIDES.get(cls)
+        args = dict(override(plugin)) if override else {}
+        for camel, kwarg in _ARG_MAPS.get(cls, {}).items():
+            if camel in args:
+                continue
+            value = _json_safe(getattr(plugin, kwarg, None))
+            if value is not None:
+                args[camel] = value
+        if args:
+            plugin_config.append({"name": cls, "args": args})
+    spec = {"profileName": profile.name, "plugins": names}
+    if plugin_config:
+        spec["pluginConfig"] = plugin_config
+    if any(p.weight != type(p).weight for p in profile.plugins):
+        spec["weights"] = [int(p.weight) for p in profile.plugins]
+    return spec
 
 
 def load_profile(config: Mapping) -> Profile:

@@ -1,10 +1,11 @@
 """Host-side cluster object model (port of `scheduler_plugins_tpu.api.objects`).
 
 The types the flagship slice needs: `Node`, `Pod` with its `Container`s,
-and the two CRDs the admission reads, `PodGroup` (gang) and
-`ElasticQuota`. Derived-request semantics follow the reference: the
-effective request is max(sum of app containers, max over init containers)
-plus overhead (upstream pkg/util/resource.go:45-85).
+the two CRDs the admission reads, `PodGroup` (gang) and `ElasticQuota`,
+and the `PodDisruptionBudget` that preemption reads. Derived-request
+semantics follow the reference: the effective request is max(sum of app
+containers, max over init containers) plus overhead (upstream
+pkg/util/resource.go:45-85).
 """
 
 from __future__ import annotations
@@ -129,3 +130,24 @@ class ElasticQuota:
     namespace: str = "default"
     min: Mapping[str, int] = field(default_factory=dict)
     max: Mapping[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class PodDisruptionBudget:
+    """The PDB surface preemption reads when it partitions victims
+    (upstream capacity_scheduling.go:889-934): a match-labels selector and
+    the API server's DisruptionsAllowed budget."""
+
+    name: str
+    namespace: str = "default"
+    #: match-labels selector; an empty one matches NOTHING (upstream)
+    selector: Mapping[str, str] = field(default_factory=dict)
+    disruptions_allowed: int = 0
+    #: pod NAMES (not uids) already being disrupted: not counted again
+    disrupted_pods: frozenset[str] = frozenset()
+
+    def matches(self, pod: Pod) -> bool:
+        if (not self.selector or pod.namespace != self.namespace
+                or not pod.labels):
+            return False
+        return all(pod.labels.get(k) == v for k, v in self.selector.items())

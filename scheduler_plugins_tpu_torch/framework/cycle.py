@@ -25,16 +25,23 @@ every later stage reads those numpy copies.
 (`parallel.pipeline.streamed_profile_solve`) when the profile qualifies;
 its failures are attributed by `Scheduler.attribution_codes`.
 
+`CycleReport.explain(uid)` gives the "why this node" table of any pod of
+the cycle's batch (`utils.flightrec.explain_solver`), scored with the
+plugins' configuration as the cycle saw it; only the most recent
+`SPT_EXPLAIN_RETAIN` reports (default 8) keep their snapshot for it.
+
 Left out until their slices: the serving engine (`serve`), the solve
 watchdog (`resilience`), the rank-aware gang phase (`gangs`), the online
-tuner (`tuner`), explain, metrics, tracer spans, the pod ledger, the
-flight recorder and the sanitizer. Passing one of those arguments raises
+tuner (`tuner`), metrics, tracer spans, the pod ledger, the flight
+recorder and the sanitizer. Passing one of those arguments raises
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional
@@ -58,6 +65,7 @@ from scheduler_plugins_tpu_torch.parallel.pipeline import (
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
+from scheduler_plugins_tpu_torch.utils.flightrec import explain_solver
 
 #: the `run_cycle` options of the JAX package that later slices bring,
 #: each with the slice that brings it
@@ -105,10 +113,60 @@ class CycleReport:
     quality: Optional[dict] = None
 
     def explain(self, uid: str, top_k: int = 5) -> dict:
-        raise NotImplementedError(
-            "CycleReport.explain comes with the explain slice "
-            "(utils/flightrec.py explain_solver)"
-        )
+        """The "why this node" table for one pod of THIS cycle's pending
+        batch (`utils.flightrec.explain_solver`): the top-k candidate
+        nodes with per-plugin weighted normalized scores, the built-in fit
+        margin and the gap to the winner, computed on the cycle's device
+        with the plugins' configuration frozen at the cycle. Works for
+        placed and failed pods. Raises KeyError for a uid outside the
+        batch, and RuntimeError when the cycle ran no solve or its
+        context was released (only the most recent SPT_EXPLAIN_RETAIN
+        reports keep their snapshot)."""
+        ctx = getattr(self, "_explain_ctx", None)
+        if ctx is _CTX_RELEASED:
+            raise RuntimeError(
+                f"explain context released: only the most recent "
+                f"{_explain_retain()} cycle reports keep their snapshot "
+                "(SPT_EXPLAIN_RETAIN; 0 disables explain entirely)"
+            )
+        if ctx is None:
+            raise RuntimeError(
+                "this cycle ran no solve (empty pending batch): nothing "
+                "to explain"
+            )
+        scheduler, snap, meta, assignment, auxes = ctx
+        return explain_solver(scheduler, snap, meta, uid, top_k=top_k,
+                              assignment=assignment, auxes=auxes,
+                              device=snap.device)
+
+
+#: sentinel on `CycleReport._explain_ctx`: released by the retention
+#: window, as opposed to "this cycle never solved"
+_CTX_RELEASED = object()
+
+#: reports whose explain context (scheduler, snapshot, meta, assignment,
+#: auxes) is still attached, most recent last: each pins a snapshot, so
+#: a caller keeping every report must not keep every snapshot
+_EXPLAIN_RING: deque = deque()
+
+
+def _explain_retain() -> int:
+    try:
+        return int(os.environ.get("SPT_EXPLAIN_RETAIN", "8"))
+    except ValueError:
+        return 8
+
+
+def _attach_explain_ctx(report: CycleReport, ctx: tuple) -> None:
+    retain = _explain_retain()
+    if retain <= 0:
+        # explain disabled: pin nothing, not even this cycle's snapshot
+        report._explain_ctx = _CTX_RELEASED
+        return
+    report._explain_ctx = ctx
+    _EXPLAIN_RING.append(report)
+    while len(_EXPLAIN_RING) > retain:
+        _EXPLAIN_RING.popleft()._explain_ctx = _CTX_RELEASED
 
 
 @dataclass
@@ -193,7 +251,10 @@ def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
 def _cycle_solve_fence(ctx: CycleCtx) -> None:
     """The cycle's one host copy: assignment, admitted, wait and the
     failure codes, and the snapshot columns the quality stamp reads. The
-    first copy waits for the card; later stages read only these."""
+    first copy waits for the card; later stages read only these. Then the
+    report's explain context is attached, with the plugins' `aux()`
+    frozen here: the preemption pass re-prepares the shared plugins for
+    its own snapshot, and a later cycle for its own."""
     def host(x):
         return x.cpu().numpy()
 
@@ -210,6 +271,10 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
         pods=SimpleNamespace(req=host(snap.pods.req),
                              mask=host(snap.pods.mask)),
     )
+    _attach_explain_ctx(ctx.report, (
+        ctx.scheduler, snap, ctx.meta, ctx.assignment,
+        tuple(p.aux() for p in ctx.scheduler.profile.plugins),
+    ))
 
 
 def _cycle_bind(ctx: CycleCtx) -> None:

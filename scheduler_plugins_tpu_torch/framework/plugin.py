@@ -13,6 +13,11 @@ the batch, evaluated by the sequential solve (`framework.runtime`):
 - `normalize`   per-pod transform of the raw scores over feasible nodes.
 - `commit`      Reserve: fold the chosen placement into the SolverState
                 carried from pod to pod.
+- `filter_batch`, `score_batch`, `batch_rows`
+                whole-batch (P, N) rows the batched explain
+                (`parallel.solver.collapsed_batch_rows`) reads in place of
+                the per-pod calls; None (the default) when a plugin has no
+                class-collapsed form.
 - `queue_key`   host-side QueueSort key for a Pod object (lower first).
 
 The tensor methods issue device work only: no host read of a tensor, so
@@ -83,6 +88,7 @@ class Plugin:
     #: a profile with one.
     state_dependent_filter: bool = False
     _presolve = None
+    _weight_t = None
 
     def prepare(self, meta) -> None:
         """Build per-snapshot-layout tensors (resource weights) on
@@ -93,6 +99,27 @@ class Plugin:
         them into its jitted solve as arguments; eager PyTorch reads them
         from the plugin."""
         return None
+
+    def bind_aux(self, aux) -> None:
+        """Put back tensors an earlier `aux()` returned, so a retained
+        cycle report explains with its own cycle's configuration after a
+        later `prepare` rebuilt them. Also clears any weight override
+        (`bind_weight`). A plugin whose `aux` returns tensors overrides
+        this to store them."""
+        self._weight_t = None
+
+    def bind_weight(self, w) -> None:
+        """Override the score weight the solve multiplies by (the live
+        weight vector's entry for this plugin); None falls back to the
+        static `weight`."""
+        self._weight_t = w
+
+    @property
+    def eff_weight(self):
+        """The weight the score fold multiplies by: the override when one
+        is bound, else the static profile int. A Python int either way on
+        the solve's path, so the fold issues the same kernels."""
+        return self.weight if self._weight_t is None else self._weight_t
 
     def prepare_solve(self, snap):
         """Called once per solve, BEFORE the per-pod loop: derive
@@ -156,3 +183,20 @@ class Plugin:
         """Reserve: fold `choice` ((1,) node index, -1 = unplaced) into the
         carried state; returns the new state."""
         return state
+
+    # --- batched whole-batch rows (parallel.solver) ------------------------
+    def filter_batch(self, state: SolverState, snap):
+        """(P, N) Filter verdicts for the whole batch against `state`, or
+        None to use the per-pod `filter`. Must equal `filter` row by
+        row."""
+        return None
+
+    def score_batch(self, state: SolverState, snap):
+        """(P, N) raw scores for the whole batch, or None to use the
+        per-pod `score`. Must equal `score` row by row."""
+        return None
+
+    def batch_rows(self, state: SolverState, snap):
+        """(filter (P, N) or None, scores (P, N) or None) from one pass,
+        or None to use `filter_batch` / `score_batch`."""
+        return None

@@ -16,16 +16,15 @@ rules (SURVEY.md §3.3):
 
 The dry run is host numpy, exact: every node's free capacity plus the
 eligible victims' demand at once, then the reprieve per sampled candidate
-node, ranked by the upstream pickOneNode criteria (lowest highest victim
-priority, lowest priority sum, fewest victims, lowest index). It reads
-the snapshot through `host_view`: each column it needs copied to the host
-once per preemption pass, never per preemptor.
+node, ranked by the upstream pickOneNode criteria (fewest
+PodDisruptionBudget violations, lowest highest victim priority, lowest
+priority sum, fewest victims, lowest index). The reprieve tries the
+PDB-violating victims first (`partition_pdb_violations`, over the store's
+`pdbs`). It reads the snapshot through `host_view`: each column it needs
+copied to the host once per preemption pass, never per preemptor.
 
 `CROSS_NODE` mode and preemption toleration come with the plugins that
-select them (CrossNodePreemption, PreemptionToleration). The port's store
-holds no PodDisruptionBudget yet, so no candidate violates one: the PDB
-partition of the reprieve and its rank key (fewest violations, first in
-pickOneNode) come with the slice that adds PDBs to the store.
+select them (CrossNodePreemption, PreemptionToleration).
 """
 
 from __future__ import annotations
@@ -377,6 +376,7 @@ class PreemptionEngine:
         # the exact reprieve per sampled candidate, ranked by the final
         # victim sets (pickOneNode)
         rotation, want = self.sample_candidates(fits)
+        pdbs = list(cluster.pdbs.values())
         # plugin Filter chain for the preemptor (upstream
         # RunFilterPluginsWithNominatedPods). The ported plugins keep no
         # pod-derived side tables, so evicting victims cannot change a
@@ -393,14 +393,15 @@ class PreemptionEngine:
                 break
             if filter_row is not None and not filter_row[int(n)]:
                 continue
-            final = self._reprieve(
+            final, violations = self._reprieve(
                 victims_all, v_node, v_req, v_pri, eligible, int(n),
-                free[int(n)], demand, preemptor, view, meta, nom_aggs,
+                free[int(n)], demand, preemptor, view, meta, pdbs, nom_aggs,
             )
             if not final:
                 continue
             produced += 1
             stats = (
+                violations,
                 max(v.priority for v in final),
                 sum(v.priority for v in final),
                 len(final),
@@ -456,14 +457,44 @@ class PreemptionEngine:
         )
         return own_ok & agg_ok
 
+    @staticmethod
+    def partition_pdb_violations(candidates, pdbs):
+        """filterPodsWithPDBViolation (capacity_scheduling.go:889-934):
+        each candidate (index, pod) in turn takes one from the budget of
+        every PDB that matches it (a pod named in the PDB's
+        `disrupted_pods` takes none); a candidate that drives a budget
+        below zero is violating. The budgets are fresh per call: one
+        candidate node's victims share them. Returns (violating,
+        non_violating) index lists in the candidates' order."""
+        allowed = [pdb.disruptions_allowed for pdb in pdbs]
+        violating, non_violating = [], []
+        for i, pod in candidates:
+            violated = False
+            for j, pdb in enumerate(pdbs):
+                if not pdb.matches(pod) or pod.name in pdb.disrupted_pods:
+                    continue
+                allowed[j] -= 1
+                if allowed[j] < 0:
+                    violated = True
+            (violating if violated else non_violating).append(i)
+        return violating, non_violating
+
     def _reprieve(self, victims, v_node, v_req, v_pri, eligible, node,
-                  free_n, demand, preemptor, view, meta, nom_aggs=None):
-        """Add victims back most-important-first while the preemptor still
-        fits and the quota gates hold (capacity_scheduling.go:632-670).
-        Returns the final victims, most important first."""
+                  free_n, demand, preemptor, view, meta, pdbs=(),
+                  nom_aggs=None):
+        """Add victims back while the preemptor still fits and the quota
+        gates hold (capacity_scheduling.go:632-670): the PDB-violating ones
+        first, then the rest, each group most-important-first, so a
+        violating victim has the best chance to stay. Returns (the final
+        victims, most important first; how many of them violate a PDB)."""
         idxs = [i for i in np.nonzero(eligible)[0] if v_node[i] == node]
         # MoreImportantPod: higher priority, then earlier start
         idxs.sort(key=lambda i: (-v_pri[i], victims[i].creation_ms))
+        violating, non_violating = self.partition_pdb_violations(
+            [(i, victims[i]) for i in idxs], list(pdbs)
+        )
+        violating_set = set(violating)
+        idxs = violating + non_violating
         free_after = free_n + v_req[idxs].sum(axis=0) if idxs else free_n
 
         quota = view.quota
@@ -492,6 +523,7 @@ class PreemptionEngine:
                     )
 
         final = []
+        num_violating = 0
         for i in idxs:
             candidate_free = free_after - v_req[i]
             fits = bool(np.all(candidate_free >= demand))
@@ -519,4 +551,8 @@ class PreemptionEngine:
                         )
             else:
                 final.append(victims[i])
-        return final
+                if i in violating_set:
+                    num_violating += 1
+        # the two groups mixed: most important first again
+        final.sort(key=lambda v: (-v.priority, v.creation_ms))
+        return final, num_violating

@@ -21,6 +21,7 @@ core.go:308-345).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass, field
@@ -36,6 +37,10 @@ from scheduler_plugins_tpu_torch.ops.fit import (
     fits_one,
     free_capacity,
     pod_fit_demand,
+)
+from scheduler_plugins_tpu_torch.parallel.pipeline import (
+    _finish_fetch,
+    _start_fetch,
 )
 
 #: attribution name for failures owned by the framework, not a profile
@@ -104,15 +109,21 @@ def _admit_with_attribution(plugins, verdict_of, ok0):
     return ok, admit_code
 
 
-def _filter_with_attribution(plugins, state, snap, p, fit0):
+def _filter_with_attribution(plugins, state, snap, p, fit0, rows=None):
     """Filter chain with attribution: (feasible (N,), filter_code (1,)),
     where `filter_code` is the first plugin whose Filter emptied the
-    still-feasible node set, -1 when none did."""
+    still-feasible node set, -1 when none did. `rows` (plugin position ->
+    (P, N) whole-batch verdicts, `parallel.solver.collapsed_batch_rows`)
+    stands in for that plugin's per-pod `filter`: how the batched explain
+    runs through this same chain."""
     feasible = fit0
     alive = fit0.any(dim=0, keepdim=True)
     filter_code = torch.full_like(alive, -1, dtype=torch.int32)
     for i, plugin in enumerate(plugins):
-        mask = plugin.filter(state, snap, p)
+        if rows is not None and i in rows:
+            mask = rows[i][p]
+        else:
+            mask = plugin.filter(state, snap, p)
         if mask is not None:
             feasible = feasible & mask
             now_alive = feasible.any(dim=0, keepdim=True)
@@ -177,6 +188,127 @@ def _encode_fail(ok0, admit_code, fit0_any, filter_code, fallback: int):
     return torch.where(ok0, code, 0).to(torch.int32)
 
 
+def _score_columns(plugins, state, snap, p, feasible, rows=None):
+    """((L, N) int64 per-plugin weighted normalized score columns, (N,)
+    int64 total) for pod `p`: each column is the `eff_weight *
+    normalize(raw, feasible)` term the solve step folds into its total, so
+    the columns sum to the solver's node score; a plugin without Score
+    gives a zero column. `rows` stands in for `score` as in
+    `_filter_with_attribution`."""
+    N = state.free.shape[0]
+    cols = []
+    total = torch.zeros(N, dtype=torch.int64, device=state.free.device)
+    for i, plugin in enumerate(plugins):
+        if rows is not None and i in rows:
+            raw = rows[i][p]
+        else:
+            raw = plugin.score(state, snap, p)
+        if raw is None:
+            cols.append(torch.zeros_like(total))
+            continue
+        col = (plugin.eff_weight * plugin.normalize(raw, feasible)).to(
+            torch.int64
+        )
+        cols.append(col)
+        total = total + col
+    return torch.stack(cols), total
+
+
+def _explain_rows(plugins, state0, snap, idx, rows, filter_rows=None,
+                  score_rows=None):
+    """The explain body for the pod rows `idx` (host ints; `rows` the same
+    as a device tensor) against the cycle-initial state: PreFilter with
+    attribution (`admit_rows`), the built-in fit and its margin (nominee
+    holds included), the Filter chain and the per-plugin score columns.
+    Returns (admitted (S,), fail_code (S,), feasible (S, N), fit_margin
+    (S, N), columns (S, L, N), total (S, N)), device tensors. Shared by
+    the sequential and batched explain entries (`*_rows` overrides)."""
+    ok0 = snap.pods.mask[rows] & ~snap.pods.gated[rows]
+    ok, admit_code = _admit_with_attribution(
+        plugins, lambda plugin: plugin.admit_rows(state0, snap, rows), ok0
+    )
+    out = []
+    for k, p in enumerate(idx):
+        req = snap.pods.req[p]
+        # the binding resource's headroom against the capacity the solve
+        # step fits against; masked nodes get the sentinel
+        free_eff = _free_with_nominee_holds(state0, snap, p)
+        margin = (free_eff - pod_fit_demand(req)[None, :]).amin(dim=1)
+        margin = torch.where(snap.nodes.mask, margin, MASKED_SCORE)
+        fit0 = fits_one(req, free_eff, snap.nodes.mask)
+        feasible, filter_code = _filter_with_attribution(
+            plugins, state0, snap, p, fit0, rows=filter_rows
+        )
+        feasible = feasible & ok[k:k + 1]
+        columns, total = _score_columns(plugins, state0, snap, p, feasible,
+                                        rows=score_rows)
+        fail_code = _encode_fail(ok0[k:k + 1], admit_code[k:k + 1],
+                                 fit0.any(dim=0, keepdim=True), filter_code,
+                                 -1)
+        out.append((fail_code, feasible, margin, columns, total))
+    fail_code, feasible, margin, columns, total = zip(*out)
+    return (ok, torch.cat(fail_code), torch.stack(feasible),
+            torch.stack(margin), torch.stack(columns), torch.stack(total))
+
+
+@contextlib.contextmanager
+def bound_auxes(plugins, auxes):
+    """Bind `auxes` (tensors an earlier `aux()` of each plugin returned)
+    on the shared plugins for the block, then put back what they held, so
+    the next cycle solves with its own configuration. None binds
+    nothing."""
+    if auxes is None:
+        yield
+        return
+    live = [plugin.aux() for plugin in plugins]
+    for plugin, aux in zip(plugins, auxes):
+        plugin.bind_aux(aux)
+    try:
+        yield
+    finally:
+        for plugin, aux in zip(plugins, live):
+            plugin.bind_aux(aux)
+
+
+def run_explain_rows(scheduler, snap, indices, auxes, explain_fn, device):
+    """Shared plumbing of the two explain entries (`Scheduler.explain_rows`,
+    `parallel.solver.batch_explain_rows`): the device, the empty-batch
+    schema, binding `auxes` (a recorded cycle's `aux()` tensors) on the
+    profile's plugins for the call and restoring theirs after, and one
+    host copy of `explain_fn(plugins, state0, snap, idx, rows)`'s outputs
+    as numpy, each with len(indices) rows."""
+    device = resolve_device(device)
+    if snap.device != device:
+        snap = snap.to(device)
+    plugins = tuple(scheduler.profile.plugins)
+    idx = [int(i) for i in np.asarray(indices, np.int64)]
+    if not idx:
+        N = snap.num_nodes
+        L = max(len(plugins), 1)
+        return {
+            "admitted": np.zeros(0, bool),
+            "fail_code": np.zeros(0, np.int32),
+            "feasible": np.zeros((0, N), bool),
+            "fit_margin": np.zeros((0, N), np.int64),
+            "columns": np.zeros((0, L, N), np.int64),
+            "total": np.zeros((0, N), np.int64),
+        }
+    rows = torch.tensor(idx, dtype=torch.int64)
+    if device.type == "cuda":
+        # pinned and non-blocking: the call never waits on the card
+        # before its one fetch
+        rows = rows.pin_memory().to(device, non_blocking=True)
+    with bound_auxes(plugins, auxes):
+        for plugin in plugins:
+            plugin.bind_presolve(plugin.prepare_solve(snap))
+        out = explain_fn(plugins, scheduler.initial_state(snap), snap, idx,
+                         rows)
+        out = _finish_fetch(_start_fetch(out, device))
+    names = ("admitted", "fail_code", "feasible", "fit_margin", "columns",
+             "total")
+    return dict(zip(names, out))
+
+
 @dataclass
 class _Hoisted:
     """Pod-invariant tensors of one solve, computed before the loop."""
@@ -209,7 +341,7 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     for plugin in plugins:
         raw = plugin.score(state, snap, p)
         if raw is not None:
-            col = plugin.weight * plugin.normalize(raw, feasible)
+            col = plugin.eff_weight * plugin.normalize(raw, feasible)
             total = col if total is None else total + col
     if total is None:
         total = torch.zeros_like(state.free[:, 0])
@@ -246,9 +378,14 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     return state, (choice, ok, fail_code)
 
 
-def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
-    """The sequential parity solve over one snapshot: hoist presolves, run
-    `_solve_step` pod by pod, reduce gang quorum. No host reads."""
+def sequential_solve_body(plugins, snap, state0: SolverState,
+                          weights=None) -> SolveResult:
+    """The sequential parity solve over one snapshot: bind each plugin's
+    weight from the live `weights` vector (None: the static weights),
+    hoist presolves, run `_solve_step` pod by pod, reduce gang quorum. No
+    host reads."""
+    for i, plugin in enumerate(plugins):
+        plugin.bind_weight(None if weights is None else int(weights[i]))
     for plugin in plugins:
         plugin.bind_presolve(plugin.prepare_solve(snap))
     hoisted = _Hoisted(
@@ -331,6 +468,9 @@ class Scheduler:
 
     def __init__(self, profile: Profile):
         self.profile = profile
+        #: (L,) int64 live per-plugin weight vector, or None (the static
+        #: profile weights); set by `set_live_weights`
+        self._live_weights = None
 
     def sort_pending(self, pods, cluster=None):
         """QueueSort: order the pending list with the profile's comparator
@@ -360,6 +500,46 @@ class Scheduler:
         the plugins that have one)."""
         for plugin in self.profile.plugins:
             plugin.prepare(meta)
+
+    # -- live weights (the online tuner's rollout seam) ------------------
+    @property
+    def live_weights(self):
+        """The (L,) int64 live weight vector, or None when the static
+        profile weights rule."""
+        return self._live_weights
+
+    def set_live_weights(self, weights) -> None:
+        """Swap the profile's per-plugin score weights live: every later
+        `solve` binds the vector's entries (`Plugin.bind_weight`), and the
+        plugins' `weight` ints follow in lockstep so the host-side readers
+        (explain, `weights_key`, `profile_spec`) see the same vector.
+        `None` reverts to the static weights; the original ints are NOT
+        restored (pass the old vector to roll back). The JAX package also
+        evicts its weight-keyed compiled programs here; eager PyTorch
+        caches no program, so there is nothing to evict."""
+        if weights is None:
+            self._live_weights = None
+            return
+        w = np.asarray(weights, np.int64)
+        if w.shape != (len(self.profile.plugins),):
+            raise ValueError(
+                f"live weights shape {w.shape} != "
+                f"({len(self.profile.plugins)},)"
+            )
+        if (w < 1).any():
+            raise ValueError("live weights must be positive (the solve "
+                             "contracts require positive weights)")
+        self._live_weights = w
+        for plugin, wi in zip(self.profile.plugins, w):
+            plugin.weight = int(wi)
+
+    def weights_key(self) -> tuple:
+        """The marked host weight tuple, ("weights", w_0, ..., w_L-1): the
+        JAX package folds it into the cache keys of its programs that bake
+        the weights in."""
+        return ("weights",) + tuple(
+            int(p.weight) for p in self.profile.plugins
+        )
 
     def initial_state(self, snap) -> SolverState:
         gang_sched = gang_inflight = None
@@ -396,7 +576,7 @@ class Scheduler:
         elif state0.free.device != device:
             state0 = state0.to(device)
         return sequential_solve_body(tuple(self.profile.plugins), snap,
-                                     state0)
+                                     state0, weights=self._live_weights)
 
     def filter_verdicts(self, snap, pod_index: int) -> torch.Tensor:
         """(N,) AND of the enabled plugins' Filter verdicts for one pod
@@ -458,6 +638,25 @@ class Scheduler:
         codes = _encode_fail(ok0, admit_code, fit0.any(dim=1), filter_code,
                              -1)
         return codes.cpu().numpy()
+
+    def explain_rows(self, snap, indices, auxes=None, *,
+                     device=None) -> dict:
+        """Per-plugin score decomposition of the pod rows `indices`
+        against the CYCLE-INITIAL state, on `device` (None = the CUDA
+        card; the snapshot moves there if it lives elsewhere): the "why
+        this node" surface behind `CycleReport.explain`. `auxes` binds a
+        recorded cycle's `aux()` tensors for the call.
+
+        Returns numpy arrays, each with len(indices) rows: `admitted`
+        (S,), `fail_code` (S,) int32 (`_encode_fail`'s encoding, -1 =
+        feasible cycle-initially), `feasible` (S, N), `fit_margin` (S, N)
+        int64 (min over resources of effective free - demand, nominee
+        holds included; -2^62 on masked nodes), `columns` (S, L, N) int64
+        weighted normalized per-plugin scores in profile order, `total`
+        (S, N) int64, their sum, which is the solve step's node score.
+        One host copy a call."""
+        return run_explain_rows(self, snap, indices, auxes, _explain_rows,
+                                device)
 
 
 def now_ms() -> int:

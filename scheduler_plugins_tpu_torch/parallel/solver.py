@@ -16,6 +16,10 @@ admission, quota caps, gang quorum) hold in both.
 `fast_path_scoring` and `fast_solve_head` are the profile-driven head the
 streamed solve (`parallel.pipeline.streamed_profile_solve`) runs instead
 of the fixed allocatable head of the two solvers above.
+
+`batch_explain_rows` explains pods through the whole-batch row hooks
+(`collapsed_batch_rows`); `profile_initial_scores` is the independent
+(P, N) objective the explain tables are held against.
 """
 
 from __future__ import annotations
@@ -280,3 +284,95 @@ def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
             "node_ids": node_ids,
         }
     return assignment, admitted, wait
+
+
+def collapsed_batch_rows(plugins, state0, snap):
+    """(filter_rows, score_rows): plugin position -> whole-batch (P, N)
+    rows from the `batch_rows` / `filter_batch` / `score_batch` hooks
+    against the cycle-initial state, the one copy of the hook dispatch.
+    The flagship plugins have no such rows, so both dicts stay empty for
+    them."""
+    from scheduler_plugins_tpu_torch.framework.plugin import Plugin
+
+    filter_rows, score_rows = {}, {}
+    for i, plugin in enumerate(plugins):
+        # fused filter + score rows when offered: one pass for both
+        if type(plugin).batch_rows is not Plugin.batch_rows:
+            fused = plugin.batch_rows(state0, snap)
+            if fused is not None:
+                f_row, s_row = fused
+                if f_row is not None:
+                    filter_rows[i] = f_row
+                if s_row is not None:
+                    score_rows[i] = s_row
+                continue
+        if type(plugin).filter_batch is not Plugin.filter_batch:
+            m = plugin.filter_batch(state0, snap)
+            if m is not None:
+                filter_rows[i] = m
+        if type(plugin).score_batch is not Plugin.score_batch:
+            row = plugin.score_batch(state0, snap)
+            if row is not None:
+                score_rows[i] = row
+    return filter_rows, score_rows
+
+
+def batch_explain_rows(scheduler, snap, indices, auxes=None, *,
+                       device=None):
+    """The batched twin of `Scheduler.explain_rows`: the same outputs,
+    with the per-plugin filter verdicts and raw scores taken from the
+    whole-batch rows (`collapsed_batch_rows`) and fed to the same explain
+    body, so the two explains cannot drift."""
+    from scheduler_plugins_tpu_torch.framework.runtime import (
+        _explain_rows,
+        run_explain_rows,
+    )
+
+    def explain(plugins, state0, snap, idx, rows):
+        filter_rows, score_rows = collapsed_batch_rows(plugins, state0, snap)
+        return _explain_rows(plugins, state0, snap, idx, rows,
+                             filter_rows=filter_rows, score_rows=score_rows)
+
+    return run_explain_rows(scheduler, snap, indices, auxes, explain, device)
+
+
+def profile_initial_scores(scheduler, snap, auxes=None, *, device=None):
+    """((P, N) int64 weighted normalized score totals, (P, N) bool
+    feasibility) against the CYCLE-INITIAL state, on `device` (None = the
+    CUDA card): the objective the solve modes rank nodes by, computed
+    independently of the explain body (built-in fit against the initial
+    free capacity, no PreFilter, no nominee holds, the static `weight`).
+    `auxes` binds a recorded cycle's `aux()` tensors for the call."""
+    from scheduler_plugins_tpu_torch.device import resolve_device
+    from scheduler_plugins_tpu_torch.framework.runtime import (
+        _fits_rows,
+        bound_auxes,
+    )
+
+    device = resolve_device(device)
+    if snap.device != device:
+        snap = snap.to(device)
+    plugins = tuple(scheduler.profile.plugins)
+    state0 = scheduler.initial_state(snap)
+    with bound_auxes(plugins, auxes):
+        for plugin in plugins:
+            plugin.bind_presolve(plugin.prepare_solve(snap))
+        fit = _fits_rows(snap.pods.req, state0.free, snap.nodes.mask)
+        totals, feasibles = [], []
+        for p in range(snap.num_pods):
+            feasible = fit[p]
+            for plugin in plugins:
+                mask = plugin.filter(state0, snap, p)
+                if mask is not None:
+                    feasible = feasible & mask
+            total = torch.zeros(snap.num_nodes, dtype=torch.int64,
+                                device=snap.device)
+            for plugin in plugins:
+                raw = plugin.score(state0, snap, p)
+                if raw is not None:
+                    total = total + plugin.weight * plugin.normalize(
+                        raw, feasible
+                    )
+            totals.append(total)
+            feasibles.append(feasible)
+    return torch.stack(totals), torch.stack(feasibles)

@@ -55,6 +55,10 @@ class NodeResourcesAllocatable(Plugin):
     def aux(self):
         return self._weights
 
+    def bind_aux(self, aux):
+        super().bind_aux(aux)
+        self._weights = aux
+
     def static_node_scores(self, snap):
         # allocatable scores rate the NODE, never the pod
         # (resource_allocation.go:49-76)

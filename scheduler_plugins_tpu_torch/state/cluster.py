@@ -25,6 +25,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     ElasticQuota,
     Node,
     Pod,
+    PodDisruptionBudget,
     PodGroup,
     PodPhase,
 )
@@ -46,6 +47,8 @@ class Cluster:
     pods: dict[str, Pod] = field(default_factory=dict)  # keyed by uid
     pod_groups: dict[str, PodGroup] = field(default_factory=dict)  # ns/name
     quotas: dict[str, ElasticQuota] = field(default_factory=dict)  # namespace
+    #: ns/name -> PodDisruptionBudget, read by preemption's victim ranking
+    pdbs: dict[str, PodDisruptionBudget] = field(default_factory=dict)
     #: profile names this scheduler owns: only their pods enter the queue
     scheduler_names: set = field(
         default_factory=lambda: {DEFAULT_SCHEDULER_NAME}
@@ -161,6 +164,11 @@ class Cluster:
             else ev.ELASTIC_QUOTA_ADD
         )
         self.quotas[eq.namespace] = eq
+
+    def add_pdb(self, pdb: PodDisruptionBudget):
+        key = f"{pdb.namespace}/{pdb.name}"
+        self.note_event(ev.PDB_UPDATE if key in self.pdbs else ev.PDB_ADD)
+        self.pdbs[key] = pdb
 
     # -- derived -------------------------------------------------------------
     def pod_group_of(self, pod: Pod) -> Optional[PodGroup]:

@@ -2,7 +2,9 @@
 against JAX `load_profile` for the three ported plugins: arguments and
 their defaults, weights, the auto-selected preemption engine, and the
 validation errors (mirrors tests/test_config.py). Plugins JAX has and the
-port does not raise NotImplementedError naming them."""
+port does not raise NotImplementedError naming them. `profile_spec`, the
+loader's inverse, must export what JAX's does and load back to the same
+profile (mirrors tests/test_tuning.py TestWeightsRoundTrip)."""
 
 import pytest
 
@@ -140,3 +142,35 @@ def test_packing_mode_raises_not_implemented():
     jax_config.load_profile(config)
     with pytest.raises(NotImplementedError, match="packing"):
         port_config.load_profile(config)
+
+
+@pytest.mark.parametrize("config", CONFIGS, ids=range(len(CONFIGS)))
+def test_profile_spec_matches_jax_and_round_trips(config):
+    spec = port_config.profile_spec(port_config.load_profile(config))
+    assert spec == jax_config.profile_spec(jax_config.load_profile(config))
+    # loading the spec back rebuilds a profile with the same spec
+    assert port_config.profile_spec(port_config.load_profile(spec)) == spec
+
+
+def test_profile_spec_weights_and_defaults():
+    from scheduler_plugins_tpu import plugins as jax_plugins
+    from scheduler_plugins_tpu.framework import Profile as JProfile
+    from scheduler_plugins_tpu_torch import plugins as port_plugins
+    from scheduler_plugins_tpu_torch.framework import Profile as PProfile
+
+    specs = []
+    for plugins, profile, config in (
+            (jax_plugins, JProfile, jax_config),
+            (port_plugins, PProfile, port_config)):
+        default = config.profile_spec(profile(
+            plugins=[plugins.NodeResourcesAllocatable()]))
+        assert "weights" not in default
+        tuned = [plugins.NodeResourcesAllocatable(mode="Most"),
+                 plugins.CapacityScheduling(min_candidate_nodes_absolute=3)]
+        tuned[0].weight = 46
+        spec = config.profile_spec(profile(plugins=tuned, name="tuned"))
+        assert spec["weights"] == [46, 1]
+        assert [p.weight for p in config.load_profile(spec).plugins] == [
+            46, 1]
+        specs.append((default, spec))
+    assert specs[0] == specs[1]

@@ -38,7 +38,13 @@ from scheduler_plugins_tpu_torch.framework import (
 from scheduler_plugins_tpu_torch.state.cluster import Cluster as PCluster
 from scheduler_plugins_tpu_torch.state import cluster as port_store
 from scheduler_plugins_tpu_torch.tuning import quality as port_quality
-from torch_cycle_scripts import SCRIPT_COSCHED, cycle_script, script_outcomes
+from torch_cycle_scripts import (
+    SCRIPT_COSCHED,
+    cycle_script,
+    pdb_nomination,
+    pdb_script,
+    script_outcomes,
+)
 
 try:
     import scheduler_plugins_tpu.api.objects as jax_objects
@@ -721,8 +727,25 @@ def smoke_script(pkg):
     ]
 
 
+def pdb_smoke_script(pkg, guard=True):
+    """`pdb_script` at 16 nodes: `smoke_script`, then a preemption whose
+    cheaper victim a PodDisruptionBudget guards (`guard`) or not."""
+    cluster, steps = pdb_script(pkg.o, pkg.Cluster, n_nodes=16, guard=guard)
+    sched = mksched(pkg, ALLOC, cosched(**SCRIPT_COSCHED),
+                    "CapacityScheduling")
+    return cluster, sched, [
+        (now, None if m is None else (lambda pkg, c, m=m: m(pkg.o, c)))
+        for now, m in steps
+    ]
+
+
+def pdb_smoke_script_unguarded(pkg):
+    return pdb_smoke_script(pkg, guard=False)
+
+
 SCRIPTS = [
-    smoke_script, basic_binds_pending, basic_priority_orders_queue,
+    smoke_script, pdb_smoke_script, pdb_smoke_script_unguarded,
+    basic_binds_pending, basic_priority_orders_queue,
     basic_unschedulable_reported,
     gang_full_binds, gang_undersized_rejected, gang_waits_then_expires,
     gang_quorum_completes, gang_min_resources_check,
@@ -807,6 +830,17 @@ class TestScriptsReachTheirOutcomes:
     def test_smoke_script_outcomes(self, jax_package):
         _, reports = run_script(smoke_script)
         assert script_outcomes(reports) == []
+
+    def test_pdb_flips_the_nomination(self, jax_package):
+        """The PDB moves the claimant's nomination off the node of the
+        cheaper (guarded) victim: the first pickOneNode key at work."""
+        c, reports = run_script(pdb_smoke_script)
+        _, unguarded = run_script(pdb_smoke_script_unguarded)
+        assert script_outcomes(reports) == []
+        assert pdb_nomination(reports) == ("pdb-b", ["default/batch"])
+        assert pdb_nomination(unguarded) == ("pdb-a", ["default/web"])
+        assert c.pods["default/batch"].terminating
+        assert not c.pods["default/web"].terminating
 
     def test_event_gating(self, jax_package):
         _, (_, r2) = run_script(gating_skipped_until_event)
@@ -1027,10 +1061,16 @@ class TestUnportedOptions:
         assert all(p.node_name is None for p in c.pending_pods())
 
     def test_explain_raises(self):
+        """Explain raises KeyError for a pod outside the cycle's batch and
+        RuntimeError for a cycle that ran no solve."""
         c, s, _ = basic_binds_pending(PORT)
         report = PORT.run(s, c, 0)
-        with pytest.raises(NotImplementedError, match="explain"):
-            report.explain("default/p0")
+        with pytest.raises(KeyError, match="not/a-pod"):
+            report.explain("not/a-pod")
+        assert report.explain("default/p0")["placed"] is True
+        empty = PORT.run(s, PORT.Cluster(), 0)
+        with pytest.raises(RuntimeError, match="no solve"):
+            empty.explain("default/p0")
 
     def test_timings_and_device_default(self, monkeypatch):
         c, s, _ = basic_binds_pending(PORT)
@@ -1044,6 +1084,40 @@ class TestUnportedOptions:
             port_cycle.run_cycle(s, c, now=0)
 
 
+def explain_tables(report, top_k=3):
+    """Every pod of `report`'s batch -> its explain table, in queue order
+    (the batch read from the report's explain context)."""
+    meta = report._explain_ctx[2]
+    return [(uid, report.explain(uid, top_k=top_k))
+            for uid in meta.pod_names]
+
+
+def test_explain_round_trips_through_cycle_script(jax_package):
+    """`CycleReport.explain` of every pod of every cycle of `pdb_script`
+    (16 nodes) equals JAX's table, and names the plugin the cycle's
+    attribution recorded for each failed pod."""
+    jc, js, jsteps = pdb_smoke_script(JAX)
+    pc, ps, psteps = pdb_smoke_script(PORT)
+    for (now, jmut), (_, pmut) in zip(jsteps, psteps):
+        if jmut is not None:
+            jmut(JAX, jc)
+            pmut(PORT, pc)
+        jr, pr = JAX.run(js, jc, now), PORT.run(ps, pc, now)
+        assert report_diff(jr, pr) == [], now
+        if getattr(pr, "_explain_ctx", None) is None:
+            with pytest.raises(RuntimeError, match="no solve"):
+                pr.explain("default/urgent")
+            continue
+        tables = explain_tables(pr)
+        assert tables == explain_tables(jr), now
+        for uid, table in tables:
+            if uid in pr.failed_by:
+                assert table["placed"] is False
+                assert table["failed_plugin"] == pr.failed_by[uid], uid
+            elif uid in pr.bound:
+                assert table["assigned"] == pr.bound[uid], uid
+
+
 @pytest.mark.cuda
 def test_run_cycle_card_matches_cpu():
     """A churn script and `cycle_script` through `run_cycle` on the card
@@ -1054,7 +1128,7 @@ def test_run_cycle_card_matches_cpu():
     card = SimpleNamespace(**{**vars(PORT), "run": lambda s, c, now:
                               port_cycle.run_cycle(s, c, now=now,
                                                    device="cuda")})
-    for script in (churn_script(0), smoke_script):
+    for script in (churn_script(0), pdb_smoke_script):
         cc, cs, csteps = script(card)
         hc, hs, hsteps = script(PORT)
         for (now, cmut), (_, hmut) in zip(csteps, hsteps):

@@ -1,10 +1,11 @@
-"""A multi-cycle script for the port's `run_cycle`, shared by
+"""Multi-cycle scripts for the port's `run_cycle`, shared by
 `tests/test_torch_cycle.py` (against JAX `run_cycle`, at 16 nodes) and
 `chip_smoke.py` (card against CPU, at 1024 nodes).
 
-It builds from either package's `objects` module and `Cluster` class and
-imports neither package itself. `script_outcomes` names what the script is
-built to reach. The comparisons stay with each caller."""
+They build from either package's `objects` module and `Cluster` class and
+import neither package itself. `script_outcomes` names what `cycle_script`
+is built to reach; `pdb_script` extends it by one preemption that a
+PodDisruptionBudget steers. The comparisons stay with each caller."""
 
 from __future__ import annotations
 
@@ -103,3 +104,45 @@ def script_outcomes(reports) -> list:
             and r[6].bound.get("team-a/a1") == r[4].preempted["team-a/a1"][0]),
     }
     return [name for name, ok in checks.items() if not ok]
+
+
+def pdb_script(objects, cluster_cls, n_nodes: int = 1024,
+               guard: bool = True):
+    """`cycle_script` extended by one cycle at t=12000, just before which
+    two nodes of 8000 millicores arrive, each with one bound victim of
+    6000: "web" (priority 1, app=web) on pdb-a and "batch" (priority 5) on
+    pdb-b; a PodDisruptionBudget with no disruptions allowed selects
+    app=web when `guard`; and a claimant of 5000 millicores and priority
+    10 that fits nowhere else. Without the PDB the lower victim priority
+    nominates pdb-a; with it, fewest PDB violations (the first key)
+    nominates pdb-b. Returns (cluster, steps) as `cycle_script`."""
+    cluster, steps = cycle_script(objects, cluster_cls, n_nodes)
+    gib = 1 << 30
+
+    def add_guarded_victims(o, cluster):
+        for node, victim, priority, labels in (
+                ("pdb-a", "web", 1, {"app": "web"}),
+                ("pdb-b", "batch", 5, {})):
+            cluster.add_node(o.Node(name=node, allocatable={
+                "cpu": 8000, "memory": 64 * gib, "pods": 16}))
+            cluster.add_pod(o.Pod(
+                name=victim, node_name=node, priority=priority,
+                creation_ms=11_000, labels=labels,
+                containers=[o.Container(requests={"cpu": 6000,
+                                                  "memory": gib})]))
+        if guard:
+            cluster.add_pdb(o.PodDisruptionBudget(
+                name="web-pdb", selector={"app": "web"},
+                disruptions_allowed=0))
+        cluster.add_pod(o.Pod(
+            name="urgent", priority=10, creation_ms=11_500,
+            containers=[o.Container(requests={"cpu": 5000,
+                                              "memory": gib})]))
+
+    return cluster, steps + [(12_000, add_guarded_victims)]
+
+
+def pdb_nomination(reports):
+    """(node, victims) the last cycle of `pdb_script` nominated for its
+    claimant, or None."""
+    return reports[-1].preempted.get("default/urgent")
