@@ -42,18 +42,29 @@ Phases (any failure exits non-zero and prints no result line):
    and on a cluster with nominated pods: each solved on the card under
    `torch.cuda.set_sync_debug_mode("error")` (a host sync inside the loop
    raises) and on the CPU, with every output and final carry identical,
-   hard constraints checked on the host, and the CUDA kernels a step
-   launches counted with `torch.profiler`; then config 4 again after
-   `set_live_weights([3, 1, 1])`: on the card under sync-debug "error",
-   equal to the CPU under the same vector, to a profile loaded with
-   `"weights": [3, 1, 1]` and to the CPU after `set_live_weights(None)`,
-   with as many device events a step as the unit-weight run;
+   hard constraints checked on the host, and the device work a step
+   enqueues counted with `torch.profiler`; then config 4 with spread node
+   sizes (`spread_config4`: on config 4's identical nodes every score
+   column is 0) after `set_live_weights([3, 1, 1])`: on the card under
+   sync-debug "error", equal to the CPU under the same vector, to a
+   profile loaded with `"weights": [3, 1, 1]` and to the CPU after
+   `set_live_weights(None)`; the explain rows of its first 256 queued
+   pods card against CPU, each score column 3, 1, 1 times the card's
+   unit-weight column and the allocatable column not all 0; on config 4
+   and on the spread cluster, the same host calls enqueueing device work
+   a step (kernel launches, copies, fills, by name) as the unit-weight
+   run, with the device records a step printed beside them (CUPTI may
+   drop device records, so those are not held);
 8. the scheduling cycle (`run_cycle`): the README quick start on the
    card; bench config 4's shape through one cycle on the card and, from a
    fresh cluster, on the CPU, with identical reports and store state, no
    fit, quota or quorum violation in the store, and each stage's wall time
    printed, then pod 0's explain on both reports (identical, and its
-   winner the node the cycle bound it to); `cycle_script`
+   winner the node the cycle bound it to); the spread config 4 through
+   one cycle under the live vector, card against CPU, and the explain of
+   its first, middle and last queued pods on both reports: identical,
+   some score not 0, every score the weight times the same report's
+   unit-weight score, pod 0's winner its bind; `cycle_script`
    (`tests/torch_cycle_scripts.py`, 1024 nodes, small batches: Permit
    Wait then fan-out bind, a permit timeout, a whole-gang rejection with
    backoff, a parked pod skipped until a Node/Add, a quota preemption
@@ -112,6 +123,9 @@ PROFILE_PODS = 64
 #: solve is held to
 FLAGSHIP = ("NodeResourcesAllocatable", "Coscheduling", "CapacityScheduling")
 LIVE_WEIGHTS = [3, 1, 1]
+#: queued pods of the spread config 4 whose explain rows the live-weight
+#: phase holds card against CPU and against the unit-weight rows
+LIVE_EXPLAIN_ROWS = 256
 #: explain at the north-star width: queue positions in config 6's batch
 EXPLAIN_POSITIONS = (0, 51_199, -1)
 #: rank rows per block in the fused_election grid: the north star's
@@ -427,6 +441,21 @@ def flagship_scheduler(**cosched):
     ]))
 
 
+def spread_config4():
+    """Bench config 4's shape with node cpu spread over 64,000 to 95,000
+    millicores, in an order whose smallest node is node 13, so the winner
+    is not the lowest index. Config 4's nodes are all one size, so the
+    allocatable score's min-max normalization puts 0 on every node; the
+    checks that read score values (a live weight reaching the fold,
+    explain columns, an explain winner) need nodes of spread sizes."""
+    from scheduler_plugins_tpu_torch.models import gang_quota_scenario
+
+    cluster = gang_quota_scenario(**CONFIG4)
+    for i, node in enumerate(cluster.nodes.values()):
+        node.allocatable["cpu"] = 64_000 + 1000 * ((5 + 7 * i) % 32)
+    return cluster
+
+
 def parity_violations(snap, result) -> dict:
     """Host-side checks of a parity solve's result, independent of the
     solver: fit (`fit_violations`), no quota namespace over its Max, and
@@ -518,13 +547,23 @@ def parity_drive(label: str, cluster, device) -> None:
         raise AssertionError(f"{label}: nothing placed")
 
 
-def launches_per_step(cluster, device, live_weights=None) -> float:
-    """CUDA kernels a parity step launches, from `torch.profiler`: the
-    solves of config 4's first PROFILE_PODS and 2 * PROFILE_PODS queued
+#: the CUDA runtime and driver calls that put work on a stream: each one
+#: is one kernel, copy or fill on the card
+WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+
+
+def launches_per_step(cluster, device, live_weights=None) -> dict:
+    """What a parity step puts on the card, from `torch.profiler`: the
+    solves of the cluster's first PROFILE_PODS and 2 * PROFILE_PODS queued
     pods differ by PROFILE_PODS steps (the set-up and the Permit tail are
-    the same work), so their kernel counts differ by PROFILE_PODS steps'
-    launches. `live_weights` sets the scheduler's live weight vector.
-    Returns the device events a step."""
+    the same work), so their counts differ by PROFILE_PODS steps' work.
+    `live_weights` sets the scheduler's live weight vector. Returns, each a
+    step: `work`, the host calls that enqueue device work (names matching
+    WORK_CALLS) by name, and `events`, the device records. The host calls
+    are exact; the device records are read back through CUPTI's device
+    buffers, which may drop some (a step then reads below its calls)."""
+    from collections import Counter
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -548,18 +587,24 @@ def launches_per_step(cluster, device, live_weights=None) -> float:
                    if e.device_type == DeviceType.CUDA]
         counts[n] = (
             len(kernels),
-            sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel",
-                                                       "cuLaunchKernel")),
+            Counter(e.name for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith("cu")
+                    and any(w in e.name for w in WORK_CALLS)),
             sum(e.time_range.elapsed_us() for e in kernels),
         )
-    (k1, l1, us1), (k2, l2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
+    (k1, w1, us1), (k2, w2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
+    work = {name: (w2[name] - w1[name]) / PROFILE_PODS
+            for name in sorted(w1 | w2)}
+    out = {"events": (k2 - k1) / PROFILE_PODS, "work": work}
     print(
         f"[parity] {label}launches_per_step "
-        f"device_events={(k2 - k1) / PROFILE_PODS}"
-        f" launch_calls={(l2 - l1) / PROFILE_PODS} "
+        f"device_events={out['events']} "
+        f"work_calls={sum(work.values())} {work} "
         f"device_us_per_step={(us2 - us1) / PROFILE_PODS} (device events "
-        f"{k1} / {k2}, launch calls {l1} / {l2}, device us {us1} / {us2} "
-        f"for {PROFILE_PODS} / {2 * PROFILE_PODS} pods of config 4)",
+        f"{k1} / {k2}, work calls {sum(w1.values())} / {sum(w2.values())}, "
+        f"device us {us1} / {us2} for {PROFILE_PODS} / {2 * PROFILE_PODS} "
+        f"pods)",
         flush=True,
     )
     # where the host's time goes: self CPU time by op in the longer run,
@@ -575,16 +620,23 @@ def launches_per_step(cluster, device, live_weights=None) -> float:
             for a in top),
         flush=True,
     )
-    return (k2 - k1) / PROFILE_PODS
+    return out
 
 
-def live_weights_phase(cluster, device, unit_events: float) -> None:
-    """Config 4's parity solve again after `set_live_weights(LIVE_WEIGHTS)`:
-    on the card under sync-debug "error", equal to the CPU under the same
-    vector and to a profile loaded with those `weights` (every output and
-    final carry, tolerance 0), with as many device events a step as the
-    unit-weight run (`unit_events`); then `set_live_weights(None)`
-    reverts to the static weights, which keep the vector's ints."""
+def live_weights_phase(device, config4, unit_steps: dict) -> None:
+    """The spread config 4's parity solve after
+    `set_live_weights(LIVE_WEIGHTS)`: on the card under sync-debug
+    "error", equal to the CPU under the same vector, to a profile loaded
+    with those `weights` and to the CPU after `set_live_weights(None)`
+    (every output and final carry, tolerance 0); the explain rows of the
+    first LIVE_EXPLAIN_ROWS queued pods, card against CPU under the vector
+    and against the card's unit-weight rows, each column the unit column
+    times its weight and the allocatable column not all 0; on `config4`
+    and on the spread cluster, the same host calls enqueueing device work
+    a step, name by name, as the unit-weight run (`unit_steps` on config
+    4; see `launches_per_step`). The device records a step are printed
+    beside them, not held: CUPTI may drop some."""
+    import numpy as np
     import torch
 
     from scheduler_plugins_tpu_torch.api.config import load_profile
@@ -593,26 +645,41 @@ def live_weights_phase(cluster, device, unit_events: float) -> None:
     _tests_on_path()
     from torch_parity_cases import parity_outputs
 
+    cluster = spread_config4()
     cpu = torch.device("cpu")
-    outs = {}
+    rows = list(range(LIVE_EXPLAIN_ROWS))
+    outs, explained = {}, {}
     for label, dev, sched in (
             ("card", device, flagship_scheduler()),
+            ("unit", device, flagship_scheduler()),
             ("cpu", cpu, flagship_scheduler()),
             ("loaded", cpu, Scheduler(load_profile({
                 "plugins": list(FLAGSHIP), "weights": LIVE_WEIGHTS})))):
-        if label != "loaded":
+        if label in ("card", "cpu"):
             sched.set_live_weights(LIVE_WEIGHTS)
         pending = sched.sort_pending(cluster.pending_pods(), cluster)
         snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
         sched.prepare(meta, cluster)
+        if label != "loaded":
+            # the explain rows against the cycle-initial state, before
+            # the solve (which never changes the snapshot)
+            t0 = time.perf_counter()
+            with sync_errors(dev):
+                explained[label] = sched.explain_rows(snap, rows, device=dev)
+            print(f"[parity] live_weights={LIVE_WEIGHTS} {label} "
+                  f"explain_rows={len(rows)} device={dev.type} "
+                  f"ms={(time.perf_counter() - t0) * 1e3}", flush=True)
+        if label == "unit":
+            continue
         t0 = time.perf_counter()
         with sync_errors(dev):
             result = sched.solve(snap, device=dev)
         _sync(dev)
+        solve_s = time.perf_counter() - t0
         outs[label] = {k: None if v is None else v.cpu()
                        for k, v in parity_outputs(result).items()}
         print(f"[parity] live_weights={LIVE_WEIGHTS} {label} "
-              f"device={dev.type} solve_s={time.perf_counter() - t0} "
+              f"device={dev.type} solve_s={solve_s} "
               f"weights_key={sched.weights_key()} "
               f"placed={int((result.assignment >= 0).sum())}", flush=True)
         if label == "cpu":
@@ -630,14 +697,44 @@ def live_weights_phase(cluster, device, unit_events: float) -> None:
 
     bad = {other: differ(outs["card"], outs[other])
            for other in ("cpu", "loaded", "reverted")}
-    events = launches_per_step(cluster, device, live_weights=LIVE_WEIGHTS)
-    print(f"[parity] live_weights identical={bad} device_events={events} "
-          f"unit_device_events={unit_events}", flush=True)
+    # the explain fold: card == CPU under the vector; against the unit
+    # rows only the columns (and so the total) move, each by its weight
+    live, unit = explained["card"], explained["unit"]
+    want = dict(unit, columns=np.asarray(LIVE_WEIGHTS, np.int64)[
+        None, :, None] * unit["columns"])
+    want["total"] = want["columns"].sum(axis=1)
+    bad["explain_cpu"] = [k for k in live
+                          if not np.array_equal(live[k], explained["cpu"][k])]
+    bad["explain_unit"] = [k for k in live
+                           if not np.array_equal(live[k], want[k])]
+    nonzero = int((unit["columns"][:, 0] != 0).sum())
+    # the device work a step, live against unit weights, on config 4 and
+    # on the spread cluster
+    steps = {
+        "config4": (unit_steps, launches_per_step(
+            config4, device, live_weights=LIVE_WEIGHTS)),
+        "spread": (launches_per_step(cluster, device), launches_per_step(
+            cluster, device, live_weights=LIVE_WEIGHTS)),
+    }
+    print(f"[parity] live_weights identical={bad} "
+          f"unit_alloc_column_nonzero={nonzero} "
+          f"alloc_column_max={int(live['columns'][:, 0].max())} " + " ".join(
+              f"{name}_work_calls={sum(lv['work'].values())} "
+              f"{name}_unit_work_calls={sum(un['work'].values())} "
+              f"{name}_device_events={lv['events']} "
+              f"{name}_unit_device_events={un['events']}"
+              for name, (un, lv) in steps.items()),
+          flush=True)
     if any(bad.values()):
         raise AssertionError(f"live weights: card differs in {bad}")
-    if events != unit_events:
-        raise AssertionError(f"live weights: {events} device events a step, "
-                             f"{unit_events} at unit weights")
+    if nonzero == 0:
+        raise AssertionError("live weights: the allocatable column is 0 on "
+                             "every node; the check cannot see the weight")
+    for name, (un, lv) in steps.items():
+        if not un["work"] or lv["work"] != un["work"]:
+            raise AssertionError(
+                f"live weights: on {name} a step enqueues {lv['work']} "
+                f"({un['work']} at unit weights)")
 
 
 def ordered(value):
@@ -708,7 +805,8 @@ def explain_check(label: str, reports: dict, uids) -> None:
     device's report of one cycle (`reports`: device type -> report), the
     card's under `sync_errors`: the tables must be identical across the
     devices, and each candidate's per-plugin scores must sum to its
-    total. Prints each explain's wall time in ms."""
+    total. Prints each explain's wall time in ms, and returns the first
+    report's tables by uid."""
     import torch
 
     tables = {}
@@ -735,6 +833,7 @@ def explain_check(label: str, reports: dict, uids) -> None:
     print(f"[explain] {label} identical={not differ}", flush=True)
     if differ:
         raise AssertionError(f"explain {label}: card != CPU for {differ}")
+    return {uid: ts[0] for uid, ts in tables.items()}
 
 
 def cycle_phase(device) -> None:
@@ -807,6 +906,7 @@ def cycle_phase(device) -> None:
         raise AssertionError(f"config 4: pod 0's explain winner {winner} "
                              f"is not its bind {bound}")
 
+    spread_explain_check(device)
     script_phase(device)
     # the same script and one more cycle, in which a PodDisruptionBudget
     # guards the victim the priority keys alone would take
@@ -817,6 +917,59 @@ def cycle_phase(device) -> None:
     if None in nominated.values() or nominated[True] == nominated[False]:
         raise AssertionError(f"pdb script: the PDB did not move the "
                              f"nomination {nominated}")
+
+
+def spread_explain_check(device) -> None:
+    """The spread config 4 (`spread_config4`) through one cycle under
+    `set_live_weights(LIVE_WEIGHTS)`, on the card and, from a fresh
+    cluster, on the CPU, with identical reports and store; then
+    `CycleReport.explain` of the first, the middle and the last queued pod
+    on both reports (`explain_check`), with some candidate's score not 0,
+    every candidate's scores the vector's weights times those of the same
+    card report explained after `set_live_weights([1, 1, 1])`, and pod 0's
+    winner the node the cycle bound it to."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+
+    states, reports, scheds = [], {}, {}
+    for dev in (device, torch.device("cpu")):
+        cluster = spread_config4()
+        sched = flagship_scheduler()
+        sched.set_live_weights(LIVE_WEIGHTS)
+        queue = [p.uid for p in sched.sort_pending(cluster.pending_pods(),
+                                                   cluster)]
+        reports[dev.type] = run_cycle(sched, cluster, now=1000, device=dev)
+        scheds[dev.type] = sched
+        states.append(cycle_state(reports[dev.type], cluster))
+    if states[0] != states[1]:
+        raise AssertionError("spread config 4 cycle: card != CPU")
+    uids = [queue[0], queue[len(queue) // 2], queue[-1]]
+    live = explain_check("config4_spread", reports, uids)
+    card = reports[device.type]
+    scheds[device.type].set_live_weights([1] * len(LIVE_WEIGHTS))
+    weight = dict(zip((p.name for p in scheds[device.type].profile.plugins),
+                      LIVE_WEIGHTS))
+    bad, nonzero = [], 0
+    for uid in uids:
+        with sync_errors(device):
+            unit = card.explain(uid, top_k=5)
+        for got, want in zip(live[uid]["candidates"], unit["candidates"]):
+            nonzero += sum(v != 0 for v in got["scores"].values())
+            if got["node"] != want["node"] or got["scores"] != {
+                    k: weight[k] * v for k, v in want["scores"].items()}:
+                bad.append((uid, got["node"]))
+    winner, bound = live[queue[0]]["winner"], card.bound.get(queue[0])
+    print(f"[explain] config4_spread live_weights={LIVE_WEIGHTS} "
+          f"scaled={not bad} nonzero_scores={nonzero} pod0={queue[0]} "
+          f"winner={winner} bound={bound}", flush=True)
+    if bad or nonzero == 0:
+        raise AssertionError(f"spread config 4 explain: scores not the unit "
+                             f"scores times the weights on {bad}, or all 0 "
+                             f"({nonzero} not 0)")
+    if winner is None or winner != bound:
+        raise AssertionError(f"spread config 4: pod 0's explain winner "
+                             f"{winner} is not its bind {bound}")
 
 
 def script_phase(device, stream_chunk=None, guard=None):
@@ -1226,8 +1379,7 @@ def main() -> int:
     parity_drive("parity_config4", config4, device)
     parity_drive("parity_entry", allocatable_scenario(16, 32), device)
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
-    unit_events = launches_per_step(config4, device)
-    live_weights_phase(config4, device, unit_events)
+    live_weights_phase(device, config4, launches_per_step(config4, device))
 
     # 8. the scheduling cycle, card against CPU
     cycle_phase(device)

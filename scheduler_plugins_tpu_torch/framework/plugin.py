@@ -88,7 +88,6 @@ class Plugin:
     #: a profile with one.
     state_dependent_filter: bool = False
     _presolve = None
-    _weight_t = None
 
     def prepare(self, meta) -> None:
         """Build per-snapshot-layout tensors (resource weights) on
@@ -103,23 +102,8 @@ class Plugin:
     def bind_aux(self, aux) -> None:
         """Put back tensors an earlier `aux()` returned, so a retained
         cycle report explains with its own cycle's configuration after a
-        later `prepare` rebuilt them. Also clears any weight override
-        (`bind_weight`). A plugin whose `aux` returns tensors overrides
-        this to store them."""
-        self._weight_t = None
-
-    def bind_weight(self, w) -> None:
-        """Override the score weight the solve multiplies by (the live
-        weight vector's entry for this plugin); None falls back to the
-        static `weight`."""
-        self._weight_t = w
-
-    @property
-    def eff_weight(self):
-        """The weight the score fold multiplies by: the override when one
-        is bound, else the static profile int. A Python int either way on
-        the solve's path, so the fold issues the same kernels."""
-        return self.weight if self._weight_t is None else self._weight_t
+        later `prepare` rebuilt them. A plugin whose `aux` returns tensors
+        overrides this to store them."""
 
     def prepare_solve(self, snap):
         """Called once per solve, BEFORE the per-pod loop: derive

@@ -30,17 +30,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.device import (
+    finish_fetch,
+    resolve_device,
+    start_fetch,
+)
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
 from scheduler_plugins_tpu_torch.ops.fit import (
     fits,
     fits_one,
     free_capacity,
     pod_fit_demand,
-)
-from scheduler_plugins_tpu_torch.parallel.pipeline import (
-    _finish_fetch,
-    _start_fetch,
 )
 
 #: attribution name for failures owned by the framework, not a profile
@@ -190,7 +190,7 @@ def _encode_fail(ok0, admit_code, fit0_any, filter_code, fallback: int):
 
 def _score_columns(plugins, state, snap, p, feasible, rows=None):
     """((L, N) int64 per-plugin weighted normalized score columns, (N,)
-    int64 total) for pod `p`: each column is the `eff_weight *
+    int64 total) for pod `p`: each column is the `weight *
     normalize(raw, feasible)` term the solve step folds into its total, so
     the columns sum to the solver's node score; a plugin without Score
     gives a zero column. `rows` stands in for `score` as in
@@ -206,7 +206,7 @@ def _score_columns(plugins, state, snap, p, feasible, rows=None):
         if raw is None:
             cols.append(torch.zeros_like(total))
             continue
-        col = (plugin.eff_weight * plugin.normalize(raw, feasible)).to(
+        col = (plugin.weight * plugin.normalize(raw, feasible)).to(
             torch.int64
         )
         cols.append(col)
@@ -303,7 +303,7 @@ def run_explain_rows(scheduler, snap, indices, auxes, explain_fn, device):
             plugin.bind_presolve(plugin.prepare_solve(snap))
         out = explain_fn(plugins, scheduler.initial_state(snap), snap, idx,
                          rows)
-        out = _finish_fetch(_start_fetch(out, device))
+        out = finish_fetch(start_fetch(out, device))
     names = ("admitted", "fail_code", "feasible", "fit_margin", "columns",
              "total")
     return dict(zip(names, out))
@@ -341,7 +341,7 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     for plugin in plugins:
         raw = plugin.score(state, snap, p)
         if raw is not None:
-            col = plugin.eff_weight * plugin.normalize(raw, feasible)
+            col = plugin.weight * plugin.normalize(raw, feasible)
             total = col if total is None else total + col
     if total is None:
         total = torch.zeros_like(state.free[:, 0])
@@ -378,14 +378,9 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     return state, (choice, ok, fail_code)
 
 
-def sequential_solve_body(plugins, snap, state0: SolverState,
-                          weights=None) -> SolveResult:
-    """The sequential parity solve over one snapshot: bind each plugin's
-    weight from the live `weights` vector (None: the static weights),
-    hoist presolves, run `_solve_step` pod by pod, reduce gang quorum. No
-    host reads."""
-    for i, plugin in enumerate(plugins):
-        plugin.bind_weight(None if weights is None else int(weights[i]))
+def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
+    """The sequential parity solve over one snapshot: hoist presolves, run
+    `_solve_step` pod by pod, reduce gang quorum. No host reads."""
     for plugin in plugins:
         plugin.bind_presolve(plugin.prepare_solve(snap))
     hoisted = _Hoisted(
@@ -509,14 +504,16 @@ class Scheduler:
         return self._live_weights
 
     def set_live_weights(self, weights) -> None:
-        """Swap the profile's per-plugin score weights live: every later
-        `solve` binds the vector's entries (`Plugin.bind_weight`), and the
-        plugins' `weight` ints follow in lockstep so the host-side readers
-        (explain, `weights_key`, `profile_spec`) see the same vector.
-        `None` reverts to the static weights; the original ints are NOT
-        restored (pass the old vector to roll back). The JAX package also
-        evicts its weight-keyed compiled programs here; eager PyTorch
-        caches no program, so there is nothing to evict."""
+        """Swap the profile's per-plugin score weights live: the vector's
+        entries are written into the plugins' `weight` ints, which every
+        later `solve` and explain folds, so `weights_key` and
+        `profile_spec` see the same vector. `None` clears the live vector;
+        the original ints are NOT restored (pass the old vector to roll
+        back). The JAX package bakes weights into traced programs, so it
+        carries the live vector into its `solve_live` program through
+        `Plugin.bind_weight` and evicts its weight-keyed programs here;
+        eager PyTorch reads the ints on every call and caches no program,
+        so it needs neither."""
         if weights is None:
             self._live_weights = None
             return
@@ -576,7 +573,7 @@ class Scheduler:
         elif state0.free.device != device:
             state0 = state0.to(device)
         return sequential_solve_body(tuple(self.profile.plugins), snap,
-                                     state0, weights=self._live_weights)
+                                     state0)
 
     def filter_verdicts(self, snap, pod_index: int) -> torch.Tensor:
         """(N,) AND of the enabled plugins' Filter verdicts for one pod

@@ -37,7 +37,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.device import (
+    finish_fetch,
+    resolve_device,
+    start_fetch,
+)
 from scheduler_plugins_tpu_torch.ops.assign import waterfill_assign_targeted
 from scheduler_plugins_tpu_torch.parallel.solver import (
     fast_path_scoring,
@@ -137,18 +141,6 @@ class PipelineTimeline:
         return out
 
 
-def _map_tensors(fn, tree):
-    """`fn` applied to every tensor of a tuple / list / dict tree; other
-    leaves unchanged."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_tensors(fn, v) for v in tree)
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    return tree
-
-
 def _on_device(t, device) -> bool:
     """Whether tensor `t` lies on `device` ("cuda" matches any card
     index)."""
@@ -201,33 +193,6 @@ class _Stager:
                 t.record_stream(compute)
 
 
-def _start_fetch(result, device):
-    """Queue the copy of `result`'s tensors to the host behind the work
-    that made them: (host tree, event) on the card, (tree, None) on the
-    CPU."""
-    if device.type != "cuda":
-        return result, None
-
-    def to_pinned(t):
-        if t.device.type != "cuda":
-            return t
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        return host
-
-    host = _map_tensors(to_pinned, result)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return host, event
-
-
-def _finish_fetch(pending):
-    host, event = pending
-    if event is not None:
-        event.synchronize()
-    return _map_tensors(lambda t: t.numpy(), host)
-
-
 def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
                        clock=None, fetch_deadline_s=None, *, device=None):
     """Stream `chunk_inputs` through `solve_chunk`, double-buffered, on
@@ -273,7 +238,7 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
         t0 = clock()
         stager.consume(*staged)
         result, carry = solve_chunk(*invariant_args, *staged[0], carry)
-        fetch = _start_fetch(result, device)
+        fetch = start_fetch(result, device)
         timeline.add("dispatch", k, t0, clock())
         if k + 1 < n:
             # chunk k+1's copy overlaps solve(k)
@@ -283,14 +248,14 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
         if pending is not None:
             # chunk k-1's fetch waits only for its own solve
             t0 = clock()
-            results.append(_finish_fetch(pending))
+            results.append(finish_fetch(pending))
             t1 = clock()
             timeline.add("d2h", k - 1, t0, t1)
             done_s.append(t1 - start)
         pending = fetch
     if pending is not None:
         t0 = clock()
-        results.append(_finish_fetch(pending))
+        results.append(finish_fetch(pending))
         t1 = clock()
         timeline.add("d2h", n - 1, t0, t1)
         done_s.append(t1 - start)

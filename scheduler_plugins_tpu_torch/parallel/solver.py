@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.ops.allocatable import (
     MODE_LEAST,
     allocatable_scores,
@@ -343,7 +344,6 @@ def profile_initial_scores(scheduler, snap, auxes=None, *, device=None):
     independently of the explain body (built-in fit against the initial
     free capacity, no PreFilter, no nominee holds, the static `weight`).
     `auxes` binds a recorded cycle's `aux()` tensors for the call."""
-    from scheduler_plugins_tpu_torch.device import resolve_device
     from scheduler_plugins_tpu_torch.framework.runtime import (
         _fits_rows,
         bound_auxes,

@@ -56,7 +56,6 @@ class NodeResourcesAllocatable(Plugin):
         return self._weights
 
     def bind_aux(self, aux):
-        super().bind_aux(aux)
         self._weights = aux
 
     def static_node_scores(self, snap):

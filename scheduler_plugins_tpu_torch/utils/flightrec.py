@@ -17,8 +17,8 @@ MARGIN_MASKED = -(2 ** 62)
 
 
 def explain_solver(scheduler, snap, meta, uid: str, top_k: int = 5,
-                   assignment=None, auxes=None, batched: bool = False,
-                   cycle=None, *, device=None) -> dict:
+                   assignment=None, auxes=None, batched: bool = False, *,
+                   device=None) -> dict:
     """The table for pod `uid` of one solved batch: the top-k candidate
     nodes with per-plugin weighted normalized score columns, the built-in
     fit margin (min over resources of free - demand; most negative
@@ -101,7 +101,9 @@ def explain_solver(scheduler, snap, meta, uid: str, top_k: int = 5,
         })
     return {
         "uid": uid,
-        "cycle": cycle,
+        # the flight recorder's cycle number; set by the recorder, which
+        # comes with the observability slice
+        "cycle": None,
         "pod_index": pod_index,
         "profile": scheduler.profile.name,
         "path": "batched" if batched else "sequential",

@@ -18,7 +18,10 @@ an integer or a bool):
   outside the batch and a retained report explained with its own cycle's
   configuration (mirrors tests/test_explain.py);
 - `Scheduler.set_live_weights` + `solve` equal JAX's, with JAX's
-  validation errors, the `None` revert and `weights_key`.
+  validation errors, the `None` revert and `weights_key`; the explain
+  columns under a live vector are JAX's and scale with its weights, and
+  a profile of two opposed scoring plugins places differently under two
+  vectors.
 """
 
 from types import SimpleNamespace
@@ -406,6 +409,11 @@ class TestLiveWeights:
     @pytest.mark.parametrize("cluster", ["hetero", "gang_quota"])
     def test_live_solve_matches_jax(self, cluster):
         low = lowered(CLUSTERS[cluster])
+        idx = list(range(len(low.ppend)))
+        unit = low.ps.explain_rows(low.snap_p, idx, device=CPU)["columns"]
+        # spread node sizes: the allocatable column is not all zero, so a
+        # weight that failed to reach the fold would show
+        assert unit[:, 0].max() > 0
         outs = []
         # one scoring plugin in the flagship: a positive weight scales its
         # column and leaves the argmax, so the placements stay the same
@@ -423,6 +431,16 @@ class TestLiveWeights:
             np.testing.assert_array_equal(res_p.state.free.numpy(),
                                           np.asarray(res_j.state.free))
             outs.append(res_p.assignment.numpy())
+            # the explain fold under the same vector: JAX's columns, each
+            # the unit-weight column times its weight
+            cols = low.ps.explain_rows(low.snap_p, idx, device=CPU)["columns"]
+            np.testing.assert_array_equal(
+                cols, np.asarray(low.js.explain_rows(low.snap_j,
+                                                     idx)["columns"]),
+                err_msg=f"{w} columns")
+            np.testing.assert_array_equal(
+                cols, np.asarray(w, np.int64)[None, :, None] * unit,
+                err_msg=f"{w} columns != weight * unit columns")
         # a static profile built with the last vector solves the same
         static = lowered(CLUSTERS[cluster])
         for plugin, w in zip(static.ps.profile.plugins, LIVE_VECTORS[-1]):
@@ -430,6 +448,33 @@ class TestLiveWeights:
         np.testing.assert_array_equal(
             static.ps.solve(static.snap_p, device=CPU).assignment.numpy(),
             outs[-1])
+
+    def test_live_weights_move_a_two_scorer_solve(self):
+        """Two scoring plugins that rank the nodes in opposite orders
+        (allocatable Least and Most): the live vector decides which one
+        wins, so the placements move with it, and each equals JAX's."""
+        low = lowered(hetero_cluster)
+
+        def two_scorers(plugins):
+            return [plugins.NodeResourcesAllocatable(mode="Least"),
+                    plugins.NodeResourcesAllocatable(mode="Most")]
+
+        js = JScheduler(JProfile(plugins=two_scorers(jax_plugins)))
+        ps = PScheduler(PProfile(plugins=two_scorers(port_plugins)))
+        js.prepare(low.meta_j)
+        ps.prepare(low.meta_p)
+        outs = []
+        for w in ([3, 1], [1, 3]):
+            js.set_live_weights(w)
+            ps.set_live_weights(w)
+            res_j = js.solve(low.snap_j)
+            res_p = ps.solve(low.snap_p, device=CPU)
+            for k in ("assignment", "admitted", "wait", "failed_plugin"):
+                np.testing.assert_array_equal(
+                    getattr(res_p, k).numpy(), np.asarray(getattr(res_j, k)),
+                    err_msg=f"{w} {k}")
+            outs.append(res_p.assignment.numpy())
+        assert (outs[0] != outs[1]).any()
 
     def test_validation_revert_and_key(self):
         js, ps = schedulers()
