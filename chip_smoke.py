@@ -73,7 +73,22 @@ Phases (any failure exits non-zero and prints no result line):
    preemption a PodDisruptionBudget steers, run with and without the PDB,
    card against CPU on every cycle, the two nominated nodes printed and
    required to differ;
-9. the kernel table as one JSON line (times at the shapes, dtypes and
+9. the Trimaran plugins: bench config 2 (`trimaran_scenario(5000,
+   2048)`, TargetLoadPacking + LoadVariationRiskBalancing, the shape of
+   `bench.py:4495-4499`, uncut) through `Scheduler.solve` on the card
+   (under sync-debug "error") and on the CPU, every output and final carry
+   identical, 0 fit violations, ms a pod on both, 0 election-kernel
+   launches, and the host calls that enqueue device work a step by name;
+   two `run_cycle`s of config 2 (cycle 1 binds the batch, then 256 more
+   pods and 30 s later cycle 2, whose snapshot must carry cycle 1's binds
+   as `missing_cpu_millis` on their nodes), card against CPU on both
+   reports and the store; its solve under live weights [3, 1] and [1, 3],
+   card == CPU, with how many pods the two place differently; three of
+   cycle 1's pods explained, identical, both plugins' columns nonzero,
+   pod 0's winner its bind; and the seeded cases of
+   `tests/torch_trimaran_cases.py` (LROC, Peaks, a loaded TLP beside
+   LVRB), card == CPU, with how many raw scores differ and by how much;
+10. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -117,6 +132,16 @@ NORTH_STAR = dict(n_nodes=10_240, n_pods=102_400, chunk=8192, rescue_window=256)
 CONFIG6 = dict(n_nodes=10_240, n_pods=102_400, stream_chunk=4096)
 #: bench config 4 (`bench.py:4505`): the three-plugin sequential solve
 CONFIG4 = dict(n_gangs=32, gang_size=64, n_nodes=1024)
+#: bench config 2 (`bench.py:4495-4499`): `trimaran_scenario(5000, 2048)`,
+#: TargetLoadPacking + LoadVariationRiskBalancing, the sequential solve
+CONFIG2 = dict(n_nodes=5000, n_pods=2048)
+#: pods added between config 2's two cycles, and the time between them
+#: (inside the metrics reporting interval, so cycle 1's binds count as
+#: missing CPU in cycle 2's snapshot)
+CYCLE2_NEW_PODS = 256
+CYCLE2_GAP_MS = 30_000
+#: the two live weight vectors of the config 2 profile
+CONFIG2_WEIGHTS = ([3, 1], [1, 3])
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -484,19 +509,21 @@ def parity_violations(snap, result) -> dict:
     return out
 
 
-def parity_drive(label: str, cluster, device) -> None:
-    """QueueSort, snapshot and `Scheduler.solve` of `cluster` on the card:
-    twice under sync-debug "error" (`cold_s` pays the kernels' first
-    loads, `debug_s` is warm), then once without it (`solve_s`, the time
-    reported per pod); then the same on the CPU (`cpu_s`). Every output and final carry must
-    be identical (tolerance 0) and pass `parity_violations`."""
+def parity_drive(label: str, cluster, device,
+                 make_scheduler=flagship_scheduler) -> None:
+    """QueueSort, snapshot and `Scheduler.solve` of `cluster` on the card
+    with the profile `make_scheduler()` builds: twice under sync-debug
+    "error" (`cold_s` pays the kernels' first loads, `debug_s` is warm),
+    then once without it (`solve_s`, the time reported per pod); then the
+    same on the CPU (`cpu_s`, `cpu_ms_per_pod`). Every output and final
+    carry must be identical (tolerance 0) and pass `parity_violations`."""
     import torch
 
     _tests_on_path()
     from torch_parity_cases import parity_outputs
 
     t0 = time.perf_counter()
-    sched = flagship_scheduler()
+    sched = make_scheduler()
     pending = sched.sort_pending(cluster.pending_pods(), cluster)
     snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
     sched.prepare(meta, cluster)
@@ -515,7 +542,7 @@ def parity_drive(label: str, cluster, device) -> None:
     cold_s, debug_s, solve_s = runs
 
     cpu = torch.device("cpu")
-    sched_cpu = flagship_scheduler()
+    sched_cpu = make_scheduler()
     snap_cpu, meta_cpu = cluster.snapshot(pending, now_ms=0, device=cpu)
     sched_cpu.prepare(meta_cpu, cluster)
     t0 = time.perf_counter()
@@ -533,7 +560,8 @@ def parity_drive(label: str, cluster, device) -> None:
         f"rows={P} setup_s={setup_s:.3f} cold_s={cold_s:.3f} "
         f"debug_s={debug_s:.3f} "
         f"solve_s={solve_s:.3f} ms_per_pod={solve_s * 1e3 / P:.4f} "
-        f"pods_per_s={P / solve_s:.1f} cpu_s={cpu_s:.3f} placed={placed} "
+        f"pods_per_s={P / solve_s:.1f} cpu_s={cpu_s:.3f} "
+        f"cpu_ms_per_pod={cpu_s * 1e3 / P:.4f} placed={placed} "
         f"admitted={int(on_cpu.admitted.sum())} "
         f"wait={int(on_cpu.wait.sum())} identical={not differ} "
         f"violations={viol}",
@@ -552,12 +580,16 @@ def parity_drive(label: str, cluster, device) -> None:
 WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
 
 
-def launches_per_step(cluster, device, live_weights=None) -> dict:
+def launches_per_step(cluster, device, live_weights=None,
+                      make_scheduler=flagship_scheduler,
+                      label: str = "") -> dict:
     """What a parity step puts on the card, from `torch.profiler`: the
     solves of the cluster's first PROFILE_PODS and 2 * PROFILE_PODS queued
     pods differ by PROFILE_PODS steps (the set-up and the Permit tail are
     the same work), so their counts differ by PROFILE_PODS steps' work.
-    `live_weights` sets the scheduler's live weight vector. Returns, each a
+    `live_weights` sets the scheduler's live weight vector; the profile is
+    `make_scheduler()`'s, and `label` prefixes the printed lines. Returns,
+    each a
     step: `work`, the host calls that enqueue device work (names matching
     WORK_CALLS) by name, and `events`, the device records. The host calls
     are exact; the device records are read back through CUPTI's device
@@ -568,9 +600,10 @@ def launches_per_step(cluster, device, live_weights=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sched = flagship_scheduler()
+    sched = make_scheduler()
     sched.set_live_weights(live_weights)
-    label = "" if live_weights is None else f"live_weights={live_weights} "
+    if live_weights is not None:
+        label += f"live_weights={live_weights} "
     pending = sched.sort_pending(cluster.pending_pods(), cluster)
     counts = {}
     for n in (PROFILE_PODS, 2 * PROFILE_PODS):
@@ -754,7 +787,8 @@ def cycle_state(report, cluster):
 
     store = ("reserved", "pod_deadline_ms", "pod_attempts",
              "pod_backoff_until_ms", "unschedulable_since", "event_seq",
-             "event_last", "gang_backoff_until_ms", "gang_last_failure_ms")
+             "event_last", "gang_backoff_until_ms", "gang_last_failure_ms",
+             "recent_bindings")
     return ordered({
         "report": {f.name: getattr(report, f.name) for f in fields(report)},
         "store": {k: getattr(cluster, k) for k in store},
@@ -1268,6 +1302,301 @@ def config6_cycle(device) -> None:
     explain_check("config6", reports, uids)
 
 
+def config2_scheduler():
+    """A `Scheduler` of bench config 2's profile: TargetLoadPacking and
+    LoadVariationRiskBalancing at their defaults (`bench.py:4495-4499`)."""
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.plugins import (
+        LoadVariationRiskBalancing,
+        TargetLoadPacking,
+    )
+
+    return Scheduler(Profile(plugins=[TargetLoadPacking(),
+                                      LoadVariationRiskBalancing()]))
+
+
+def config2_cluster():
+    from scheduler_plugins_tpu_torch.models import trimaran_scenario
+
+    return trimaran_scenario(**CONFIG2)
+
+
+def add_cycle2_pods(cluster) -> None:
+    """CYCLE2_NEW_PODS more pods of config 2's request ranges, from their
+    own seed, queued after the first batch."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.api import objects
+
+    rng = np.random.default_rng(2)
+    cpus = rng.integers(100, 4000, CYCLE2_NEW_PODS)
+    mems = rng.integers(256 << 20, 8 << 30, CYCLE2_NEW_PODS)
+    for i in range(CYCLE2_NEW_PODS):
+        cluster.add_pod(objects.Pod(
+            name=f"late-{i:04d}", creation_ms=CONFIG2["n_pods"] + i,
+            containers=[objects.Container(requests={
+                "cpu": int(cpus[i]), "memory": int(mems[i])})]))
+
+
+def config2_cycles(device) -> dict:
+    """Bench config 2 through two `run_cycle`s, on the card and, from a
+    fresh cluster, on the CPU: cycle 1 binds the batch; CYCLE2_NEW_PODS
+    more pods arrive and `now` moves CYCLE2_GAP_MS, inside the metrics
+    reporting interval, so cycle 2's snapshot must carry, on every node
+    cycle 1 bound pods to, the TargetLoadPacking prediction of those pods
+    as `missing_cpu_millis` (and 0 elsewhere). Both cycles' reports and
+    the store (`recent_bindings` included) must be identical card
+    against CPU, with no store violation and no election kernel launched.
+    Returns each device's cycle 1 report and the queue's uids."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    states, reports, queue = [], {}, None
+    for dev in (device, torch.device("cpu")):
+        cluster = config2_cluster()
+        sched = config2_scheduler()
+        queue = [p.uid for p in sched.sort_pending(cluster.pending_pods(),
+                                                   cluster)]
+        arm = []
+        for k, now in enumerate((1000, 1000 + CYCLE2_GAP_MS)):
+            if k == 1:
+                add_cycle2_pods(cluster)
+            taken = []
+            real_snapshot = cluster.snapshot
+
+            def snapshot(*args, **kw):
+                out = real_snapshot(*args, **kw)
+                taken.append(out)
+                return out
+
+            cluster.snapshot = snapshot
+            timings = {}
+            pk.reset_launches()
+            try:
+                t0 = time.perf_counter()
+                report = run_cycle(sched, cluster, now=now, device=dev,
+                                   timings=timings)
+                _sync(dev)
+                cycle_s = time.perf_counter() - t0
+            finally:
+                del cluster.snapshot
+            launches = pk.launches()
+            snap, meta = taken[0]
+            missing = snap.metrics.missing_cpu_millis.cpu().numpy()
+            viol = store_violations(cluster)
+            print(
+                f"[trimaran] cycle_config2 cycle={k + 1} device={dev.type} "
+                f"nodes={len(cluster.nodes)} pods={len(cluster.pods)} "
+                f"batch={len(meta.pod_names)} cycle_s={cycle_s} "
+                f"stage_s={timings} bound={len(report.bound)} "
+                f"failed={len(report.failed)} "
+                f"missing_cpu_nodes={int((missing > 0).sum())} "
+                f"missing_cpu_millis={int(missing.sum())} "
+                f"kernel_launches={launches} violations={viol}",
+                flush=True,
+            )
+            if any(viol.values()) or any(launches.values()):
+                raise AssertionError(f"config 2 cycle {k + 1} on {dev}: "
+                                     f"{viol} {launches}")
+            if not report.bound:
+                raise AssertionError(f"config 2 cycle {k + 1} on {dev}: "
+                                     "nothing bound")
+            if k == 1:
+                # the compensation: cycle 1's binds, by node
+                want = np.zeros_like(missing)
+                pos = {name: i for i, name in enumerate(meta.node_names)}
+                for uid, node in first.bound.items():
+                    want[pos[node]] += cluster.pods[
+                        uid].tlp_predicted_cpu_millis(*cluster.tlp_prediction)
+                if not missing.any() or not np.array_equal(missing, want):
+                    raise AssertionError(
+                        f"config 2 cycle 2 on {dev}: missing_cpu_millis "
+                        f"{int(missing.sum())} != cycle 1's binds "
+                        f"{int(want.sum())}")
+            else:
+                first = report
+                reports[dev.type] = report
+                if missing.any():
+                    raise AssertionError(f"config 2 cycle 1 on {dev}: "
+                                         "missing CPU before any bind")
+            arm.append(cycle_state(report, cluster))
+        states.append(arm)
+    if states[0] != states[1]:
+        raise AssertionError("config 2 cycles: card != CPU")
+    print("[trimaran] cycle_config2 identical=True", flush=True)
+    return reports, queue
+
+
+def config2_explain(device, reports: dict, queue: list) -> None:
+    """`CycleReport.explain` of the first, the middle and the last pod of
+    config 2's cycle 1 on the card's and the CPU's report
+    (`explain_check`: identical, each candidate's scores summing to its
+    total), with the TargetLoadPacking and LoadVariationRiskBalancing
+    columns each not 0 on some candidate and pod 0's winner its bind."""
+    uids = [queue[0], queue[len(queue) // 2], queue[-1]]
+    tables = explain_check("config2", reports, uids)
+    nonzero = {name: sum(c["scores"][name] != 0 for t in tables.values()
+                         for c in t["candidates"])
+               for name in ("TargetLoadPacking", "LoadVariationRiskBalancing")}
+    winner = tables[queue[0]]["winner"]
+    bound = reports[device.type].bound.get(queue[0])
+    print(f"[explain] config2 nonzero_columns={nonzero} pod0={queue[0]} "
+          f"winner={winner} bound={bound}", flush=True)
+    if not all(nonzero.values()):
+        raise AssertionError(f"config 2 explain: a column is 0 on every "
+                             f"candidate {nonzero}")
+    if winner is None or winner != bound:
+        raise AssertionError(f"config 2: pod 0's explain winner {winner} "
+                             f"is not its bind {bound}")
+
+
+def config2_live_weights(device) -> None:
+    """Config 2's parity solve under `set_live_weights(w)` for each of
+    CONFIG2_WEIGHTS, on the card under sync-debug "error" and on the CPU:
+    every output and final carry identical. Prints how many pods the two
+    weightings place differently (a count, not a check)."""
+    import torch
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+
+    cluster = config2_cluster()
+    placed = {}
+    for w in CONFIG2_WEIGHTS:
+        outs = {}
+        for dev in (device, torch.device("cpu")):
+            sched = config2_scheduler()
+            sched.set_live_weights(w)
+            pending = sched.sort_pending(cluster.pending_pods(), cluster)
+            snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+            sched.prepare(meta, cluster)
+            t0 = time.perf_counter()
+            with sync_errors(dev):
+                result = sched.solve(snap, device=dev)
+            _sync(dev)
+            outs[dev.type] = {k: None if v is None else v.cpu()
+                              for k, v in parity_outputs(result).items()}
+            print(f"[trimaran] live_weights_config2 weights={w} "
+                  f"device={dev.type} solve_s={time.perf_counter() - t0} "
+                  f"placed={int((result.assignment >= 0).sum())}",
+                  flush=True)
+        card, cpu = outs[device.type], outs["cpu"]
+        differ = [k for k in card if (card[k] is None) != (cpu[k] is None)
+                  or (card[k] is not None and not torch.equal(card[k],
+                                                              cpu[k]))]
+        if differ:
+            raise AssertionError(f"config 2 under {w}: card != CPU in "
+                                 f"{differ}")
+        placed[tuple(w)] = card["assignment"]
+    a, b = placed.values()
+    print(f"[trimaran] live_weights_config2 identical=True "
+          f"placed_differently={int((a != b).sum())} of {a.numel()}",
+          flush=True)
+
+
+def raw_score_rows(sched, snap) -> list:
+    """(P, N) raw scores of each scoring plugin of `sched` against the
+    cycle-initial state, one pod at a time as the solve step calls them,
+    on the snapshot's device (no host read)."""
+    import torch
+
+    plugins = tuple(sched.profile.plugins)
+    for plugin in plugins:
+        plugin.bind_presolve(plugin.prepare_solve(snap))
+    state0 = sched.initial_state(snap)
+    return [torch.stack([plugin.score(state0, snap, p)
+                         for p in range(snap.num_pods)])
+            for plugin in plugins]
+
+
+def trimaran_small(device) -> None:
+    """The seeded problems of `tests/torch_trimaran_cases.py` (LROC on
+    pods whose limits exceed their requests, Peaks with a power model for
+    part of the nodes, TLP loaded with targetUtilization 60 beside LVRB),
+    each loaded with `load_profile` and solved on the card under sync-debug
+    "error" and on the CPU: every output and final carry identical. Prints,
+    per profile, how many raw score entries differ card against CPU and
+    the largest relative difference (Peaks' `exp` and LROC's `lgamma`,
+    `log` and `exp` come from other math libraries on the card), and
+    requires the normalized scores, through the placements, to agree."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+    from torch_trimaran_cases import CASES, solve_inputs, trimaran_case
+
+    for name in CASES:
+        outs, raws = {}, {}
+        for dev in (device, torch.device("cpu")):
+            cluster, config = trimaran_case(name, objects, Cluster)
+            sched = Scheduler(load_profile(config))
+            _, snap, _ = solve_inputs(sched, cluster, device=dev)
+            pk.reset_launches()
+            t0 = time.perf_counter()
+            with sync_errors(dev):
+                result = sched.solve(snap, device=dev)
+            _sync(dev)
+            solve_s = time.perf_counter() - t0
+            outs[dev.type] = {k: None if v is None else v.cpu()
+                              for k, v in parity_outputs(result).items()}
+            with sync_errors(dev):
+                rows = raw_score_rows(sched, snap)
+            raws[dev.type] = [r.cpu() for r in rows]
+            print(f"[trimaran] small {name} device={dev.type} "
+                  f"nodes={len(cluster.nodes)} rows={snap.num_pods} "
+                  f"solve_s={solve_s} "
+                  f"placed={int((result.assignment >= 0).sum())} "
+                  f"kernel_launches={pk.launches()}", flush=True)
+        card, cpu = outs[device.type], outs["cpu"]
+        differ = [k for k in card if (card[k] is None) != (cpu[k] is None)
+                  or (card[k] is not None and not torch.equal(card[k],
+                                                              cpu[k]))]
+        entries, rel = 0, 0.0
+        for got, want in zip(raws[device.type], raws["cpu"]):
+            entries += int((got != want).sum())
+            diff = (got.double() - want.double()).abs()
+            rel = max(rel, float((diff / want.double().abs().clamp(
+                min=1.0)).max()))
+        print(f"[trimaran] small {name} identical={not differ} "
+              f"raw_entries_differing={entries} of "
+              f"{sum(r.numel() for r in raws['cpu'])} "
+              f"raw_max_rel_diff={rel}", flush=True)
+        if differ:
+            raise AssertionError(f"trimaran {name}: card != CPU in {differ}")
+
+
+def trimaran_phase(device) -> None:
+    """Phase 9: the Trimaran plugins on the card, held against the CPU."""
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    cluster = config2_cluster()
+    pk.reset_launches()
+    parity_drive("parity_config2", cluster, device,
+                 make_scheduler=config2_scheduler)
+    launches = pk.launches()
+    print(f"[trimaran] parity_config2 kernel_launches={launches}",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"config 2 launched election kernels "
+                             f"{launches}")
+    launches_per_step(cluster, device, make_scheduler=config2_scheduler,
+                      label="config2 ")
+    del cluster
+    reports, queue = config2_cycles(device)
+    config2_explain(device, reports, queue)
+    config2_live_weights(device)
+    trimaran_small(device)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -1384,7 +1713,10 @@ def main() -> int:
     # 8. the scheduling cycle, card against CPU
     cycle_phase(device)
 
-    # 9. the kernel table, the card, the result
+    # 9. the Trimaran plugins (bench config 2 and the small cases)
+    trimaran_phase(device)
+
+    # 10. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,30 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
         "podGroupRejectPercentage": "reject_percentage",
     },
     "NodeResourcesAllocatable": {"resources": "resources", "mode": "mode"},
+    "TargetLoadPacking": {
+        "targetUtilization": "target_utilization_percent",
+        "watcherAddress": "watcher_address",
+        "metricProvider": "metric_provider",
+        "defaultRequests": "default_requests",
+        "defaultRequestsMultiplier": "default_requests_multiplier",
+    },
+    "LoadVariationRiskBalancing": {
+        "safeVarianceMargin": "safe_variance_margin",
+        "safeVarianceSensitivity": "safe_variance_sensitivity",
+        "watcherAddress": "watcher_address",
+        "metricProvider": "metric_provider",
+    },
+    "LowRiskOverCommitment": {
+        "smoothingWindowSize": "smoothing_window_size",
+        "riskLimitWeights": "risk_limit_weights",
+        "watcherAddress": "watcher_address",
+        "metricProvider": "metric_provider",
+    },
+    "Peaks": {
+        "nodePowerModel": "node_power_model",
+        "watcherAddress": "watcher_address",
+        "metricProvider": "metric_provider",
+    },
     "CapacityScheduling": {
         "minCandidateNodesPercentage": "min_candidate_nodes_percentage",
         "minCandidateNodesAbsolute": "min_candidate_nodes_absolute",
@@ -62,6 +86,10 @@ def _registry():
         "Coscheduling": p.Coscheduling,
         "CapacityScheduling": p.CapacityScheduling,
         "NodeResourcesAllocatable": p.NodeResourcesAllocatable,
+        "TargetLoadPacking": p.TargetLoadPacking,
+        "LoadVariationRiskBalancing": p.LoadVariationRiskBalancing,
+        "LowRiskOverCommitment": p.LowRiskOverCommitment,
+        "Peaks": p.Peaks,
     }
 
 
@@ -107,7 +135,11 @@ def profile_spec(profile: Profile) -> dict:
     """The inverse of `load_profile`: a {profileName, plugins,
     pluginConfig, weights} mapping that rebuilds `profile`'s roster. Args
     come from the attributes the constructors keep (`_SPEC_OVERRIDES` for
-    the renamed ones); what is not JSON-able is left out. `weights` is
+    the renamed ones); what is not JSON-able is left out, and so is an
+    arg whose plugin keeps it under another name with no override (the
+    Trimaran plugins' targetUtilization, safeVariance*, smoothingWindowSize,
+    riskLimitWeights and defaultRequests: the JAX package's export drops
+    them too, and the port's matches it). `weights` is
     exported only when some weight differs from its class default. The
     port's profiles are all "sequential", so no `solveMode` is exported."""
     names = []

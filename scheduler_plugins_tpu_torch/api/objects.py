@@ -5,7 +5,8 @@ the two CRDs the admission reads, `PodGroup` (gang) and `ElasticQuota`,
 and the `PodDisruptionBudget` that preemption reads. Derived-request
 semantics follow the reference: the effective request is max(sum of app
 containers, max over init containers) plus overhead (upstream
-pkg/util/resource.go:45-85).
+pkg/util/resource.go:45-85). The Trimaran plugins add the pod's effective
+limits and TargetLoadPacking's CPU prediction.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass, field
 from typing import Mapping, Optional
 
 from scheduler_plugins_tpu_torch.api.resources import (
+    CPU,
     add_quantities,
     max_quantities,
 )
@@ -62,6 +64,12 @@ class Pod:
     #: spec.preemptionPolicy: "Never" disqualifies the pod from preempting
     #: (capacity_scheduling.go:412-416)
     preemption_policy: Optional[str] = None
+    #: memoized `effective_limits`: a pod's container spec is immutable
+    #: after creation; init=False keeps the cache out of constructors and
+    #: dataclasses.replace
+    _lim_cache: Optional[dict] = field(
+        default=None, init=False, repr=False, compare=False
+    )
 
     def __post_init__(self):
         if not self.uid:
@@ -76,6 +84,41 @@ class Pod:
 
     def effective_request(self) -> dict[str, int]:
         return effective_request(self)
+
+    def effective_limits(self) -> dict[str, int]:
+        """Trimaran-style effective limits: per resource, the sum over app
+        containers, then the max against each init container on its own,
+        plus overhead (upstream trimaran resourcestats.go:121-145
+        GetEffectiveResource over container limits)."""
+        if self._lim_cache is not None:
+            return dict(self._lim_cache)
+        resources: dict[str, int] = {}
+        for c in self.containers:
+            resources = add_quantities(resources, c.limits)
+        for ic in self.init_containers:
+            resources = max_quantities(resources, ic.limits)
+        self._lim_cache = add_quantities(resources, self.overhead)
+        return dict(self._lim_cache)
+
+    def tlp_predicted_cpu_millis(
+        self, multiplier: float = 1.5, default_millis: int = 1000
+    ) -> int:
+        """TargetLoadPacking's per-pod CPU prediction: per app container,
+        its CPU limit if set, else round(request * multiplier), else the
+        default 1000m; plus the pod overhead's CPU
+        (targetloadpacking.go:123-129, 198-205). Init containers do not
+        count."""
+        total = 0
+        for c in self.containers:
+            if c.limits.get(CPU):
+                total += c.limits[CPU]
+            elif c.requests.get(CPU):
+                # Go math.Round; requests are non-negative by construction
+                total += int(c.requests[CPU] * multiplier + 0.5)
+            else:
+                total += default_millis
+        total += self.overhead.get(CPU, 0)
+        return total
 
 
 def effective_request(pod: Pod) -> dict[str, int]:

@@ -3,7 +3,7 @@
 `snapshot_from_numpy(tree, device)` takes the JAX `ClusterSnapshot` as a
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
 {...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
-or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+or None, "metrics": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
 packages can solve the very same tensors. Fields the port's slice does not
 carry are ignored; a field the port needs and the tree lacks raises
 `KeyError`; an absent table is None.
@@ -25,6 +25,7 @@ from scheduler_plugins_tpu_torch.framework.plugin import SolverState
 from scheduler_plugins_tpu_torch.state.snapshot import (
     ClusterSnapshot,
     GangState,
+    MetricsState,
     NodeState,
     NomineeState,
     PodState,
@@ -37,6 +38,7 @@ _TABLES = {
     "gangs": GangState,
     "quota": QuotaState,
     "nominees": NomineeState,
+    "metrics": MetricsState,
 }
 
 

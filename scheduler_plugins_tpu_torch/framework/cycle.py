@@ -30,10 +30,14 @@ the cycle's batch (`utils.flightrec.explain_solver`), scored with the
 plugins' configuration as the cycle saw it; only the most recent
 `SPT_EXPLAIN_RETAIN` reports (default 8) keep their snapshot for it.
 
+Before the batch the prologue runs each plugin's `configure_cluster` and
+ticks the load-watcher collectors the Trimaran plugins configure
+(`_refresh_metrics`), so the snapshot carries the latest metrics.
+
 Left out until their slices: the serving engine (`serve`), the solve
 watchdog (`resilience`), the rank-aware gang phase (`gangs`), the online
-tuner (`tuner`), metrics, tracer spans, the pod ledger, the flight
-recorder and the sanitizer. Passing one of those arguments raises
+tuner (`tuner`), tracer spans, the pod ledger, the flight recorder and
+the sanitizer. Passing one of those arguments raises
 NotImplementedError.
 """
 
@@ -64,6 +68,10 @@ from scheduler_plugins_tpu_torch.parallel.pipeline import (
 )
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
+from scheduler_plugins_tpu_torch.state.collector import (
+    AsyncLoadWatcherCollector,
+    make_metrics_client,
+)
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
 from scheduler_plugins_tpu_torch.utils.flightrec import explain_solver
 
@@ -200,7 +208,8 @@ class CycleCtx:
 
 def _cycle_open(scheduler, cluster, now, device,
                 stream_chunk=None) -> CycleCtx:
-    """Cycle prologue: the Coscheduling instance, and permit expiry."""
+    """Cycle prologue: the Coscheduling instance, each plugin's cluster
+    wiring, permit expiry and the collector ticks."""
     ctx = CycleCtx(scheduler=scheduler, cluster=cluster, now=now,
                    device=device, report=CycleReport(),
                    stream_chunk=stream_chunk)
@@ -208,7 +217,10 @@ def _cycle_open(scheduler, cluster, now, device,
         (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
         None,
     )
+    for plugin in scheduler.profile.plugins:
+        plugin.configure_cluster(cluster)
     _expire_gangs(cluster, now, ctx.report)
+    _refresh_metrics(scheduler, cluster, now)
     return ctx
 
 
@@ -575,6 +587,34 @@ def _run_preemption(scheduler, cluster, pending, report, now, device=None):
         holds.append((n, demand, pod.priority, pod.uid))
         nominated_extra[n] -= victim_freed
         report.preempted[pod.uid] = (result.nominated_node, result.victims)
+
+
+def _refresh_metrics(scheduler, cluster: Cluster, now: int):
+    """The collector pull loop: every distinct metrics source a Trimaran
+    plugin configures (a WatcherAddress service or a MetricProvider
+    library client, collector.go:60-73) gets an async collector, cached on
+    the scheduler, ticked once a cycle (`state.collector
+    .AsyncLoadWatcherCollector` owns the cadence and the thread)."""
+    collectors = getattr(scheduler, "_collectors", None)
+    for plugin in scheduler.profile.plugins:
+        address = getattr(plugin, "watcher_address", None)
+        provider = getattr(plugin, "metric_provider", None)
+        if not address and not provider:
+            continue
+        key = address or tuple(sorted((provider or {}).items()))
+        if collectors is None:
+            collectors = scheduler._collectors = {}
+        if key not in collectors:
+            try:
+                collectors[key] = AsyncLoadWatcherCollector(
+                    make_metrics_client(address, provider)
+                )
+            except ValueError:
+                # an unusable source: no metrics from it rather than a
+                # failure every cycle (None stops re-construction)
+                collectors[key] = None
+        if collectors[key] is not None:
+            collectors[key].tick(cluster, now)
 
 
 def _maybe_release_gang(cluster: Cluster, pg, report: CycleReport,

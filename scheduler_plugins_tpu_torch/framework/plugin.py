@@ -19,6 +19,9 @@ the batch, evaluated by the sequential solve (`framework.runtime`):
                 the per-pod calls; None (the default) when a plugin has no
                 class-collapsed form.
 - `queue_key`   host-side QueueSort key for a Pod object (lower first).
+- `configure_cluster`
+                host-side wiring the cycle runs before the snapshot (the
+                Trimaran pod CPU-prediction parameters).
 
 The tensor methods issue device work only: no host read of a tensor, so
 the solve's loop over the pods never waits for the card. `prepare(meta)`
@@ -120,6 +123,12 @@ class Plugin:
         plugin failed schedulable again. Score-only plugins register
         nothing (upstream EventsToRegister)."""
         return ()
+
+    def configure_cluster(self, cluster) -> None:
+        """Called by the cycle BEFORE the snapshot is taken: a plugin whose
+        args configure host-side machinery (pod request-prediction
+        defaults) installs it on the store here, the analog of the wiring
+        the reference does in each plugin's New()."""
 
     def queue_key(self, pod, cluster):
         """QueueSort key component for `pod`; tuples compare

@@ -3,4 +3,5 @@
 from scheduler_plugins_tpu_torch.models.scenarios import (  # noqa: F401
     allocatable_scenario,
     gang_quota_scenario,
+    trimaran_scenario,
 )

@@ -54,6 +54,25 @@ def allocatable_scenario(n_nodes=100, n_pods=1000, seed=0) -> Cluster:
     return cluster
 
 
+def trimaran_scenario(n_nodes=5000, n_pods=2000, seed=0) -> Cluster:
+    """Load-aware scoring: `allocatable_scenario`'s cluster with synthetic
+    load-watcher metrics per node (cpu and memory, average and std), drawn
+    from a second generator of the same seed, as the JAX package draws
+    them."""
+    rng = np.random.default_rng(seed)
+    cluster = allocatable_scenario(n_nodes, n_pods, seed)
+    cluster.node_metrics = {
+        f"node-{i:05d}": {
+            "cpu_avg": float(rng.uniform(5, 90)),
+            "cpu_std": float(rng.uniform(0, 15)),
+            "mem_avg": float(rng.uniform(5, 80)),
+            "mem_std": float(rng.uniform(0, 10)),
+        }
+        for i in range(n_nodes)
+    }
+    return cluster
+
+
 def gang_quota_scenario(n_gangs=100, gang_size=64, n_nodes=1000, seed=0) -> Cluster:
     """Gangs in 16 quota-governed namespaces."""
     cluster = Cluster()

@@ -1,5 +1,6 @@
 """The plugin suite (port of `scheduler_plugins_tpu.plugins`): the flagship
-profile's three plugins. The other families come with their slices."""
+profile's three plugins and the Trimaran family. The other families come
+with their slices."""
 
 from scheduler_plugins_tpu_torch.plugins.capacityscheduling import (  # noqa: F401
     CapacityScheduling,
@@ -7,4 +8,10 @@ from scheduler_plugins_tpu_torch.plugins.capacityscheduling import (  # noqa: F4
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling  # noqa: F401
 from scheduler_plugins_tpu_torch.plugins.noderesources import (  # noqa: F401
     NodeResourcesAllocatable,
+)
+from scheduler_plugins_tpu_torch.plugins.trimaran import (  # noqa: F401
+    LoadVariationRiskBalancing,
+    LowRiskOverCommitment,
+    Peaks,
+    TargetLoadPacking,
 )

@@ -8,8 +8,11 @@ requeues (EnqueueExtensions) and the per-pod requeue backoff.
 
 Every mutator notes its event (`note_event`) in the JAX store's order:
 a parked pod's stamp is compared against these counters, so the order is
-part of the semantics. The JAX store's native mirror, delta sink, pending
-index, NRT cache and ledger hooks come with their slices.
+part of the semantics. For the Trimaran plugins the store holds the
+load-watcher metrics, the TargetLoadPacking prediction parameters and the
+recently bound pods whose load the metrics do not show yet. The JAX
+store's native mirror, delta sink, pending index, NRT cache and ledger
+hooks come with their slices.
 """
 
 from __future__ import annotations
@@ -53,6 +56,18 @@ class Cluster:
     scheduler_names: set = field(
         default_factory=lambda: {DEFAULT_SCHEDULER_NAME}
     )
+    #: node name -> load-watcher metrics in percent of capacity
+    #: (`state.collector`), or None when no metrics source is configured
+    node_metrics: Optional[dict] = None
+    #: TargetLoadPacking pod CPU-prediction parameters (multiplier,
+    #: default-request millis), installed by the plugin's
+    #: `configure_cluster` from DefaultRequests/DefaultRequestsMultiplier
+    #: (apis/config/v1/defaults.go:76-90)
+    tlp_prediction: tuple = (1.5, 1000)
+    #: recently bound pods whose load the metrics provider has not
+    #: reported yet (the trimaran PodAssignEventHandler's
+    #: ScheduledPodsCache, handler.go:47-171): uid -> (bind ms, node)
+    recent_bindings: dict[str, tuple[int, str]] = field(default_factory=dict)
 
     # scheduling-runtime bookkeeping (host-only)
     reserved: dict[str, str] = field(default_factory=dict)  # uid -> node
@@ -219,6 +234,7 @@ class Cluster:
         self._clear_backoff(uid)
         self.note_event(ev.POD_UPDATE)  # assigned: spec.nodeName set
         self.pods[uid].node_name = node_name
+        self.recent_bindings[uid] = (now_ms, node_name)
 
     def reserve(self, uid: str, node_name: str):
         """Permit said Wait: hold the placement without binding."""
@@ -234,6 +250,39 @@ class Cluster:
             if (p := self.pods.get(uid)) is not None
             and p.namespace == pg.namespace and p.pod_group() == pg.name
         ]
+
+    #: the metrics agent's reporting interval: pods bound within it are
+    #: presumed unreported and their predicted CPU is added (handler.go)
+    METRICS_REPORT_INTERVAL_MS = 60_000
+    #: the ScheduledPodsCache GC horizon (handler.go: 5 minutes)
+    BINDING_CACHE_GC_MS = 300_000
+
+    def _metrics_with_missing(self, now_ms: int) -> Optional[dict]:
+        """The node metrics with the missing-utilization compensation
+        merged in (targetloadpacking.go:148-168): per node, the predicted
+        CPU of the pods bound there within the reporting interval. GCs
+        the binding cache first, with or without metrics."""
+        for uid, (ts, _) in list(self.recent_bindings.items()):
+            if now_ms - ts > self.BINDING_CACHE_GC_MS:
+                del self.recent_bindings[uid]
+        if self.node_metrics is None:
+            return None
+        missing: dict[str, int] = {}
+        for uid, (ts, node) in self.recent_bindings.items():
+            pod = self.pods.get(uid)
+            if pod is None or now_ms - ts >= self.METRICS_REPORT_INTERVAL_MS:
+                continue
+            missing[node] = missing.get(node, 0) + pod.tlp_predicted_cpu_millis(
+                *self.tlp_prediction
+            )
+        if not missing:
+            return self.node_metrics
+        merged = {name: dict(m) for name, m in self.node_metrics.items()}
+        for node, millis in missing.items():
+            merged.setdefault(node, {})["missing_cpu_millis"] = (
+                merged.get(node, {}).get("missing_cpu_millis", 0) + millis
+            )
+        return merged
 
     # -- snapshot ------------------------------------------------------------
     def _assigned_pods(self) -> list[Pod]:
@@ -254,7 +303,8 @@ class Cluster:
         """Lower the current state for the solver onto `device` (None =
         the CUDA card). Reserved pods count as assigned to their reserved
         node: they hold capacity, quota and quorum exactly like the
-        reference's waiting pods."""
+        reference's waiting pods. The metrics table carries the
+        missing-CPU compensation at `now_ms`."""
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -268,5 +318,7 @@ class Cluster:
             backed_off_gangs=backed_off,
             extra_pods=self.gated_pods(),
             device=device,
+            node_metrics=self._metrics_with_missing(now_ms),
+            tlp_prediction=self.tlp_prediction,
             **kwargs,
         )

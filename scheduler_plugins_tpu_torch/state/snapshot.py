@@ -11,10 +11,12 @@ int64 tensors with bucketed static shapes:
          nominated-pod tables.
 - nominees: (M,) unbound pods nominated to a node, whose demand holds
          that node's capacity in the sequential solve.
+- metrics: (N,) load-watcher utilisation percentages and the
+         missing-utilization compensation the Trimaran plugins read.
 
-This slice lowers what the flagship step reads; the JAX snapshot's NUMA,
-network, metrics and syscall tables wait for later slices, and node/pod
-fields nothing here reads are left out. The lowering runs in numpy (the
+This slice lowers what the ported plugins read; the JAX snapshot's NUMA,
+network and syscall tables wait for later slices, and node/pod fields
+nothing here reads are left out. The lowering runs in numpy (the
 same arithmetic as the JAX builder, so both packages produce the same
 tensors) and moves the result to the requested device once.
 """
@@ -40,6 +42,7 @@ from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
 
 I64 = np.int64
 I32 = np.int32
+F64 = np.float64
 
 
 class _Tensors:
@@ -78,6 +81,10 @@ class NodeState(_Tensors):
     alloc: torch.Tensor  # (N, R) int64 allocatable
     capacity: torch.Tensor  # (N, R) int64
     requested: torch.Tensor  # (N, R) int64 sum of assigned pods' requests
+    #: (N, R) int64 sum of assigned pods' effective limits, each pod's
+    #: clamped to >= its requests (trimaran SetMaxLimits,
+    #: resourcestats.go:225-231)
+    limits: torch.Tensor
     mask: torch.Tensor  # (N,) bool — real, schedulable node
     pod_count: torch.Tensor  # (N,) int32 assigned pods
 
@@ -85,6 +92,9 @@ class NodeState(_Tensors):
 @dataclass
 class PodState(_Tensors):
     req: torch.Tensor  # (P, R) int64 effective request (pods slot = 0)
+    limits: torch.Tensor  # (P, R) int64 trimaran effective limits (unclamped)
+    #: (P,) int64 TargetLoadPacking per-pod CPU prediction
+    predicted_cpu_millis: torch.Tensor
     priority: torch.Tensor  # (P,) int64
     ns: torch.Tensor  # (P,) int32 namespace code
     gang: torch.Tensor  # (P,) int32 gang code (-1 = not in a PodGroup)
@@ -142,12 +152,39 @@ class NomineeState(_Tensors):
 
 
 @dataclass
+class MetricsState(_Tensors):
+    """Load-watcher node metrics in percent of capacity (upstream
+    trimaran collector.go, resourcestats.go:33-107)."""
+
+    cpu_avg: torch.Tensor  # (N,) float64 %
+    #: (N,) the CPU value TargetLoadPacking reads: its selection loop lets
+    #: a later Latest override Average (targetloadpacking.go:130-139);
+    #: defaults to cpu_avg
+    cpu_tlp: torch.Tensor
+    #: (N,) the CPU value Peaks reads: the FIRST Average-or-Latest sample
+    #: in report order (peaks.go:118-131); defaults to cpu_tlp, then cpu_avg
+    cpu_peaks: torch.Tensor
+    cpu_std: torch.Tensor  # (N,) float64 %
+    mem_avg: torch.Tensor  # (N,) float64 %
+    mem_std: torch.Tensor  # (N,) float64 %
+    cpu_valid: torch.Tensor  # (N,) bool
+    #: (N,) whether an Average/Latest CPU sample was seen: TLP needs one
+    #: (targetloadpacking.go:130-146) and must not score a std-only node
+    cpu_tlp_valid: torch.Tensor
+    mem_valid: torch.Tensor  # (N,) bool
+    #: (N,) int64 predicted-but-unreported CPU millis per node (the
+    #: ScheduledPodsCache compensation, trimaran handler.go:47-171)
+    missing_cpu_millis: torch.Tensor
+
+
+@dataclass
 class ClusterSnapshot(_Tensors):
     nodes: NodeState
     pods: PodState
     gangs: Optional[GangState] = None
     quota: Optional[QuotaState] = None
     nominees: Optional[NomineeState] = None
+    metrics: Optional[MetricsState] = None
 
     @property
     def num_nodes(self) -> int:
@@ -209,13 +246,19 @@ def build_snapshot(
     backed_off_gangs: Sequence[str] = (),
     extra_pods: Sequence[Pod] = (),
     device=None,
+    node_metrics: Optional[dict] = None,
+    tlp_prediction: tuple = (1.5, 1000),
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
     `pending_pods` become the pod batch in the given (queue) order;
     `assigned_pods` contribute node usage and gang/quota accounting;
     `extra_pods` (scheduling-gated pods) count toward gang membership
-    only. Codes and padding follow the JAX builder (`build_snapshot`,
+    only. `node_metrics` (node name -> metric dict, `Cluster.node_metrics`
+    with the missing-CPU compensation merged in) becomes the metrics
+    table, None leaves it out; `tlp_prediction` (multiplier, default
+    millis) parameterizes each pod's `predicted_cpu_millis`. Codes and
+    padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
     requests = {p.uid: p.effective_request() for p in
@@ -242,6 +285,7 @@ def build_snapshot(
     alloc = np.zeros((N, R), I64)
     capacity = np.zeros((N, R), I64)
     requested = np.zeros((N, R), I64)
+    node_limits = np.zeros((N, R), I64)
     node_mask = np.zeros(N, bool)
     pod_count = np.zeros(N, I32)
     node_pos = {}
@@ -254,7 +298,11 @@ def build_snapshot(
         if pod.node_name not in node_pos:
             continue
         i = node_pos[pod.node_name]
-        requested[i] += index.encode(requests[pod.uid])
+        req = index.encode(requests[pod.uid])
+        requested[i] += req
+        # limits clamped to >= requests per pod (SetMaxLimits)
+        node_limits[i] += np.maximum(index.encode(pod.effective_limits()),
+                                     req)
         pod_count[i] += 1
     # the "pods" resource is accounted as a count, not a request sum
     requested[:, pods_i] = pod_count
@@ -271,7 +319,7 @@ def build_snapshot(
             nominee_pods.append(pod)
     node_state = NodeState(
         alloc=alloc, capacity=capacity, requested=requested,
-        mask=node_mask, pod_count=pod_count,
+        limits=node_limits, mask=node_mask, pod_count=pod_count,
     )
 
     # --- gangs ---------------------------------------------------------
@@ -330,6 +378,8 @@ def build_snapshot(
 
     # --- pods (pending batch) -----------------------------------------
     preq = np.zeros((P, R), I64)
+    plimits = np.zeros((P, R), I64)
+    ppredicted = np.zeros(P, I64)
     ppriority = np.zeros(P, I64)
     pns = np.zeros(P, I32)
     pgang = np.full(P, -1, I32)
@@ -338,6 +388,8 @@ def build_snapshot(
     pgated = np.zeros(P, bool)
     for i, pod in enumerate(pending_pods):
         preq[i] = index.encode(requests[pod.uid])
+        plimits[i] = index.encode(pod.effective_limits())
+        ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
         ppriority[i] = pod.priority
         pns[i] = ns_in.code(pod.namespace)
         pgang[i] = gang_of(pod)
@@ -345,7 +397,8 @@ def build_snapshot(
         pcreated[i] = pod.creation_ms
         pgated[i] = pod.scheduling_gated
     pod_state = PodState(
-        req=preq, priority=ppriority, ns=pns, gang=pgang, mask=pmask,
+        req=preq, limits=plimits, predicted_cpu_millis=ppredicted,
+        priority=ppriority, ns=pns, gang=pgang, mask=pmask,
         creation_ms=pcreated, gated=pgated,
     )
 
@@ -423,8 +476,55 @@ def build_snapshot(
             batch_idx=nom_batch, mask=np.ones(M, bool),
         )
 
+    metrics_state = None
+    if node_metrics is not None:
+        metrics_state = _metrics_state(node_metrics, node_pos, N)
+
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
-        quota=quota_state, nominees=nominee_state,
+        quota=quota_state, nominees=nominee_state, metrics=metrics_state,
     )
     return snapshot.to(device), meta
+
+
+def _metrics_state(node_metrics: dict, node_pos: dict, N: int) -> MetricsState:
+    """The metrics table (host numpy), each field defaulted as the JAX
+    builder does (snapshot.py:801-846): `cpu_tlp` falls back to `cpu_avg`,
+    `cpu_peaks` to `cpu_tlp` and then `cpu_avg`; a node with only a std
+    sample is valid with a 0 average (GetResourceData, resourcestats.go:
+    88-106), but TLP and Peaks need an Average or Latest sample
+    (`cpu_tlp_valid`). Nodes the store does not know are skipped."""
+    cpu_avg = np.zeros(N, F64)
+    cpu_tlp = np.zeros(N, F64)
+    cpu_peaks = np.zeros(N, F64)
+    cpu_std = np.zeros(N, F64)
+    mem_avg = np.zeros(N, F64)
+    mem_std = np.zeros(N, F64)
+    cpu_valid = np.zeros(N, bool)
+    cpu_tlp_valid = np.zeros(N, bool)
+    mem_valid = np.zeros(N, bool)
+    missing = np.zeros(N, I64)
+    for name, m in node_metrics.items():
+        if name not in node_pos:
+            continue
+        i = node_pos[name]
+        if "cpu_avg" in m:
+            cpu_avg[i] = m["cpu_avg"]
+        cpu_tlp[i] = m.get("cpu_tlp", m.get("cpu_avg", 0.0))
+        cpu_peaks[i] = m.get(
+            "cpu_peaks", m.get("cpu_tlp", m.get("cpu_avg", 0.0))
+        )
+        cpu_std[i] = m.get("cpu_std", 0.0)
+        cpu_valid[i] = "cpu_avg" in m or "cpu_std" in m
+        cpu_tlp_valid[i] = "cpu_tlp" in m or "cpu_avg" in m
+        if "mem_avg" in m:
+            mem_avg[i] = m["mem_avg"]
+        mem_valid[i] = "mem_avg" in m or "mem_std" in m
+        mem_std[i] = m.get("mem_std", 0.0)
+        missing[i] = m.get("missing_cpu_millis", 0)
+    return MetricsState(
+        cpu_avg=cpu_avg, cpu_tlp=cpu_tlp, cpu_peaks=cpu_peaks,
+        cpu_std=cpu_std, mem_avg=mem_avg, mem_std=mem_std,
+        cpu_valid=cpu_valid, cpu_tlp_valid=cpu_tlp_valid,
+        mem_valid=mem_valid, missing_cpu_millis=missing,
+    )

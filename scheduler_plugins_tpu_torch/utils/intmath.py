@@ -46,6 +46,17 @@ def round_half_away(x) -> torch.Tensor:
     return torch.where(x >= 0, pos, neg).to(torch.int64)
 
 
+def saturating_int64(x: torch.Tensor) -> torch.Tensor:
+    """Float to int64 as XLA converts: values at or past +-2^63 saturate
+    to the int64 bounds and NaN becomes 0. A plain `.to(torch.int64)` is
+    undefined out of range (INT64_MIN on x86)."""
+    big = 2.0 ** 63
+    out = torch.where(torch.isnan(x) | (x >= big) | (x < -big), 0.0,
+                      x).to(torch.int64)
+    out = torch.where(x >= big, torch.iinfo(torch.int64).max, out)
+    return torch.where(x < -big, torch.iinfo(torch.int64).min, out)
+
+
 def _dtype_bounds(dtype):
     info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
     return info.min, info.max

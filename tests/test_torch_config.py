@@ -1,17 +1,21 @@
 """The port's profile loader (`scheduler_plugins_tpu_torch.api.config`)
-against JAX `load_profile` for the three ported plugins: arguments and
-their defaults, weights, the auto-selected preemption engine, and the
-validation errors (mirrors tests/test_config.py). Plugins JAX has and the
-port does not raise NotImplementedError naming them. `profile_spec`, the
-loader's inverse, must export what JAX's does and load back to the same
-profile (mirrors tests/test_tuning.py TestWeightsRoundTrip)."""
+against JAX `load_profile` for the ported plugins (the flagship three and
+the four Trimaran plugins): arguments and their defaults, weights, the
+auto-selected preemption engine, and the validation errors (mirrors
+tests/test_config.py). Plugins JAX has and the port does not raise
+NotImplementedError naming them. `profile_spec`, the loader's inverse,
+must export what JAX's does and load back to the same profile (mirrors
+tests/test_tuning.py TestWeightsRoundTrip); for the Trimaran plugins that
+export is lossy in both packages alike (`TestTrimaranSpec`)."""
 
 import pytest
 
 import scheduler_plugins_tpu.api.config as jax_config
 from scheduler_plugins_tpu_torch.api import config as port_config
 
-PORTED = ("CapacityScheduling", "Coscheduling", "NodeResourcesAllocatable")
+PORTED = ("CapacityScheduling", "Coscheduling", "LoadVariationRiskBalancing",
+          "LowRiskOverCommitment", "NodeResourcesAllocatable", "Peaks",
+          "TargetLoadPacking")
 
 #: per plugin, the attributes its constructor arguments land in
 ATTRS = {
@@ -20,7 +24,18 @@ ATTRS = {
     "NodeResourcesAllocatable": ("resources", "mode_sign"),
     "CapacityScheduling": ("min_candidate_nodes_percentage",
                            "min_candidate_nodes_absolute"),
+    "TargetLoadPacking": ("target", "watcher_address", "metric_provider",
+                          "default_request_cpu_millis",
+                          "default_requests_multiplier"),
+    "LoadVariationRiskBalancing": ("margin", "sensitivity",
+                                   "watcher_address", "metric_provider"),
+    "LowRiskOverCommitment": ("smoothing_window", "w_cpu", "w_mem",
+                              "watcher_address", "metric_provider"),
+    "Peaks": ("node_power_model", "watcher_address", "metric_provider"),
 }
+
+TRIMARAN = ("TargetLoadPacking", "LoadVariationRiskBalancing",
+            "LowRiskOverCommitment", "Peaks")
 
 CONFIGS = [
     {"plugins": list(PORTED)},
@@ -46,6 +61,30 @@ CONFIGS = [
     {"plugins": ["CapacityScheduling", "NodeResourcesAllocatable"],
      "weights": [1, 7], "solveMode": "sequential"},
     {"plugins": []},
+    {"plugins": list(TRIMARAN)},
+    {"profileName": "load-aware",
+     "plugins": ["TargetLoadPacking", "LoadVariationRiskBalancing",
+                 "LowRiskOverCommitment", "Peaks"],
+     "pluginConfig": [
+         {"name": "TargetLoadPacking",
+          "args": {"targetUtilization": 60,
+                   "watcherAddress": "http://watcher:2020",
+                   "defaultRequests": {"cpu": 2000},
+                   "defaultRequestsMultiplier": "2.5"}},
+         {"name": "LoadVariationRiskBalancing",
+          "args": {"safeVarianceMargin": 2.0,
+                   "safeVarianceSensitivity": 0.5,
+                   "metricProvider": {"type": "Prometheus",
+                                      "address": "http://prom:9090"}}},
+         {"name": "LowRiskOverCommitment",
+          "args": {"smoothingWindowSize": 3,
+                   "riskLimitWeights": {"cpu": 0.2, "memory": 0.8}}},
+         {"name": "Peaks",
+          "args": {"nodePowerModel": {"node-a": [10.0, 2.0, 0.05]},
+                   "metricProvider": {"type": "KubernetesMetricsServer",
+                                      "address": "https://api:6443"}}},
+     ],
+     "weights": [2, 1, 1, 3]},
 ]
 
 
@@ -110,6 +149,35 @@ BAD = [
                         "args": {"minCandidateNodesPercentage": 0,
                                  "minCandidateNodesAbsolute": 0}}]},
      "cannot both be zero"),
+    ({"plugins": ["TargetLoadPacking"],
+      "pluginConfig": [{"name": "TargetLoadPacking",
+                        "args": {"targetUtilization": 0}}]},
+     "target utilization"),
+    ({"plugins": ["TargetLoadPacking"],
+      "pluginConfig": [{"name": "TargetLoadPacking",
+                        "args": {"defaultRequestsMultiplier": "x"}}]},
+     "invalid defaultRequestsMultiplier"),
+    ({"plugins": ["TargetLoadPacking"],
+      "pluginConfig": [{"name": "TargetLoadPacking",
+                        "args": {"defaultRequestsMultiplier": 0.5}}]},
+     "must be >= 1"),
+    ({"plugins": ["LoadVariationRiskBalancing"],
+      "pluginConfig": [{"name": "LoadVariationRiskBalancing",
+                        "args": {"safeVarianceMargin": -1}}]},
+     "non-negative"),
+    ({"plugins": ["Peaks"],
+      "pluginConfig": [{"name": "Peaks",
+                        "args": {"metricProvider": {"type": "Bogus"}}}]},
+     "invalid metric provider type"),
+    ({"plugins": ["LowRiskOverCommitment"],
+      "pluginConfig": [{"name": "LowRiskOverCommitment",
+                        "args": {"metricProvider": {"type": "SignalFx",
+                                                    "address": "x"}}}]},
+     "external SDK"),
+    ({"plugins": ["TargetLoadPacking"],
+      "pluginConfig": [{"name": "TargetLoadPacking",
+                        "args": {"metricProvider": {"type": "Prometheus"}}}]},
+     "requires an address"),
     ({"plugins": ["Coscheduling"], "weights": [1, 2]}, "weights list"),
     ({"plugins": ["Coscheduling"], "weights": [0]}, "weight must be"),
     ({"plugins": ["Coscheduling"], "solveMode": "bogus"},
@@ -174,3 +242,38 @@ def test_profile_spec_weights_and_defaults():
             46, 1]
         specs.append((default, spec))
     assert specs[0] == specs[1]
+
+
+class TestTrimaranSpec:
+    def test_target_utilization_builds_what_jax_builds(self):
+        config = {"plugins": ["TargetLoadPacking"], "pluginConfig": [
+            {"name": "TargetLoadPacking",
+             "args": {"targetUtilization": 60}}]}
+        port = port_config.load_profile(config).plugins[0]
+        jax = jax_config.load_profile(config).plugins[0]
+        assert port.target == jax.target == 60.0
+        assert (port.default_requests_multiplier,
+                port.default_request_cpu_millis) == (
+            jax.default_requests_multiplier, jax.default_request_cpu_millis)
+
+    def test_export_is_lossy_like_jax(self):
+        """The Trimaran constructors keep targetUtilization,
+        safeVariance*, smoothingWindowSize, riskLimitWeights and
+        defaultRequests under other names, and neither package exports
+        them: the spec keeps only the args stored under their kwarg's
+        name (watcherAddress, metricProvider, defaultRequestsMultiplier,
+        nodePowerModel), so a reload falls back to the defaults for the
+        rest, in both packages alike."""
+        config = CONFIGS[-1]
+        spec = port_config.profile_spec(port_config.load_profile(config))
+        assert spec == jax_config.profile_spec(jax_config.load_profile(config))
+        args = {e["name"]: e["args"] for e in spec["pluginConfig"]}
+        assert args["TargetLoadPacking"] == {
+            "watcherAddress": "http://watcher:2020",
+            "defaultRequestsMultiplier": 2.5}
+        assert "LowRiskOverCommitment" not in args
+        assert args["Peaks"]["nodePowerModel"] == {
+            "node-a": [10.0, 2.0, 0.05]}
+        reloaded = port_config.load_profile(spec)
+        assert reloaded.plugins[0].target == 40.0
+        assert summary(reloaded) == summary(jax_config.load_profile(spec))

@@ -12,7 +12,8 @@ port's `run_cycle(device="cpu")`, and after every cycle requires, exactly
   must sit at their defaults);
 - the store's reserved, pod_deadline_ms, pod_attempts,
   pod_backoff_until_ms, unschedulable_since, event_seq, event_last,
-  gang_backoff_until_ms and gang_last_failure_ms;
+  gang_backoff_until_ms, gang_last_failure_ms and recent_bindings (every
+  bind, the nominee's and the fan-out's included, stamps it);
 - every pod's node_name, nominated_node_name and deletion_ms.
 
 The scripts mirror the JAX package's own cycle tests (named on each
@@ -80,7 +81,7 @@ JAX = None if jax_objects is None else SimpleNamespace(
 STORE_FIELDS = (
     "reserved", "pod_deadline_ms", "pod_attempts", "pod_backoff_until_ms",
     "unschedulable_since", "event_seq", "event_last",
-    "gang_backoff_until_ms", "gang_last_failure_ms",
+    "gang_backoff_until_ms", "gang_last_failure_ms", "recent_bindings",
 )
 POD_FIELDS = ("node_name", "nominated_node_name", "deletion_ms")
 #: JAX report fields of options the port does not have yet, at their

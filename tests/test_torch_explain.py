@@ -494,7 +494,14 @@ class TestLiveWeights:
 
     def test_none_revert_solves_like_jax(self):
         """After `None` both packages solve with the ints the last vector
-        left (JAX's static program traced after the swap)."""
+        left (JAX's static program traced after the swap). On the
+        flagship one scoring plugin hides which ints a solve uses; on
+        TLP + LVRB (`trimaran_scenario(32, 96)`) `[3, 1]` and `[1, 3]`
+        place pods differently, so the revert shows it: the port, and a
+        JAX scheduler whose static program is traced after the swap,
+        place as `[1, 3]` does, while JAX's static program traced BEFORE
+        the swap still multiplies by the `[1, 1]` it baked in (its cache
+        key holds no weights), as ROADMAP Queue 3 records."""
         low = lowered(hetero_cluster)
         for s in (low.js, low.ps):
             s.set_live_weights([5, 1, 1])
@@ -502,6 +509,37 @@ class TestLiveWeights:
         np.testing.assert_array_equal(
             low.ps.solve(low.snap_p, device=CPU).assignment.numpy(),
             np.asarray(low.js.solve(low.snap_j).assignment))
+
+        tri = lowered(lambda pkg: pkg.scenarios.trimaran_scenario(32, 96),
+                      names=("TargetLoadPacking",
+                             "LoadVariationRiskBalancing"))
+        traced_before = np.asarray(tri.js.solve(tri.snap_j).assignment)
+        placed = {}
+        for w in ([3, 1], [1, 3]):
+            for s in (tri.js, tri.ps):
+                s.set_live_weights(w)
+            placed[tuple(w)] = tri.ps.solve(tri.snap_p,
+                                            device=CPU).assignment.numpy()
+            np.testing.assert_array_equal(
+                placed[tuple(w)],
+                np.asarray(tri.js.solve(tri.snap_j).assignment),
+                err_msg=f"{w}")
+        assert (placed[(3, 1)] != placed[(1, 3)]).any()
+        for s in (tri.js, tri.ps):
+            s.set_live_weights(None)
+        reverted = tri.ps.solve(tri.snap_p, device=CPU).assignment.numpy()
+        np.testing.assert_array_equal(reverted, placed[(1, 3)])
+        fresh, _ = schedulers(("TargetLoadPacking",
+                               "LoadVariationRiskBalancing"))
+        for plugin, w in zip(fresh.profile.plugins, (1, 3)):
+            plugin.weight = w
+        fresh.prepare(tri.meta_j, None)
+        np.testing.assert_array_equal(
+            reverted, np.asarray(fresh.solve(tri.snap_j).assignment))
+        # the reference's stale program: what it was traced with
+        stale = np.asarray(tri.js.solve(tri.snap_j).assignment)
+        np.testing.assert_array_equal(stale, traced_before)
+        assert (stale != reverted).any()
 
     def test_columns_scale_with_the_weight(self):
         low = lowered(hetero_cluster)

@@ -30,7 +30,7 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     __import__(name)
 import chip_smoke
-assert len(names) >= 37, names
+assert len(names) >= 40, names
 assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.framework.cycle",
         "scheduler_plugins_tpu_torch.framework.preemption",
@@ -39,7 +39,10 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.plugins.coscheduling",
         "scheduler_plugins_tpu_torch.ops.normalize",
         "scheduler_plugins_tpu_torch.parallel.pipeline",
-        "scheduler_plugins_tpu_torch.utils.flightrec"} <= set(names), names
+        "scheduler_plugins_tpu_torch.utils.flightrec",
+        "scheduler_plugins_tpu_torch.ops.trimaran",
+        "scheduler_plugins_tpu_torch.plugins.trimaran",
+        "scheduler_plugins_tpu_torch.state.collector"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
