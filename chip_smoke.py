@@ -88,7 +88,24 @@ Phases (any failure exits non-zero and prints no result line):
    pod 0's winner its bind; and the seeded cases of
    `tests/torch_trimaran_cases.py` (LROC, Peaks, a loaded TLP beside
    LVRB), card == CPU, with how many raw scores differ and by how much;
-10. the kernel table as one JSON line (times at the shapes, dtypes and
+10. NUMA: bench config 3 (`numa_scenario(1024, 512, zones=8)`,
+   NodeResourceTopologyMatch, the shape of `bench.py:4500-4504`, uncut)
+   through `Scheduler.solve` on the card (under sync-debug "error") and on
+   the CPU, every output and final carry (the zone carry `numa_avail`
+   included) identical, 0 fit and 0 zone violations (the placements
+   replayed in queue order with the pessimistic deduction, each placed
+   guaranteed pod needing one zone that holds its request), ms a pod, and
+   the host calls that enqueue device work a step; then one `run_cycle`
+   of it, card against CPU on the report and the store (`[numa]` lines);
+11. the batched profile solve (`parallel.solver.profile_batch_solve`,
+   `collect_stats=True`) on bench configs 3, 2 (`trimaran_scenario(5000,
+   2048)`, TLP + LVRB) and 4 (`gang_quota_scenario(32, 64, 1024)`, the
+   flagship's targeted fast path), each uncut, on the card and on the
+   CPU: assignment, admitted, wait and the wave stats identical, 0 fit,
+   zone, quota and quorum violations, pods/s, waves, occupancy and the
+   host syncs a wave counted under sync-debug "warn" (`[batch]` lines).
+   Phases 9 to 11 launch no election kernel: their counts print 0 / 0 / 0;
+12. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -142,6 +159,9 @@ CYCLE2_NEW_PODS = 256
 CYCLE2_GAP_MS = 30_000
 #: the two live weight vectors of the config 2 profile
 CONFIG2_WEIGHTS = ([3, 1], [1, 3])
+#: bench config 3 (`bench.py:4500-4504`): `numa_scenario(1024, 512,
+#: zones=8)`, NodeResourceTopologyMatch, uncut
+CONFIG3 = dict(n_nodes=1024, n_pods=512, zones=8)
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -516,7 +536,8 @@ def parity_drive(label: str, cluster, device,
     "error" (`cold_s` pays the kernels' first loads, `debug_s` is warm),
     then once without it (`solve_s`, the time reported per pod); then the
     same on the CPU (`cpu_s`, `cpu_ms_per_pod`). Every output and final
-    carry must be identical (tolerance 0) and pass `parity_violations`."""
+    carry must be identical (tolerance 0) and pass `parity_violations`.
+    Returns the CPU's result, snapshot and meta."""
     import torch
 
     _tests_on_path()
@@ -573,6 +594,7 @@ def parity_drive(label: str, cluster, device,
         raise AssertionError(f"{label}: hard-constraint violations {viol}")
     if placed == 0:
         raise AssertionError(f"{label}: nothing placed")
+    return on_cpu, snap_cpu, meta_cpu
 
 
 #: the CUDA runtime and driver calls that put work on a stream: each one
@@ -1597,6 +1619,202 @@ def trimaran_phase(device) -> None:
     trimaran_small(device)
 
 
+def config3_scheduler():
+    """A `Scheduler` of bench config 3's profile: NodeResourceTopologyMatch
+    at its defaults (LeastAllocated)."""
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.plugins import NodeResourceTopologyMatch
+
+    return Scheduler(Profile(plugins=[NodeResourceTopologyMatch()]))
+
+
+def config3_cluster():
+    from scheduler_plugins_tpu_torch.models import numa_scenario
+
+    return numa_scenario(**CONFIG3)
+
+
+def numa_zone_violations(snap, meta, assignment, order=None) -> int:
+    """`tests/torch_numa_cases.zone_violations` of a solve: the placed
+    pods, replayed in `order` (default queue order) with the pessimistic
+    zone deduction, that found no single zone for their request."""
+    _tests_on_path()
+    from torch_numa_cases import zone_violations
+
+    from scheduler_plugins_tpu_torch.ops import numa as numa_ops
+
+    return zone_violations(
+        snap.to("cpu").numpy(), numa_ops.numa_affine_mask(meta.index),
+        numa_ops.host_level_mask(meta.index), assignment.cpu().numpy(),
+        order)
+
+
+def no_election_launches(tag: str, label: str, launches: dict) -> None:
+    """This slice's paths launch no election kernel: print the counts of
+    the run just made and require 0 / 0 / 0."""
+    print(f"[{tag}] {label} kernel_launches={launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched election kernels {launches}")
+
+
+def cycle_config3(device) -> None:
+    """One `run_cycle` of bench config 3 on the card and, from a fresh
+    cluster, on the CPU: identical reports and store bookkeeping, no store
+    violation, no election kernel launched, each stage's wall time
+    printed."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    states = []
+    for dev in (device, torch.device("cpu")):
+        cluster = config3_cluster()
+        sched = config3_scheduler()
+        timings = {}
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        report = run_cycle(sched, cluster, now=1000, device=dev,
+                           timings=timings)
+        _sync(dev)
+        cycle_s = time.perf_counter() - t0
+        launches = pk.launches()
+        viol = store_violations(cluster)
+        print(f"[numa] cycle_config3 device={dev.type} "
+              f"nodes={len(cluster.nodes)} pods={len(cluster.pods)} "
+              f"cycle_s={cycle_s} stage_s={timings} "
+              f"bound={len(report.bound)} failed={len(report.failed)} "
+              f"failed_by={sorted(set(report.failed_by.values()))} "
+              f"violations={viol}", flush=True)
+        no_election_launches("numa", f"cycle_config3 device={dev.type}",
+                             launches)
+        if any(viol.values()) or not report.bound:
+            raise AssertionError(f"config 3 cycle on {dev}: {viol}, "
+                                 f"{len(report.bound)} bound")
+        states.append(cycle_state(report, cluster))
+    if states[0] != states[1]:
+        raise AssertionError("config 3 cycle: card != CPU")
+    print("[numa] cycle_config3 identical=True", flush=True)
+
+
+def numa_phase(device) -> None:
+    """Phase 10: bench config 3 through `Scheduler.solve` (card == CPU,
+    the final zone carry included, no fit or zone violation, ms a pod and
+    the work a step enqueues) and one `run_cycle`."""
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    cluster = config3_cluster()
+    pk.reset_launches()
+    on_cpu, snap, meta = parity_drive("parity_config3", cluster, device,
+                                      make_scheduler=config3_scheduler)
+    no_election_launches("numa", "parity_config3", pk.launches())
+    zone = numa_zone_violations(snap, meta, on_cpu.assignment)
+    print(f"[numa] parity_config3 zone_violations={zone} "
+          f"numa_avail_dtype={on_cpu.state.numa_avail.dtype} "
+          f"pack_scales={snap.numa.pack_scales}", flush=True)
+    if zone:
+        raise AssertionError(f"config 3: {zone} zone violations")
+    launches_per_step(cluster, device, make_scheduler=config3_scheduler,
+                      label="config3 ")
+    del cluster
+    cycle_config3(device)
+
+
+def batch_drive(label: str, cluster, make_scheduler, device) -> None:
+    """`profile_batch_solve(collect_stats=True)` of `cluster` on the card
+    and on the CPU: the card's first run under sync-debug "warn" counting
+    the host syncs, then a timed run; assignment, admitted, wait and the
+    wave stats identical; no fit, zone (replayed in the waves' commit
+    order), quota or quorum violation; no election kernel launched."""
+    import warnings
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        profile_batch_solve,
+    )
+
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        sched = make_scheduler()
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+        sched.prepare(meta, cluster)
+        _sync(dev)
+        syncs = None
+        if dev.type == "cuda":
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    profile_batch_solve(sched, snap, collect_stats=True,
+                                        device=dev)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("synchroniz" in str(w.message) for w in seen)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        res = profile_batch_solve(sched, snap, collect_stats=True, device=dev)
+        _sync(dev)
+        solve_s = time.perf_counter() - t0
+        launches = pk.launches()
+        outs[dev.type] = (res, solve_s, syncs, launches, snap, meta)
+    (res, solve_s, syncs, launches, snap, meta) = outs[device.type]
+    cpu_res, cpu_s = outs["cpu"][0], outs["cpu"][1]
+    differ = [k for k, (a, b) in enumerate(zip(res[:3], cpu_res[:3]))
+              if not torch.equal(a.cpu(), b)]
+    stats, cpu_stats = res[3], cpu_res[3]
+    if (stats["waves"] != cpu_stats["waves"]
+            or not torch.equal(stats["occupancy"], cpu_stats["occupancy"])):
+        differ.append("stats")
+    a = cpu_res[0]
+    viol = parity_violations(outs["cpu"][4], SimpleNamespace(
+        assignment=a, wait=cpu_res[2]))
+    if outs["cpu"][4].numa is not None:
+        order = None
+        if "wave_of" in cpu_stats:
+            wave_of = cpu_stats["wave_of"].numpy()
+            placed = np.nonzero(wave_of >= 0)[0]
+            order = placed[np.lexsort((placed, wave_of[placed]))]
+        viol["zone"] = numa_zone_violations(outs["cpu"][4], outs["cpu"][5],
+                                            a, order)
+    placed = int((a >= 0).sum())
+    waves = stats["waves"]
+    print(f"[batch] {label} nodes={len(meta.node_names)} "
+          f"pods={len(meta.pod_names)} rows={snap.num_pods} "
+          f"solve_s={solve_s} pods_per_s={len(meta.pod_names) / solve_s} "
+          f"cpu_s={cpu_s} placed={placed} admitted={int(cpu_res[1].sum())} "
+          f"wait={int(cpu_res[2].sum())} waves={waves} "
+          f"occupancy={stats['occupancy'].tolist()} host_syncs={syncs} "
+          f"host_syncs_per_wave="
+          f"{None if syncs is None else syncs / max(waves, 1)} "
+          f"identical={not differ} violations={viol}", flush=True)
+    no_election_launches("batch", label, launches)
+    if differ:
+        raise AssertionError(f"{label}: card != CPU in {differ}")
+    if any(viol.values()):
+        raise AssertionError(f"{label}: hard-constraint violations {viol}")
+    if placed == 0:
+        raise AssertionError(f"{label}: nothing placed")
+
+
+def batch_phase(device) -> None:
+    """Phase 11: the batched profile solve on bench configs 3 (NUMA, the
+    stateful waterfill), 2 (TLP + LVRB, the general branch) and 4 (the
+    flagship, the targeted fast path), each uncut, card against CPU."""
+    from scheduler_plugins_tpu_torch.models import gang_quota_scenario
+
+    batch_drive("batch_config3", config3_cluster(), config3_scheduler,
+                device)
+    batch_drive("batch_config2", config2_cluster(), config2_scheduler,
+                device)
+    batch_drive("batch_config4", gang_quota_scenario(**CONFIG4),
+                flagship_scheduler, device)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -1716,7 +1934,13 @@ def main() -> int:
     # 9. the Trimaran plugins (bench config 2 and the small cases)
     trimaran_phase(device)
 
-    # 10. the kernel table, the card, the result
+    # 10. NUMA: bench config 3 through the parity solve and a cycle
+    numa_phase(device)
+
+    # 11. the batched profile solve on configs 3, 2 and 4
+    batch_phase(device)
+
+    # 12. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,6 +65,14 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
         "minCandidateNodesPercentage": "min_candidate_nodes_percentage",
         "minCandidateNodesAbsolute": "min_candidate_nodes_absolute",
     },
+    "NodeResourceTopologyMatch": {
+        "scoringStrategy": "scoring_strategy",
+        "resources": "resources",
+        # the constructor raises for these: the cache tier is a later slice
+        "cacheResyncPeriodSeconds": "cache_resync_period_seconds",
+        "discardReservedNodes": "discard_reserved_nodes",
+        "cache": "cache",
+    },
 }
 
 #: the JAX package's full plugin roster: the names the port has not
@@ -90,6 +98,7 @@ def _registry():
         "LoadVariationRiskBalancing": p.LoadVariationRiskBalancing,
         "LowRiskOverCommitment": p.LowRiskOverCommitment,
         "Peaks": p.Peaks,
+        "NodeResourceTopologyMatch": p.NodeResourceTopologyMatch,
     }
 
 
@@ -104,6 +113,10 @@ _SPEC_OVERRIDES = {
     "NodeResourcesAllocatable": lambda p: {
         "resources": [list(r) for r in p.resources],
         "mode": "Least" if p.mode_sign < 0 else "Most",
+    },
+    "NodeResourceTopologyMatch": lambda p: {
+        "scoringStrategy": p.strategy,
+        "resources": [list(r) for r in p.resources],
     },
 }
 

@@ -4,7 +4,8 @@ The "Resource/Action" strings the store's mutators note
 (`Cluster.note_event`) and a plugin's `events_to_register()` names: a pod
 that plugin failed re-enters the queue only on one of its events. The kinds
 of the objects the port's store holds (nodes, pods, PodGroups,
-ElasticQuotas, PodDisruptionBudgets); the rest come with their objects.
+ElasticQuotas, NodeResourceTopologies, PodDisruptionBudgets); the rest
+come with their objects.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ POD_GROUP_DELETE = "PodGroup/Delete"
 ELASTIC_QUOTA_ADD = "ElasticQuota/Add"
 ELASTIC_QUOTA_UPDATE = "ElasticQuota/Update"
 ELASTIC_QUOTA_DELETE = "ElasticQuota/Delete"
+NRT_ADD = "NodeResourceTopology/Add"
+NRT_UPDATE = "NodeResourceTopology/Update"
+NRT_DELETE = "NodeResourceTopology/Delete"
 PDB_ADD = "PodDisruptionBudget/Add"
 PDB_UPDATE = "PodDisruptionBudget/Update"
 PDB_DELETE = "PodDisruptionBudget/Delete"

@@ -1,8 +1,10 @@
 """Host-side cluster object model (port of `scheduler_plugins_tpu.api.objects`).
 
-The types the flagship slice needs: `Node`, `Pod` with its `Container`s,
-the two CRDs the admission reads, `PodGroup` (gang) and `ElasticQuota`,
-and the `PodDisruptionBudget` that preemption reads. Derived-request
+The types the ported slices need: `Node`, `Pod` with its `Container`s
+and its QoS class, the two CRDs the admission reads, `PodGroup` (gang)
+and `ElasticQuota`, the `PodDisruptionBudget` that preemption reads, and
+the `NodeResourceTopology` CR with its `NUMAZone`s that the NUMA plugin
+reads. Derived-request
 semantics follow the reference: the effective request is max(sum of app
 containers, max over init containers) plus overhead (upstream
 pkg/util/resource.go:45-85). The Trimaran plugins add the pod's effective
@@ -17,6 +19,7 @@ from typing import Mapping, Optional
 
 from scheduler_plugins_tpu_torch.api.resources import (
     CPU,
+    MEMORY,
     add_quantities,
     max_quantities,
 )
@@ -25,6 +28,15 @@ from scheduler_plugins_tpu_torch.api.resources import (
 POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
 
 DEFAULT_SCHEDULER_NAME = "tpu-scheduler"
+
+
+class QOSClass(enum.IntEnum):
+    """Ordered so that a comparator can compare numerically: Guaranteed >
+    Burstable > BestEffort (upstream pkg/qos/queue_sort.go:46-81)."""
+
+    BEST_EFFORT = 0
+    BURSTABLE = 1
+    GUARANTEED = 2
 
 
 class PodPhase(enum.StrEnum):
@@ -84,6 +96,33 @@ class Pod:
 
     def effective_request(self) -> dict[str, int]:
         return effective_request(self)
+
+    def qos_class(self) -> QOSClass:
+        """Upstream `v1qos.GetPodQOS` over cpu and memory: BestEffort when
+        no container names a cpu or memory request or limit; Guaranteed
+        when every container has cpu and memory limits and the summed
+        requests equal the summed limits per resource (absent requests
+        are fine); Burstable otherwise."""
+        all_containers = list(self.containers) + list(self.init_containers)
+        requests: dict[str, int] = {}
+        limits: dict[str, int] = {}
+        guaranteed = bool(all_containers)
+        for c in all_containers:
+            limits_found = set()
+            for res in (CPU, MEMORY):
+                if c.requests.get(res, 0):
+                    requests[res] = requests.get(res, 0) + c.requests[res]
+                if c.limits.get(res, 0):
+                    limits_found.add(res)
+                    limits[res] = limits.get(res, 0) + c.limits[res]
+            if limits_found != {CPU, MEMORY}:
+                guaranteed = False
+        if not requests and not limits:
+            return QOSClass.BEST_EFFORT
+        for res, req_sum in requests.items():
+            if limits.get(res) != req_sum:
+                guaranteed = False
+        return QOSClass.GUARANTEED if guaranteed else QOSClass.BURSTABLE
 
     def effective_limits(self) -> dict[str, int]:
         """Trimaran-style effective limits: per resource, the sum over app
@@ -194,3 +233,48 @@ class PodDisruptionBudget:
                 or not pod.labels):
             return False
         return all(pod.labels.get(k) == v for k, v in self.selector.items())
+
+
+class TopologyManagerPolicy(enum.IntEnum):
+    """The kubelet topology-manager policy an NRT CR mirrors (upstream
+    pkg/noderesourcetopology/nodeconfig/topologymanager.go)."""
+
+    NONE = 0
+    BEST_EFFORT = 1
+    RESTRICTED = 2
+    SINGLE_NUMA_NODE = 3
+
+
+class TopologyManagerScope(enum.IntEnum):
+    CONTAINER = 0
+    POD = 1
+
+
+@dataclass
+class NUMAZone:
+    numa_id: int
+    #: available = allocatable minus used, as the node agent publishes it
+    available: Mapping[str, int] = field(default_factory=dict)
+    #: allocatable per zone (the available quantities when the agent
+    #: omits it)
+    allocatable: Mapping[str, int] = field(default_factory=dict)
+    #: SLIT-style distance to the other zones, keyed by numa_id
+    costs: Mapping[int, int] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if not self.allocatable:
+            self.allocatable = dict(self.available)
+
+
+@dataclass
+class NodeResourceTopology:
+    node_name: str
+    zones: list[NUMAZone] = field(default_factory=list)
+    policy: TopologyManagerPolicy = TopologyManagerPolicy.NONE
+    scope: TopologyManagerScope = TopologyManagerScope.CONTAINER
+    max_numa_nodes: int = 8
+    #: the node agent's pod fingerprint and its method attribute, which
+    #: the over-reserve cache's resync validates (upstream
+    #: cache/overreserve.go:276-348); the cache comes with its slice
+    pod_fingerprint: str = ""
+    pod_fingerprint_method: str = ""

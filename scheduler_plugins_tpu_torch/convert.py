@@ -3,10 +3,12 @@
 `snapshot_from_numpy(tree, device)` takes the JAX `ClusterSnapshot` as a
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
 {...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
-or None, "metrics": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+or None, "metrics": {...} or None, "numa": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
 packages can solve the very same tensors. Fields the port's slice does not
 carry are ignored; a field the port needs and the tree lacks raises
-`KeyError`; an absent table is None.
+`KeyError`; an absent table is None. The NUMA table's `pack_scales` is a
+static tuple of ints (None when the float64 path rules), whatever array
+the tree holds for it.
 
 `state_from_numpy(tree, device)` does the same for a JAX `SolverState`
 (`Scheduler.initial_state`) given as a dict of numpy arrays or None, so
@@ -28,6 +30,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     MetricsState,
     NodeState,
     NomineeState,
+    NumaState,
     PodState,
     QuotaState,
 )
@@ -39,6 +42,7 @@ _TABLES = {
     "quota": QuotaState,
     "nominees": NomineeState,
     "metrics": MetricsState,
+    "numa": NumaState,
 }
 
 
@@ -51,9 +55,17 @@ def snapshot_from_numpy(tree: dict, device=None) -> ClusterSnapshot:
             parts[name] = None
             continue
         parts[name] = cls(**{
-            f.name: np.asarray(table[f.name]) for f in fields(cls)
+            f.name: _static(table.get(f.name)) if f.name == "pack_scales"
+            else np.asarray(table[f.name])
+            for f in fields(cls)
         })
     return ClusterSnapshot(**parts).to(device)
+
+
+def _static(scales):
+    return None if scales is None else tuple(
+        int(x) for x in np.asarray(scales).ravel()
+    )
 
 
 def state_from_numpy(tree: dict, device=None) -> SolverState:

@@ -14,10 +14,16 @@ the batch, evaluated by the sequential solve (`framework.runtime`):
 - `commit`      Reserve: fold the chosen placement into the SolverState
                 carried from pod to pod.
 - `filter_batch`, `score_batch`, `batch_rows`
-                whole-batch (P, N) rows the batched explain
-                (`parallel.solver.collapsed_batch_rows`) reads in place of
+                whole-batch (P, N) rows the batched solve and explain
+                (`parallel.solver.collapsed_batch_rows`) read in place of
                 the per-pod calls; None (the default) when a plugin has no
-                class-collapsed form.
+                whole-batch form.
+- `filter_rows` the Filter verdicts of a subset of pod rows (a straggler
+                wave of the batched solve).
+- `commit_batch`, `wave_guard_demand`, `wave_guard_rows`, `wave_capacity`
+                the batched solve's Reserve of a whole wave, its exact
+                within-wave admission and its per-node capacity estimate
+                (`ops.assign.waterfill_assign_stateful`).
 - `queue_key`   host-side QueueSort key for a Pod object (lower first).
 - `configure_cluster`
                 host-side wiring the cycle runs before the snapshot (the
@@ -43,9 +49,10 @@ from scheduler_plugins_tpu_torch.api import events as ev
 
 @dataclass
 class SolverState:
-    """State carried from pod to pod through the sequential solve. The
-    fields of the ported profile; the JAX state's NUMA, network and
-    selector carries come with their plugins.
+    """State carried from pod to pod through the sequential solve, and
+    from wave to wave through the batched one. The fields of the ported
+    plugins; the JAX state's network, selector and rank-gang carries come
+    with their plugins.
 
     `free` mirrors NodeInfo leftover capacity, `eq_used` the
     ElasticQuotaInfos usage map, `gang_scheduled` the members placed in
@@ -60,6 +67,11 @@ class SolverState:
     #: (P,) which batch pods have placed so far: a nominee stops holding
     #: capacity, and leaves the quota aggregates, once it places
     placed_mask: Optional[torch.Tensor] = None
+    #: (N, Z, R) live NUMA zone availability, float32 over the pack scales
+    #: or float64 (`ops.numa.live_avail_init`), with this solve's
+    #: placements pessimistically deducted from every reported zone of
+    #: their node (cache/store.go:129-160)
+    numa_avail: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SolverState":
         return dataclasses.replace(self, **changes)
@@ -86,10 +98,21 @@ class Plugin:
     #: (upstream plugin weights in the profile config)
     weight: int = 1
     #: True when `filter` reads the SolverState carry (its verdict depends
-    #: on earlier in-cycle placements). No ported plugin sets it; the
+    #: on earlier in-cycle placements). The batched solve
+    #: (`parallel.solver.profile_batch_solve`) re-evaluates such a filter
+    #: every wave against the committed carry, so a plugin that sets it
+    #: must implement `commit_batch` (the JAX package's `validate_at`
+    #: alternative comes with the in-tree plugins), and `wave_guard_demand`
+    #: with `wave_guard_rows` when same-wave placements can violate its
+    #: constraint. The
     #: streamed solve's gate (`parallel.solver.fast_path_scoring`) refuses
     #: a profile with one.
     state_dependent_filter: bool = False
+    #: a per-pod validator of cross-node hard constraints the batched
+    #: solve runs after each wave (the JAX package's topology-spread and
+    #: inter-pod-affinity plugins set it). No ported plugin does, and the
+    #: batched solve refuses one that does.
+    validate_at = None
     _presolve = None
 
     def prepare(self, meta) -> None:
@@ -192,4 +215,40 @@ class Plugin:
     def batch_rows(self, state: SolverState, snap):
         """(filter (P, N) or None, scores (P, N) or None) from one pass,
         or None to use `filter_batch` / `score_batch`."""
+        return None
+
+    def filter_rows(self, state: SolverState, snap, idx):
+        """(S, N) Filter verdicts for the pod rows `idx` ((S,) int64) only,
+        or None to use `filter_batch` (gathered) or the per-pod `filter`.
+        Must equal `filter` on those rows."""
+        return None
+
+    # --- the batched solve's wave hooks (ops.assign) -----------------------
+    def commit_batch(self, state: SolverState, snap, placed, choice):
+        """Batched Reserve: fold a whole wave's placements (`placed` (P,)
+        bool, `choice` (P,) int32) into the carry at once. Must equal any
+        order of per-pod `commit`s (the carries are sums). Required when
+        `state_dependent_filter` is set."""
+        return state
+
+    def wave_guard_demand(self, snap):
+        """(P, R') non-negative per-pod demand in this plugin's admission
+        domain, or None when the plugin needs no within-wave guard."""
+        return None
+
+    def wave_guard_rows(self, state: SolverState, snap, pods, nodes,
+                        prefix):
+        """Exact within-wave admission of S (pod, node) pairs: (S,) bool,
+        True where pod `pods[s]` still passes this plugin's filter on
+        `nodes[s]` after `prefix[s]` (R',) of earlier same-wave winners'
+        demand landed there, against the wave-start carry. The JAX
+        package's `wave_guard` vmapped over the pairs."""
+        return torch.ones(pods.shape[0], dtype=torch.bool,
+                          device=pods.device)
+
+    def wave_capacity(self, state: SolverState, snap, active):
+        """(N,) per-node capacity estimate in pods under this plugin's
+        constraints for the wave's active pods, or None. Steers only how
+        many queue-ranked pods a wave sends to each node; admission stays
+        exact through the guards."""
         return None

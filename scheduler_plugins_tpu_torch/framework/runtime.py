@@ -36,6 +36,7 @@ from scheduler_plugins_tpu_torch.device import (
     start_fetch,
 )
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
+from scheduler_plugins_tpu_torch.ops.numa import live_avail_init
 from scheduler_plugins_tpu_torch.ops.fit import (
     fits,
     fits_one,
@@ -341,7 +342,10 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     for plugin in plugins:
         raw = plugin.score(state, snap, p)
         if raw is not None:
-            col = plugin.weight * plugin.normalize(raw, feasible)
+            # int64 whatever the plugin's score dtype (LeastNUMANodes
+            # scores int32); a no-op for the int64 scorers
+            col = (plugin.weight * plugin.normalize(raw, feasible)).to(
+                torch.int64)
             total = col if total is None else total + col
     if total is None:
         total = torch.zeros_like(state.free[:, 0])
@@ -489,12 +493,13 @@ class Scheduler:
         return sorted(pods, key=key)
 
     def prepare(self, meta, cluster=None):
-        """Bake each plugin's per-layout tensors onto `meta.device`.
-        `cluster` keeps the JAX call's shape: no ported plugin reads host
-        state at prepare time (the JAX `prepare_cluster` hook comes with
-        the plugins that have one)."""
+        """Bake each plugin's per-layout tensors onto `meta.device`, then
+        let a plugin with a `prepare_cluster(meta, cluster)` hook read the
+        host store (the NUMA plugin's uniform-scope selection)."""
         for plugin in self.profile.plugins:
             plugin.prepare(meta)
+            if hasattr(plugin, "prepare_cluster"):
+                plugin.prepare_cluster(meta, cluster)
 
     # -- live weights (the online tuner's rollout seam) ------------------
     @property
@@ -551,12 +556,16 @@ class Scheduler:
             placed_mask = torch.zeros(
                 snap.num_pods, dtype=torch.bool, device=snap.device
             )
+        numa_avail = None
+        if snap.numa is not None:
+            numa_avail = live_avail_init(snap.numa)
         return SolverState(
             free=free_capacity(snap.nodes.alloc, snap.nodes.requested),
             eq_used=snap.quota.used if snap.quota is not None else None,
             gang_scheduled=gang_sched,
             gang_inflight=gang_inflight,
             placed_mask=placed_mask,
+            numa_avail=numa_avail,
         )
 
     def solve(self, snap, state0: Optional[SolverState] = None, *,

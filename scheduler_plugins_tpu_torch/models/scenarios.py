@@ -13,8 +13,11 @@ from scheduler_plugins_tpu_torch.api.objects import (
     Container,
     ElasticQuota,
     Node,
+    NodeResourceTopology,
+    NUMAZone,
     Pod,
     PodGroup,
+    TopologyManagerPolicy,
 )
 from scheduler_plugins_tpu_torch.api.resources import CPU, MEMORY, PODS
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
@@ -70,6 +73,43 @@ def trimaran_scenario(n_nodes=5000, n_pods=2000, seed=0) -> Cluster:
         }
         for i in range(n_nodes)
     }
+    return cluster
+
+
+def numa_scenario(n_nodes=1000, n_pods=1000, zones=8, seed=0) -> Cluster:
+    """NUMA-aware filter and score (bench config 3): `_nodes`' nodes, each
+    with a single-numa-node NRT of `zones` equal zones (distance 10 to
+    itself, 20 to the others), and guaranteed pods of one container whose
+    CPU request, 500 to half a zone, equals its limit, at 1 GiB memory."""
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    per_zone_cpu = 64_000 // zones
+    per_zone_mem = 256 * GIB // zones
+    for node in _nodes(n_nodes):
+        cluster.add_node(node)
+        cluster.add_nrt(NodeResourceTopology(
+            node_name=node.name,
+            policy=TopologyManagerPolicy.SINGLE_NUMA_NODE,
+            zones=[
+                NUMAZone(
+                    numa_id=z,
+                    available={CPU: per_zone_cpu, MEMORY: per_zone_mem},
+                    costs={o: 10 if o == z else 20 for o in range(zones)},
+                )
+                for z in range(zones)
+            ],
+        ))
+    cpus = rng.integers(500, per_zone_cpu // 2, size=n_pods)
+    for i in range(n_pods):
+        cpu = int(cpus[i])
+        cluster.add_pod(Pod(
+            name=f"pod-{i:06d}",
+            creation_ms=i,
+            containers=[Container(
+                requests={CPU: cpu, MEMORY: 1 * GIB},
+                limits={CPU: cpu, MEMORY: 1 * GIB},
+            )],
+        ))
     return cluster
 
 

@@ -1,7 +1,14 @@
-"""Targeted waterfill wave placement (port of the flagship half of
-`scheduler_plugins_tpu.ops.assign`).
+"""Waterfill wave placement (port of `scheduler_plugins_tpu.ops.assign`).
 
-Two formulations of one algorithm, returning identical placements:
+`waterfill_assign_stateful` is the profile-generic waterfill of the
+batched profile solve (the JAX `waterfill_assign_stateful`,
+ops/assign.py:247): (P, N) feasibility and score rows from the caller,
+re-filtered every wave against a plugin carry, with exact within-wave
+guards, plugin capacity estimates, and sparse straggler waves that
+escalate to a dense wave when they stall.
+
+The targeted waterfill, for static per-node scores, comes in two
+formulations returning identical placements:
 
 - `waterfill_assign_targeted` — the whole node axis in one (N, R) tensor
   (the JAX `waterfill_assign_targeted`, ops/assign.py:557);
@@ -47,11 +54,10 @@ def _segment_prefix(values_sorted: torch.Tensor, first: torch.Tensor):
     return csum - base
 
 
-def _segments(choice: torch.Tensor, dem: torch.Tensor, n_sentinel: int):
-    """(order, seg, within) of the queue-order admission: `order` sorts by
+def _segment_layout(choice: torch.Tensor, n_sentinel: int):
+    """(order, seg, first) of the queue-order admission: `order` sorts by
     (chosen node, queue position), `seg` is the sorted choice with
-    `n_sentinel` for "no choice", `within` the inclusive per-segment
-    float64 demand prefix."""
+    `n_sentinel` for "no choice", `first` marks each segment's start."""
     W = choice.shape[0]
     seg_choice = torch.where(choice >= 0, choice, n_sentinel).to(torch.int64)
     order = torch.argsort(
@@ -60,6 +66,13 @@ def _segments(choice: torch.Tensor, dem: torch.Tensor, n_sentinel: int):
     seg = seg_choice[order]
     first = torch.ones_like(seg, dtype=torch.bool)
     first[1:] = seg[1:] != seg[:-1]
+    return order, seg, first
+
+
+def _segments(choice: torch.Tensor, dem: torch.Tensor, n_sentinel: int):
+    """(order, seg, within): `_segment_layout` with `within` the inclusive
+    per-segment float64 demand prefix."""
+    order, seg, first = _segment_layout(choice, n_sentinel)
     within = _segment_prefix(dem[order].to(F64), first)
     return order, seg, within
 
@@ -340,3 +353,172 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         rescue_choice,
     )
     return assignment.to(torch.int32), stats
+
+
+def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
+                              req, pod_mask, free0, state0,
+                              max_waves: int = 4, capacity_fns=(),
+                              initial_batch=None, sub_batch_fn=None,
+                              straggler_cap: int = 256,
+                              collect_stats: bool = False):
+    """The waterfill with a plugin carry for state-dependent filters (NUMA
+    zone availability): the carries the sequential solve threads from pod
+    to pod are re-evaluated once a WAVE here, so hard plugin constraints
+    hold against the committed placements.
+
+    - `batch_fn(free, state, active) -> (feasible (P, N), scores (P, N))`
+      re-filters every dense wave against the carry.
+    - `commit_fn(state, placed (P,) bool, choice (P,) int32) -> state`
+      folds a wave's placements into the carry (order-independent sums).
+    - `guards` / `guard_demands`: exact within-wave admission. Each guard
+      is `fn(state, pods (S,), nodes (S,), prefix (S, R_g)) -> (S,) bool`,
+      `prefix` being each pod's exclusive sum of `guard_demands[i]` (P,
+      R_g) over the earlier same-wave choosers of its node (rejected ones
+      included: conservative, a pod at worst retries next wave).
+    - `capacity_fns`: `fn(state, active (P,)) -> (N,) pods-per-node
+      estimate or None`, refining the bucketing the resource cumsums
+      cannot see.
+    - `initial_batch`: (feasible0, scores0) the caller computed against
+      `state0`; wave 0 reuses them.
+    - `sub_batch_fn(free, state, idx (S,), active_sub (S,)) -> (feasible
+      (S, N), scores (S, N))`: sparse straggler waves over the first
+      `straggler_cap` active pods in queue order (requires
+      `initial_batch`). A sparse wave that places nothing escalates to
+      one dense wave over every active pod; only a stalled dense wave
+      ends the loop, or the wave budget `max_waves` (both kinds counted).
+
+    The JAX `lax.while_loop` is a Python loop here; each wave's continue
+    test reads one (2,) tensor on the host (admitted, still active), the
+    wave's only host read. The JAX validator branch (cross-node
+    constraints, `validate_at`) comes with the in-tree plugins. Returns
+    (assignment (P,) int32, free, state), plus `{"occupancy": (max_waves,)
+    int32 admitted per wave, "waves": int, "wave_of": (P,) int32 the wave
+    that admitted each pod, -1 for none}` when `collect_stats` (the JAX
+    stats have the first two; `wave_of` gives a host oracle the order in
+    which the placements were committed)."""
+    P, R = req.shape
+    N = free0.shape[0]
+    device = req.device
+    demand = pod_fit_demand(req)
+    S = min(straggler_cap, P)
+    if sub_batch_fn is not None and initial_batch is None:
+        raise ValueError("sub_batch_fn requires initial_batch (dense wave 0)")
+    dense_idx = torch.arange(P, device=device)
+
+    wave_of = torch.full((P,), -1, dtype=torch.int32, device=device)
+
+    def wave_core(free, assignment, state, idx, feasible, scores):
+        """One wave over the pod rows `idx` (ascending: queue order), with
+        their (S, N) feasibility and score rows."""
+        nonlocal wave_of
+        Ssub = idx.shape[0]
+        active_full = (assignment == -1) & pod_mask
+        active = active_full[idx]
+        dem = demand[idx]
+        feasible = feasible & active[:, None]
+        neg_inf = torch.iinfo(scores.dtype).min // 2
+        mean_score = torch.where(active[:, None], scores, 0).sum(
+            dim=0, dtype=torch.int64)
+        order_n = torch.argsort(-mean_score, stable=True)
+        pos = _cumulative_demand_positions(
+            torch.where(active[:, None], dem, 0), free, order_n)
+        rank = torch.cumsum(active.to(torch.int64), dim=0) - 1
+        for cap_fn in capacity_fns:
+            extra = cap_fn(state, active_full)
+            if extra is not None:
+                cap = torch.clamp(extra.to(torch.int64), 0, Ssub)
+                ccap = torch.cumsum(cap[order_n], dim=0)
+                pos = torch.maximum(
+                    pos, torch.searchsorted(ccap, rank, right=True))
+        target = order_n[torch.clamp(pos, max=N - 1)]
+        target_ok = feasible.gather(1, target[:, None]).squeeze(1)
+        fallback = torch.where(feasible, scores, neg_inf).argmax(dim=1)
+        choice = torch.where(
+            target_ok, target,
+            torch.where(feasible.any(dim=1), fallback, -1),
+        )
+        choice = torch.where(active, choice, -1)
+
+        order, seg, first = _segment_layout(choice, N)
+        dem_sorted = dem[order].to(F64)
+        within = _segment_prefix(dem_sorted, first)
+        node_sorted = torch.clamp(seg, max=N - 1)
+        free_row = free[node_sorted].to(F64)
+        ok_sorted = torch.all(within <= free_row, dim=1) & (seg < N)
+        for guard, gdem in zip(guards, guard_demands):
+            gd_sorted = gdem[idx][order].to(F64)
+            g_excl = _segment_prefix(gd_sorted, first) - gd_sorted
+            ok_sorted = ok_sorted & guard(state, idx[order], node_sorted,
+                                          g_excl)
+        admitted = _scatter_verdicts(order, ok_sorted, choice)
+
+        if collect_stats:
+            wave_of = wave_of.index_copy(0, idx, torch.where(
+                admitted, len(occupancy), wave_of[idx]).to(torch.int32))
+        assignment = assignment.index_copy(
+            0, idx, torch.where(admitted, choice, assignment[idx]))
+        used = torch.zeros((N + 1, R), dtype=free.dtype, device=device)
+        used.index_add_(0, torch.where(admitted, choice, N),
+                        torch.where(admitted[:, None], dem, 0))
+        placed_full = torch.zeros(P, dtype=torch.bool,
+                                  device=device).index_copy(0, idx, admitted)
+        choice_full = torch.full((P,), -1, dtype=torch.int64,
+                                 device=device).index_copy(0, idx, choice)
+        state = commit_fn(state, placed_full, choice_full.to(torch.int32))
+        left = ((assignment == -1) & pod_mask).sum()
+        return free - used[:N], assignment, state, torch.stack(
+            [admitted.sum(), left])
+
+    def dense_wave(free, assignment, state):
+        active = (assignment == -1) & pod_mask
+        feasible, scores = batch_fn(free, state, active)
+        return wave_core(free, assignment, state, dense_idx, feasible,
+                         scores)
+
+    def sparse_wave(free, assignment, state):
+        active = (assignment == -1) & pod_mask
+        # the first S active pods in queue order (stable: inactive rows
+        # sink with key P, in queue order behind them)
+        idx = torch.argsort(torch.where(active, dense_idx, P),
+                            stable=True)[:S]
+        feasible, scores = sub_batch_fn(free, state, idx, active[idx])
+        return wave_core(free, assignment, state, idx, feasible, scores)
+
+    free, state = free0, state0
+    assignment = torch.full((P,), -1, dtype=torch.int64, device=device)
+    occupancy = []
+    if initial_batch is not None:
+        free, assignment, state, counts = wave_core(
+            free, assignment, state, dense_idx, *initial_batch)
+        n, left = counts.tolist()
+        occupancy.append(n)
+    else:
+        n, left = 1, int(pod_mask.any())
+    if sub_batch_fn is None:
+        # dense waves to quiescence, a stalled wave, or the wave budget
+        while len(occupancy) < max_waves and n > 0 and left > 0:
+            free, assignment, state, counts = dense_wave(free, assignment,
+                                                         state)
+            n, left = counts.tolist()
+            occupancy.append(n)
+    else:
+        # the mode machine: a productive wave of either kind goes back to
+        # sparse; a stalled sparse wave escalates to one dense wave; a
+        # stalled dense wave (wave 0 included) stops
+        mode = "sparse" if n > 0 else "stop"
+        while len(occupancy) < max_waves and mode != "stop" and left > 0:
+            wave = sparse_wave if mode == "sparse" else dense_wave
+            free, assignment, state, counts = wave(free, assignment, state)
+            n, left = counts.tolist()
+            occupancy.append(n)
+            mode = ("sparse" if n > 0
+                    else "dense" if mode == "sparse" else "stop")
+    assignment = assignment.to(torch.int32)
+    if collect_stats:
+        occ = torch.zeros(max_waves, dtype=torch.int32)
+        occ[:len(occupancy)] = torch.tensor(occupancy[:max_waves],
+                                            dtype=torch.int32)
+        return assignment, free, state, {"occupancy": occ,
+                                         "waves": len(occupancy),
+                                         "wave_of": wave_of}
+    return assignment, free, state

@@ -17,6 +17,13 @@ admission, quota caps, gang quorum) hold in both.
 streamed solve (`parallel.pipeline.streamed_profile_solve`) runs instead
 of the fixed allocatable head of the two solvers above.
 
+`profile_batch_solve` is the batched solve of ANY profile the port
+loads: the targeted waterfill when the profile passes `fast_path_scoring`,
+else the (P, N) filter and score rows of every plugin against the
+cycle-initial state, placed by the stateful waterfill
+(`ops.assign.waterfill_assign_stateful`), which re-filters the
+state-dependent plugins (NUMA) every wave against the committed carry.
+
 `batch_explain_rows` explains pods through the whole-batch row hooks
 (`collapsed_batch_rows`); `profile_initial_scores` is the independent
 (P, N) objective the explain tables are held against.
@@ -34,14 +41,19 @@ from scheduler_plugins_tpu_torch.ops.allocatable import (
 )
 from scheduler_plugins_tpu_torch.ops.assign import (
     _segment_prefix,
+    waterfill_assign_stateful,
     waterfill_assign_targeted,
     waterfill_targeted_sharded,
 )
-from scheduler_plugins_tpu_torch.ops.fit import free_capacity
+from scheduler_plugins_tpu_torch.ops.fit import fits, free_capacity
 from scheduler_plugins_tpu_torch.ops.gang import gang_admit
 from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
 
 F64 = torch.float64
+
+#: the sparse straggler window of the batched profile solve: the rows a
+#: straggler wave re-filters (the JAX `PROFILE_STRAGGLER_CAP`)
+PROFILE_STRAGGLER_CAP = 128
 
 
 def nominated_aggregates_batch(quota):
@@ -376,3 +388,220 @@ def profile_initial_scores(scheduler, snap, auxes=None, *, device=None):
             totals.append(total)
             feasibles.append(feasible)
     return torch.stack(totals), torch.stack(feasibles)
+
+
+def _per_pod_rows(method, plugins, state, snap, skip=()):
+    """plugin position -> the plugin's per-pod `method` ("filter" or
+    "score") stacked over the pods, for the plugins outside `skip` that
+    override it and do not opt out with None on pod 0: the JAX package's
+    vmap of the per-pod hook."""
+    from scheduler_plugins_tpu_torch.framework.plugin import Plugin
+
+    out = {}
+    for i, plugin in enumerate(plugins):
+        if i in skip or (getattr(type(plugin), method)
+                         is getattr(Plugin, method)):
+            continue
+        call = getattr(plugin, method)
+        first = call(state, snap, 0)
+        if first is not None:
+            out[i] = torch.stack([first] + [
+                call(state, snap, p) for p in range(1, snap.num_pods)])
+    return out
+
+
+def profile_batch_solve(scheduler, snap, max_waves: int = 8,
+                        collect_stats: bool = False, *, device=None):
+    """The batched solve of the scheduler's profile on `device` (None =
+    the CUDA card; the snapshot moves there if it lives elsewhere): the
+    JAX `profile_batch_solve` (parallel/solver.py:433). Returns
+    (assignment, admitted, wait), plus the wave stats (`occupancy`,
+    `waves`) when `collect_stats`. The snapshot is not modified.
+
+    Semantics against the sequential solve: hard constraints hold (fit,
+    queue-order node admission, quota prefix, gang quorum, and the
+    state-dependent filters re-evaluated every wave with the NUMA plugin's
+    exact within-wave zone guard); scores stay cycle-initial, so
+    tie-breaking and packing order may differ (the wave trade-off).
+
+    A profile that passes `fast_path_scoring` takes the targeted
+    waterfill (stats over its 2 * max_waves + 1 slots). Otherwise every
+    plugin's PreFilter (`admit_rows`), Filter and Score rows are built
+    once against the cycle-initial state (the whole-batch hooks where a
+    plugin has them, else its per-pod hook stacked), each Score row
+    normalized over the pod's feasible row, and the stateful waterfill
+    places the batch. A state-dependent plugin without `commit_batch`
+    raises TypeError; one with `validate_at` raises NotImplementedError
+    (the validator branch comes with the in-tree plugins)."""
+    from scheduler_plugins_tpu_torch.framework.plugin import Plugin
+    from scheduler_plugins_tpu_torch.framework.runtime import _fits_rows
+
+    device = resolve_device(device)
+    if snap.device != device:
+        snap = snap.to(device)
+    plugins = tuple(scheduler.profile.plugins)
+    dyn = [i for i, p in enumerate(plugins) if p.state_dependent_filter]
+    for i in dyn:
+        p = plugins[i]
+        if (type(p).commit_batch is Plugin.commit_batch
+                and p.validate_at is None):
+            raise TypeError(
+                f"{p.name}: state_dependent_filter requires commit_batch "
+                "or validate_at"
+            )
+    for i in dyn:
+        if plugins[i].validate_at is not None:
+            raise NotImplementedError(
+                f"{plugins[i].name}: the batched solve's validator branch "
+                "(validate_at) comes with the in-tree plugins' slice"
+            )
+    state0 = scheduler.initial_state(snap)
+
+    scoring = fast_path_scoring(plugins)
+    if scoring is not None:
+        admitted, raw, free0 = fast_solve_head(plugins, scoring, snap,
+                                               state0)
+        assignment, _, stats = waterfill_assign_targeted(
+            raw, snap.pods.req, admitted, free0, max_waves=max_waves)
+        assignment, wait = finalize_assignment(assignment, snap)
+        if not collect_stats:
+            return assignment, admitted, wait
+        occ = torch.zeros(2 * max_waves + 1, dtype=torch.int32)
+        occ[:stats["waves"]] = torch.tensor(stats["occupancy"],
+                                            dtype=torch.int32)
+        return assignment, admitted, wait, {"occupancy": occ,
+                                            "waves": stats["waves"]}
+
+    for plugin in plugins:
+        plugin.bind_presolve(plugin.prepare_solve(snap))
+    filter0, score_rows = collapsed_batch_rows(plugins, state0, snap)
+    # the per-pod hooks stand in for the plugins without whole-batch rows
+    filter0.update(_per_pod_rows("filter", plugins, state0, snap,
+                                 skip=filter0))
+
+    # PreFilter against the cycle-initial state
+    rows = torch.arange(snap.num_pods, device=device)
+    admitted = snap.pods.mask & ~snap.pods.gated
+    for plugin in plugins:
+        verdict = plugin.admit_rows(state0, snap, rows)
+        if verdict is not None:
+            admitted = admitted & verdict
+    # the state-independent filters hold for every wave; the score rows
+    # normalize over the cycle-initial feasible set, as the sequential
+    # step's do
+    static_feasible = torch.ones((snap.num_pods, snap.num_nodes),
+                                 dtype=torch.bool, device=device)
+    for i, mask in filter0.items():
+        if i not in dyn:
+            static_feasible = static_feasible & mask
+    feasible0 = _fits_rows(snap.pods.req, state0.free,
+                           snap.nodes.mask) & static_feasible
+    for i, mask in filter0.items():
+        if i in dyn:
+            feasible0 = feasible0 & mask
+    feasible0 = feasible0 & admitted[:, None]
+
+    # score rows with the identity normalize fold into one weighted
+    # total; the rest normalize per pod row over feasible0 (each
+    # normalizer works row by row over (P, N))
+    pre_ids = [i for i in sorted(score_rows)
+               if type(plugins[i]).normalize is Plugin.normalize]
+    score_rows.update(_per_pod_rows("score", plugins, state0, snap,
+                                    skip=score_rows))
+    total = torch.zeros((snap.num_pods, snap.num_nodes), dtype=torch.int64,
+                        device=device)
+    for i, plugin in enumerate(plugins):
+        if i in pre_ids:
+            continue
+        raw = score_rows.get(i)
+        if raw is not None:
+            total = total + plugin.weight * plugin.normalize(raw, feasible0)
+    # int32: normalized scores are <= 100 * sum(weights)
+    scores0 = total.to(torch.int32)
+    for i in pre_ids:
+        scores0 = scores0 + plugins[i].weight * score_rows[i].to(torch.int32)
+
+    def dyn_rows(state, idx=None):
+        """The state-dependent filters' rows against `state`: filter_rows
+        (sparse waves), filter_batch, or the per-pod filter stacked."""
+        out = None
+        for i in dyn:
+            plugin = plugins[i]
+            m = None
+            if idx is not None:
+                m = plugin.filter_rows(state, snap, idx)
+            if m is None:
+                m = plugin.filter_batch(state, snap)
+                if m is None:
+                    m = _per_pod_rows("filter", [plugin], state, snap).get(0)
+                if m is not None and idx is not None:
+                    m = m[idx]
+            if m is not None:
+                out = m if out is None else out & m
+        return out
+
+    def batch_fn(free, state, active):
+        feasible = fits(snap.pods.req, free, pod_mask=active,
+                        node_mask=snap.nodes.mask) & static_feasible
+        m = dyn_rows(state)
+        return (feasible if m is None else feasible & m), scores0
+
+    def sub_batch_fn(free, state, idx, act_sub):
+        feasible = fits(snap.pods.req[idx], free, pod_mask=act_sub,
+                        node_mask=snap.nodes.mask) & static_feasible[idx]
+        m = dyn_rows(state, idx)
+        return (feasible if m is None else feasible & m), scores0[idx]
+
+    def commit_fn(state, placed, choice):
+        for i in dyn:
+            state = plugins[i].commit_batch(state, snap, placed, choice)
+        return state
+
+    guards, guard_demands = [], []
+    for i in dyn:
+        gdem = plugins[i].wave_guard_demand(snap)
+        if gdem is not None:
+            guards.append(
+                lambda state, pods, nodes, pre, _pl=plugins[i]:
+                _pl.wave_guard_rows(state, snap, pods, nodes, pre))
+            guard_demands.append(gdem)
+    capacity_fns = tuple(
+        (lambda state, active, _pl=plugins[i]:
+         _pl.wave_capacity(state, snap, active))
+        for i in dyn
+        if type(plugins[i]).wave_capacity is not Plugin.wave_capacity
+    )
+    out = waterfill_assign_stateful(
+        batch_fn, commit_fn, tuple(guards), tuple(guard_demands),
+        snap.pods.req, admitted, state0.free, state0, max_waves=max_waves,
+        capacity_fns=capacity_fns, initial_batch=(feasible0, scores0),
+        sub_batch_fn=sub_batch_fn, straggler_cap=PROFILE_STRAGGLER_CAP,
+        collect_stats=collect_stats,
+    )
+    assignment, wait = finalize_assignment(out[0], snap)
+    if collect_stats:
+        return assignment, admitted, wait, out[3]
+    return assignment, admitted, wait
+
+
+def score_drift_vs_sequential(scheduler, snap, seq_assignment,
+                              bat_assignment, *, device=None):
+    """Relative drift of the batched placements' score sum from the
+    sequential solve's on the shared cycle-initial objective
+    (`profile_initial_scores`), unplaced rows (-1) excluded: the JAX
+    `score_drift_vs_sequential` (parallel/solver.py:1072). Returns
+    (drift, placed_seq, placed_bat)."""
+    import numpy as np
+
+    scores = profile_initial_scores(scheduler, snap,
+                                    device=device)[0].cpu().numpy()
+    seq = np.asarray(seq_assignment)
+    bat = np.asarray(bat_assignment)
+
+    def score_sum(a):
+        placed = a >= 0
+        return int(scores[np.nonzero(placed)[0], a[placed]].sum())
+
+    s_seq, s_bat = score_sum(seq), score_sum(bat)
+    drift = (s_bat - s_seq) / max(abs(s_seq), 1)
+    return drift, int((seq >= 0).sum()), int((bat >= 0).sum())

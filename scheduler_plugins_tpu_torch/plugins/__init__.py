@@ -1,6 +1,6 @@
 """The plugin suite (port of `scheduler_plugins_tpu.plugins`): the flagship
-profile's three plugins and the Trimaran family. The other families come
-with their slices."""
+profile's three plugins, the Trimaran family and NodeResourceTopologyMatch.
+The other families come with their slices."""
 
 from scheduler_plugins_tpu_torch.plugins.capacityscheduling import (  # noqa: F401
     CapacityScheduling,
@@ -8,6 +8,9 @@ from scheduler_plugins_tpu_torch.plugins.capacityscheduling import (  # noqa: F4
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling  # noqa: F401
 from scheduler_plugins_tpu_torch.plugins.noderesources import (  # noqa: F401
     NodeResourcesAllocatable,
+)
+from scheduler_plugins_tpu_torch.plugins.noderesourcetopology import (  # noqa: F401
+    NodeResourceTopologyMatch,
 )
 from scheduler_plugins_tpu_torch.plugins.trimaran import (  # noqa: F401
     LoadVariationRiskBalancing,

@@ -10,9 +10,11 @@ Every mutator notes its event (`note_event`) in the JAX store's order:
 a parked pod's stamp is compared against these counters, so the order is
 part of the semantics. For the Trimaran plugins the store holds the
 load-watcher metrics, the TargetLoadPacking prediction parameters and the
-recently bound pods whose load the metrics do not show yet. The JAX
-store's native mirror, delta sink, pending index, NRT cache and ledger
-hooks come with their slices.
+recently bound pods whose load the metrics do not show yet. For the NUMA
+plugin it holds the NodeResourceTopology CRs, lowered into the
+snapshot's zone tables as published. The JAX store's native mirror,
+delta sink, pending index, NRT cache tier and ledger hooks come with
+their slices.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
     ElasticQuota,
     Node,
+    NodeResourceTopology,
     Pod,
     PodDisruptionBudget,
     PodGroup,
@@ -50,6 +53,8 @@ class Cluster:
     pods: dict[str, Pod] = field(default_factory=dict)  # keyed by uid
     pod_groups: dict[str, PodGroup] = field(default_factory=dict)  # ns/name
     quotas: dict[str, ElasticQuota] = field(default_factory=dict)  # namespace
+    #: node name -> NodeResourceTopology CR
+    nrts: dict[str, NodeResourceTopology] = field(default_factory=dict)
     #: ns/name -> PodDisruptionBudget, read by preemption's victim ranking
     pdbs: dict[str, PodDisruptionBudget] = field(default_factory=dict)
     #: profile names this scheduler owns: only their pods enter the queue
@@ -68,6 +73,9 @@ class Cluster:
     #: reported yet (the trimaran PodAssignEventHandler's
     #: ScheduledPodsCache, handler.go:47-171): uid -> (bind ms, node)
     recent_bindings: dict[str, tuple[int, str]] = field(default_factory=dict)
+    #: the NRT cache tier (OverReserve / Passthrough / DiscardReserved):
+    #: comes with its slice; the snapshot refuses a store that sets it
+    nrt_cache: Optional[object] = None
 
     # scheduling-runtime bookkeeping (host-only)
     reserved: dict[str, str] = field(default_factory=dict)  # uid -> node
@@ -179,6 +187,17 @@ class Cluster:
             else ev.ELASTIC_QUOTA_ADD
         )
         self.quotas[eq.namespace] = eq
+
+    def add_nrt(self, nrt: NodeResourceTopology):
+        self.note_event(
+            ev.NRT_UPDATE if nrt.node_name in self.nrts else ev.NRT_ADD
+        )
+        self.nrts[nrt.node_name] = nrt
+
+    def remove_nrt(self, node_name: str):
+        if node_name in self.nrts:
+            self.note_event(ev.NRT_DELETE)
+        self.nrts.pop(node_name, None)
 
     def add_pdb(self, pdb: PodDisruptionBudget):
         key = f"{pdb.namespace}/{pdb.name}"
@@ -304,7 +323,13 @@ class Cluster:
         the CUDA card). Reserved pods count as assigned to their reserved
         node: they hold capacity, quota and quorum exactly like the
         reference's waiting pods. The metrics table carries the
-        missing-CPU compensation at `now_ms`."""
+        missing-CPU compensation at `now_ms`; the zone tables are the NRT
+        CRs as published."""
+        if self.nrt_cache is not None:
+            raise NotImplementedError(
+                "Cluster.nrt_cache comes with the NRT cache slice "
+                "(state/nrt_cache.py)"
+            )
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -315,6 +340,7 @@ class Cluster:
             assigned_pods=self._assigned_pods(),
             pod_groups=list(self.pod_groups.values()),
             quotas=list(self.quotas.values()),
+            nrts=list(self.nrts.values()),
             backed_off_gangs=backed_off,
             extra_pods=self.gated_pods(),
             device=device,

@@ -13,8 +13,11 @@ int64 tensors with bucketed static shapes:
          that node's capacity in the sequential solve.
 - metrics: (N,) load-watcher utilisation percentages and the
          missing-utilization compensation the Trimaran plugins read.
+- numa:  (N, Z, R) NUMA zone availability from the NodeResourceTopology
+         CRs, with the topology-manager policy and scope codes the NUMA
+         plugin reads.
 
-This slice lowers what the ported plugins read; the JAX snapshot's NUMA,
+This slice lowers what the ported plugins read; the JAX snapshot's
 network and syscall tables wait for later slices, and node/pod fields
 nothing here reads are left out. The lowering runs in numpy (the
 same arithmetic as the JAX builder, so both packages produce the same
@@ -23,6 +26,7 @@ tensors) and moves the result to the requested device once.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, fields
 from typing import Optional, Sequence
 
@@ -32,6 +36,7 @@ import torch
 from scheduler_plugins_tpu_torch.api.objects import (
     ElasticQuota,
     Node,
+    NodeResourceTopology,
     Pod,
     PodGroup,
 )
@@ -53,6 +58,9 @@ class _Tensors:
             f.name: _to(getattr(self, f.name), device) for f in fields(self)
         })
 
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
     def numpy(self) -> dict:
         return {
             f.name: _numpy(getattr(self, f.name)) for f in fields(self)
@@ -61,8 +69,8 @@ class _Tensors:
 
 
 def _to(value, device):
-    if value is None:
-        return None
+    if value is None or isinstance(value, tuple):
+        return value  # absent, or a static tuple (`NumaState.pack_scales`)
     if isinstance(value, _Tensors):
         return value.to(device)
     if isinstance(value, torch.Tensor):
@@ -71,6 +79,8 @@ def _to(value, device):
 
 
 def _numpy(value):
+    if isinstance(value, tuple):
+        return value
     if isinstance(value, _Tensors):
         return value.numpy()
     return value.cpu().numpy()
@@ -95,9 +105,16 @@ class PodState(_Tensors):
     limits: torch.Tensor  # (P, R) int64 trimaran effective limits (unclamped)
     #: (P,) int64 TargetLoadPacking per-pod CPU prediction
     predicted_cpu_millis: torch.Tensor
+    #: (P, C, R) int64 per-container requests, init containers first: the
+    #: NUMA container-scope Filter and Score take containers one at a
+    #: time (filter.go:39-78, score.go:152-165)
+    container_req: torch.Tensor
+    container_is_init: torch.Tensor  # (P, C) bool
+    container_mask: torch.Tensor  # (P, C) bool
     priority: torch.Tensor  # (P,) int64
     ns: torch.Tensor  # (P,) int32 namespace code
     gang: torch.Tensor  # (P,) int32 gang code (-1 = not in a PodGroup)
+    qos: torch.Tensor  # (P,) int32 QOSClass
     mask: torch.Tensor  # (P,) bool
     creation_ms: torch.Tensor  # (P,) int64 queue-sort timestamp
     gated: torch.Tensor  # (P,) bool SchedulingGated
@@ -178,6 +195,34 @@ class MetricsState(_Tensors):
 
 
 @dataclass
+class NumaState(_Tensors):
+    """Per-node NUMA zones from the NodeResourceTopology CRs (upstream
+    noderesourcetopology/numaresources.go:32-103), the zone axis indexed
+    by NUMA id."""
+
+    available: torch.Tensor  # (N, Z, R) int64
+    allocatable: torch.Tensor  # (N, Z, R) int64
+    zone_mask: torch.Tensor  # (N, Z) bool
+    #: which zone reports which resource: NUMA affinity applies only to
+    #: reported resources (numaresources.go:105-135)
+    reported: torch.Tensor  # (N, Z, R) bool
+    policy: torch.Tensor  # (N,) int32 TopologyManagerPolicy
+    scope: torch.Tensor  # (N,) int32 TopologyManagerScope
+    distances: torch.Tensor  # (N, Z, Z) int32 SLIT costs (default 10)
+    has_nrt: torch.Tensor  # (N,) bool
+    #: (N,) cache freshness: a stale node is Unschedulable for any
+    #: non-best-effort pod (filter.go:194-197) and scores 0; all True
+    #: until the NRT cache tier marks nodes stale
+    fresh: torch.Tensor
+    #: (N,) int32 topology-manager MaxNUMANodes (LeastNUMANodes
+    #: normalization, least_numa.go:88-102; default 8)
+    max_numa: torch.Tensor
+    #: static per-resource power-of-2 scales of the float32 NUMA path
+    #: (`_numa_pack_scales`), or None: the solve then carries float64
+    pack_scales: Optional[tuple] = None
+
+
+@dataclass
 class ClusterSnapshot(_Tensors):
     nodes: NodeState
     pods: PodState
@@ -185,6 +230,7 @@ class ClusterSnapshot(_Tensors):
     quota: Optional[QuotaState] = None
     nominees: Optional[NomineeState] = None
     metrics: Optional[MetricsState] = None
+    numa: Optional[NumaState] = None
 
     @property
     def num_nodes(self) -> int:
@@ -248,6 +294,7 @@ def build_snapshot(
     device=None,
     node_metrics: Optional[dict] = None,
     tlp_prediction: tuple = (1.5, 1000),
+    nrts: Sequence[NodeResourceTopology] = (),
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
@@ -257,7 +304,8 @@ def build_snapshot(
     only. `node_metrics` (node name -> metric dict, `Cluster.node_metrics`
     with the missing-CPU compensation merged in) becomes the metrics
     table, None leaves it out; `tlp_prediction` (multiplier, default
-    millis) parameterizes each pod's `predicted_cpu_millis`. Codes and
+    millis) parameterizes each pod's `predicted_cpu_millis`. `nrts` become
+    the zone tables (None without any). Codes and
     padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
@@ -269,6 +317,8 @@ def build_snapshot(
         *[q.min for q in quotas],
         *[q.max for q in quotas],
         *[requests[p.uid] for p in list(pending_pods) + list(assigned_pods)],
+        *[z.available for t in nrts for z in t.zones],
+        *[z.allocatable for t in nrts for z in t.zones],
     )
     R = len(index)
     N = pad_nodes or bucket_size(max(len(nodes), 1))
@@ -380,9 +430,15 @@ def build_snapshot(
     preq = np.zeros((P, R), I64)
     plimits = np.zeros((P, R), I64)
     ppredicted = np.zeros(P, I64)
+    C = max(max((len(p.init_containers) + len(p.containers)
+                 for p in pending_pods), default=1), 1)
+    pcreq = np.zeros((P, C, R), I64)
+    pcinit = np.zeros((P, C), bool)
+    pcmask = np.zeros((P, C), bool)
     ppriority = np.zeros(P, I64)
     pns = np.zeros(P, I32)
     pgang = np.full(P, -1, I32)
+    pqos = np.zeros(P, I32)
     pmask = np.zeros(P, bool)
     pcreated = np.zeros(P, I64)
     pgated = np.zeros(P, bool)
@@ -390,6 +446,12 @@ def build_snapshot(
         preq[i] = index.encode(requests[pod.uid])
         plimits[i] = index.encode(pod.effective_limits())
         ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
+        for c, cont in enumerate(list(pod.init_containers)
+                                 + list(pod.containers)):
+            pcreq[i, c] = index.encode(cont.requests)
+            pcinit[i, c] = c < len(pod.init_containers)
+            pcmask[i, c] = True
+        pqos[i] = int(pod.qos_class())
         ppriority[i] = pod.priority
         pns[i] = ns_in.code(pod.namespace)
         pgang[i] = gang_of(pod)
@@ -398,8 +460,9 @@ def build_snapshot(
         pgated[i] = pod.scheduling_gated
     pod_state = PodState(
         req=preq, limits=plimits, predicted_cpu_millis=ppredicted,
-        priority=ppriority, ns=pns, gang=pgang, mask=pmask,
-        creation_ms=pcreated, gated=pgated,
+        container_req=pcreq, container_is_init=pcinit,
+        container_mask=pcmask, priority=ppriority, ns=pns, gang=pgang,
+        qos=pqos, mask=pmask, creation_ms=pcreated, gated=pgated,
     )
 
     # --- quota ---------------------------------------------------------
@@ -480,11 +543,97 @@ def build_snapshot(
     if node_metrics is not None:
         metrics_state = _metrics_state(node_metrics, node_pos, N)
 
+    numa_state = None
+    if nrts:
+        numa_state = _numa_state(nrts, node_pos, index, N, pod_state)
+
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
         quota=quota_state, nominees=nominee_state, metrics=metrics_state,
+        numa=numa_state,
     )
     return snapshot.to(device), meta
+
+
+def _numa_state(nrts, node_pos: dict, index, N: int,
+                pod_state: PodState) -> NumaState:
+    """The zone tables (host numpy), as the JAX `build_snapshot` lowers them
+    (snapshot.py:848-900): the zone axis is indexed by NUMA id (zone lists
+    may arrive unordered, and costs are keyed by id), distances default
+    to 10, MaxNUMANodes to 8; CRs of unknown nodes are skipped. Every
+    node is fresh: the NRT cache tier, which marks stale views, comes
+    with its slice."""
+    R = len(index)
+    Z = max(max((z.numa_id + 1 for t in nrts for z in t.zones), default=1),
+            1)
+    z_avail = np.zeros((N, Z, R), I64)
+    z_alloc = np.zeros((N, Z, R), I64)
+    z_mask = np.zeros((N, Z), bool)
+    z_reported = np.zeros((N, Z, R), bool)
+    policy = np.zeros(N, I32)
+    scope = np.zeros(N, I32)
+    distances = np.full((N, Z, Z), 10, I32)
+    has_nrt = np.zeros(N, bool)
+    fresh = np.ones(N, bool)
+    max_numa = np.full(N, 8, I32)
+    for t in nrts:
+        if t.node_name not in node_pos:
+            continue
+        i = node_pos[t.node_name]
+        has_nrt[i] = True
+        policy[i] = int(t.policy)
+        scope[i] = int(t.scope)
+        max_numa[i] = t.max_numa_nodes
+        for zinfo in t.zones:
+            z = zinfo.numa_id
+            z_mask[i, z] = True
+            z_avail[i, z] = index.encode(zinfo.available)
+            z_alloc[i, z] = index.encode(zinfo.allocatable)
+            for rname in zinfo.available:
+                z_reported[i, z, index.position(rname)] = True
+            for other, cost in zinfo.costs.items():
+                if other < Z:
+                    distances[i, z, other] = cost
+    return NumaState(
+        available=z_avail, allocatable=z_alloc, zone_mask=z_mask,
+        reported=z_reported, policy=policy, scope=scope,
+        distances=distances, has_nrt=has_nrt, fresh=fresh,
+        max_numa=max_numa,
+        pack_scales=_numa_pack_scales(z_avail, z_alloc, pod_state.req,
+                                      pod_state.container_req, R),
+    )
+
+
+#: rescaled quantities must keep value * MAX_NODE_SCORE (100) exactly
+#: representable in float32
+_F32_PACK_LIMIT = (1 << 24) // 128
+
+
+def _numa_pack_scales(z_avail, z_alloc, preq, pcreq, R: int):
+    """Per-resource power-of-2 scales for the float32 NUMA path, or None.
+
+    A resource packs when every zone quantity and every pending (container)
+    request is divisible by 2^k and the rescaled maximum stays below
+    2^24/128, so `value * 100` is exact in float32. The trunc-division
+    strategy scores are floors of an unchanged rational, so packed
+    placements equal the int64 semantics."""
+    scales = []
+    for r in range(R):
+        vals = np.concatenate([
+            z_avail[:, :, r].ravel(), z_alloc[:, :, r].ravel(),
+            preq[:, r].ravel(), pcreq[:, :, r].ravel(),
+        ])
+        vals = vals[vals > 0]
+        if vals.size == 0:
+            scales.append(1)
+            continue
+        # the largest power of two dividing every value: the least of
+        # their lowest set bits
+        scale = int(np.min(vals & -vals))
+        if int(vals.max()) // scale >= _F32_PACK_LIMIT:
+            return None
+        scales.append(scale)
+    return tuple(scales)
 
 
 def _metrics_state(node_metrics: dict, node_pos: dict, N: int) -> MetricsState:

@@ -33,6 +33,25 @@ def floordiv_exact(a, b) -> torch.Tensor:
     return torch.where(r >= bf, q + 1.0, q)
 
 
+def floordiv_recip(a, b, brecip) -> torch.Tensor:
+    """`floordiv_exact` with a precomputed reciprocal `brecip` ~= 1/b: one
+    multiply, then two exact remainder corrections, since the estimate
+    can be a unit or two off (brecip's rounding error scaled by a). The
+    same caller contract as `floordiv_exact`: products exact in the
+    working dtype, so the result is floor(a/b) whatever brecip's last
+    bit."""
+    a = torch.as_tensor(a)
+    dt = a.dtype if a.is_floating_point() else torch.float64
+    af = a.to(dt)
+    bf = torch.as_tensor(b, device=a.device).to(dt)
+    q = torch.floor(af * brecip.to(dt))
+    for _ in range(2):
+        r = af - q * bf  # exact at the callers' magnitudes
+        q = torch.where(r < 0, q - 1.0, q)
+        q = torch.where(r >= bf, q + 1.0, q)
+    return q
+
+
 def round_half_away(x) -> torch.Tensor:
     """Go `math.Round`: round half away from zero, as int64 (exact for
     |x| < 2^53). `torch.round` rounds half to even. The fractional part is

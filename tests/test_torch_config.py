@@ -1,6 +1,7 @@
 """The port's profile loader (`scheduler_plugins_tpu_torch.api.config`)
-against JAX `load_profile` for the ported plugins (the flagship three and
-the four Trimaran plugins): arguments and their defaults, weights, the
+against JAX `load_profile` for the ported plugins (the flagship three,
+the four Trimaran plugins and NodeResourceTopologyMatch): arguments and
+their defaults, weights, the
 auto-selected preemption engine, and the validation errors (mirrors
 tests/test_config.py). Plugins JAX has and the port does not raise
 NotImplementedError naming them. `profile_spec`, the loader's inverse,
@@ -14,8 +15,8 @@ import scheduler_plugins_tpu.api.config as jax_config
 from scheduler_plugins_tpu_torch.api import config as port_config
 
 PORTED = ("CapacityScheduling", "Coscheduling", "LoadVariationRiskBalancing",
-          "LowRiskOverCommitment", "NodeResourcesAllocatable", "Peaks",
-          "TargetLoadPacking")
+          "LowRiskOverCommitment", "NodeResourceTopologyMatch",
+          "NodeResourcesAllocatable", "Peaks", "TargetLoadPacking")
 
 #: per plugin, the attributes its constructor arguments land in
 ATTRS = {
@@ -32,13 +33,16 @@ ATTRS = {
     "LowRiskOverCommitment": ("smoothing_window", "w_cpu", "w_mem",
                               "watcher_address", "metric_provider"),
     "Peaks": ("node_power_model", "watcher_address", "metric_provider"),
+    "NodeResourceTopologyMatch": ("strategy", "resources"),
 }
 
 TRIMARAN = ("TargetLoadPacking", "LoadVariationRiskBalancing",
             "LowRiskOverCommitment", "Peaks")
 
 CONFIGS = [
-    {"plugins": list(PORTED)},
+    # NodeResourceTopologyMatch has its own configurations below: JAX's
+    # `profile_spec` exports its cache arguments, which the port refuses
+    {"plugins": [p for p in PORTED if p != "NodeResourceTopologyMatch"]},
     {"plugins": ["Coscheduling"],
      "pluginConfig": [{"name": "Coscheduling",
                        "args": {"permitWaitingTimeSeconds": 10}}]},
@@ -88,6 +92,16 @@ CONFIGS = [
 ]
 
 
+NUMA_CONFIGS = [
+    {"plugins": ["NodeResourceTopologyMatch"]},
+    {"plugins": ["NodeResourcesAllocatable", "NodeResourceTopologyMatch"],
+     "pluginConfig": [{"name": "NodeResourceTopologyMatch", "args": {
+         "scoringStrategy": "BalancedAllocation",
+         "resources": [["cpu", 2], ["memory", 3]]}}],
+     "weights": [1, 4]},
+]
+
+
 def summary(profile):
     plugins = [
         (type(p).__name__, p.name, p.weight,
@@ -106,6 +120,13 @@ def summary(profile):
 
 @pytest.mark.parametrize("config", CONFIGS, ids=range(len(CONFIGS)))
 def test_load_profile_matches_jax(config):
+    assert (summary(port_config.load_profile(config))
+            == summary(jax_config.load_profile(config)))
+
+
+@pytest.mark.parametrize("config", NUMA_CONFIGS,
+                         ids=range(len(NUMA_CONFIGS)))
+def test_numa_load_profile_matches_jax(config):
     assert (summary(port_config.load_profile(config))
             == summary(jax_config.load_profile(config)))
 
@@ -178,6 +199,14 @@ BAD = [
       "pluginConfig": [{"name": "TargetLoadPacking",
                         "args": {"metricProvider": {"type": "Prometheus"}}}]},
      "requires an address"),
+    ({"plugins": ["NodeResourceTopologyMatch"],
+      "pluginConfig": [{"name": "NodeResourceTopologyMatch",
+                        "args": {"scoringStrategy": "Fewest"}}]},
+     "illegal scoring strategy"),
+    ({"plugins": ["NodeResourceTopologyMatch"],
+      "pluginConfig": [{"name": "NodeResourceTopologyMatch",
+                        "args": {"cacheResyncPeriodSeconds": -1}}]},
+     "cacheResyncPeriodSeconds"),
     ({"plugins": ["Coscheduling"], "weights": [1, 2]}, "weights list"),
     ({"plugins": ["Coscheduling"], "weights": [0]}, "weight must be"),
     ({"plugins": ["Coscheduling"], "solveMode": "bogus"},

@@ -42,7 +42,11 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.utils.flightrec",
         "scheduler_plugins_tpu_torch.ops.trimaran",
         "scheduler_plugins_tpu_torch.plugins.trimaran",
-        "scheduler_plugins_tpu_torch.state.collector"} <= set(names), names
+        "scheduler_plugins_tpu_torch.state.collector",
+        "scheduler_plugins_tpu_torch.ops.numa",
+        "scheduler_plugins_tpu_torch.plugins.noderesourcetopology",
+        "scheduler_plugins_tpu_torch.ops.assign",
+        "scheduler_plugins_tpu_torch.parallel.solver"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))

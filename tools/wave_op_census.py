@@ -29,6 +29,12 @@ first 64 and the first 128 queued pods of bench config 4's cluster
 (the set-up and the Permit tail are the same work), so the difference of
 their counts over 64 is one step's `aten` / `views` / `launching` ops.
 `by_op` lists the launching ops a step dispatches, by name.
+`parity_step_config3` is the same for bench config 3
+(`numa_scenario(1024, 512, zones=8)`, NodeResourceTopologyMatch).
+
+`batch`: `profile_batch_solve(collect_stats=True)` of bench configs 3 and
+2 (`trimaran_scenario(5000, 2048)`, TLP + LVRB) at full width: its waves,
+occupancy, placed pods and the ATen ops of the whole solve.
 
 Prints one JSON object.
 """
@@ -117,18 +123,10 @@ def census(root: Path) -> dict:
     }
 
 
-def parity_step_census(root: Path, pods: int = 64) -> dict:
-    """Per-step op counts of the parity solve (see the module docstring)."""
-    sys.path.insert(0, str(root))
+def _op_counter():
+    """A `TorchDispatchMode` counting ATen ops: all, views, the launching
+    rest, and the launching ones by name."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
-    from scheduler_plugins_tpu_torch.models import gang_quota_scenario
-    from scheduler_plugins_tpu_torch.plugins import (
-        CapacityScheduling,
-        Coscheduling,
-        NodeResourcesAllocatable,
-    )
 
     class Counter(TorchDispatchMode):
         def __init__(self):
@@ -144,17 +142,43 @@ def parity_step_census(root: Path, pods: int = 64) -> dict:
                 self.by_op[name] = self.by_op.get(name, 0) + 1
             return func(*args, **(kwargs or {}))
 
-    cluster = gang_quota_scenario(32, 64, 1024)
-    scheduler = Scheduler(Profile(plugins=[
-        NodeResourcesAllocatable(), Coscheduling(), CapacityScheduling(),
-    ]))
+    return Counter()
+
+
+def _problem(which: str):
+    """(cluster, scheduler) of bench config 4 (the flagship profile), 3
+    (NUMA) or 2 (TLP + LVRB) at full width."""
+    from scheduler_plugins_tpu_torch import plugins as P
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.models import (
+        gang_quota_scenario,
+        numa_scenario,
+        trimaran_scenario,
+    )
+
+    if which == "config4":
+        return gang_quota_scenario(32, 64, 1024), Scheduler(Profile(plugins=[
+            P.NodeResourcesAllocatable(), P.Coscheduling(),
+            P.CapacityScheduling()]))
+    if which == "config3":
+        return numa_scenario(1024, 512, zones=8), Scheduler(Profile(
+            plugins=[P.NodeResourceTopologyMatch()]))
+    return trimaran_scenario(5000, 2048), Scheduler(Profile(plugins=[
+        P.TargetLoadPacking(), P.LoadVariationRiskBalancing()]))
+
+
+def parity_step_census(root: Path, pods: int = 64,
+                       which: str = "config4") -> dict:
+    """Per-step op counts of the parity solve (see the module docstring)."""
+    sys.path.insert(0, str(root))
+    cluster, scheduler = _problem(which)
     pending = scheduler.sort_pending(cluster.pending_pods(), cluster)
     counters = []
     for n in (pods, 2 * pods):
         snap, meta = cluster.snapshot(pending[:n], now_ms=0, device="cpu",
                                       pad_pods=n)
         scheduler.prepare(meta, cluster)
-        counter = Counter()
+        counter = _op_counter()
         with counter:
             scheduler.solve(snap, device="cpu")
         counters.append(counter)
@@ -169,6 +193,33 @@ def parity_step_census(root: Path, pods: int = 64) -> dict:
     }
 
 
+def batch_census(root: Path) -> dict:
+    """Waves, occupancy and ATen ops of the batched profile solve of bench
+    configs 3 and 2 (see the module docstring)."""
+    sys.path.insert(0, str(root))
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        profile_batch_solve,
+    )
+
+    out = {}
+    for which in ("config3", "config2"):
+        cluster, scheduler = _problem(which)
+        pending = scheduler.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device="cpu")
+        scheduler.prepare(meta, cluster)
+        counter = _op_counter()
+        with counter:
+            assignment, _, _, stats = profile_batch_solve(
+                scheduler, snap, collect_stats=True, device="cpu")
+        out[which] = {
+            "waves": stats["waves"],
+            "occupancy": stats["occupancy"].tolist(),
+            "placed": int((assignment >= 0).sum()),
+            **counter.counts,
+        }
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
@@ -176,8 +227,12 @@ def main(argv=None) -> int:
                     help="checkout that holds scheduler_plugins_tpu_torch/")
     args = ap.parse_args(argv)
     root = args.root.resolve()
-    print(json.dumps({**census(root),
-                      "parity_step": parity_step_census(root)}))
+    print(json.dumps({
+        **census(root),
+        "parity_step": parity_step_census(root),
+        "parity_step_config3": parity_step_census(root, which="config3"),
+        "batch": batch_census(root),
+    }))
     return 0
 
 
