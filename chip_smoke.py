@@ -97,15 +97,35 @@ Phases (any failure exits non-zero and prints no result line):
    guaranteed pod needing one zone that holds its request), ms a pod, and
    the host calls that enqueue device work a step; then one `run_cycle`
    of it, card against CPU on the report and the store (`[numa]` lines);
-11. the batched profile solve (`parallel.solver.profile_batch_solve`,
+11. the network-aware plugins: bench config 5 (`network_scenario(1024,
+   1024)`, NetworkOverhead + TopologicalSort, the shape of
+   `bench.py:4510-4514`, uncut) through `Scheduler.solve` on the card
+   (under sync-debug "error") and on the CPU, every output and final carry
+   (the placement carry `net_placed` included) identical, 0 fit and 0
+   dependency-threshold violations (the placements replayed in queue
+   order on the host: each placed pod with dependencies had no more
+   violated than satisfied ones on its node at its turn), ms a pod and
+   the host calls that enqueue device work a step; then one `run_cycle`
+   of it, card against CPU on the report and the store (`[network]`
+   lines);
+12. the NRT cache tier: `tests/torch_numa_cases.nrt_cache_script`, four
+   cycles of a NUMA profile with cacheResyncPeriodSeconds set (the
+   over-reserve cache: an overcommit the assumed deduction blocks, a
+   foreign pod that makes its node stale, failures that mark nodes
+   maybe-overreserved, a resync whose matching fingerprints flush and
+   bump the generation), card against CPU on every cycle: reports, store
+   and the cache's state (`[nrt_cache]` lines);
+13. the batched profile solve (`parallel.solver.profile_batch_solve`,
    `collect_stats=True`) on bench configs 3, 2 (`trimaran_scenario(5000,
-   2048)`, TLP + LVRB) and 4 (`gang_quota_scenario(32, 64, 1024)`, the
-   flagship's targeted fast path), each uncut, on the card and on the
-   CPU: assignment, admitted, wait and the wave stats identical, 0 fit,
-   zone, quota and quorum violations, pods/s, waves, occupancy and the
-   host syncs a wave counted under sync-debug "warn" (`[batch]` lines).
-   Phases 9 to 11 launch no election kernel: their counts print 0 / 0 / 0;
-12. the kernel table as one JSON line (times at the shapes, dtypes and
+   2048)`, TLP + LVRB), 4 (`gang_quota_scenario(32, 64, 1024)`, the
+   flagship's targeted fast path) and 5, each uncut, on the card and on
+   the CPU: assignment, admitted, wait and the wave stats identical, 0
+   fit, zone, quota, quorum and dependency-threshold violations (config
+   5's waves replayed in order), pods/s, waves, occupancy and the host
+   syncs a wave counted under sync-debug "warn" (`[batch]` lines).
+   Phases 9 to 13 launch no election kernel: their counts print
+   0 / 0 / 0;
+14. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -162,6 +182,9 @@ CONFIG2_WEIGHTS = ([3, 1], [1, 3])
 #: bench config 3 (`bench.py:4500-4504`): `numa_scenario(1024, 512,
 #: zones=8)`, NodeResourceTopologyMatch, uncut
 CONFIG3 = dict(n_nodes=1024, n_pods=512, zones=8)
+#: bench config 5 (`bench.py:4510-4514`): `network_scenario(1024, 1024)`,
+#: NetworkOverhead + TopologicalSort, uncut
+CONFIG5 = dict(n_nodes=1024, n_pods=1024)
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -1657,11 +1680,12 @@ def no_election_launches(tag: str, label: str, launches: dict) -> None:
         raise AssertionError(f"{label} launched election kernels {launches}")
 
 
-def cycle_config3(device) -> None:
-    """One `run_cycle` of bench config 3 on the card and, from a fresh
-    cluster, on the CPU: identical reports and store bookkeeping, no store
-    violation, no election kernel launched, each stage's wall time
-    printed."""
+def cycle_drive(tag: str, label: str, make_cluster, make_scheduler,
+                device) -> None:
+    """One `run_cycle` of `make_cluster()` under `make_scheduler()`'s
+    profile on the card and, from a fresh cluster, on the CPU: identical
+    reports and store bookkeeping, no store violation, no election kernel
+    launched, each stage's wall time printed (`[tag] label` lines)."""
     import torch
 
     from scheduler_plugins_tpu_torch.framework import run_cycle
@@ -1669,8 +1693,8 @@ def cycle_config3(device) -> None:
 
     states = []
     for dev in (device, torch.device("cpu")):
-        cluster = config3_cluster()
-        sched = config3_scheduler()
+        cluster = make_cluster()
+        sched = make_scheduler()
         timings = {}
         pk.reset_launches()
         t0 = time.perf_counter()
@@ -1680,21 +1704,21 @@ def cycle_config3(device) -> None:
         cycle_s = time.perf_counter() - t0
         launches = pk.launches()
         viol = store_violations(cluster)
-        print(f"[numa] cycle_config3 device={dev.type} "
+        print(f"[{tag}] {label} device={dev.type} "
               f"nodes={len(cluster.nodes)} pods={len(cluster.pods)} "
               f"cycle_s={cycle_s} stage_s={timings} "
               f"bound={len(report.bound)} failed={len(report.failed)} "
               f"failed_by={sorted(set(report.failed_by.values()))} "
+              f"nodes_used={len(set(report.bound.values()))} "
               f"violations={viol}", flush=True)
-        no_election_launches("numa", f"cycle_config3 device={dev.type}",
-                             launches)
+        no_election_launches(tag, f"{label} device={dev.type}", launches)
         if any(viol.values()) or not report.bound:
-            raise AssertionError(f"config 3 cycle on {dev}: {viol}, "
+            raise AssertionError(f"{label} on {dev}: {viol}, "
                                  f"{len(report.bound)} bound")
         states.append(cycle_state(report, cluster))
     if states[0] != states[1]:
-        raise AssertionError("config 3 cycle: card != CPU")
-    print("[numa] cycle_config3 identical=True", flush=True)
+        raise AssertionError(f"{label}: card != CPU")
+    print(f"[{tag}] {label} identical=True", flush=True)
 
 
 def numa_phase(device) -> None:
@@ -1717,7 +1741,125 @@ def numa_phase(device) -> None:
     launches_per_step(cluster, device, make_scheduler=config3_scheduler,
                       label="config3 ")
     del cluster
-    cycle_config3(device)
+    cycle_drive("numa", "cycle_config3", config3_cluster, config3_scheduler,
+                device)
+
+
+def config5_scheduler():
+    """A `Scheduler` of bench config 5's profile: NetworkOverhead and
+    TopologicalSort at their defaults."""
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.plugins import (
+        NetworkOverhead,
+        TopologicalSort,
+    )
+
+    return Scheduler(Profile(plugins=[NetworkOverhead(), TopologicalSort()]))
+
+
+def config5_cluster():
+    from scheduler_plugins_tpu_torch.models import network_scenario
+
+    return network_scenario(**CONFIG5)
+
+
+def network_dependency_violations(cluster, meta, assignment,
+                                  wave_of=None) -> int:
+    """`tests/torch_network_cases.dependency_violations` of a solve of
+    the default-topology profile: the placements of the batch `meta`
+    names, replayed on the host in queue order (or wave by wave)."""
+    _tests_on_path()
+    from torch_network_cases import dependency_violations
+
+    pending = [cluster.pods[uid] for uid in meta.pod_names]
+    return dependency_violations(cluster, pending, assignment.cpu().numpy(),
+                                 meta.node_names, wave_of=wave_of)
+
+
+def network_phase(device) -> None:
+    """Phase 11: bench config 5 through `Scheduler.solve` (card == CPU,
+    the final placement carry included, no fit or dependency-threshold
+    violation, ms a pod and the work a step enqueues) and one
+    `run_cycle`."""
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    cluster = config5_cluster()
+    pk.reset_launches()
+    on_cpu, snap, meta = parity_drive("parity_config5", cluster, device,
+                                      make_scheduler=config5_scheduler)
+    no_election_launches("network", "parity_config5", pk.launches())
+    deps = network_dependency_violations(cluster, meta, on_cpu.assignment)
+    gained = int((on_cpu.state.net_placed.sum()
+                  - snap.network.placed_node.sum()).item())
+    print(f"[network] parity_config5 dependency_violations={deps} "
+          f"workloads={len(meta.workloads)} zones={len(meta.zones)} "
+          f"regions={len(meta.regions)} net_placed_gained={gained} "
+          f"nodes_used={len(set(on_cpu.assignment.tolist()) - {-1})}",
+          flush=True)
+    if deps:
+        raise AssertionError(f"config 5: {deps} dependency violations")
+    launches_per_step(cluster, device, make_scheduler=config5_scheduler,
+                      label="config5 ")
+    del cluster
+    cycle_drive("network", "cycle_config5", config5_cluster,
+                config5_scheduler, device)
+
+
+def nrt_cache_phase(device) -> None:
+    """Phase 12: `nrt_cache_script` through `run_cycle` on the card and
+    on the CPU, compared after every cycle: the report, the store's
+    bookkeeping and the over-reserve cache's state (generation, flag
+    sets, assumed map, NRT copies, view)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from scheduler_plugins_tpu_torch import plugins
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import (
+        Profile,
+        Scheduler,
+        run_cycle,
+    )
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster, nrt_cache
+
+    _tests_on_path()
+    from torch_numa_cases import cache_state, nrt_cache_script
+
+    pkg = SimpleNamespace(o=objects, Cluster=Cluster, Profile=Profile,
+                          Scheduler=Scheduler, plugins=plugins,
+                          nrt_cache=nrt_cache)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        cluster, sched, steps = nrt_cache_script(pkg)
+        pk.reset_launches()
+        out = []
+        for now, mutate in steps:
+            if mutate is not None:
+                mutate(pkg, cluster)
+            report = run_cycle(sched, cluster, now=now, device=dev)
+            state = cache_state(cluster.nrt_cache)
+            out.append((cycle_state(report, cluster), state))
+            print(f"[nrt_cache] device={dev.type} now={now} "
+                  f"bound={len(report.bound)} failed={len(report.failed)} "
+                  f"generation={state['generation']} "
+                  f"desynced={sorted(cluster.nrt_cache.desynced_nodes())} "
+                  f"stale={state['stale']} "
+                  f"assumed={ {n: len(e) for n, e in state['assumed']} }",
+                  flush=True)
+        no_election_launches("nrt_cache", f"script device={dev.type}",
+                             pk.launches())
+        runs[dev.type] = out
+    card, cpu = runs[device.type], runs["cpu"]
+    differ = [k for k, (a, b) in enumerate(zip(card, cpu)) if a != b]
+    print(f"[nrt_cache] cycles={len(cpu)} identical={not differ} "
+          f"generations={[s['generation'] for _, s in cpu]}", flush=True)
+    if differ:
+        raise AssertionError(f"nrt cache script: card != CPU in cycles "
+                             f"{differ}")
+    if cpu[-1][1]["generation"] < 1:
+        raise AssertionError("nrt cache script: no resync flushed")
 
 
 def batch_drive(label: str, cluster, make_scheduler, device) -> None:
@@ -1781,6 +1923,10 @@ def batch_drive(label: str, cluster, make_scheduler, device) -> None:
             order = placed[np.lexsort((placed, wave_of[placed]))]
         viol["zone"] = numa_zone_violations(outs["cpu"][4], outs["cpu"][5],
                                             a, order)
+    if outs["cpu"][4].network is not None:
+        # the waves re-filter against the earlier waves' placements
+        viol["dependency"] = network_dependency_violations(
+            cluster, outs["cpu"][5], a, cpu_stats["wave_of"].numpy())
     placed = int((a >= 0).sum())
     waves = stats["waves"]
     print(f"[batch] {label} nodes={len(meta.node_names)} "
@@ -1802,9 +1948,10 @@ def batch_drive(label: str, cluster, make_scheduler, device) -> None:
 
 
 def batch_phase(device) -> None:
-    """Phase 11: the batched profile solve on bench configs 3 (NUMA, the
-    stateful waterfill), 2 (TLP + LVRB, the general branch) and 4 (the
-    flagship, the targeted fast path), each uncut, card against CPU."""
+    """Phase 13: the batched profile solve on bench configs 3 (NUMA, the
+    stateful waterfill), 2 (TLP + LVRB, the general branch), 4 (the
+    flagship, the targeted fast path) and 5 (NetworkOverhead, the class
+    tallies re-evaluated every wave), each uncut, card against CPU."""
     from scheduler_plugins_tpu_torch.models import gang_quota_scenario
 
     batch_drive("batch_config3", config3_cluster(), config3_scheduler,
@@ -1813,6 +1960,8 @@ def batch_phase(device) -> None:
                 device)
     batch_drive("batch_config4", gang_quota_scenario(**CONFIG4),
                 flagship_scheduler, device)
+    batch_drive("batch_config5", config5_cluster(), config5_scheduler,
+                device)
 
 
 def kernel_table(north: dict, device) -> list:
@@ -1937,10 +2086,17 @@ def main() -> int:
     # 10. NUMA: bench config 3 through the parity solve and a cycle
     numa_phase(device)
 
-    # 11. the batched profile solve on configs 3, 2 and 4
+    # 11. the network-aware plugins: bench config 5 through the parity
+    # solve and a cycle
+    network_phase(device)
+
+    # 12. the NRT cache tier through a four-cycle script
+    nrt_cache_phase(device)
+
+    # 13. the batched profile solve on configs 3, 2, 4 and 5
     batch_phase(device)
 
-    # 12. the kernel table, the card, the result
+    # 14. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

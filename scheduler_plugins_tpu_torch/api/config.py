@@ -68,11 +68,16 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
     "NodeResourceTopologyMatch": {
         "scoringStrategy": "scoring_strategy",
         "resources": "resources",
-        # the constructor raises for these: the cache tier is a later slice
         "cacheResyncPeriodSeconds": "cache_resync_period_seconds",
         "discardReservedNodes": "discard_reserved_nodes",
         "cache": "cache",
     },
+    "NetworkOverhead": {
+        "weightsName": "weights_name",
+        "networkTopologyName": "network_topology_name",
+        "namespaces": "namespaces",
+    },
+    "TopologicalSort": {"namespaces": "namespaces"},
 }
 
 #: the JAX package's full plugin roster: the names the port has not
@@ -99,6 +104,8 @@ def _registry():
         "LowRiskOverCommitment": p.LowRiskOverCommitment,
         "Peaks": p.Peaks,
         "NodeResourceTopologyMatch": p.NodeResourceTopologyMatch,
+        "NetworkOverhead": p.NetworkOverhead,
+        "TopologicalSort": p.TopologicalSort,
     }
 
 
@@ -152,7 +159,11 @@ def profile_spec(profile: Profile) -> dict:
     arg whose plugin keeps it under another name with no override (the
     Trimaran plugins' targetUtilization, safeVariance*, smoothingWindowSize,
     riskLimitWeights and defaultRequests: the JAX package's export drops
-    them too, and the port's matches it). `weights` is
+    them too, and the port's matches it). NodeResourceTopologyMatch
+    exports its cacheResyncPeriodSeconds and discardReservedNodes even at
+    their defaults (0, False), and no `cache` block, as JAX's does: a
+    reload of the spec then counts them as given and installs the
+    passthrough cache. `weights` is
     exported only when some weight differs from its class default. The
     port's profiles are all "sequential", so no `solveMode` is exported."""
     names = []

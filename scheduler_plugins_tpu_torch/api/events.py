@@ -4,8 +4,8 @@ The "Resource/Action" strings the store's mutators note
 (`Cluster.note_event`) and a plugin's `events_to_register()` names: a pod
 that plugin failed re-enters the queue only on one of its events. The kinds
 of the objects the port's store holds (nodes, pods, PodGroups,
-ElasticQuotas, NodeResourceTopologies, PodDisruptionBudgets); the rest
-come with their objects.
+ElasticQuotas, NodeResourceTopologies, AppGroups, NetworkTopologies,
+PodDisruptionBudgets); the rest come with their objects.
 """
 
 from __future__ import annotations
@@ -25,6 +25,12 @@ ELASTIC_QUOTA_DELETE = "ElasticQuota/Delete"
 NRT_ADD = "NodeResourceTopology/Add"
 NRT_UPDATE = "NodeResourceTopology/Update"
 NRT_DELETE = "NodeResourceTopology/Delete"
+APP_GROUP_ADD = "AppGroup/Add"
+APP_GROUP_UPDATE = "AppGroup/Update"
+APP_GROUP_DELETE = "AppGroup/Delete"
+NETWORK_TOPOLOGY_ADD = "NetworkTopology/Add"
+NETWORK_TOPOLOGY_UPDATE = "NetworkTopology/Update"
+NETWORK_TOPOLOGY_DELETE = "NetworkTopology/Delete"
 PDB_ADD = "PodDisruptionBudget/Add"
 PDB_UPDATE = "PodDisruptionBudget/Update"
 PDB_DELETE = "PodDisruptionBudget/Delete"

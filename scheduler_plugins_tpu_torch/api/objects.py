@@ -4,7 +4,8 @@ The types the ported slices need: `Node`, `Pod` with its `Container`s
 and its QoS class, the two CRDs the admission reads, `PodGroup` (gang)
 and `ElasticQuota`, the `PodDisruptionBudget` that preemption reads, and
 the `NodeResourceTopology` CR with its `NUMAZone`s that the NUMA plugin
-reads. Derived-request
+reads, and the network-aware CRs (`AppGroup`, `NetworkTopology`) that
+NetworkOverhead and TopologicalSort read. Derived-request
 semantics follow the reference: the effective request is max(sum of app
 containers, max over init containers) plus overhead (upstream
 pkg/util/resource.go:45-85). The Trimaran plugins add the pod's effective
@@ -26,6 +27,12 @@ from scheduler_plugins_tpu_torch.api.resources import (
 
 #: label that joins a pod to its PodGroup
 POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
+#: well-known topology labels the network-aware plugins read
+REGION_LABEL = "topology.kubernetes.io/region"
+ZONE_LABEL = "topology.kubernetes.io/zone"
+#: AppGroup membership labels (diktyo appgroup-api)
+APP_GROUP_LABEL = "app-group.scheduling.x-k8s.io"
+WORKLOAD_SELECTOR_LABEL = "app"
 
 DEFAULT_SCHEDULER_NAME = "tpu-scheduler"
 
@@ -52,6 +59,9 @@ class Container:
     name: str = "c"
     requests: Mapping[str, int] = field(default_factory=dict)
     limits: Mapping[str, int] = field(default_factory=dict)
+    #: a restartable (sidecar) init container: the NRT cache counts its
+    #: requests toward exclusive-resource use (exclusive.go:47-95)
+    restart_policy_always: bool = False
 
 
 @dataclass
@@ -89,6 +99,12 @@ class Pod:
 
     def pod_group(self) -> str:
         return self.labels.get(POD_GROUP_LABEL, "")
+
+    def app_group(self) -> str:
+        return self.labels.get(APP_GROUP_LABEL, "")
+
+    def workload_selector(self) -> str:
+        return self.labels.get(WORKLOAD_SELECTOR_LABEL, "")
 
     @property
     def terminating(self) -> bool:
@@ -185,6 +201,14 @@ class Node:
         if not self.capacity:
             self.capacity = dict(self.allocatable)
 
+    @property
+    def region(self) -> str:
+        return self.labels.get(REGION_LABEL, "")
+
+    @property
+    def zone(self) -> str:
+        return self.labels.get(ZONE_LABEL, "")
+
 
 @dataclass
 class PodGroup:
@@ -275,6 +299,44 @@ class NodeResourceTopology:
     max_numa_nodes: int = 8
     #: the node agent's pod fingerprint and its method attribute, which
     #: the over-reserve cache's resync validates (upstream
-    #: cache/overreserve.go:276-348); the cache comes with its slice
+    #: cache/overreserve.go:276-348, `state.nrt_cache`)
     pod_fingerprint: str = ""
     pod_fingerprint_method: str = ""
+
+
+# -- network-aware CRs (diktyo appgroup-api / networktopology-api) ----------
+
+@dataclass
+class AppGroupDependency:
+    workload_selector: str
+    max_network_cost: int = 0
+
+
+@dataclass
+class AppGroupWorkload:
+    selector: str
+    dependencies: list[AppGroupDependency] = field(default_factory=list)
+
+
+@dataclass
+class AppGroup:
+    name: str
+    namespace: str = "default"
+    workloads: list[AppGroupWorkload] = field(default_factory=list)
+    #: status.TopologyOrder: workload selector -> topological index, read
+    #: by the TopologicalSort queue comparator (topologicalsort.go:102-132)
+    topology_order: Mapping[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class NetworkTopology:
+    """Origin -> destination costs per topology key (region / zone) per
+    weights profile (networkoverhead.go:448-638)."""
+
+    name: str = "nt-default"
+    namespace: str = "default"
+    #: weightsName -> topology key ("region" | "zone") -> (origin, dest)
+    #: -> cost
+    weights: Mapping[str, Mapping[str, Mapping[tuple[str, str], int]]] = (
+        field(default_factory=dict)
+    )

@@ -3,7 +3,8 @@
 `snapshot_from_numpy(tree, device)` takes the JAX `ClusterSnapshot` as a
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
 {...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
-or None, "metrics": {...} or None, "numa": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+or None, "metrics": {...} or None, "numa": {...} or None, "network":
+{...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
 packages can solve the very same tensors. Fields the port's slice does not
 carry are ignored; a field the port needs and the tree lacks raises
 `KeyError`; an absent table is None. The NUMA table's `pack_scales` is a
@@ -28,6 +29,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     ClusterSnapshot,
     GangState,
     MetricsState,
+    NetworkState,
     NodeState,
     NomineeState,
     NumaState,
@@ -43,6 +45,7 @@ _TABLES = {
     "nominees": NomineeState,
     "metrics": MetricsState,
     "numa": NumaState,
+    "network": NetworkState,
 }
 
 

@@ -30,9 +30,12 @@ the cycle's batch (`utils.flightrec.explain_solver`), scored with the
 plugins' configuration as the cycle saw it; only the most recent
 `SPT_EXPLAIN_RETAIN` reports (default 8) keep their snapshot for it.
 
-Before the batch the prologue runs each plugin's `configure_cluster` and
+Before the batch the prologue runs each plugin's `configure_cluster`,
+drives the NRT cache tier's resync on its period (`_resync_nrt_cache`) and
 ticks the load-watcher collectors the Trimaran plugins configure
-(`_refresh_metrics`), so the snapshot carries the latest metrics.
+(`_refresh_metrics`), so the snapshot carries the latest zone view and
+metrics. After the gang rejections, failures mark the cache's nodes with
+assumed pods maybe-overreserved (`_mark_overreserved_on_failures`).
 
 Left out until their slices: the serving engine (`serve`), the solve
 watchdog (`resilience`), the rank-aware gang phase (`gangs`), the online
@@ -220,6 +223,7 @@ def _cycle_open(scheduler, cluster, now, device,
     for plugin in scheduler.profile.plugins:
         plugin.configure_cluster(cluster)
     _expire_gangs(cluster, now, ctx.report)
+    _resync_nrt_cache(cluster, now)
     _refresh_metrics(scheduler, cluster, now)
     return ctx
 
@@ -357,6 +361,7 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
             continue  # a later pod may still complete the quorum
         _reject_gang(cluster, pg, now, report, cosched, len(members))
 
+    _mark_overreserved_on_failures(cluster, report)
     _run_preemption(ctx.scheduler, cluster, ctx.pending, report, now,
                     ctx.device)
 
@@ -615,6 +620,47 @@ def _refresh_metrics(scheduler, cluster: Cluster, now: int):
                 collectors[key] = None
         if collectors[key] is not None:
             collectors[key].tick(cluster, now)
+
+
+def _resync_nrt_cache(cluster: Cluster, now: int = 0):
+    """The over-reserve cache's resync loop (the reference's background
+    `wait.Forever(Resync, period)`, pluginhelpers.go:73), run in the
+    prologue: reconcile the dirty nodes against their latest agent
+    reports, on the cache's `resync_period_ms` cadence when it has one.
+    The fingerprints are computed over the pods the cache's informer mode
+    lists (podprovider.go:37-93)."""
+    cache = cluster.nrt_cache
+    if cache is None or not hasattr(cache, "resync"):
+        return
+    period_ms = getattr(cache, "resync_period_ms", 0)
+    if period_ms:
+        last = getattr(cache, "_last_resync_ms", None)
+        if last is not None and now - last < period_ms:
+            return
+        cache._last_resync_ms = now
+    if not cache.desynced_nodes():
+        return
+    node_pods: dict[str, list] = {}
+    relevant = getattr(cache, "pod_relevant", lambda pod: True)
+    for pod in cluster.pods.values():
+        if pod.node_name is not None and relevant(pod):
+            node_pods.setdefault(pod.node_name, []).append(pod)
+    cache.resync(node_pods)
+
+
+def _mark_overreserved_on_failures(cluster: Cluster, report: CycleReport):
+    """A Filter failure on a cached view may mean a stale deduction
+    (filter.go:219-223 NodeMaybeOverReserved): mark every node carrying
+    assumed pods dirty, so the next resync reconciles it."""
+    cache = cluster.nrt_cache
+    if not report.failed or cache is None:
+        return
+    if not (hasattr(cache, "mark_maybe_overreserved")
+            and hasattr(cache, "assumed")):
+        return
+    for node, assumed in cache.assumed.items():
+        if assumed:
+            cache.mark_maybe_overreserved(node)
 
 
 def _maybe_release_gang(cluster: Cluster, pg, report: CycleReport,

@@ -51,8 +51,8 @@ from scheduler_plugins_tpu_torch.api import events as ev
 class SolverState:
     """State carried from pod to pod through the sequential solve, and
     from wave to wave through the batched one. The fields of the ported
-    plugins; the JAX state's network, selector and rank-gang carries come
-    with their plugins.
+    plugins; the JAX state's selector and rank-gang carries come with
+    their plugins.
 
     `free` mirrors NodeInfo leftover capacity, `eq_used` the
     ElasticQuotaInfos usage map, `gang_scheduled` the members placed in
@@ -72,6 +72,9 @@ class SolverState:
     #: placements pessimistically deducted from every reported zone of
     #: their node (cache/store.go:129-160)
     numa_avail: Optional[torch.Tensor] = None
+    #: (W, N) int32 placed pods per AppGroup workload and node, this
+    #: solve's placements counted in (NetworkOverhead's tallies read it)
+    net_placed: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SolverState":
         return dataclasses.replace(self, **changes)

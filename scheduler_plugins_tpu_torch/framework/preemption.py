@@ -378,24 +378,41 @@ class PreemptionEngine:
         rotation, want = self.sample_candidates(fits)
         pdbs = list(cluster.pdbs.values())
         # plugin Filter chain for the preemptor (upstream
-        # RunFilterPluginsWithNominatedPods). The ported plugins keep no
-        # pod-derived side tables, so evicting victims cannot change a
-        # verdict (the JAX engine re-filters each tentative reprieve for
-        # the plugins that do): one (N,) row per preemptor, copied once
-        filter_row = None
-        if scheduler is not None and preemptor.uid in meta.pod_names:
-            p_idx = meta.pod_names.index(preemptor.uid)
-            filter_row = scheduler.filter_verdicts(snap, p_idx).cpu().numpy()
+        # RunFilterPluginsWithNominatedPods) against the POST-EVICTION
+        # state: upstream removes the victims from the NodeInfo before the
+        # chain and re-runs it as reprievePod re-adds each one, so a
+        # filter reading pod-derived side tables (the network placement
+        # counts) must not see pods about to be evicted. The NRT cache
+        # view stays as it is (`Cluster.post_eviction_tables`)
+        has_filters = (scheduler is not None
+                       and preemptor.uid in meta.pod_names)
+        p_idx = meta.pod_names.index(preemptor.uid) if has_filters else -1
+        uids_by_node: dict[int, list] = {}
+        for i in np.nonzero(eligible)[0]:
+            uids_by_node.setdefault(int(v_node[i]), []).append(
+                victims_all[i].uid)
+        # the verdict row of each evicted set, memoized for this dry run:
+        # the reprieve re-adds victims one at a time, so sets repeat
+        # across candidate nodes
+        verdict_cache: dict[frozenset, np.ndarray] = {}
         best = None
         produced = 0
         for n in rotation:
             if produced >= want:
                 break
-            if filter_row is not None and not filter_row[int(n)]:
-                continue
+            filter_ok = None
+            if has_filters:
+                def filter_ok(evicted, _n=int(n)):
+                    return self._filters_pass(
+                        cluster, scheduler, snap, meta, p_idx, evicted, _n,
+                        verdict_cache)
+
+                if not filter_ok(frozenset(uids_by_node.get(int(n), []))):
+                    continue
             final, violations = self._reprieve(
                 victims_all, v_node, v_req, v_pri, eligible, int(n),
                 free[int(n)], demand, preemptor, view, meta, pdbs, nom_aggs,
+                filter_ok=filter_ok,
             )
             if not final:
                 continue
@@ -416,6 +433,25 @@ class PreemptionEngine:
             nominated_node=meta.node_names[chosen],
             victims=[v.uid for v in final_victims],
         )
+
+    def _filters_pass(self, cluster, scheduler, snap, meta, p_idx,
+                      evicted_uids, n, verdict_cache) -> bool:
+        """The plugin Filter verdict for the preemptor (pending row
+        `p_idx`) on candidate node `n` with `evicted_uids` evicted (the
+        pod-derived tables only, `Cluster.post_eviction_tables`). The (N,)
+        row depends only on (snapshot, row, evicted set), so it is
+        memoized in `verdict_cache` by the frozen set. Without a network
+        table eviction cannot change a verdict, so every set shares the
+        empty key and the row is computed once per preemptor."""
+        key = (frozenset(evicted_uids) if snap.network is not None
+               else frozenset())
+        if key not in verdict_cache:
+            hyp = snap
+            if key:
+                hyp = cluster.post_eviction_tables(snap, meta, key)
+            verdict_cache[key] = scheduler.filter_verdicts(
+                hyp, p_idx).cpu().numpy()
+        return bool(verdict_cache[key][n])
 
     def _quota_gate(self, victims, v_node, eligible, preemptor, view, meta,
                     N):
@@ -481,12 +517,16 @@ class PreemptionEngine:
 
     def _reprieve(self, victims, v_node, v_req, v_pri, eligible, node,
                   free_n, demand, preemptor, view, meta, pdbs=(),
-                  nom_aggs=None):
+                  nom_aggs=None, filter_ok=None):
         """Add victims back while the preemptor still fits and the quota
         gates hold (capacity_scheduling.go:632-670): the PDB-violating ones
         first, then the rest, each group most-important-first, so a
-        violating victim has the best chance to stay. Returns (the final
-        victims, most important first; how many of them violate a PDB)."""
+        violating victim has the best chance to stay. `filter_ok(evicted
+        uids) -> bool`, when given, re-runs the plugin Filter chain for
+        each tentative reprieve (upstream reprievePod): a victim whose
+        return would block the preemptor again stays evicted. Returns (the
+        final victims, most important first; how many of them violate a
+        PDB)."""
         idxs = [i for i in np.nonzero(eligible)[0] if v_node[i] == node]
         # MoreImportantPod: higher priority, then earlier start
         idxs.sort(key=lambda i: (-v_pri[i], victims[i].creation_ms))
@@ -524,9 +564,13 @@ class PreemptionEngine:
 
         final = []
         num_violating = 0
+        evicted = {victims[i].uid for i in idxs}
         for i in idxs:
             candidate_free = free_after - v_req[i]
             fits = bool(np.all(candidate_free >= demand))
+            if fits and filter_ok is not None:
+                # re-adding this victim must not block the preemptor again
+                fits = filter_ok(frozenset(evicted - {victims[i].uid}))
             quota_ok = True
             if use_quota and fits and p_ns >= 0 and has_q[p_ns]:
                 vec = meta.index.encode(victims[i].effective_request())
@@ -543,6 +587,7 @@ class PreemptionEngine:
             if fits and quota_ok:
                 # reprieved: stays on the node
                 free_after = candidate_free
+                evicted.discard(victims[i].uid)
                 if use_quota:
                     ns = ns_codes.get(victims[i].namespace, -1)
                     if ns >= 0 and has_q[ns]:

@@ -559,6 +559,8 @@ class Scheduler:
         numa_avail = None
         if snap.numa is not None:
             numa_avail = live_avail_init(snap.numa)
+        net_placed = (snap.network.placed_node if snap.network is not None
+                      else None)
         return SolverState(
             free=free_capacity(snap.nodes.alloc, snap.nodes.requested),
             eq_used=snap.quota.used if snap.quota is not None else None,
@@ -566,6 +568,7 @@ class Scheduler:
             gang_inflight=gang_inflight,
             placed_mask=placed_mask,
             numa_avail=numa_avail,
+            net_placed=net_placed,
         )
 
     def solve(self, snap, state0: Optional[SolverState] = None, *,

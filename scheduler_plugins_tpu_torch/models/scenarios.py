@@ -9,9 +9,17 @@ from __future__ import annotations
 import numpy as np
 
 from scheduler_plugins_tpu_torch.api.objects import (
+    APP_GROUP_LABEL,
     POD_GROUP_LABEL,
+    REGION_LABEL,
+    WORKLOAD_SELECTOR_LABEL,
+    ZONE_LABEL,
+    AppGroup,
+    AppGroupDependency,
+    AppGroupWorkload,
     Container,
     ElasticQuota,
+    NetworkTopology,
     Node,
     NodeResourceTopology,
     NUMAZone,
@@ -144,4 +152,62 @@ def gang_quota_scenario(n_gangs=100, gang_size=64, n_nodes=1000, seed=0) -> Clus
                     labels={POD_GROUP_LABEL: f"gang-{g:04d}"},
                 )
             )
+    return cluster
+
+
+def _add_app_group_mesh(cluster, rng, n_workloads, n_regions,
+                        zones_per_region, max_network_cost):
+    """The AppGroup "mesh": workload w > 0 depends on one earlier
+    workload drawn from `rng`, topology order = workload index; plus the
+    "UserDefined" NetworkTopology weights, 5 between any two zones and 50
+    between any two regions. Returns the zone names."""
+    workloads = [AppGroupWorkload(selector=f"wl-{w}")
+                 for w in range(n_workloads)]
+    for w in range(1, n_workloads):
+        workloads[w].dependencies.append(AppGroupDependency(
+            workload_selector=f"wl-{rng.integers(0, w)}",
+            max_network_cost=max_network_cost,
+        ))
+    cluster.add_app_group(AppGroup(
+        name="mesh", workloads=workloads,
+        topology_order={f"wl-{w}": w for w in range(n_workloads)},
+    ))
+    zone_names = [f"zone-{z}" for z in range(n_regions * zones_per_region)]
+    region_names = [f"region-{r}" for r in range(n_regions)]
+    cluster.add_network_topology(NetworkTopology(weights={
+        "UserDefined": {
+            "zone": {(a, b): 5 for a in zone_names for b in zone_names
+                     if a != b},
+            "region": {(a, b): 50 for a in region_names
+                       for b in region_names if a != b},
+        }
+    }))
+    return zone_names
+
+
+def network_scenario(n_nodes=1000, n_pods=1000, n_regions=4,
+                     zones_per_region=4, n_workloads=32, seed=0) -> Cluster:
+    """NetworkOverhead + TopologicalSort (bench config 5): `_nodes`'
+    nodes labelled round-robin with `n_regions` regions and
+    `n_regions * zones_per_region` zones, the AppGroup mesh of
+    `n_workloads` workloads (MaxNetworkCost 10), and pods of 500m CPU and
+    1 GiB, each in a workload drawn from `rng`."""
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    for i, node in enumerate(_nodes(n_nodes)):
+        node.labels = {
+            REGION_LABEL: f"region-{i % n_regions}",
+            ZONE_LABEL: f"zone-{i % (n_regions * zones_per_region)}",
+        }
+        cluster.add_node(node)
+    _add_app_group_mesh(cluster, rng, n_workloads, n_regions,
+                        zones_per_region, max_network_cost=10)
+    for i in range(n_pods):
+        w = int(rng.integers(0, n_workloads))
+        cluster.add_pod(Pod(
+            name=f"pod-{i:06d}",
+            creation_ms=i,
+            containers=[Container(requests={CPU: 500, MEMORY: 1 * GIB})],
+            labels={APP_GROUP_LABEL: "mesh", WORKLOAD_SELECTOR_LABEL: f"wl-{w}"},
+        ))
     return cluster

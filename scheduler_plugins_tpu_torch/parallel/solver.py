@@ -455,6 +455,9 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
                 f"{plugins[i].name}: the batched solve's validator branch "
                 "(validate_at) comes with the in-tree plugins' slice"
             )
+    # the carry starts as views of snapshot tables (`net_placed` is the
+    # snapshot's `placed_node`); no commit writes in place, so unlike
+    # JAX's donated state (`_donation_safe_state`) it needs no copy
     state0 = scheduler.initial_state(snap)
 
     scoring = fast_path_scoring(plugins)

@@ -16,8 +16,10 @@ NodeResourceTopology CRs (upstream pkg/noderesourcetopology, plugin.go:
 
 The JAX plugin vmaps `ops.numa`'s one-node functions over nodes; here they
 run over the node axis directly, and over (pod, node) rows in the batched
-hooks. The cache tier (OverReserve / Passthrough / DiscardReserved) comes
-with its slice: a plugin given any cache argument raises.
+hooks. A plugin given any cache argument installs the NRT cache tier
+(`state.nrt_cache`: OverReserve / Passthrough / DiscardReserved, selected
+as initNodeTopologyInformer does) on the store in `configure_cluster`;
+the snapshot then reads the cache's view.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from scheduler_plugins_tpu_torch.ops.numa import (
     LEAST_NUMA_NODES,
     MOST_ALLOCATED,
 )
+from scheduler_plugins_tpu_torch.state import nrt_cache
 
 STRATEGIES = (
     LEAST_ALLOCATED,
@@ -63,6 +66,12 @@ class NodeResourceTopologyMatch(Plugin):
     #: pessimistic deductions): the batched solve re-filters per wave
     state_dependent_filter = True
 
+    #: Cache.ForeignPodsDetect / ResyncMethod / InformerMode values
+    #: (apis/config/types.go:124-180)
+    FOREIGN_PODS_DETECT = ("All", "None", "OnlyExclusiveResources")
+    RESYNC_METHODS = ("Autodetect", "All", "OnlyExclusiveResources")
+    INFORMER_MODES = ("Shared", "Dedicated")
+
     def __init__(
         self,
         scoring_strategy: str = LEAST_ALLOCATED,
@@ -77,15 +86,32 @@ class NodeResourceTopologyMatch(Plugin):
                 and cache_resync_period_seconds < 0):
             # ValidateNodeResourceTopologyMatchArgs
             raise ValueError("cacheResyncPeriodSeconds must be >= 0")
-        if any(v is not None for v in (cache_resync_period_seconds,
-                                       discard_reserved_nodes, cache)):
-            raise NotImplementedError(
-                "NodeResourceTopologyMatch's cache arguments "
-                "(cacheResyncPeriodSeconds, discardReservedNodes, cache) "
-                "come with the NRT cache slice (state/nrt_cache.py)"
-            )
         self.strategy = scoring_strategy
         self.resources = tuple(resources)
+        #: the cache selection (pluginhelpers.go:47-78): DiscardReserved
+        #: when discardReservedNodes, Passthrough when the resync period
+        #: is <= 0, else OverReserve resynced on that period.
+        #: `configure_cluster` installs a cache only when one of these
+        #: arguments was PASSED: a default plugin leaves the store alone
+        self._cache_args_given = any(
+            v is not None for v in (cache_resync_period_seconds,
+                                    discard_reserved_nodes, cache))
+        self.cache_resync_period_seconds = int(
+            cache_resync_period_seconds or 0)
+        self.discard_reserved_nodes = bool(discard_reserved_nodes)
+        cache = dict(cache or {})
+        self.cache_foreign_pods_detect = cache.get("foreignPodsDetect", "All")
+        self.cache_resync_method = cache.get("resyncMethod", "Autodetect")
+        self.cache_informer_mode = cache.get("informerMode", "Dedicated")
+        if self.cache_foreign_pods_detect not in self.FOREIGN_PODS_DETECT:
+            raise ValueError(f"invalid foreignPodsDetect "
+                             f"{self.cache_foreign_pods_detect!r}")
+        if self.cache_resync_method not in self.RESYNC_METHODS:
+            raise ValueError(
+                f"invalid resyncMethod {self.cache_resync_method!r}")
+        if self.cache_informer_mode not in self.INFORMER_MODES:
+            raise ValueError(
+                f"invalid informerMode {self.cache_informer_mode!r}")
         self._uniform_scope: Optional[int] = None
         #: whether the float32 path keeps the weighted zone-score sums
         #: exact: sum(100 * w) over the full weight vector below 2^24
@@ -97,6 +123,53 @@ class NodeResourceTopologyMatch(Plugin):
         # plugin.go:141-151: pod delete, node allocatable changes, NRT CRs
         return (ev.POD_DELETE, ev.NODE_ADD, ev.NODE_UPDATE,
                 ev.NRT_ADD, ev.NRT_UPDATE)
+
+    # -- the NRT cache tier ------------------------------------------------
+    def _cache_signature(self):
+        return (
+            self.discard_reserved_nodes,
+            self.cache_resync_period_seconds,
+            self.cache_foreign_pods_detect,
+            self.cache_informer_mode,
+            self.cache_resync_method,
+        )
+
+    def make_cache(self, scheduler_names=None):
+        """The cache tier initNodeTopologyInformer selects
+        (pluginhelpers.go:55-66). `scheduler_names` seeds the foreign-pod
+        registry with the profile names counted as ours."""
+        if self.discard_reserved_nodes:
+            return nrt_cache.DiscardReservedCache()
+        if self.cache_resync_period_seconds <= 0:
+            return nrt_cache.PassthroughCache()
+        cache = nrt_cache.OverReserveCache(
+            foreign_pods_detect=self.cache_foreign_pods_detect,
+            informer_mode=self.cache_informer_mode,
+            resync_method=self.cache_resync_method,
+        )
+        if scheduler_names:
+            cache.our_schedulers = set(scheduler_names)
+        cache.resync_period_ms = self.cache_resync_period_seconds * 1000
+        return cache
+
+    def configure_cluster(self, cluster):
+        """Install the selected cache on the store, seeded with its NRTs
+        and pods, when cache arguments were given and the store's cache
+        has another configuration."""
+        if cluster is None or not self._cache_args_given:
+            return
+        signature = self._cache_signature()
+        if getattr(cluster, "_nrt_cache_config", None) == signature:
+            return
+        cache = self.make_cache(
+            scheduler_names=getattr(cluster, "scheduler_names", None))
+        for nrt in cluster.nrts.values():
+            cache.update_nrt(nrt)
+        if hasattr(cache, "track_pod"):
+            for pod in cluster.pods.values():
+                cache.track_pod(pod)
+        cluster.nrt_cache = cache
+        cluster._nrt_cache_config = signature
 
     def prepare_cluster(self, meta, cluster):
         """When every NRT shares one topology-manager scope (the common

@@ -11,10 +11,13 @@ a parked pod's stamp is compared against these counters, so the order is
 part of the semantics. For the Trimaran plugins the store holds the
 load-watcher metrics, the TargetLoadPacking prediction parameters and the
 recently bound pods whose load the metrics do not show yet. For the NUMA
-plugin it holds the NodeResourceTopology CRs, lowered into the
-snapshot's zone tables as published. The JAX store's native mirror,
-delta sink, pending index, NRT cache tier and ledger hooks come with
-their slices.
+plugin it holds the NodeResourceTopology CRs and, when the plugin's
+cache arguments install one, the NRT cache tier (`state.nrt_cache`): the
+store's pod, bind, reserve and NRT mutators drive its lifecycle hooks,
+and the snapshot then reads the cache's adjusted view with its stale
+nodes. For the network-aware plugins it holds the AppGroup and
+NetworkTopology CRs. The JAX store's native mirror, delta sink, pending
+index and ledger hooks come with their slices.
 """
 
 from __future__ import annotations
@@ -24,10 +27,15 @@ import hashlib
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
+import torch
+
 from scheduler_plugins_tpu_torch.api import events as ev
 from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
+    AppGroup,
     ElasticQuota,
+    NetworkTopology,
     Node,
     NodeResourceTopology,
     Pod,
@@ -55,6 +63,11 @@ class Cluster:
     quotas: dict[str, ElasticQuota] = field(default_factory=dict)  # namespace
     #: node name -> NodeResourceTopology CR
     nrts: dict[str, NodeResourceTopology] = field(default_factory=dict)
+    #: ns/name -> AppGroup / NetworkTopology CR (the network-aware plugins)
+    app_groups: dict[str, AppGroup] = field(default_factory=dict)
+    network_topologies: dict[str, NetworkTopology] = field(
+        default_factory=dict
+    )
     #: ns/name -> PodDisruptionBudget, read by preemption's victim ranking
     pdbs: dict[str, PodDisruptionBudget] = field(default_factory=dict)
     #: profile names this scheduler owns: only their pods enter the queue
@@ -73,8 +86,10 @@ class Cluster:
     #: reported yet (the trimaran PodAssignEventHandler's
     #: ScheduledPodsCache, handler.go:47-171): uid -> (bind ms, node)
     recent_bindings: dict[str, tuple[int, str]] = field(default_factory=dict)
-    #: the NRT cache tier (OverReserve / Passthrough / DiscardReserved):
-    #: comes with its slice; the snapshot refuses a store that sets it
+    #: the NRT cache tier (`state.nrt_cache`: OverReserve / Passthrough /
+    #: DiscardReserved), installed by the NUMA plugin's
+    #: `configure_cluster` when its cache arguments are given; when set,
+    #: snapshots read the cache's adjusted zone view instead of `nrts`
     nrt_cache: Optional[object] = None
 
     # scheduling-runtime bookkeeping (host-only)
@@ -157,13 +172,21 @@ class Cluster:
             ev.POD_UPDATE if pod.uid in self.pods else ev.POD_ADD
         )
         self.pods[pod.uid] = pod
+        if self.nrt_cache is not None and hasattr(self.nrt_cache,
+                                                  "track_pod"):
+            # foreign-pod detection (cache/foreign_pods.go:42-99)
+            self.nrt_cache.track_pod(pod)
 
     def remove_pod(self, uid: str):
-        self.release_reservation(uid)
+        self.release_reservation(uid)  # notifies the NRT cache too
         self.unschedulable_since.pop(uid, None)
         self._clear_backoff(uid)
-        if self.pods.pop(uid, None) is not None:
+        pod = self.pods.pop(uid, None)
+        if pod is not None:
             self.note_event(ev.POD_DELETE)
+            if pod.node_name is not None and self.nrt_cache is not None:
+                # a bound pod's assumed deduction must not outlive it
+                self.nrt_cache.unreserve(pod.node_name, pod)
 
     def mark_terminating(self, uid: str, now_ms: int):
         """DELETE issued (a preemption victim): the pod turns terminating
@@ -193,11 +216,33 @@ class Cluster:
             ev.NRT_UPDATE if nrt.node_name in self.nrts else ev.NRT_ADD
         )
         self.nrts[nrt.node_name] = nrt
+        if self.nrt_cache is not None:
+            self.nrt_cache.update_nrt(nrt)
 
     def remove_nrt(self, node_name: str):
+        """The CR is deleted: the cache tier drops its copy too, or the
+        snapshot would keep building zone tables from it."""
         if node_name in self.nrts:
             self.note_event(ev.NRT_DELETE)
         self.nrts.pop(node_name, None)
+        if self.nrt_cache is not None:
+            self.nrt_cache.delete_nrt(node_name)
+
+    def add_app_group(self, ag: AppGroup):
+        key = f"{ag.namespace}/{ag.name}"
+        self.note_event(
+            ev.APP_GROUP_UPDATE if key in self.app_groups
+            else ev.APP_GROUP_ADD
+        )
+        self.app_groups[key] = ag
+
+    def add_network_topology(self, nt: NetworkTopology):
+        key = f"{nt.namespace}/{nt.name}"
+        self.note_event(
+            ev.NETWORK_TOPOLOGY_UPDATE if key in self.network_topologies
+            else ev.NETWORK_TOPOLOGY_ADD
+        )
+        self.network_topologies[key] = nt
 
     def add_pdb(self, pdb: PodDisruptionBudget):
         key = f"{pdb.namespace}/{pdb.name}"
@@ -254,14 +299,22 @@ class Cluster:
         self.note_event(ev.POD_UPDATE)  # assigned: spec.nodeName set
         self.pods[uid].node_name = node_name
         self.recent_bindings[uid] = (now_ms, node_name)
+        if self.nrt_cache is not None:
+            # the NRT cache's Reserve -> bind -> PostBind lifecycle
+            self.nrt_cache.reserve(node_name, self.pods[uid])
+            self.nrt_cache.post_bind(node_name, self.pods[uid])
 
     def reserve(self, uid: str, node_name: str):
         """Permit said Wait: hold the placement without binding."""
         self.reserved[uid] = node_name
+        if self.nrt_cache is not None:
+            self.nrt_cache.reserve(node_name, self.pods[uid])
 
     def release_reservation(self, uid: str):
         self.pod_deadline_ms.pop(uid, None)
-        self.reserved.pop(uid, None)
+        node = self.reserved.pop(uid, None)
+        if node is not None and self.nrt_cache is not None:
+            self.nrt_cache.unreserve(node, self.pods[uid])
 
     def gang_reservations(self, pg: PodGroup) -> list[str]:
         return [
@@ -324,23 +377,26 @@ class Cluster:
         node: they hold capacity, quota and quorum exactly like the
         reference's waiting pods. The metrics table carries the
         missing-CPU compensation at `now_ms`; the zone tables are the NRT
-        CRs as published."""
-        if self.nrt_cache is not None:
-            raise NotImplementedError(
-                "Cluster.nrt_cache comes with the NRT cache slice "
-                "(state/nrt_cache.py)"
-            )
+        CRs as published, or the cache tier's adjusted view with its
+        stale nodes when a cache is installed."""
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
         ]
+        nrt_list = list(self.nrts.values())
+        stale_nodes: list[str] = []
+        if self.nrt_cache is not None:
+            nrt_list, stale = self.nrt_cache.view()
+            stale_nodes = list(stale)
         return build_snapshot(
             list(self.nodes.values()),
             pending,
             assigned_pods=self._assigned_pods(),
             pod_groups=list(self.pod_groups.values()),
             quotas=list(self.quotas.values()),
-            nrts=list(self.nrts.values()),
+            nrts=nrt_list,
+            stale_nrt_nodes=stale_nodes,
+            app_groups=list(self.app_groups.values()),
             backed_off_gangs=backed_off,
             extra_pods=self.gated_pods(),
             device=device,
@@ -348,3 +404,32 @@ class Cluster:
             tlp_prediction=self.tlp_prediction,
             **kwargs,
         )
+
+    def post_eviction_tables(self, snap, meta, exclude_uids):
+        """The pod-derived side tables with `exclude_uids` evicted: the
+        preemption dry run's post-eviction Filter view (upstream
+        SelectVictimsOnNode removes victims from the NodeInfo before
+        RunFilterPluginsWithNominatedPods). Decrements the network
+        placed-workload counts of the evicted pods' nodes; the NRT cache
+        view is deliberately untouched (upstream's TopologyMatch reads its
+        own cache, which victim removal does not update either). Returns a
+        snapshot on `snap`'s device sharing every other table with it.
+        (The JAX store also rebuilds the in-tree scheduling tables here;
+        they come with the in-tree plugins.)"""
+        new_network = snap.network
+        if snap.network is not None and meta.workloads:
+            placed = snap.network.placed_node.cpu().numpy().copy()
+            node_pos = {name: i for i, name in enumerate(meta.node_names)}
+            wl_pos = {name: i for i, name in enumerate(meta.workloads)}
+            for uid in set(exclude_uids):
+                pod = self.pods.get(uid)
+                if pod is None or pod.node_name not in node_pos:
+                    continue
+                sel = pod.workload_selector()
+                wc = wl_pos.get(f"{pod.namespace}/{sel}") if sel else None
+                if wc is not None:
+                    ni = node_pos[pod.node_name]
+                    placed[wc, ni] = max(placed[wc, ni] - 1, 0)
+            new_network = snap.network.replace(placed_node=torch.from_numpy(
+                placed).to(snap.device))
+        return snap.replace(network=new_network)

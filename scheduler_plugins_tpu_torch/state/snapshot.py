@@ -14,12 +14,17 @@ int64 tensors with bucketed static shapes:
 - metrics: (N,) load-watcher utilisation percentages and the
          missing-utilization compensation the Trimaran plugins read.
 - numa:  (N, Z, R) NUMA zone availability from the NodeResourceTopology
-         CRs, with the topology-manager policy and scope codes the NUMA
-         plugin reads.
+         CRs (or the NRT cache tier's adjusted view, its stale nodes not
+         fresh), with the topology-manager policy and scope codes the
+         NUMA plugin reads.
+- network: AppGroup dependency rows per pod and per workload class, the
+         (W, N) placed pods per workload and node, and the region of each
+         zone code, which NetworkOverhead reads with the nodes'
+         region / zone codes.
 
 This slice lowers what the ported plugins read; the JAX snapshot's
-network and syscall tables wait for later slices, and node/pod fields
-nothing here reads are left out. The lowering runs in numpy (the
+syscall and in-tree scheduling tables wait for later slices, and
+node/pod fields nothing here reads are left out. The lowering runs in numpy (the
 same arithmetic as the JAX builder, so both packages produce the same
 tensors) and moves the result to the requested device once.
 """
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from scheduler_plugins_tpu_torch.api.objects import (
+    AppGroup,
     ElasticQuota,
     Node,
     NodeResourceTopology,
@@ -96,6 +102,8 @@ class NodeState(_Tensors):
     #: resourcestats.go:225-231)
     limits: torch.Tensor
     mask: torch.Tensor  # (N,) bool — real, schedulable node
+    region: torch.Tensor  # (N,) int32 region code (-1 unset)
+    zone: torch.Tensor  # (N,) int32 zone code (-1 unset)
     pod_count: torch.Tensor  # (N,) int32 assigned pods
 
 
@@ -210,9 +218,9 @@ class NumaState(_Tensors):
     scope: torch.Tensor  # (N,) int32 TopologyManagerScope
     distances: torch.Tensor  # (N, Z, Z) int32 SLIT costs (default 10)
     has_nrt: torch.Tensor  # (N,) bool
-    #: (N,) cache freshness: a stale node is Unschedulable for any
-    #: non-best-effort pod (filter.go:194-197) and scores 0; all True
-    #: until the NRT cache tier marks nodes stale
+    #: (N,) cache freshness: a stale node (the NRT cache tier's
+    #: `stale_nrt_nodes`) is Unschedulable for any non-best-effort pod
+    #: (filter.go:194-197) and scores 0
     fresh: torch.Tensor
     #: (N,) int32 topology-manager MaxNUMANodes (LeastNUMANodes
     #: normalization, least_numa.go:88-102; default 8)
@@ -220,6 +228,31 @@ class NumaState(_Tensors):
     #: static per-resource power-of-2 scales of the float32 NUMA path
     #: (`_numa_pack_scales`), or None: the solve then carries float64
     pack_scales: Optional[tuple] = None
+
+
+@dataclass
+class NetworkState(_Tensors):
+    """AppGroup dependency and placement tensors (networkoverhead.go:
+    448-638). The cost between a candidate node and a placed dependency
+    pod depends only on (region, zone) codes, so placed pods aggregate
+    into per-zone / per-region counts and a cost lookup is a small dense
+    gather. The cost matrices come from the NetworkTopology CR through
+    the plugin (`NetworkOverhead.prepare_cluster`)."""
+
+    dep_workload: torch.Tensor  # (P, D) int32 workload code (-1 pad)
+    dep_max_cost: torch.Tensor  # (P, D) int64
+    dep_mask: torch.Tensor  # (P, D) bool
+    pod_workload: torch.Tensor  # (P,) int32 the pod's workload (-1 none)
+    #: (W, N) int32 placed pods per workload per node; the solve carries
+    #: its live copy (`SolverState.net_placed`), so in-cycle placements
+    #: count for later pods
+    placed_node: torch.Tensor
+    zone_region: torch.Tensor  # (ZC,) int32 region code of each zone
+    #: the dependency rows of each workload class: every pod of a
+    #: workload shares its row, so the batched tallies run once a class
+    cls_dep_workload: torch.Tensor  # (W, D) int32
+    cls_dep_max_cost: torch.Tensor  # (W, D) int64
+    cls_dep_mask: torch.Tensor  # (W, D) bool
 
 
 @dataclass
@@ -231,6 +264,7 @@ class ClusterSnapshot(_Tensors):
     nominees: Optional[NomineeState] = None
     metrics: Optional[MetricsState] = None
     numa: Optional[NumaState] = None
+    network: Optional[NetworkState] = None
 
     @property
     def num_nodes(self) -> int:
@@ -258,6 +292,10 @@ class SnapshotMeta:
     pod_names: list[str] = field(default_factory=list)
     namespaces: list[str] = field(default_factory=list)
     gang_names: list[str] = field(default_factory=list)
+    regions: list[str] = field(default_factory=list)
+    zones: list[str] = field(default_factory=list)
+    #: "namespace/selector" of each workload code
+    workloads: list[str] = field(default_factory=list)
     #: where the snapshot's tensors live; plugins put theirs there too
     device: torch.device = torch.device("cpu")
 
@@ -295,6 +333,8 @@ def build_snapshot(
     node_metrics: Optional[dict] = None,
     tlp_prediction: tuple = (1.5, 1000),
     nrts: Sequence[NodeResourceTopology] = (),
+    stale_nrt_nodes: Sequence[str] = (),
+    app_groups: Sequence[AppGroup] = (),
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
@@ -305,7 +345,8 @@ def build_snapshot(
     with the missing-CPU compensation merged in) becomes the metrics
     table, None leaves it out; `tlp_prediction` (multiplier, default
     millis) parameterizes each pod's `predicted_cpu_millis`. `nrts` become
-    the zone tables (None without any). Codes and
+    the zone tables (None without any), `stale_nrt_nodes` not fresh there;
+    `app_groups` the network table (None without any). Codes and
     padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
@@ -328,6 +369,8 @@ def build_snapshot(
     meta = SnapshotMeta(index=index, device=device)
     meta.node_names = [n.name for n in nodes]
     meta.pod_names = [p.uid for p in pending_pods]
+    regions_in = _Interner(meta.regions)
+    zones_in = _Interner(meta.zones)
     ns_in = _Interner(meta.namespaces)
     gangs_in = _Interner(meta.gang_names)
 
@@ -337,6 +380,8 @@ def build_snapshot(
     requested = np.zeros((N, R), I64)
     node_limits = np.zeros((N, R), I64)
     node_mask = np.zeros(N, bool)
+    region = np.full(N, -1, I32)
+    zone = np.full(N, -1, I32)
     pod_count = np.zeros(N, I32)
     node_pos = {}
     for i, node in enumerate(nodes):
@@ -344,6 +389,10 @@ def build_snapshot(
         alloc[i] = index.encode(node.allocatable)
         capacity[i] = index.encode(node.capacity)
         node_mask[i] = not node.unschedulable
+        if node.region:
+            region[i] = regions_in.code(node.region)
+        if node.zone:
+            zone[i] = zones_in.code(node.zone)
     for pod in assigned_pods:
         if pod.node_name not in node_pos:
             continue
@@ -369,7 +418,8 @@ def build_snapshot(
             nominee_pods.append(pod)
     node_state = NodeState(
         alloc=alloc, capacity=capacity, requested=requested,
-        limits=node_limits, mask=node_mask, pod_count=pod_count,
+        limits=node_limits, mask=node_mask, region=region, zone=zone,
+        pod_count=pod_count,
     )
 
     # --- gangs ---------------------------------------------------------
@@ -545,24 +595,31 @@ def build_snapshot(
 
     numa_state = None
     if nrts:
-        numa_state = _numa_state(nrts, node_pos, index, N, pod_state)
+        numa_state = _numa_state(nrts, node_pos, index, N, pod_state,
+                                 stale_nrt_nodes)
+
+    network_state = None
+    if app_groups:
+        network_state = _network_state(app_groups, pending_pods,
+                                       assigned_pods, node_pos, region, zone,
+                                       meta, P)
 
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
         quota=quota_state, nominees=nominee_state, metrics=metrics_state,
-        numa=numa_state,
+        numa=numa_state, network=network_state,
     )
     return snapshot.to(device), meta
 
 
-def _numa_state(nrts, node_pos: dict, index, N: int,
-                pod_state: PodState) -> NumaState:
+def _numa_state(nrts, node_pos: dict, index, N: int, pod_state: PodState,
+                stale_nrt_nodes=()) -> NumaState:
     """The zone tables (host numpy), as the JAX `build_snapshot` lowers them
     (snapshot.py:848-900): the zone axis is indexed by NUMA id (zone lists
     may arrive unordered, and costs are keyed by id), distances default
-    to 10, MaxNUMANodes to 8; CRs of unknown nodes are skipped. Every
-    node is fresh: the NRT cache tier, which marks stale views, comes
-    with its slice."""
+    to 10, MaxNUMANodes to 8; CRs of unknown nodes are skipped. The
+    known nodes among `stale_nrt_nodes` are not fresh. The row reaches
+    the device with the other zone tables, in the snapshot's one copy."""
     R = len(index)
     Z = max(max((z.numa_id + 1 for t in nrts for z in t.zones), default=1),
             1)
@@ -576,6 +633,9 @@ def _numa_state(nrts, node_pos: dict, index, N: int,
     has_nrt = np.zeros(N, bool)
     fresh = np.ones(N, bool)
     max_numa = np.full(N, 8, I32)
+    for name in stale_nrt_nodes:
+        if name in node_pos:
+            fresh[node_pos[name]] = False
     for t in nrts:
         if t.node_name not in node_pos:
             continue
@@ -676,4 +736,72 @@ def _metrics_state(node_metrics: dict, node_pos: dict, N: int) -> MetricsState:
         cpu_std=cpu_std, mem_avg=mem_avg, mem_std=mem_std,
         cpu_valid=cpu_valid, cpu_tlp_valid=cpu_tlp_valid,
         mem_valid=mem_valid, missing_cpu_millis=missing,
+    )
+
+
+def _network_state(app_groups, pending_pods, assigned_pods, node_pos: dict,
+                   region, zone, meta: SnapshotMeta, P: int) -> NetworkState:
+    """The network table (host numpy), as the JAX builder lowers it
+    (`_build_network`, snapshot.py:988-1060): workload selectors interned
+    as "namespace/selector" in AppGroup order, each pending pod's
+    dependency row, each class's row, the placed pods of the assigned
+    (bound and reserved) pods per workload and node, and the region of
+    each zone code."""
+    workloads_in = _Interner(meta.workloads)
+    dep_lists = {}  # workload code -> [(dependency code, max cost)]
+    for ag in app_groups:
+        for w in ag.workloads:
+            wc = workloads_in.code(f"{ag.namespace}/{w.selector}")
+            dep_lists[wc] = [
+                (workloads_in.code(f"{ag.namespace}/{d.workload_selector}"),
+                 d.max_network_cost)
+                for d in w.dependencies
+            ]
+    W = max(len(meta.workloads), 1)
+    D = max(max((len(v) for v in dep_lists.values()), default=1), 1)
+    ZC = max(len(meta.zones), 1)
+    N = region.shape[0]
+
+    dep_workload = np.full((P, D), -1, I32)
+    dep_max_cost = np.zeros((P, D), I64)
+    dep_mask = np.zeros((P, D), bool)
+    pod_workload = np.full(P, -1, I32)
+    for i, pod in enumerate(pending_pods):
+        sel = pod.workload_selector()
+        wc = workloads_in.get(f"{pod.namespace}/{sel}") if sel else -1
+        if wc < 0:
+            continue
+        pod_workload[i] = wc
+        for d, (dw, mc) in enumerate(dep_lists.get(wc, [])):
+            dep_workload[i, d] = dw
+            dep_max_cost[i, d] = mc
+            dep_mask[i, d] = True
+
+    placed_node = np.zeros((W, N), I32)
+    zone_region = np.full(ZC, -1, I32)
+    for ni in range(N):
+        if zone[ni] >= 0 and region[ni] >= 0:
+            zone_region[zone[ni]] = region[ni]
+    for pod in assigned_pods:
+        sel = pod.workload_selector()
+        if not sel or pod.node_name not in node_pos:
+            continue
+        wc = workloads_in.get(f"{pod.namespace}/{sel}")
+        if wc >= 0:
+            placed_node[wc, node_pos[pod.node_name]] += 1
+
+    cls_dep_workload = np.full((W, D), -1, I32)
+    cls_dep_max_cost = np.zeros((W, D), I64)
+    cls_dep_mask = np.zeros((W, D), bool)
+    for wc, deps in dep_lists.items():
+        for d, (dw, mc) in enumerate(deps):
+            cls_dep_workload[wc, d] = dw
+            cls_dep_max_cost[wc, d] = mc
+            cls_dep_mask[wc, d] = True
+    return NetworkState(
+        dep_workload=dep_workload, dep_max_cost=dep_max_cost,
+        dep_mask=dep_mask, pod_workload=pod_workload,
+        placed_node=placed_node, zone_region=zone_region,
+        cls_dep_workload=cls_dep_workload,
+        cls_dep_max_cost=cls_dep_max_cost, cls_dep_mask=cls_dep_mask,
     )

@@ -15,8 +15,9 @@ import scheduler_plugins_tpu.api.config as jax_config
 from scheduler_plugins_tpu_torch.api import config as port_config
 
 PORTED = ("CapacityScheduling", "Coscheduling", "LoadVariationRiskBalancing",
-          "LowRiskOverCommitment", "NodeResourceTopologyMatch",
-          "NodeResourcesAllocatable", "Peaks", "TargetLoadPacking")
+          "LowRiskOverCommitment", "NetworkOverhead",
+          "NodeResourceTopologyMatch", "NodeResourcesAllocatable", "Peaks",
+          "TargetLoadPacking", "TopologicalSort")
 
 #: per plugin, the attributes its constructor arguments land in
 ATTRS = {
@@ -34,14 +35,15 @@ ATTRS = {
                               "watcher_address", "metric_provider"),
     "Peaks": ("node_power_model", "watcher_address", "metric_provider"),
     "NodeResourceTopologyMatch": ("strategy", "resources"),
+    "NetworkOverhead": ("weights_name", "network_topology_name",
+                        "namespaces"),
+    "TopologicalSort": ("namespaces",),
 }
 
 TRIMARAN = ("TargetLoadPacking", "LoadVariationRiskBalancing",
             "LowRiskOverCommitment", "Peaks")
 
 CONFIGS = [
-    # NodeResourceTopologyMatch has its own configurations below: JAX's
-    # `profile_spec` exports its cache arguments, which the port refuses
     {"plugins": [p for p in PORTED if p != "NodeResourceTopologyMatch"]},
     {"plugins": ["Coscheduling"],
      "pluginConfig": [{"name": "Coscheduling",
@@ -101,6 +103,20 @@ NUMA_CONFIGS = [
      "weights": [1, 4]},
 ]
 
+NETWORK_CONFIGS = [
+    {"plugins": ["NetworkOverhead", "TopologicalSort"]},
+    {"profileName": "net",
+     "plugins": ["TopologicalSort", "NodeResourcesAllocatable",
+                 "NetworkOverhead"],
+     "pluginConfig": [
+         {"name": "NetworkOverhead",
+          "args": {"weightsName": "Custom",
+                   "networkTopologyName": "nt-west",
+                   "namespaces": ["a", "b"]}},
+         {"name": "TopologicalSort", "args": {"namespaces": ["a"]}}],
+     "weights": [1, 2, 5]},
+]
+
 
 def summary(profile):
     plugins = [
@@ -129,6 +145,21 @@ def test_load_profile_matches_jax(config):
 def test_numa_load_profile_matches_jax(config):
     assert (summary(port_config.load_profile(config))
             == summary(jax_config.load_profile(config)))
+
+
+@pytest.mark.parametrize("config", NETWORK_CONFIGS,
+                         ids=range(len(NETWORK_CONFIGS)))
+def test_network_load_profile_and_spec_match_jax(config):
+    """The network-aware pair loads as JAX's loader builds it (arguments,
+    weights, TopologicalSort as the queue sort), exports JAX's spec and
+    round-trips."""
+    assert (summary(port_config.load_profile(config))
+            == summary(jax_config.load_profile(config)))
+    spec = port_config.profile_spec(port_config.load_profile(config))
+    assert spec == jax_config.profile_spec(jax_config.load_profile(config))
+    assert port_config.profile_spec(port_config.load_profile(spec)) == spec
+    assert port_config.load_profile(config).queue_sort.name == \
+        "TopologicalSort"
 
 
 def test_defaults_and_capacity_engine():

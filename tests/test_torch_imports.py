@@ -46,7 +46,10 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.ops.numa",
         "scheduler_plugins_tpu_torch.plugins.noderesourcetopology",
         "scheduler_plugins_tpu_torch.ops.assign",
-        "scheduler_plugins_tpu_torch.parallel.solver"} <= set(names), names
+        "scheduler_plugins_tpu_torch.parallel.solver",
+        "scheduler_plugins_tpu_torch.state.nrt_cache",
+        "scheduler_plugins_tpu_torch.ops.network",
+        "scheduler_plugins_tpu_torch.plugins.networkaware"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))

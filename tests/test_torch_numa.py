@@ -731,28 +731,57 @@ def test_cycle_matches_jax_with_nrt_events():
 
 
 class TestGuards:
-    def test_cache_arguments_raise(self):
+    def test_cache_arguments_build_a_cache(self):
+        """Invalid arguments raise as JAX's constructor raises them; the
+        cache arguments themselves build the cache tier
+        (`tests/test_torch_nrt_cache.py` holds it against JAX)."""
         for kw in ({"cache_resync_period_seconds": 5},
                    {"discard_reserved_nodes": True}, {"cache": {}}):
-            with pytest.raises(NotImplementedError, match="NRT cache"):
-                NodeResourceTopologyMatch(**kw)
+            assert NodeResourceTopologyMatch(**kw)._cache_args_given
         with pytest.raises(ValueError, match=">= 0"):
             NodeResourceTopologyMatch(cache_resync_period_seconds=-1)
         with pytest.raises(ValueError, match="illegal"):
             NodeResourceTopologyMatch(scoring_strategy="Nope")
-        with pytest.raises(NotImplementedError, match="NRT cache"):
+        with pytest.raises(ValueError, match="informerMode"):
             port_config.load_profile({
                 "plugins": ["NodeResourceTopologyMatch"],
                 "pluginConfig": [{"name": "NodeResourceTopologyMatch",
-                                  "args": {"cacheResyncPeriodSeconds": 5}}]})
+                                  "args": {"cacheResyncPeriodSeconds": 5,
+                                           "cache": {"informerMode": "x"}}}]})
 
-    def test_store_with_a_cache_refuses_to_snapshot(self):
+    def test_snapshot_reads_the_cache_view(self):
+        """A store with a cache snapshots the cache's view: a reserved
+        pod's request leaves every zone of its node, and a stale node is
+        not fresh."""
+        from scheduler_plugins_tpu_torch.state.nrt_cache import (
+            OverReserveCache,
+        )
+
         cluster, _ = numa_case("config3_small", PORT)
-        cluster.nrt_cache = object()
-        with pytest.raises(NotImplementedError, match="NRT cache"):
-            cluster.snapshot(cluster.pending_pods(), device="cpu")
+        plain, _ = cluster.snapshot(cluster.pending_pods(), device="cpu")
+        cache = OverReserveCache()
+        for t in cluster.nrts.values():
+            cache.update_nrt(t)
+        cluster.nrt_cache = cache
+        pod = cluster.pending_pods()[0]
+        cluster.reserve(pod.uid, "node-00003")
+        cache.foreign.add("node-00005")
+        snap, meta = cluster.snapshot(cluster.pending_pods(), device="cpu")
+        n3 = meta.node_names.index("node-00003")
+        n5 = meta.node_names.index("node-00005")
+        cpu = meta.index.position("cpu")
+        want = plain.numa.available[n3, :, cpu] - pod.effective_request()[
+            "cpu"]
+        assert torch.equal(snap.numa.available[n3, :, cpu], want)
+        assert not snap.numa.fresh[n5] and snap.numa.fresh.sum() == (
+            plain.numa.fresh.sum() - 1)
 
     def test_profile_spec_round_trip(self):
+        """The port exports what JAX's `profile_spec` exports, the
+        plugin's default cache arguments (cacheResyncPeriodSeconds 0,
+        discardReservedNodes False) included, so a reload of the spec
+        counts them as given and installs the passthrough cache in both
+        packages."""
         config = {"plugins": ["NodeResourceTopologyMatch"],
                   "pluginConfig": [{"name": "NodeResourceTopologyMatch",
                                     "args": {
@@ -760,18 +789,15 @@ class TestGuards:
                                         "resources": [["cpu", 3]]}}]}
         spec = port_config.profile_spec(port_config.load_profile(config))
         want = jax_config.profile_spec(jax_config.load_profile(config))
-        # JAX's export carries its plugin's default cache arguments
-        # (cacheResyncPeriodSeconds 0, discardReservedNodes False), so its
-        # round trip installs the passthrough cache; the port, which
-        # refuses cache arguments until the NRT cache slice, leaves them
-        # out
-        for entry in want["pluginConfig"]:
-            for key in ("cacheResyncPeriodSeconds", "discardReservedNodes"):
-                entry["args"].pop(key)
         assert spec == want
         again = port_config.load_profile(spec).plugins[0]
         assert again.strategy == "MostAllocated"
         assert [tuple(r) for r in again.resources] == [("cpu", 3)]
+        assert again._cache_args_given and not port_config.load_profile(
+            config).plugins[0]._cache_args_given
+        jagain = jax_config.load_profile(want).plugins[0]
+        assert type(again.make_cache()).__name__ == type(
+            jagain.make_cache()).__name__ == "PassthroughCache"
 
 
 @pytest.mark.cuda

@@ -8,7 +8,10 @@ with the profile configuration each package loads with its own
 `api.config.load_profile`; it imports neither package itself.
 `numa_cycle_script(pkg)` is a multi-cycle script in the form of
 `tests/test_torch_cycle.py`'s scripts (`pkg.o`, `pkg.Cluster`,
-`pkg.Profile`, `pkg.Scheduler`, `pkg.plugins`)."""
+`pkg.Profile`, `pkg.Scheduler`, `pkg.plugins`); `nrt_cache_script(pkg)`
+is one through the NRT cache tier (it also reads `pkg.nrt_cache`, the
+package's `state.nrt_cache`), and `cache_state(cache)` the cache's
+bookkeeping in a form both packages' caches compare in."""
 
 from __future__ import annotations
 
@@ -233,6 +236,124 @@ def numa_cycle_script(pkg):
         pods("c", 6, 200)
 
     return c, sched, [(1000, None), (2000, grow), (3000, shrink)]
+
+
+def nrt_cache_script(pkg, informer_mode="Dedicated"):
+    """Four cycles of a NUMA profile whose cacheResyncPeriodSeconds (1)
+    installs the over-reserve cache: five nodes of two 4000m zones and
+    guaranteed 1500m pods.
+
+    - cycle 1 binds six pods; the cache assumes each bound pod on every
+      zone of its node;
+    - before cycle 2 eight more pods arrive, the agent has published
+      nothing, and a pod of another scheduler lands on n4: the assumed
+      deduction blocks the overcommit (only nodes holding one pod take
+      one more), n4 is stale, and the failures mark the nodes with
+      assumed pods maybe-overreserved;
+    - before cycle 3 the agent reports n0, n1 and n4 with fingerprints
+      that match the pods the store has there, n2 with a stale
+      fingerprint and n3 with none: cycle 3's resync flushes n0, n1 and
+      n4 (one generation), and their freed zones take new pods;
+    - before cycle 4 the pod bound last on n0 is deleted, which drops its
+      deduction, and two more arrive.
+    """
+    o = pkg.o
+    c = pkg.Cluster()
+    zones = [{"cpu": 4000, "memory": 16 * GIB}] * 2
+    for i in range(5):
+        c.add_node(o.Node(name=f"n{i}", allocatable={
+            "cpu": 16_000, "memory": 64 * GIB, "pods": 40}))
+        c.add_nrt(nrt(o, f"n{i}", zones))
+
+    def pods(cluster, prefix, n, start):
+        for j in range(n):
+            cluster.add_pod(o.Pod(
+                name=f"{prefix}{j}", creation_ms=start + j,
+                containers=[o.Container(
+                    requests={"cpu": 1500, "memory": GIB},
+                    limits={"cpu": 1500, "memory": GIB})]))
+
+    pods(c, "a", 6, 0)
+    sched = pkg.Scheduler(pkg.Profile(plugins=[
+        pkg.plugins.NodeResourceTopologyMatch(
+            cache_resync_period_seconds=1,
+            cache={"informerMode": informer_mode})]))
+
+    def overcommit(pkg, cluster):
+        pods(cluster, "b", 8, 100)
+        alien = pkg.o.Pod(
+            name="alien", scheduler_name="default-scheduler",
+            phase=pkg.o.PodPhase.RUNNING,
+            containers=[pkg.o.Container(requests={"cpu": 500})])
+        alien.node_name = "n4"
+        cluster.add_pod(alien)
+
+    def agent_reports(pkg, cluster):
+        fingerprint = pkg.nrt_cache.compute_pod_fingerprint
+        for name in ("n0", "n1", "n2", "n3", "n4"):
+            on_node = [(p.namespace, p.name) for p in cluster.pods.values()
+                       if p.node_name == name]
+            used = 1500 * len(on_node)
+            report = nrt(pkg.o, name, [
+                {"cpu": 4000 - used // 2 - used % 2000, "memory": 16 * GIB},
+                {"cpu": 4000 - used // 2, "memory": 16 * GIB}])
+            if name == "n2":
+                on_node = on_node[:-1]  # the agent has not caught up
+            if name != "n3":  # n3's agent stamps no fingerprint
+                report.pod_fingerprint = fingerprint(on_node)
+            cluster.add_nrt(report)
+        pods(cluster, "c", 4, 200)
+
+    def churn(pkg, cluster):
+        last = [p for p in cluster.pods.values() if p.node_name == "n0"][-1]
+        cluster.remove_pod(last.uid)
+        pods(cluster, "d", 2, 300)
+
+    return c, sched, [(1000, None), (2000, overcommit),
+                      (3000, agent_reports), (4000, churn)]
+
+
+def cache_state(cache) -> dict:
+    """The NRT cache's bookkeeping as plain data, equal across the two
+    packages: the NRT copies and pending reports as (node, policy,
+    scope, fingerprint, zones) tuples, the assumed map, the flag sets,
+    the generation, the reservations and the resync clock (whichever the
+    cache has), plus `view()`."""
+    def nrt_tuple(t):
+        return (t.node_name, int(t.policy), int(t.scope), t.max_numa_nodes,
+                t.pod_fingerprint, t.pod_fingerprint_method,
+                [(z.numa_id, sorted(z.available.items()),
+                  sorted(z.allocatable.items()), sorted(z.costs.items()))
+                 for z in t.zones])
+
+    if cache is None:
+        return None
+    out = {"type": type(cache).__name__}
+    for attr in ("nrts", "pending"):
+        if hasattr(cache, attr):
+            out[attr] = [nrt_tuple(t) for _, t in
+                         sorted(getattr(cache, attr).items())]
+    if hasattr(cache, "assumed"):
+        out["assumed"] = sorted(
+            (node, sorted((uid, (ns, name, sorted(req.items())))
+                          for uid, (ns, name, req) in entries.items()))
+            for node, entries in cache.assumed.items())
+    for attr in ("foreign", "maybe_overreserved", "attr_changed"):
+        if hasattr(cache, attr):
+            out[attr] = sorted(getattr(cache, attr))
+    if hasattr(cache, "reservations"):
+        out["reservations"] = sorted(
+            (node, sorted(uids)) for node, uids in cache.reservations.items())
+    for attr in ("generation", "resync_period_ms", "_last_resync_ms",
+                 "our_schedulers", "informer_mode", "resync_method",
+                 "foreign_pods_detect"):
+        if hasattr(cache, attr):
+            value = getattr(cache, attr)
+            out[attr] = sorted(value) if isinstance(value, set) else value
+    view, stale = cache.view()
+    out["view"] = [nrt_tuple(t) for t in view]
+    out["stale"] = sorted(stale)
+    return out
 
 
 def zone_violations(snap, affine, host_level, assignment, order=None) -> int:

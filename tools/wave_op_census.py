@@ -30,7 +30,9 @@ first 64 and the first 128 queued pods of bench config 4's cluster
 their counts over 64 is one step's `aten` / `views` / `launching` ops.
 `by_op` lists the launching ops a step dispatches, by name.
 `parity_step_config3` is the same for bench config 3
-(`numa_scenario(1024, 512, zones=8)`, NodeResourceTopologyMatch).
+(`numa_scenario(1024, 512, zones=8)`, NodeResourceTopologyMatch), and
+`parity_step_config5` for bench config 5 (`network_scenario(1024, 1024)`,
+NetworkOverhead + TopologicalSort).
 
 `batch`: `profile_batch_solve(collect_stats=True)` of bench configs 3 and
 2 (`trimaran_scenario(5000, 2048)`, TLP + LVRB) at full width: its waves,
@@ -147,11 +149,13 @@ def _op_counter():
 
 def _problem(which: str):
     """(cluster, scheduler) of bench config 4 (the flagship profile), 3
-    (NUMA) or 2 (TLP + LVRB) at full width."""
+    (NUMA), 5 (NetworkOverhead + TopologicalSort) or 2 (TLP + LVRB) at
+    full width."""
     from scheduler_plugins_tpu_torch import plugins as P
     from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
     from scheduler_plugins_tpu_torch.models import (
         gang_quota_scenario,
+        network_scenario,
         numa_scenario,
         trimaran_scenario,
     )
@@ -163,6 +167,9 @@ def _problem(which: str):
     if which == "config3":
         return numa_scenario(1024, 512, zones=8), Scheduler(Profile(
             plugins=[P.NodeResourceTopologyMatch()]))
+    if which == "config5":
+        return network_scenario(1024, 1024), Scheduler(Profile(
+            plugins=[P.NetworkOverhead(), P.TopologicalSort()]))
     return trimaran_scenario(5000, 2048), Scheduler(Profile(plugins=[
         P.TargetLoadPacking(), P.LoadVariationRiskBalancing()]))
 
@@ -231,6 +238,7 @@ def main(argv=None) -> int:
         **census(root),
         "parity_step": parity_step_census(root),
         "parity_step_config3": parity_step_census(root, which="config3"),
+        "parity_step_config5": parity_step_census(root, which="config5"),
         "batch": batch_census(root),
     }))
     return 0
