@@ -185,6 +185,16 @@ CONFIG3 = dict(n_nodes=1024, n_pods=512, zones=8)
 #: bench config 5 (`bench.py:4510-4514`): `network_scenario(1024, 1024)`,
 #: NetworkOverhead + TopologicalSort, uncut
 CONFIG5 = dict(n_nodes=1024, n_pods=1024)
+#: the in-tree phase's problems at full width: the JAX package's
+#: full-roster mixed profile (NodeResourcesAllocatable,
+#: NodeResourceTopologyMatch, NetworkOverhead, PodTopologySpread) on
+#: `mixed_scenario(1024, 1024)`, and the in-tree roster (NodeAffinity,
+#: TaintToleration, PodTopologySpread, InterPodAffinity beside
+#: NodeResourcesAllocatable) on `tests/torch_intree_cases.intree_cluster`
+MIXED_FULL = dict(n_nodes=1024, n_pods=1024)
+INTREE_1K = dict(n_nodes=1024, n_pods=1024, n_bound=256)
+#: pods added between the in-tree phase's two cycles, with a Namespace
+INTREE_CYCLE2_PODS = 256
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -1927,6 +1937,21 @@ def batch_drive(label: str, cluster, make_scheduler, device) -> None:
         # the waves re-filter against the earlier waves' placements
         viol["dependency"] = network_dependency_violations(
             cluster, outs["cpu"][5], a, cpu_stats["wave_of"].numpy())
+    validators = None
+    if outs["cpu"][4].scheduling is not None:
+        # each wave's winners re-checked in queue order after the
+        # earlier waves: the oracle replays them so
+        viol.update({f"intree_{k}": v for k, v in intree_oracle(
+            cluster, outs["cpu"][5], a,
+            cpu_stats["wave_of"].numpy()).items()})
+        per_row = validator_walk(make_scheduler, cluster, device)
+        validators = {
+            "rows_per_wave": [rows for rows, _ in stats["walk"]],
+            "host_s_per_wave": [walk_s for _, walk_s in stats["walk"]],
+            "launches_per_row": per_row,
+            "launches_per_wave": [rows * per_row
+                                  for rows, _ in stats["walk"]],
+        }
     placed = int((a >= 0).sum())
     waves = stats["waves"]
     print(f"[batch] {label} nodes={len(meta.node_names)} "
@@ -1937,14 +1962,61 @@ def batch_drive(label: str, cluster, make_scheduler, device) -> None:
           f"occupancy={stats['occupancy'].tolist()} host_syncs={syncs} "
           f"host_syncs_per_wave="
           f"{None if syncs is None else syncs / max(waves, 1)} "
+          f"validators={validators} "
           f"identical={not differ} violations={viol}", flush=True)
     no_election_launches("batch", label, launches)
+    if validators is not None and syncs is not None and syncs != waves:
+        raise AssertionError(f"{label}: {syncs} host syncs in {waves} "
+                             f"waves, not one a wave")
     if differ:
         raise AssertionError(f"{label}: card != CPU in {differ}")
     if any(viol.values()):
         raise AssertionError(f"{label}: hard-constraint violations {viol}")
     if placed == 0:
         raise AssertionError(f"{label}: nothing placed")
+
+
+#: queued pods of a problem whose batched solve the profiler counts the
+#: validator walk's kernel launches on
+WALK_PROFILE_PODS = 128
+
+
+def validator_walk(make_scheduler, cluster, device) -> float:
+    """Kernel launches a row of the batched solve's validator walk, from a
+    `torch.profiler` run of `profile_batch_solve` over the cluster's first
+    WALK_PROFILE_PODS queued pods on `device` (two waves at most): each
+    wave's walk is the
+    `validate_wave` range (`ops.assign`), so the launches that start
+    inside those ranges, over the rows the walks visited, are the
+    validators' and the selector commits' a row. (Profiling the whole
+    solve would cost more host time than it measures.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        profile_batch_solve,
+    )
+
+    sched = make_scheduler()
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    n = WALK_PROFILE_PODS
+    snap, meta = cluster.snapshot(pending[:n], now_ms=0, device=device,
+                                  pad_pods=n)
+    sched.prepare(meta, cluster)
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = profile_batch_solve(sched, snap, max_waves=2,
+                                    collect_stats=True, device=device)[3]
+        _sync(device)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    walks = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "validate_wave"]
+    launches = sum(
+        1 for e in events
+        if e.name.startswith("cu") and "LaunchKernel" in e.name
+        and any(lo <= e.time_range.start <= hi for lo, hi in walks))
+    return launches / max(sum(rows for rows, _ in stats["walk"]), 1)
 
 
 def batch_phase(device) -> None:
@@ -1962,6 +2034,270 @@ def batch_phase(device) -> None:
                 flagship_scheduler, device)
     batch_drive("batch_config5", config5_cluster(), config5_scheduler,
                 device)
+
+
+def intree_problem(name: str):
+    """(make_cluster, make_scheduler) of the in-tree phase's problem
+    `mixed_full` or `intree_1k`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+    from scheduler_plugins_tpu_torch.models import mixed_scenario
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_intree_cases import INTREE, MIXED, intree_cluster
+
+    if name == "mixed_full":
+        return (lambda: mixed_scenario(**MIXED_FULL),
+                lambda: Scheduler(load_profile(MIXED)))
+    pkg = SimpleNamespace(objects=objects, Cluster=Cluster)
+    return (lambda: intree_cluster(pkg, **INTREE_1K),
+            lambda: Scheduler(load_profile(INTREE)))
+
+
+def intree_oracle(cluster, meta, assignment, wave_of=None) -> dict:
+    """`tests/torch_intree_cases.intree_violations` of a solve of the
+    batch `meta` names: fit, node affinity, NoSchedule taints, spread
+    skew per DoNotSchedule constraint, required affinity, anti-affinity
+    and its symmetry, replayed on the host in queue order (or wave by
+    wave, each wave in queue order)."""
+    _tests_on_path()
+    from torch_intree_cases import intree_violations
+
+    pending = [cluster.pods[uid] for uid in meta.pod_names]
+    return intree_violations(cluster, pending, assignment.cpu().numpy(),
+                             meta.node_names, wave_of=wave_of)
+
+
+def intree_parity(label: str, make_cluster, make_scheduler, device):
+    """`Scheduler.solve` of the problem on the card, first under sync-debug
+    "error" (`cold_s`), then timed (`solve_s`), and on the CPU: every
+    output and final carry (the four selector carries included)
+    identical, no violation of `parity_violations` or `intree_oracle`,
+    no election kernel launched. Returns the cluster."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+
+    cluster = make_cluster()
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        sched = make_scheduler()
+        for plugin in sched.profile.plugins:
+            plugin.configure_cluster(cluster)
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+        sched.prepare(meta, cluster)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        runs = []
+        pk.reset_launches()
+        for debug in ((True, False) if dev is device else (False,)):
+            t0 = time.perf_counter()
+            with (sync_errors(dev) if debug else contextlib.nullcontext()):
+                result = sched.solve(snap, device=dev)
+            _sync(dev)
+            runs.append(time.perf_counter() - t0)
+        outs.append((result, snap, meta, setup_s, runs, pk.launches()))
+    (result, snap, meta, setup_s, runs, launches), (
+        on_cpu, snap_cpu, meta_cpu, _, (cpu_s,), _) = outs
+    got, want = parity_outputs(result), parity_outputs(on_cpu)
+    differ = [k for k in got if (got[k] is None) != (want[k] is None) or (
+        got[k] is not None and not torch.equal(got[k].cpu(), want[k]))]
+    viol = parity_violations(snap_cpu, on_cpu)
+    viol.update(intree_oracle(cluster, meta_cpu, on_cpu.assignment))
+    P = snap.num_pods
+    cold_s, solve_s = runs
+    sc = snap_cpu.scheduling
+    codes = on_cpu.failed_plugin.numpy()
+    failed_by = dict(zip(*[v.tolist() for v in np.unique(
+        codes[codes >= 0], return_counts=True)]))
+    print(
+        f"[intree] parity_{label} nodes={len(meta.node_names)} "
+        f"pods={len(meta.pod_names)} rows={P} setup_s={setup_s:.3f} "
+        f"scheduling_tables_s={meta.scheduling_s:.4f} cold_s={cold_s:.3f} "
+        f"solve_s={solve_s:.3f} ms_per_pod={solve_s * 1e3 / P:.4f} "
+        f"pods_per_s={P / solve_s:.1f} cpu_s={cpu_s:.3f} "
+        f"cpu_ms_per_pod={cpu_s * 1e3 / P:.4f} "
+        f"placed={int((on_cpu.assignment >= 0).sum())} "
+        f"failed_by={failed_by} "
+        f"tracks={tuple(sc.track_base.shape)} "
+        f"node_counts={sc.spread_needs_node_counts} "
+        f"anti={None if sc.exist_anti_base is None else tuple(sc.exist_anti_base.shape)} "
+        f"sym={None if sc.sym_base is None else tuple(sc.sym_base.shape)} "
+        f"identical={not differ} violations={viol}", flush=True)
+    no_election_launches("intree", f"parity_{label}", launches)
+    if differ:
+        raise AssertionError(f"{label}: card != CPU in {differ}")
+    if any(viol.values()):
+        raise AssertionError(f"{label}: hard-constraint violations {viol}")
+    return cluster
+
+
+def add_late_pods(cluster, make_cluster_of) -> None:
+    """Between the in-tree phase's two cycles: a Namespace labelled
+    tier=prod (an InterPodAffinity event) and INTREE_CYCLE2_PODS new
+    pending pods of the problem's kinds, drawn with another seed."""
+    from scheduler_plugins_tpu_torch.api import objects
+
+    cluster.add_namespace(objects.Namespace(name="prod-c",
+                                            labels={"tier": "prod"}))
+    donor = make_cluster_of(INTREE_CYCLE2_PODS)
+    for pod in donor.pods.values():
+        if pod.node_name is not None:
+            continue
+        pod.name = f"late-{pod.name}"
+        pod.uid = f"{pod.namespace}/{pod.name}"
+        pod.creation_ms += 1_000_000
+        cluster.add_pod(pod)
+
+
+def intree_cycles(label: str, make_cluster, make_scheduler, make_late,
+                  device) -> None:
+    """Two `run_cycle`s of the problem on the card and, from a fresh
+    cluster, on the CPU, with `add_late_pods` between them: identical
+    reports and store bookkeeping after each, no store violation, no
+    election kernel launched; each cycle's stage times (the scheduling
+    tables' host seconds among them) printed."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    states = []
+    for dev in (device, torch.device("cpu")):
+        cluster = make_cluster()
+        sched = make_scheduler()
+        pk.reset_launches()
+        out = []
+        for k, now in enumerate((1000, 2000)):
+            if k:
+                add_late_pods(cluster, make_late)
+            timings = {}
+            t0 = time.perf_counter()
+            report = run_cycle(sched, cluster, now=now, device=dev,
+                               timings=timings)
+            _sync(dev)
+            cycle_s = time.perf_counter() - t0
+            viol = store_violations(cluster)
+            print(f"[intree] cycle_{label} cycle={k + 1} device={dev.type} "
+                  f"pods={len(cluster.pods)} cycle_s={cycle_s} "
+                  f"stage_s={timings} bound={len(report.bound)} "
+                  f"failed={len(report.failed)} "
+                  f"failed_by={sorted(set(report.failed_by.values()))} "
+                  f"skipped={len(report.skipped)} violations={viol}",
+                  flush=True)
+            if any(viol.values()) or not report.bound:
+                raise AssertionError(f"{label} cycle {k + 1} on {dev}: "
+                                     f"{viol}, {len(report.bound)} bound")
+            out.append(cycle_state(report, cluster))
+        no_election_launches("intree", f"cycle_{label} device={dev.type}",
+                             pk.launches())
+        states.append(out)
+    if states[0] != states[1]:
+        raise AssertionError(f"{label} cycles: card != CPU")
+    print(f"[intree] cycle_{label} identical=True", flush=True)
+
+
+def intree_preemption(device) -> None:
+    """`tests/torch_intree_cases.intree_preemption_script` (three cycles
+    with DEFAULT preemption: an anti-affinity victim whose eviction frees
+    the domain, then a symmetric block lifted by evicting its carrier) on
+    the card and on the CPU, compared cycle by cycle; the nominations are
+    the ones the post-eviction re-filter makes."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from scheduler_plugins_tpu_torch import plugins
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import (
+        Profile,
+        Scheduler,
+        run_cycle,
+    )
+    from scheduler_plugins_tpu_torch.framework import preemption
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_intree_cases import intree_preemption_script
+
+    pkg = SimpleNamespace(o=objects, Cluster=Cluster, Profile=Profile,
+                          Scheduler=Scheduler, plugins=plugins,
+                          pre=preemption)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        cluster, sched, steps = intree_preemption_script(pkg)
+        pk.reset_launches()
+        out, reports = [], []
+        for now, mutate in steps:
+            if mutate is not None:
+                mutate(pkg, cluster)
+            report = run_cycle(sched, cluster, now=now, device=dev)
+            reports.append(report)
+            out.append(cycle_state(report, cluster))
+            print(f"[intree] preemption device={dev.type} now={now} "
+                  f"bound={report.bound} failed_by={report.failed_by} "
+                  f"preempted={report.preempted}", flush=True)
+        no_election_launches("intree", f"preemption device={dev.type}",
+                             pk.launches())
+        runs[dev.type] = (out, reports)
+    (card, reports), (cpu, _) = runs[device.type], runs["cpu"]
+    want = [{"default/claimant": ("n0", ["default/db-0"])}, {},
+            {"default/db-1": ("n0", ["default/claimant"])}]
+    got = [r.preempted for r in reports]
+    print(f"[intree] preemption identical={card == cpu} "
+          f"nominations={got}", flush=True)
+    if card != cpu:
+        raise AssertionError("in-tree preemption script: card != CPU")
+    if got != want:
+        raise AssertionError(f"in-tree preemption script: {got}")
+
+
+def intree_phase(device) -> None:
+    """Phase 14: the in-tree plugins and the batched solve's validators on
+    `mixed_full` and `intree_1k` at 1,024 nodes x 1,024 pods: the parity
+    solve with the work a step enqueues, two cycles, the batched solve
+    through the validator branch (card == CPU everywhere, 0 oracle
+    violations, no election kernel), then the preemption script."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.models import mixed_scenario
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_intree_cases import intree_cluster
+
+    pkg = SimpleNamespace(objects=objects, Cluster=Cluster)
+    late = {
+        "mixed_full": lambda n: mixed_scenario(1, n, seed=1),
+        "intree_1k": lambda n: intree_cluster(pkg, 1, n, 0, seed=1),
+    }
+    t_phase = time.perf_counter()
+    for label in ("mixed_full", "intree_1k"):
+        t0 = time.perf_counter()
+        make_cluster, make_scheduler = intree_problem(label)
+        cluster = intree_parity(label, make_cluster, make_scheduler, device)
+        launches_per_step(cluster, device, make_scheduler=make_scheduler,
+                          label=f"{label} ")
+        batch_drive(f"batch_{label}", cluster, make_scheduler, device)
+        del cluster
+        intree_cycles(label, make_cluster, make_scheduler, late[label],
+                      device)
+        print(f"[intree] {label} phase_s={time.perf_counter() - t0}",
+              flush=True)
+    intree_preemption(device)
+    print(f"[intree] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
 def kernel_table(north: dict, device) -> list:
@@ -2096,7 +2432,10 @@ def main() -> int:
     # 13. the batched profile solve on configs 3, 2, 4 and 5
     batch_phase(device)
 
-    # 14. the kernel table, the card, the result
+    # 14. the in-tree plugins and the batched solve's validators
+    intree_phase(device)
+
+    # 15. the kernel table, the card, the result
     print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

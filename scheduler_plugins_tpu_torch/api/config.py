@@ -78,6 +78,14 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
         "namespaces": "namespaces",
     },
     "TopologicalSort": {"namespaces": "namespaces"},
+    "NodeAffinity": {"addedAffinity": "added_affinity"},
+    "TaintToleration": {},
+    "PodTopologySpread": {},
+    "InterPodAffinity": {
+        "hardPodAffinityWeight": "hard_pod_affinity_weight",
+        "ignorePreferredTermsOfExistingPods":
+            "ignore_preferred_terms_of_existing_pods",
+    },
 }
 
 #: the JAX package's full plugin roster: the names the port has not
@@ -106,6 +114,10 @@ def _registry():
         "NodeResourceTopologyMatch": p.NodeResourceTopologyMatch,
         "NetworkOverhead": p.NetworkOverhead,
         "TopologicalSort": p.TopologicalSort,
+        "NodeAffinity": p.NodeAffinity,
+        "TaintToleration": p.TaintToleration,
+        "PodTopologySpread": p.PodTopologySpread,
+        "InterPodAffinity": p.InterPodAffinity,
     }
 
 
@@ -158,8 +170,11 @@ def profile_spec(profile: Profile) -> dict:
     the renamed ones); what is not JSON-able is left out, and so is an
     arg whose plugin keeps it under another name with no override (the
     Trimaran plugins' targetUtilization, safeVariance*, smoothingWindowSize,
-    riskLimitWeights and defaultRequests: the JAX package's export drops
-    them too, and the port's matches it). NodeResourceTopologyMatch
+    riskLimitWeights and defaultRequests, InterPodAffinity's
+    ignorePreferredTermsOfExistingPods: the JAX package's export drops
+    them too, and the port's matches it). NodeAffinity's addedAffinity
+    terms are objects, not JSON, and are left out as JAX leaves them out;
+    `load_profile` takes their wire form. NodeResourceTopologyMatch
     exports its cacheResyncPeriodSeconds and discardReservedNodes even at
     their defaults (0, False), and no `cache` block, as JAX's does: a
     reload of the spec then counts them as given and installs the

@@ -5,7 +5,7 @@ The "Resource/Action" strings the store's mutators note
 that plugin failed re-enters the queue only on one of its events. The kinds
 of the objects the port's store holds (nodes, pods, PodGroups,
 ElasticQuotas, NodeResourceTopologies, AppGroups, NetworkTopologies,
-PodDisruptionBudgets); the rest come with their objects.
+PodDisruptionBudgets, Namespaces); the rest come with their objects.
 """
 
 from __future__ import annotations
@@ -34,3 +34,5 @@ NETWORK_TOPOLOGY_DELETE = "NetworkTopology/Delete"
 PDB_ADD = "PodDisruptionBudget/Add"
 PDB_UPDATE = "PodDisruptionBudget/Update"
 PDB_DELETE = "PodDisruptionBudget/Delete"
+NAMESPACE_ADD = "Namespace/Add"
+NAMESPACE_UPDATE = "Namespace/Update"

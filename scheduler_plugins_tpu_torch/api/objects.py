@@ -5,7 +5,10 @@ and its QoS class, the two CRDs the admission reads, `PodGroup` (gang)
 and `ElasticQuota`, the `PodDisruptionBudget` that preemption reads, and
 the `NodeResourceTopology` CR with its `NUMAZone`s that the NUMA plugin
 reads, and the network-aware CRs (`AppGroup`, `NetworkTopology`) that
-NetworkOverhead and TopologicalSort read. Derived-request
+NetworkOverhead and TopologicalSort read, and the core/v1 scheduling-spec
+fragments the in-tree plugins read (taints and tolerations, label and
+node selectors, topology spread constraints, pod (anti-)affinity terms,
+the `Namespace` a namespaceSelector targets). Derived-request
 semantics follow the reference: the effective request is max(sum of app
 containers, max over init containers) plus overhead (upstream
 pkg/util/resource.go:45-85). The Trimaran plugins add the pod's effective
@@ -54,6 +57,222 @@ class PodPhase(enum.StrEnum):
     UNKNOWN = "Unknown"
 
 
+# -- in-tree scheduling-spec fragments (upstream core/v1 types) -------------
+
+@dataclass
+class Taint:
+    """core/v1 Taint. Effects: NoSchedule | PreferNoSchedule | NoExecute."""
+
+    key: str
+    value: str = ""
+    effect: str = "NoSchedule"
+
+
+@dataclass
+class Toleration:
+    """core/v1 Toleration, with upstream v1helper.TolerationsTolerateTaint's
+    rules: an empty effect matches every effect; an empty key with Exists
+    matches every taint; Exists ignores the value."""
+
+    key: str = ""
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # "" | NoSchedule | PreferNoSchedule | NoExecute
+
+    def tolerates(self, taint: Taint) -> bool:
+        if self.effect and self.effect != taint.effect:
+            return False
+        if self.key:
+            if self.key != taint.key:
+                return False
+        elif self.operator != "Exists":
+            return False
+        if self.operator == "Exists":
+            return True
+        return self.value == taint.value
+
+
+@dataclass
+class LabelSelectorRequirement:
+    """metav1.LabelSelectorRequirement (In | NotIn | Exists | DoesNotExist)."""
+
+    key: str
+    operator: str
+    values: tuple = ()
+
+
+@dataclass
+class LabelSelector:
+    """metav1.LabelSelector: the AND of `match_labels` and
+    `match_expressions`. A None selector matches nothing; an empty one
+    matches everything (metav1 semantics)."""
+
+    match_labels: Mapping[str, str] = field(default_factory=dict)
+    match_expressions: list[LabelSelectorRequirement] = field(
+        default_factory=list
+    )
+
+    def matches(self, labels: Mapping[str, str]) -> bool:
+        for k, v in self.match_labels.items():
+            if labels.get(k) != v:
+                return False
+        for r in self.match_expressions:
+            has = r.key in labels
+            if r.operator == "In":
+                if not has or labels[r.key] not in r.values:
+                    return False
+            elif r.operator == "NotIn":
+                if has and labels[r.key] in r.values:
+                    return False
+            elif r.operator == "Exists":
+                if not has:
+                    return False
+            elif r.operator == "DoesNotExist":
+                if has:
+                    return False
+            else:
+                raise ValueError(f"unknown selector operator {r.operator!r}")
+        return True
+
+    def _key(self):
+        return (
+            tuple(sorted(self.match_labels.items())),
+            tuple(
+                (r.key, r.operator, tuple(r.values))
+                for r in self.match_expressions
+            ),
+        )
+
+
+@dataclass
+class NodeSelectorRequirement:
+    """core/v1 NodeSelectorRequirement (In | NotIn | Exists | DoesNotExist
+    | Gt | Lt); NotIn and DoesNotExist match an absent label (apimachinery
+    labels.Requirement semantics)."""
+
+    key: str
+    operator: str
+    values: tuple = ()
+
+    def matches(self, labels: Mapping[str, str]) -> bool:
+        has = self.key in labels
+        val = labels.get(self.key)
+        if self.operator == "In":
+            return has and val in self.values
+        if self.operator == "NotIn":
+            return not has or val not in self.values
+        if self.operator == "Exists":
+            return has
+        if self.operator == "DoesNotExist":
+            return not has
+        if self.operator in ("Gt", "Lt"):
+            if not has or len(self.values) != 1:
+                return False
+            try:
+                lhs, rhs = int(val), int(self.values[0])
+            except ValueError:
+                return False
+            return lhs > rhs if self.operator == "Gt" else lhs < rhs
+        raise ValueError(f"unknown node selector operator {self.operator!r}")
+
+
+@dataclass
+class NodeSelectorTerm:
+    """The AND of `match_expressions` (node labels) and `match_fields`
+    (metadata.name only, as upstream supports)."""
+
+    match_expressions: list[NodeSelectorRequirement] = field(
+        default_factory=list
+    )
+    match_fields: list[NodeSelectorRequirement] = field(default_factory=list)
+
+    def matches(self, node: "Node") -> bool:
+        return all(
+            r.matches(node.labels) for r in self.match_expressions
+        ) and all(
+            r.matches({"metadata.name": node.name}) for r in self.match_fields
+        )
+
+    @classmethod
+    def from_wire(cls, spec: Mapping) -> "NodeSelectorTerm":
+        """Parse the wire shape ({"match_expressions": [{"key",
+        "operator", "values"}], "match_fields": [...]}); JSON nulls read
+        as empty."""
+
+        def req(r):
+            return NodeSelectorRequirement(
+                key=r["key"], operator=r["operator"],
+                values=tuple(r.get("values") or ()),
+            )
+
+        return cls(
+            match_expressions=[
+                req(r) for r in spec.get("match_expressions") or []
+            ],
+            match_fields=[req(r) for r in spec.get("match_fields") or []],
+        )
+
+
+@dataclass
+class PreferredSchedulingTerm:
+    weight: int  # 1..100
+    preference: NodeSelectorTerm = field(default_factory=NodeSelectorTerm)
+
+
+@dataclass
+class TopologySpreadConstraint:
+    """core/v1 TopologySpreadConstraint: DoNotSchedule filters,
+    ScheduleAnyway scores.
+
+    - `min_domains` (DoNotSchedule only): with fewer eligible domains than
+      this, the global minimum counts as 0 (upstream minMatchNum).
+    - `match_label_keys`: keys whose values are copied from the incoming
+      pod into the selector as exact-match requirements (keys the pod
+      lacks are ignored).
+    - `node_affinity_policy` / `node_taints_policy`: which nodes count
+      toward the domains and the minimum. Honor (the default for
+      affinity) keeps the nodes matching the pod's nodeSelector and
+      required affinity; Ignore (the default for taints) keeps all.
+    """
+
+    max_skew: int
+    topology_key: str
+    when_unsatisfiable: str = "DoNotSchedule"  # | ScheduleAnyway
+    label_selector: Optional[LabelSelector] = None
+    min_domains: Optional[int] = None
+    match_label_keys: tuple = ()
+    node_affinity_policy: str = "Honor"  # | Ignore
+    node_taints_policy: str = "Ignore"  # | Honor
+
+
+@dataclass
+class PodAffinityTerm:
+    """core/v1 PodAffinityTerm: a selector over pod labels, scoped to
+    `namespaces` plus every namespace `namespace_selector` matches (a nil
+    selector adds none, an EMPTY one matches all); both empty means the
+    incoming pod's own namespace. Co-location is judged by the
+    `topology_key` domains."""
+
+    topology_key: str
+    label_selector: Optional[LabelSelector] = None
+    namespaces: tuple = ()
+    namespace_selector: Optional[LabelSelector] = None
+
+
+@dataclass
+class Namespace:
+    """core/v1 Namespace (labels only): what a namespaceSelector targets."""
+
+    name: str
+    labels: Mapping[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class WeightedPodAffinityTerm:
+    weight: int  # 1..100
+    term: PodAffinityTerm
+
+
 @dataclass
 class Container:
     name: str = "c"
@@ -86,6 +305,30 @@ class Pod:
     #: spec.preemptionPolicy: "Never" disqualifies the pod from preempting
     #: (capacity_scheduling.go:412-416)
     preemption_policy: Optional[str] = None
+    #: spec.nodeSelector: every key=value pair must match the node's labels
+    node_selector: Mapping[str, str] = field(default_factory=dict)
+    #: required node affinity: OR over the terms (empty = unconstrained)
+    node_affinity_required: list[NodeSelectorTerm] = field(
+        default_factory=list
+    )
+    #: preferred node affinity terms (a weighted score)
+    node_affinity_preferred: list[PreferredSchedulingTerm] = field(
+        default_factory=list
+    )
+    tolerations: list[Toleration] = field(default_factory=list)
+    topology_spread: list[TopologySpreadConstraint] = field(
+        default_factory=list
+    )
+    pod_affinity_required: list[PodAffinityTerm] = field(default_factory=list)
+    pod_affinity_preferred: list[WeightedPodAffinityTerm] = field(
+        default_factory=list
+    )
+    pod_anti_affinity_required: list[PodAffinityTerm] = field(
+        default_factory=list
+    )
+    pod_anti_affinity_preferred: list[WeightedPodAffinityTerm] = field(
+        default_factory=list
+    )
     #: memoized `effective_limits`: a pod's container spec is immutable
     #: after creation; init=False keeps the cache out of constructors and
     #: dataclasses.replace
@@ -196,6 +439,7 @@ class Node:
     capacity: Mapping[str, int] = field(default_factory=dict)
     labels: Mapping[str, str] = field(default_factory=dict)
     unschedulable: bool = False
+    taints: list[Taint] = field(default_factory=list)
 
     def __post_init__(self):
         if not self.capacity:

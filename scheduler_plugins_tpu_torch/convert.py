@@ -4,7 +4,7 @@
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
 {...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
 or None, "metrics": {...} or None, "numa": {...} or None, "network":
-{...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+{...} or None, "scheduling": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
 packages can solve the very same tensors. Fields the port's slice does not
 carry are ignored; a field the port needs and the tree lacks raises
 `KeyError`; an absent table is None. The NUMA table's `pack_scales` is a
@@ -36,6 +36,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     PodState,
     QuotaState,
 )
+from scheduler_plugins_tpu_torch.state.scheduling import SchedulingState
 
 _TABLES = {
     "nodes": NodeState,
@@ -46,6 +47,7 @@ _TABLES = {
     "metrics": MetricsState,
     "numa": NumaState,
     "network": NetworkState,
+    "scheduling": SchedulingState,
 }
 
 
@@ -57,12 +59,28 @@ def snapshot_from_numpy(tree: dict, device=None) -> ClusterSnapshot:
         if table is None:
             parts[name] = None
             continue
+        if cls is SchedulingState:
+            parts[name] = _scheduling(table)
+            continue
         parts[name] = cls(**{
             f.name: _static(table.get(f.name)) if f.name == "pack_scales"
             else np.asarray(table[f.name])
             for f in fields(cls)
         })
     return ClusterSnapshot(**parts).to(device)
+
+
+def _scheduling(table: dict) -> SchedulingState:
+    out = {}
+    for f in fields(SchedulingState):
+        value = table.get(f.name)
+        if f.name == "spread_needs_node_counts":
+            out[f.name] = bool(value)
+        elif value is not None:
+            value = np.asarray(value)
+            out[f.name] = (value.astype(np.int64)
+                           if value.dtype == np.int32 else value)
+    return SchedulingState(**out)
 
 
 def _static(scales):

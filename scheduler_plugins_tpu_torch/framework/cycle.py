@@ -398,7 +398,9 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     of that many pods when the profile qualifies for the targeted fast
     path and the snapshot's pod rows are a multiple of it; otherwise the
     sequential solve runs. `timings`, a dict, receives each stage's wall
-    seconds (`open`, `pending`, then `_STAGES`' names). The JAX package's
+    seconds (`open`, `pending`, then `_STAGES`' names), and
+    `scheduling_tables`: the host seconds of the in-tree scheduling tables
+    (`state.scheduling.build_scheduling`) inside the snapshot stage. The JAX package's
     `serve`, `resilience`, `gangs` and `tuner` options are not ported yet:
     passing one raises NotImplementedError."""
     options = dict(serve=serve, resilience=resilience, gangs=gangs,
@@ -426,6 +428,8 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         stage(ctx)
         if timings is not None:
             timings[name] = clock() - t0
+            if name == "snapshot":
+                timings["scheduling_tables"] = ctx.meta.scheduling_s
     return ctx.report
 
 

@@ -24,6 +24,10 @@ the batch, evaluated by the sequential solve (`framework.runtime`):
                 the batched solve's Reserve of a whole wave, its exact
                 within-wave admission and its per-node capacity estimate
                 (`ops.assign.waterfill_assign_stateful`).
+- `validate_at` the batched solve's queue-order re-check of one placed
+                pod on its node against the live carry, for hard
+                constraints that span nodes (topology spread, inter-pod
+                affinity).
 - `queue_key`   host-side QueueSort key for a Pod object (lower first).
 - `configure_cluster`
                 host-side wiring the cycle runs before the snapshot (the
@@ -51,8 +55,7 @@ from scheduler_plugins_tpu_torch.api import events as ev
 class SolverState:
     """State carried from pod to pod through the sequential solve, and
     from wave to wave through the batched one. The fields of the ported
-    plugins; the JAX state's selector and rank-gang carries come with
-    their plugins.
+    plugins; the JAX state's rank-gang carry comes with its slice.
 
     `free` mirrors NodeInfo leftover capacity, `eq_used` the
     ElasticQuotaInfos usage map, `gang_scheduled` the members placed in
@@ -75,6 +78,22 @@ class SolverState:
     #: (W, N) int32 placed pods per AppGroup workload and node, this
     #: solve's placements counted in (NetworkOverhead's tallies read it)
     net_placed: Optional[torch.Tensor] = None
+    #: (TR, N) int64 live matching-pod counts per (track, NODE) (a track is
+    #: a unique (selector group, topology key) pair): the assigned pods'
+    #: matches plus this solve's placements, folded in by the built-in
+    #: commit (`ops.selectors.commit_tracks`). Node-level so
+    #: PodTopologySpread's node-inclusion policies can mask ineligible
+    #: nodes per (pod, constraint); None unless one does
+    sel_counts: Optional[torch.Tensor] = None
+    #: (TR, D) int64 the same counts per topology DOMAIN: InterPodAffinity
+    #: and PodTopologySpread's fast path gather from it
+    sel_dom_counts: Optional[torch.Tensor] = None
+    #: (E, D) bool: a pod carrying required anti-affinity term e occupies a
+    #: node of domain d
+    anti_domains: Optional[torch.Tensor] = None
+    #: (E2, D) int64 symmetric-score carrier counts (the existing pods'
+    #: preferred and required affinity terms per domain)
+    sym_counts: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SolverState":
         return dataclasses.replace(self, **changes)
@@ -104,17 +123,21 @@ class Plugin:
     #: on earlier in-cycle placements). The batched solve
     #: (`parallel.solver.profile_batch_solve`) re-evaluates such a filter
     #: every wave against the committed carry, so a plugin that sets it
-    #: must implement `commit_batch` (the JAX package's `validate_at`
-    #: alternative comes with the in-tree plugins), and `wave_guard_demand`
-    #: with `wave_guard_rows` when same-wave placements can violate its
-    #: constraint. The
-    #: streamed solve's gate (`parallel.solver.fast_path_scoring`) refuses
-    #: a profile with one.
+    #: must implement `commit_batch` or `validate_at`, and
+    #: `wave_guard_demand` with `wave_guard_rows` when same-wave
+    #: placements can violate its constraint. The streamed solve's gate
+    #: (`parallel.solver.fast_path_scoring`) refuses a profile with one.
     state_dependent_filter: bool = False
-    #: a per-pod validator of cross-node hard constraints the batched
-    #: solve runs after each wave (the JAX package's topology-spread and
-    #: inter-pod-affinity plugins set it). No ported plugin does, and the
-    #: batched solve refuses one that does.
+    #: overridden (not None) when the plugin's hard filter must be
+    #: re-checked pod by pod after each batched wave: the wave guard sees
+    #: same-NODE conflicts only, and domain-counting constraints (topology
+    #: spread, inter-pod anti-affinity) span nodes. The batched solve then
+    #: walks the wave's winners in queue order, calling
+    #: `validate_at(state, snap, p, node)` with `p` and `node` (1,) int64
+    #: device tensors; it returns a (1,) bool, True iff the pod still
+    #: passes this plugin's hard filter on that node against the live
+    #: carry, and the pod commits (`ops.selectors.commit_tracks`, then
+    #: `commit`) only when every validator agrees.
     validate_at = None
     _presolve = None
 

@@ -441,9 +441,11 @@ class PreemptionEngine:
         pod-derived tables only, `Cluster.post_eviction_tables`). The (N,)
         row depends only on (snapshot, row, evicted set), so it is
         memoized in `verdict_cache` by the frozen set. Without a network
-        table eviction cannot change a verdict, so every set shares the
-        empty key and the row is computed once per preemptor."""
-        key = (frozenset(evicted_uids) if snap.network is not None
+        or in-tree scheduling table eviction cannot change a verdict, so
+        every set shares the empty key and the row is computed once per
+        preemptor."""
+        key = (frozenset(evicted_uids)
+               if snap.network is not None or snap.scheduling is not None
                else frozenset())
         if key not in verdict_cache:
             hyp = snap

@@ -37,6 +37,7 @@ from scheduler_plugins_tpu_torch.device import (
 )
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
 from scheduler_plugins_tpu_torch.ops.numa import live_avail_init
+from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
 from scheduler_plugins_tpu_torch.ops.fit import (
     fits,
     fits_one,
@@ -370,6 +371,10 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
         state = state.replace(placed_mask=torch.slice_scatter(
             state.placed_mask, placed, start=p, end=p + 1
         ))
+    if snap.scheduling is not None:
+        # built-in: the selector and domain carries are shared by the
+        # spread and inter-pod affinity plugins, so they commit once
+        state = commit_tracks(state, snap.scheduling, p, choice)
     for plugin in plugins:
         state = plugin.commit(state, snap, p, choice)
     # attribution; fallback 0: a failed pod that no stage rejected lost
@@ -561,6 +566,18 @@ class Scheduler:
             numa_avail = live_avail_init(snap.numa)
         net_placed = (snap.network.placed_node if snap.network is not None
                       else None)
+        tracks = {}
+        sched = snap.scheduling
+        if sched is not None:
+            # the node-level carry only when a spread eligibility row
+            # excludes a keyed node; every carry starts as the snapshot's
+            # table, which no commit writes
+            if (sched.track_node_base is not None
+                    and sched.spread_needs_node_counts):
+                tracks["sel_counts"] = sched.track_node_base
+            tracks["sel_dom_counts"] = sched.track_base
+            tracks["anti_domains"] = sched.exist_anti_base
+            tracks["sym_counts"] = sched.sym_base
         return SolverState(
             free=free_capacity(snap.nodes.alloc, snap.nodes.requested),
             eq_used=snap.quota.used if snap.quota is not None else None,
@@ -569,6 +586,7 @@ class Scheduler:
             placed_mask=placed_mask,
             numa_avail=numa_avail,
             net_placed=net_placed,
+            **tracks,
         )
 
     def solve(self, snap, state0: Optional[SolverState] = None, *,

@@ -19,6 +19,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     AppGroupWorkload,
     Container,
     ElasticQuota,
+    LabelSelector,
     NetworkTopology,
     Node,
     NodeResourceTopology,
@@ -26,6 +27,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     Pod,
     PodGroup,
     TopologyManagerPolicy,
+    TopologySpreadConstraint,
 )
 from scheduler_plugins_tpu_torch.api.resources import CPU, MEMORY, PODS
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
@@ -209,5 +211,72 @@ def network_scenario(n_nodes=1000, n_pods=1000, n_regions=4,
             creation_ms=i,
             containers=[Container(requests={CPU: 500, MEMORY: 1 * GIB})],
             labels={APP_GROUP_LABEL: "mesh", WORKLOAD_SELECTOR_LABEL: f"wl-{w}"},
+        ))
+    return cluster
+
+
+def mixed_scenario(n_nodes=16, n_pods=32, zones=2, n_regions=2,
+                   zones_per_region=2, n_workloads=4, seed=0) -> Cluster:
+    """The full-roster mixed scenario: every node carries an NRT
+    (single-numa-node policy, `zones` equal zones) and region / zone
+    labels (round-robin); the pods are guaranteed-QoS members of the
+    AppGroup mesh (MaxNetworkCost 60) with a zone DoNotSchedule spread
+    constraint (maxSkew max(2, pods / zones)) and a region ScheduleAnyway
+    one (maxSkew 1), both over the AppGroup label. One profile then
+    exercises allocatable scoring, NUMA zone fitting, network dependency
+    thresholds and spread skew together."""
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    per_zone_cpu = 64_000 // zones
+    per_zone_mem = 256 * GIB // zones
+    zone_names = [f"zone-{z}" for z in range(n_regions * zones_per_region)]
+    for i, node in enumerate(_nodes(n_nodes)):
+        node.labels = {
+            REGION_LABEL: f"region-{i % n_regions}",
+            ZONE_LABEL: zone_names[i % len(zone_names)],
+        }
+        cluster.add_node(node)
+        cluster.add_nrt(NodeResourceTopology(
+            node_name=node.name,
+            policy=TopologyManagerPolicy.SINGLE_NUMA_NODE,
+            zones=[
+                NUMAZone(
+                    numa_id=z,
+                    available={CPU: per_zone_cpu, MEMORY: per_zone_mem},
+                    costs={o: 10 if o == z else 20 for o in range(zones)},
+                )
+                for z in range(zones)
+            ],
+        ))
+    _add_app_group_mesh(cluster, rng, n_workloads, n_regions,
+                        zones_per_region, max_network_cost=60)
+    cpus = rng.integers(500, per_zone_cpu // 4, size=n_pods)
+    mesh = LabelSelector(match_labels={APP_GROUP_LABEL: "mesh"})
+    for i in range(n_pods):
+        cpu = int(cpus[i])
+        w = int(rng.integers(0, n_workloads))
+        cluster.add_pod(Pod(
+            name=f"pod-{i:06d}",
+            creation_ms=i,
+            containers=[Container(
+                requests={CPU: cpu, MEMORY: 1 * GIB},
+                limits={CPU: cpu, MEMORY: 1 * GIB},
+            )],
+            labels={APP_GROUP_LABEL: "mesh",
+                    WORKLOAD_SELECTOR_LABEL: f"wl-{w}"},
+            topology_spread=[
+                TopologySpreadConstraint(
+                    max_skew=max(2, n_pods // len(zone_names)),
+                    topology_key=ZONE_LABEL,
+                    when_unsatisfiable="DoNotSchedule",
+                    label_selector=mesh,
+                ),
+                TopologySpreadConstraint(
+                    max_skew=1,
+                    topology_key=REGION_LABEL,
+                    when_unsatisfiable="ScheduleAnyway",
+                    label_selector=mesh,
+                ),
+            ],
         ))
     return cluster

@@ -31,6 +31,8 @@ agree bit for bit.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from scheduler_plugins_tpu_torch.ops.fit import pod_fit_demand
@@ -357,7 +359,8 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
 
 def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
                               req, pod_mask, free0, state0,
-                              max_waves: int = 4, capacity_fns=(),
+                              max_waves: int = 4, validate_fn=None,
+                              validate_commit_fn=None, capacity_fns=(),
                               initial_batch=None, sub_batch_fn=None,
                               straggler_cap: int = 256,
                               collect_stats: bool = False):
@@ -375,6 +378,17 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
       `prefix` being each pod's exclusive sum of `guard_demands[i]` (P,
       R_g) over the earlier same-wave choosers of its node (rejected ones
       included: conservative, a pod at worst retries next wave).
+    - `validate_fn(state, q (1,), node (1,)) -> (1,) bool` /
+      `validate_commit_fn(state, q, node) -> state`: a sequential re-check
+      of hard constraints that span nodes (topology-domain counting).
+      After the guards, the wave's rows are walked one at a time in queue
+      order against the live carry; a kept winner commits at once through
+      `validate_commit_fn` (a row that was not admitted, or fails, commits
+      node -1, which changes nothing), so later rows of the same wave see
+      it; a demoted pod retries next wave. `commit_fn` must then leave out
+      the carries `validate_commit_fn` keeps. The walk covers every row of
+      the wave, as the JAX `while_loop` does, with one-element slices: it
+      reads nothing on the host.
     - `capacity_fns`: `fn(state, active (P,)) -> (N,) pods-per-node
       estimate or None`, refining the bucketing the resource cumsums
       cannot see.
@@ -389,13 +403,15 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
 
     The JAX `lax.while_loop` is a Python loop here; each wave's continue
     test reads one (2,) tensor on the host (admitted, still active), the
-    wave's only host read. The JAX validator branch (cross-node
-    constraints, `validate_at`) comes with the in-tree plugins. Returns
+    wave's only host read. Returns
     (assignment (P,) int32, free, state), plus `{"occupancy": (max_waves,)
     int32 admitted per wave, "waves": int, "wave_of": (P,) int32 the wave
-    that admitted each pod, -1 for none}` when `collect_stats` (the JAX
-    stats have the first two; `wave_of` gives a host oracle the order in
-    which the placements were committed)."""
+    that admitted each pod, -1 for none, "walk": [(rows, host seconds)]
+    of each wave's validator walk, empty without validators}` when
+    `collect_stats` (the JAX stats have the first two; `wave_of` gives a
+    host oracle the order in which the placements were committed, `walk`
+    the rows each walk visited and the host time it took to enqueue
+    them)."""
     P, R = req.shape
     N = free0.shape[0]
     device = req.device
@@ -406,6 +422,7 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
     dense_idx = torch.arange(P, device=device)
 
     wave_of = torch.full((P,), -1, dtype=torch.int32, device=device)
+    walk = []
 
     def wave_core(free, assignment, state, idx, feasible, scores):
         """One wave over the pod rows `idx` (ascending: queue order), with
@@ -451,6 +468,19 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
             ok_sorted = ok_sorted & guard(state, idx[order], node_sorted,
                                           g_excl)
         admitted = _scatter_verdicts(order, ok_sorted, choice)
+
+        if validate_fn is not None:
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("validate_wave"):
+                kept = []
+                for j in range(Ssub):
+                    q, node = idx[j:j + 1], choice[j:j + 1]
+                    ok = admitted[j:j + 1] & validate_fn(state, q, node)
+                    state = validate_commit_fn(state, q,
+                                               torch.where(ok, node, -1))
+                    kept.append(ok)
+                admitted = torch.cat(kept)
+            walk.append((Ssub, time.perf_counter() - t0))
 
         if collect_stats:
             wave_of = wave_of.index_copy(0, idx, torch.where(
@@ -520,5 +550,5 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
                                             dtype=torch.int32)
         return assignment, free, state, {"occupancy": occ,
                                          "waves": len(occupancy),
-                                         "wave_of": wave_of}
+                                         "wave_of": wave_of, "walk": walk}
     return assignment, free, state

@@ -22,7 +22,9 @@ loads: the targeted waterfill when the profile passes `fast_path_scoring`,
 else the (P, N) filter and score rows of every plugin against the
 cycle-initial state, placed by the stateful waterfill
 (`ops.assign.waterfill_assign_stateful`), which re-filters the
-state-dependent plugins (NUMA) every wave against the committed carry.
+state-dependent plugins (NUMA, network, spread, inter-pod affinity) every
+wave against the committed carry and re-checks the winners of the
+cross-node constraints in queue order (`validate_at`).
 
 `batch_explain_rows` explains pods through the whole-batch row hooks
 (`collapsed_batch_rows`); `profile_initial_scores` is the independent
@@ -48,6 +50,7 @@ from scheduler_plugins_tpu_torch.ops.assign import (
 from scheduler_plugins_tpu_torch.ops.fit import fits, free_capacity
 from scheduler_plugins_tpu_torch.ops.gang import gang_admit
 from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
+from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
 
 F64 = torch.float64
 
@@ -430,9 +433,13 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     once against the cycle-initial state (the whole-batch hooks where a
     plugin has them, else its per-pod hook stacked), each Score row
     normalized over the pod's feasible row, and the stateful waterfill
-    places the batch. A state-dependent plugin without `commit_batch`
-    raises TypeError; one with `validate_at` raises NotImplementedError
-    (the validator branch comes with the in-tree plugins)."""
+    places the batch. A state-dependent plugin without `commit_batch` or
+    `validate_at` raises TypeError. The plugins with `validate_at`
+    (topology spread, inter-pod affinity: constraints that span nodes)
+    re-check each wave's winners in queue order against the live carry,
+    committing the selector carries (`ops.selectors.commit_tracks`) pod
+    by pod; the other state-dependent plugins commit the kept winners in
+    one `commit_batch`."""
     from scheduler_plugins_tpu_torch.framework.plugin import Plugin
     from scheduler_plugins_tpu_torch.framework.runtime import _fits_rows
 
@@ -448,12 +455,6 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
             raise TypeError(
                 f"{p.name}: state_dependent_filter requires commit_batch "
                 "or validate_at"
-            )
-    for i in dyn:
-        if plugins[i].validate_at is not None:
-            raise NotImplementedError(
-                f"{plugins[i].name}: the batched solve's validator branch "
-                "(validate_at) comes with the in-tree plugins' slice"
             )
     # the carry starts as views of snapshot tables (`net_placed` is the
     # snapshot's `placed_node`); no commit writes in place, so unlike
@@ -555,10 +556,37 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
         m = dyn_rows(state, idx)
         return (feasible if m is None else feasible & m), scores0[idx]
 
+    # hard DOMAIN constraints (topology spread, inter-pod anti-affinity)
+    # span nodes, so neither the per-wave re-filter nor the same-node
+    # guard sees a same-wave conflict across nodes: their validators
+    # re-check the winners in queue order, committing the selector
+    # carries pod by pod; every other dynamic carry commits the kept
+    # winners at once
+    validators = [plugins[i] for i in dyn
+                  if plugins[i].validate_at is not None]
+    batch_committers = [plugins[i] for i in dyn
+                        if plugins[i].validate_at is None]
+
     def commit_fn(state, placed, choice):
-        for i in dyn:
-            state = plugins[i].commit_batch(state, snap, placed, choice)
+        for plugin in batch_committers:
+            state = plugin.commit_batch(state, snap, placed, choice)
         return state
+
+    validate_fn = validate_commit_fn = None
+    if validators:
+        def validate_fn(state, q, node):
+            ok = None
+            for plugin in validators:
+                verdict = plugin.validate_at(state, snap, q, node)
+                ok = verdict if ok is None else ok & verdict
+            return ok
+
+        def validate_commit_fn(state, q, node):
+            if snap.scheduling is not None:
+                state = commit_tracks(state, snap.scheduling, q, node)
+            for plugin in validators:
+                state = plugin.commit(state, snap, q, node)
+            return state
 
     guards, guard_demands = [], []
     for i in dyn:
@@ -577,6 +605,7 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     out = waterfill_assign_stateful(
         batch_fn, commit_fn, tuple(guards), tuple(guard_demands),
         snap.pods.req, admitted, state0.free, state0, max_waves=max_waves,
+        validate_fn=validate_fn, validate_commit_fn=validate_commit_fn,
         capacity_fns=capacity_fns, initial_batch=(feasible0, scores0),
         sub_batch_fn=sub_batch_fn, straggler_cap=PROFILE_STRAGGLER_CAP,
         collect_stats=collect_stats,

@@ -16,8 +16,10 @@ cache arguments install one, the NRT cache tier (`state.nrt_cache`): the
 store's pod, bind, reserve and NRT mutators drive its lifecycle hooks,
 and the snapshot then reads the cache's adjusted view with its stale
 nodes. For the network-aware plugins it holds the AppGroup and
-NetworkTopology CRs. The JAX store's native mirror, delta sink, pending
-index and ledger hooks come with their slices.
+NetworkTopology CRs. For the in-tree plugins it holds the Namespace
+objects a PodAffinityTerm's namespaceSelector matches. The JAX store's
+native mirror, delta sink, pending index and ledger hooks come with their
+slices.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
     AppGroup,
     ElasticQuota,
+    Namespace,
     NetworkTopology,
     Node,
     NodeResourceTopology,
@@ -70,6 +73,8 @@ class Cluster:
     )
     #: ns/name -> PodDisruptionBudget, read by preemption's victim ranking
     pdbs: dict[str, PodDisruptionBudget] = field(default_factory=dict)
+    #: name -> Namespace (labels): PodAffinityTerm.namespaceSelector targets
+    namespaces: dict[str, Namespace] = field(default_factory=dict)
     #: profile names this scheduler owns: only their pods enter the queue
     scheduler_names: set = field(
         default_factory=lambda: {DEFAULT_SCHEDULER_NAME}
@@ -244,6 +249,13 @@ class Cluster:
         )
         self.network_topologies[key] = nt
 
+    def add_namespace(self, ns: Namespace):
+        self.note_event(
+            ev.NAMESPACE_UPDATE if ns.name in self.namespaces
+            else ev.NAMESPACE_ADD
+        )
+        self.namespaces[ns.name] = ns
+
     def add_pdb(self, pdb: PodDisruptionBudget):
         key = f"{pdb.namespace}/{pdb.name}"
         self.note_event(ev.PDB_UPDATE if key in self.pdbs else ev.PDB_ADD)
@@ -357,14 +369,17 @@ class Cluster:
         return merged
 
     # -- snapshot ------------------------------------------------------------
-    def _assigned_pods(self) -> list[Pod]:
+    def _assigned_pods(self, exclude=frozenset()) -> list[Pod]:
         """Bound pods plus reserved (permit-waiting) pods, each reserved
         one as a copy with its held node set: the stored pod stays
-        unbound."""
-        assigned = [p for p in self.pods.values() if p.node_name is not None]
+        unbound. The uids in `exclude` are left out (the preemption dry
+        run's evicted set)."""
+        assigned = [p for p in self.pods.values()
+                    if p.node_name is not None and p.uid not in exclude]
         for uid, node in self.reserved.items():
             pod = self.pods.get(uid)
-            if pod is not None and pod.node_name is None:
+            if (pod is not None and pod.node_name is None
+                    and uid not in exclude):
                 held = copy.copy(pod)
                 held.node_name = node
                 assigned.append(held)
@@ -402,6 +417,7 @@ class Cluster:
             device=device,
             node_metrics=self._metrics_with_missing(now_ms),
             tlp_prediction=self.tlp_prediction,
+            namespaces=list(self.namespaces.values()),
             **kwargs,
         )
 
@@ -409,19 +425,38 @@ class Cluster:
         """The pod-derived side tables with `exclude_uids` evicted: the
         preemption dry run's post-eviction Filter view (upstream
         SelectVictimsOnNode removes victims from the NodeInfo before
-        RunFilterPluginsWithNominatedPods). Decrements the network
-        placed-workload counts of the evicted pods' nodes; the NRT cache
-        view is deliberately untouched (upstream's TopologyMatch reads its
-        own cache, which victim removal does not update either). Returns a
-        snapshot on `snap`'s device sharing every other table with it.
-        (The JAX store also rebuilds the in-tree scheduling tables here;
-        they come with the in-tree plugins.)"""
+        RunFilterPluginsWithNominatedPods). Rebuilds the in-tree scheduling
+        tables without the evicted pods (the spread and affinity counts,
+        the anti-affinity domains and symmetric-score carriers of the
+        existing pods) and decrements the network placed-workload counts
+        of the evicted pods' nodes; the NRT cache view is deliberately
+        untouched (upstream's TopologyMatch reads its own cache, which
+        victim removal does not update either). Returns a snapshot on
+        `snap`'s device sharing every other table with it."""
+        from scheduler_plugins_tpu_torch.state.scheduling import (
+            build_scheduling,
+        )
+
+        excl = set(exclude_uids)
+        new_sched = snap.scheduling
+        if snap.scheduling is not None:
+            nodes = [self.nodes[n] for n in meta.node_names if n in self.nodes]
+            pending = [
+                self.pods[uid] for uid in meta.pod_names if uid in self.pods
+            ]
+            new_sched = build_scheduling(
+                nodes, pending, snap.num_nodes, snap.num_pods,
+                assigned=self._assigned_pods(exclude=excl),
+                namespaces=list(self.namespaces.values()),
+            )
+            if new_sched is not None:
+                new_sched = new_sched.to(snap.device)
         new_network = snap.network
         if snap.network is not None and meta.workloads:
             placed = snap.network.placed_node.cpu().numpy().copy()
             node_pos = {name: i for i, name in enumerate(meta.node_names)}
             wl_pos = {name: i for i, name in enumerate(meta.workloads)}
-            for uid in set(exclude_uids):
+            for uid in excl:
                 pod = self.pods.get(uid)
                 if pod is None or pod.node_name not in node_pos:
                     continue
@@ -432,4 +467,4 @@ class Cluster:
                     placed[wc, ni] = max(placed[wc, ni] - 1, 0)
             new_network = snap.network.replace(placed_node=torch.from_numpy(
                 placed).to(snap.device))
-        return snap.replace(network=new_network)
+        return snap.replace(scheduling=new_sched, network=new_network)

@@ -21,9 +21,13 @@ int64 tensors with bucketed static shapes:
          (W, N) placed pods per workload and node, and the region of each
          zone code, which NetworkOverhead reads with the nodes'
          region / zone codes.
+- scheduling: the in-tree plugins' lookup tables
+         (`state.scheduling.SchedulingState`: node-affinity and toleration
+         rows, selector groups, topology-domain codes and the counts the
+         spread and inter-pod affinity carries start from).
 
 This slice lowers what the ported plugins read; the JAX snapshot's
-syscall and in-tree scheduling tables wait for later slices, and
+syscall tables wait for a later slice, and
 node/pod fields nothing here reads are left out. The lowering runs in numpy (the
 same arithmetic as the JAX builder, so both packages produce the same
 tensors) and moves the result to the requested device once.
@@ -32,6 +36,7 @@ tensors) and moves the result to the requested device once.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field, fields
 from typing import Optional, Sequence
 
@@ -75,8 +80,10 @@ class _Tensors:
 
 
 def _to(value, device):
-    if value is None or isinstance(value, tuple):
-        return value  # absent, or a static tuple (`NumaState.pack_scales`)
+    if value is None or isinstance(value, (tuple, bool)):
+        # absent, or a host static (`NumaState.pack_scales`,
+        # `SchedulingState.spread_needs_node_counts`)
+        return value
     if isinstance(value, _Tensors):
         return value.to(device)
     if isinstance(value, torch.Tensor):
@@ -85,7 +92,7 @@ def _to(value, device):
 
 
 def _numpy(value):
-    if isinstance(value, tuple):
+    if isinstance(value, (tuple, bool)):
         return value
     if isinstance(value, _Tensors):
         return value.numpy()
@@ -265,6 +272,9 @@ class ClusterSnapshot(_Tensors):
     metrics: Optional[MetricsState] = None
     numa: Optional[NumaState] = None
     network: Optional[NetworkState] = None
+    #: `state.scheduling.SchedulingState`, None when no node has a taint
+    #: and no pod an in-tree spec
+    scheduling: Optional[object] = None
 
     @property
     def num_nodes(self) -> int:
@@ -298,6 +308,9 @@ class SnapshotMeta:
     workloads: list[str] = field(default_factory=list)
     #: where the snapshot's tensors live; plugins put theirs there too
     device: torch.device = torch.device("cpu")
+    #: host seconds `state.scheduling.build_scheduling` took for this
+    #: snapshot (its relevance test alone when it built no table)
+    scheduling_s: float = 0.0
 
 
 class _Interner:
@@ -335,6 +348,7 @@ def build_snapshot(
     nrts: Sequence[NodeResourceTopology] = (),
     stale_nrt_nodes: Sequence[str] = (),
     app_groups: Sequence[AppGroup] = (),
+    namespaces: Sequence = (),
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
@@ -346,7 +360,9 @@ def build_snapshot(
     table, None leaves it out; `tlp_prediction` (multiplier, default
     millis) parameterizes each pod's `predicted_cpu_millis`. `nrts` become
     the zone tables (None without any), `stale_nrt_nodes` not fresh there;
-    `app_groups` the network table (None without any). Codes and
+    `app_groups` the network table (None without any); `namespaces` (the
+    store's Namespace objects, the namespaceSelector targets) feed the
+    in-tree scheduling tables, None when nothing makes them relevant. Codes and
     padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
@@ -604,10 +620,22 @@ def build_snapshot(
                                        assigned_pods, node_pos, region, zone,
                                        meta, P)
 
+    # imported here: `state.scheduling` imports this module's `_Tensors`
+    from scheduler_plugins_tpu_torch.state.scheduling import (
+        build_scheduling,
+    )
+
+    t0 = time.perf_counter()
+    scheduling_state = build_scheduling(
+        nodes, pending_pods, N, P, assigned=assigned_pods,
+        namespaces=namespaces,
+    )
+    meta.scheduling_s = time.perf_counter() - t0
+
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
         quota=quota_state, nominees=nominee_state, metrics=metrics_state,
-        numa=numa_state, network=network_state,
+        numa=numa_state, network=network_state, scheduling=scheduling_state,
     )
     return snapshot.to(device), meta
 

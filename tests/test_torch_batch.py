@@ -586,21 +586,37 @@ class TestNormalizeRows:
 
 class TestGuards:
     def test_validator_plugin_raises(self):
+        """A plugin with `validate_at` no longer raises: the validator
+        branch walks every row of each wave in queue order with (1,)
+        device indices, a rejected winner retries the next wave, and its
+        `commit_batch` is left out (the validator's carries commit pod by
+        pod). Here the validator rejects the odd pod rows wherever they
+        go: the even ones place, the odd ones retry until a wave places
+        nothing, and stay unplaced."""
+        calls = []
+
         class Spread(Plugin):
             name = "PodTopologySpread"
             state_dependent_filter = True
 
             def commit_batch(self, state, snap, placed, choice):
-                return state
+                raise AssertionError("a validator's carry commits per pod")
 
             def validate_at(self, state, snap, p, node):
-                return True
+                calls.append((p.shape, node.shape))
+                return p % 2 == 0
 
         cluster = port_scenarios.allocatable_scenario(4, 8)
-        sched = Scheduler(Profile(plugins=[Spread()]))
+        sched = Scheduler(Profile(plugins=[
+            port_plugins.NodeResourcesAllocatable(), Spread()]))
         _, snap, _ = solve_inputs(sched, cluster, device="cpu")
-        with pytest.raises(NotImplementedError, match="validate_at"):
-            profile_batch_solve(sched, snap, device="cpu")
+        assignment, _, _, stats = profile_batch_solve(
+            sched, snap, collect_stats=True, device="cpu")
+        assert calls and set(calls) == {((1,), (1,))}
+        assert len(calls) % snap.num_pods == 0
+        assert (assignment[0::2] >= 0).all()
+        assert (assignment[1::2] == -1).all()
+        assert stats["waves"] >= 2 and stats["occupancy"][1:].sum() == 0
 
     def test_state_dependent_filter_without_commit_batch_raises(self):
         class Carry(Plugin):

@@ -1,6 +1,7 @@
 """The port's profile loader (`scheduler_plugins_tpu_torch.api.config`)
 against JAX `load_profile` for the ported plugins (the flagship three,
-the four Trimaran plugins and NodeResourceTopologyMatch): arguments and
+the four Trimaran plugins, NodeResourceTopologyMatch, the network-aware
+pair and the in-tree four): arguments and
 their defaults, weights, the
 auto-selected preemption engine, and the validation errors (mirrors
 tests/test_config.py). Plugins JAX has and the port does not raise
@@ -14,10 +15,11 @@ import pytest
 import scheduler_plugins_tpu.api.config as jax_config
 from scheduler_plugins_tpu_torch.api import config as port_config
 
-PORTED = ("CapacityScheduling", "Coscheduling", "LoadVariationRiskBalancing",
-          "LowRiskOverCommitment", "NetworkOverhead",
-          "NodeResourceTopologyMatch", "NodeResourcesAllocatable", "Peaks",
-          "TargetLoadPacking", "TopologicalSort")
+PORTED = ("CapacityScheduling", "Coscheduling", "InterPodAffinity",
+          "LoadVariationRiskBalancing", "LowRiskOverCommitment",
+          "NetworkOverhead", "NodeAffinity", "NodeResourceTopologyMatch",
+          "NodeResourcesAllocatable", "Peaks", "PodTopologySpread",
+          "TaintToleration", "TargetLoadPacking", "TopologicalSort")
 
 #: per plugin, the attributes its constructor arguments land in
 ATTRS = {
@@ -38,6 +40,12 @@ ATTRS = {
     "NetworkOverhead": ("weights_name", "network_topology_name",
                         "namespaces"),
     "TopologicalSort": ("namespaces",),
+    # NodeAffinity's terms are objects of each package: `_added` compares
+    # them
+    "NodeAffinity": (),
+    "TaintToleration": (),
+    "PodTopologySpread": (),
+    "InterPodAffinity": ("hard_pod_affinity_weight", "ignore_preferred"),
 }
 
 TRIMARAN = ("TargetLoadPacking", "LoadVariationRiskBalancing",
@@ -162,6 +170,67 @@ def test_network_load_profile_and_spec_match_jax(config):
         "TopologicalSort"
 
 
+INTREE_CONFIGS = [
+    {"plugins": ["NodeAffinity", "TaintToleration", "PodTopologySpread",
+                 "InterPodAffinity"]},
+    {"profileName": "intree",
+     "plugins": ["NodeResourcesAllocatable", "NodeAffinity",
+                 "TaintToleration", "PodTopologySpread", "InterPodAffinity"],
+     "pluginConfig": [
+         {"name": "NodeAffinity", "args": {"addedAffinity": [
+             {"match_expressions": [
+                 {"key": "pool", "operator": "In", "values": ["gpu", "tpu"]},
+                 {"key": "spot", "operator": "DoesNotExist", "values": None}],
+              "match_fields": None},
+             {"match_fields": [{"key": "metadata.name", "operator": "In",
+                                "values": ["n7"]}]}]}},
+         {"name": "InterPodAffinity",
+          "args": {"hardPodAffinityWeight": 7,
+                   "ignorePreferredTermsOfExistingPods": True}}],
+     "weights": [1, 2, 1, 3, 2]},
+    {"plugins": ["InterPodAffinity"],
+     "pluginConfig": [{"name": "InterPodAffinity",
+                       "args": {"hardPodAffinityWeight": 0}}]},
+    {"plugins": ["NodeAffinity", "NodeResourcesAllocatable"],
+     "pluginConfig": [{"name": "NodeAffinity",
+                       "args": {"addedAffinity": []}}]},
+]
+
+
+def _added(profile):
+    """NodeAffinity's addedAffinity terms as plain tuples."""
+    def req(r):
+        return (r.key, r.operator, tuple(r.values))
+
+    return [tuple((tuple(req(r) for r in t.match_expressions),
+                   tuple(req(r) for r in t.match_fields))
+                  for t in p.added_affinity)
+            for p in profile.plugins if p.name == "NodeAffinity"]
+
+
+@pytest.mark.parametrize("config", INTREE_CONFIGS,
+                         ids=range(len(INTREE_CONFIGS)))
+def test_intree_load_profile_and_spec_match_jax(config):
+    """The in-tree four load as JAX's loader builds them (addedAffinity
+    from its wire form, with JSON nulls; the InterPodAffinity args), export
+    JAX's spec and round-trip as JAX's do. Both exports leave out
+    ignorePreferredTermsOfExistingPods (stored under another name) and
+    addedAffinity terms (objects); a reload of such a spec has no terms,
+    which both then export as `addedAffinity: []`, and from there the
+    spec is stable."""
+    port, jax = (port_config.load_profile(config),
+                 jax_config.load_profile(config))
+    assert summary(port) == summary(jax)
+    assert _added(port) == _added(jax)
+    spec = port_config.profile_spec(port)
+    assert spec == jax_config.profile_spec(jax)
+    again = port_config.profile_spec(port_config.load_profile(spec))
+    assert again == jax_config.profile_spec(jax_config.load_profile(spec))
+    assert port_config.profile_spec(port_config.load_profile(again)) == again
+    assert summary(port_config.load_profile(spec)) == summary(
+        jax_config.load_profile(spec))
+
+
 def test_defaults_and_capacity_engine():
     profile = port_config.load_profile({
         "plugins": ["Coscheduling", "CapacityScheduling"],
@@ -238,6 +307,14 @@ BAD = [
       "pluginConfig": [{"name": "NodeResourceTopologyMatch",
                         "args": {"cacheResyncPeriodSeconds": -1}}]},
      "cacheResyncPeriodSeconds"),
+    ({"plugins": ["InterPodAffinity"],
+      "pluginConfig": [{"name": "InterPodAffinity",
+                        "args": {"hardPodAffinityWeight": 101}}]},
+     "hardPodAffinityWeight must be in"),
+    ({"plugins": ["NodeAffinity"],
+      "pluginConfig": [{"name": "NodeAffinity",
+                        "args": {"addedAffinity": [], "bogus": 1}}]},
+     "unknown arg 'bogus'"),
     ({"plugins": ["Coscheduling"], "weights": [1, 2]}, "weights list"),
     ({"plugins": ["Coscheduling"], "weights": [0]}, "weight must be"),
     ({"plugins": ["Coscheduling"], "solveMode": "bogus"},

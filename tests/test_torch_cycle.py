@@ -1077,8 +1077,11 @@ class TestUnportedOptions:
         c, s, _ = basic_binds_pending(PORT)
         timings = {}
         port_cycle.run_cycle(s, c, now=0, device=CPU, timings=timings)
-        assert list(timings) == ["open", "pending", "snapshot", "solve",
-                                 "fence", "bind", "postbind", "finalize"]
+        assert list(timings) == ["open", "pending", "snapshot",
+                                 "scheduling_tables", "solve", "fence",
+                                 "bind", "postbind", "finalize"]
+        # the scheduling tables' host time is part of the snapshot stage
+        assert 0 <= timings["scheduling_tables"] <= timings["snapshot"]
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         c, s, _ = basic_binds_pending(PORT)
         with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -49,7 +49,10 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.parallel.solver",
         "scheduler_plugins_tpu_torch.state.nrt_cache",
         "scheduler_plugins_tpu_torch.ops.network",
-        "scheduler_plugins_tpu_torch.plugins.networkaware"} <= set(names), names
+        "scheduler_plugins_tpu_torch.plugins.networkaware",
+        "scheduler_plugins_tpu_torch.state.scheduling",
+        "scheduler_plugins_tpu_torch.ops.selectors",
+        "scheduler_plugins_tpu_torch.plugins.intree"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -64,6 +67,20 @@ def test_no_jax_anywhere():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("helper", sorted(
+    p.name for p in (REPO / "tests").glob("torch_*_cases.py")))
+def test_case_helpers_import_no_package(helper):
+    """The `tests/torch_*_cases.py` helpers `chip_smoke.py` loads import
+    neither package nor JAX at their top level: each builds its cases
+    from the package objects its caller passes in."""
+    lines = (REPO / "tests" / helper).read_text().splitlines()
+    imports = [line for line in lines
+               if line.startswith(("import ", "from "))]
+    assert imports
+    assert not [line for line in imports
+                if "jax" in line or "scheduler_plugins_tpu" in line], imports
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):
@@ -114,6 +131,46 @@ class TestDeviceDefault:
                              device="cpu")
         assert result.assignment.device.type == "cpu"
         assert (result.assignment >= 0).all()
+
+    def test_intree_entry_points_raise(self, no_cuda):
+        """The in-tree slice's entry points (the snapshot with its
+        scheduling tables, the solve, the batched solve through the
+        validators, the post-eviction tables' device) default to the card
+        too."""
+        from types import SimpleNamespace
+
+        from scheduler_plugins_tpu_torch.api import objects
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import Scheduler
+        from scheduler_plugins_tpu_torch.parallel.solver import (
+            profile_batch_solve,
+        )
+        from scheduler_plugins_tpu_torch.state import Cluster
+
+        sys.path.insert(0, str(REPO / "tests"))
+        try:
+            from torch_intree_cases import INTREE, intree_cluster
+        finally:
+            sys.path.remove(str(REPO / "tests"))
+        cluster = intree_cluster(SimpleNamespace(objects=objects,
+                                                 Cluster=Cluster),
+                                 8, 16, 4)
+        sched = Scheduler(load_profile(INTREE))
+        pending = cluster.pending_pods()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cluster.snapshot(pending)
+        snap, meta = cluster.snapshot(pending, device="cpu")
+        sched.prepare(meta, cluster)
+        assert snap.scheduling is not None
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            sched.solve(snap)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            profile_batch_solve(sched, snap)
+        assert (profile_batch_solve(sched, snap, device="cpu")[0]
+                >= 0).any()
+        hyp = cluster.post_eviction_tables(snap, meta, [
+            p.uid for p in cluster.pods.values() if p.node_name][:2])
+        assert hyp.scheduling.track_base.device.type == "cpu"
 
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0

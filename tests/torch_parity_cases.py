@@ -63,6 +63,7 @@ def parity_outputs(result) -> dict:
     outputs = {k: getattr(result, k) for k in
                ("assignment", "admitted", "wait", "failed_plugin")}
     for k in ("free", "eq_used", "gang_scheduled", "gang_inflight",
-              "placed_mask", "numa_avail", "net_placed"):
+              "placed_mask", "numa_avail", "net_placed", "sel_counts",
+              "sel_dom_counts", "anti_domains", "sym_counts"):
         outputs[k] = getattr(result.state, k)
     return outputs

@@ -32,7 +32,19 @@ their counts over 64 is one step's `aten` / `views` / `launching` ops.
 `parity_step_config3` is the same for bench config 3
 (`numa_scenario(1024, 512, zones=8)`, NodeResourceTopologyMatch), and
 `parity_step_config5` for bench config 5 (`network_scenario(1024, 1024)`,
-NetworkOverhead + TopologicalSort).
+NetworkOverhead + TopologicalSort), and `parity_step_intree` for the
+in-tree roster problem `intree_1k` (`tests/torch_intree_cases.py`
+`intree_cluster()`: 1,024 nodes, 1,024 pending pods; NodeResourcesAllocatable,
+NodeAffinity, TaintToleration, PodTopologySpread, InterPodAffinity), and
+`parity_step_mixed` for `mixed_full` (`mixed_scenario(1024, 1024)` under
+NodeResourcesAllocatable, NodeResourceTopologyMatch, NetworkOverhead and
+PodTopologySpread).
+
+`validator_intree`: the ATen ops of one row of the batched solve's
+validator walk on `intree_1k` (both validators' `validate_at` and the
+selector commit, `ops.selectors.commit_tracks`), averaged over its first
+64 rows against the cycle-initial carry; a dense wave walks every pod
+row, a straggler wave 128.
 
 `batch`: `profile_batch_solve(collect_stats=True)` of bench configs 3 and
 2 (`trimaran_scenario(5000, 2048)`, TLP + LVRB) at full width: its waves,
@@ -149,8 +161,9 @@ def _op_counter():
 
 def _problem(which: str):
     """(cluster, scheduler) of bench config 4 (the flagship profile), 3
-    (NUMA), 5 (NetworkOverhead + TopologicalSort) or 2 (TLP + LVRB) at
-    full width."""
+    (NUMA), 5 (NetworkOverhead + TopologicalSort), the full-roster mixed
+    profile, the in-tree roster problem or 2 (TLP + LVRB) at full
+    width."""
     from scheduler_plugins_tpu_torch import plugins as P
     from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
     from scheduler_plugins_tpu_torch.models import (
@@ -170,6 +183,26 @@ def _problem(which: str):
     if which == "config5":
         return network_scenario(1024, 1024), Scheduler(Profile(
             plugins=[P.NetworkOverhead(), P.TopologicalSort()]))
+    if which == "mixed":
+        from scheduler_plugins_tpu_torch.models import mixed_scenario
+
+        return mixed_scenario(1024, 1024), Scheduler(Profile(plugins=[
+            P.NodeResourcesAllocatable(), P.NodeResourceTopologyMatch(),
+            P.NetworkOverhead(), P.PodTopologySpread()]))
+    if which == "intree":
+        from types import SimpleNamespace
+
+        from scheduler_plugins_tpu_torch.api import objects
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.state import Cluster
+
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                               / "tests"))
+        from torch_intree_cases import INTREE, intree_cluster
+
+        return intree_cluster(SimpleNamespace(
+            objects=objects, Cluster=Cluster)), Scheduler(
+            load_profile(INTREE))
     return trimaran_scenario(5000, 2048), Scheduler(Profile(plugins=[
         P.TargetLoadPacking(), P.LoadVariationRiskBalancing()]))
 
@@ -197,6 +230,40 @@ def parity_step_census(root: Path, pods: int = 64,
            for k in short.counts},
         "by_op": {k: v for k, v in sorted(by_op.items(),
                                           key=lambda kv: -kv[1]) if v},
+    }
+
+
+def validator_census(root: Path, rows: int = 64) -> dict:
+    """Per-row op counts of the validator walk on `intree_1k` (see the
+    module docstring)."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
+
+    cluster, scheduler = _problem("intree")
+    pending = scheduler.sort_pending(cluster.pending_pods(), cluster)
+    snap, meta = cluster.snapshot(pending, now_ms=0, device="cpu")
+    scheduler.prepare(meta, cluster)
+    validators = [p for p in scheduler.profile.plugins
+                  if p.validate_at is not None]
+    state = scheduler.initial_state(snap)
+    args = [(torch.tensor([j]), torch.tensor([j % len(meta.node_names)]))
+            for j in range(rows)]
+    counter = _op_counter()
+    with counter:
+        for q, node in args:
+            ok = None
+            for plugin in validators:
+                verdict = plugin.validate_at(state, snap, q, node)
+                ok = verdict if ok is None else ok & verdict
+            state = commit_tracks(state, snap.scheduling, q,
+                                  torch.where(ok, node, -1))
+    return {
+        "validators": [p.name for p in validators],
+        **{k: v / rows for k, v in counter.counts.items()},
+        "by_op": {k: v / rows for k, v in sorted(
+            counter.by_op.items(), key=lambda kv: -kv[1])},
     }
 
 
@@ -239,6 +306,9 @@ def main(argv=None) -> int:
         "parity_step": parity_step_census(root),
         "parity_step_config3": parity_step_census(root, which="config3"),
         "parity_step_config5": parity_step_census(root, which="config5"),
+        "parity_step_intree": parity_step_census(root, which="intree"),
+        "parity_step_mixed": parity_step_census(root, which="mixed"),
+        "validator_intree": validator_census(root),
         "batch": batch_census(root),
     }))
     return 0
