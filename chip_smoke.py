@@ -123,11 +123,33 @@ Phases (any failure exits non-zero and prints no result line):
    fit, zone, quota, quorum and dependency-threshold violations (config
    5's waves replayed in order), pods/s, waves, occupancy and the host
    syncs a wave counted under sync-debug "warn" (`[batch]` lines).
-   Phases 9 to 13 launch no election kernel: their counts print
-   0 / 0 / 0;
-14. the kernel table as one JSON line (times at the shapes, dtypes and
+14. the in-tree plugins and the batched solve's validators on
+   `mixed_full` (the JAX full-roster mixed profile on `mixed_scenario(1024,
+   1024)`) and `intree_1k` (`tests/torch_intree_cases.intree_cluster`):
+   the parity solve, the work a step enqueues, the batched solve through
+   the validator walk, two `run_cycle`s and the in-tree preemption
+   script, card against CPU, 0 violations of the host oracle
+   (`[intree]` lines);
+15. the rest of the roster on `roster_1k` (`tests/torch_roster_cases
+   .roster_cluster`: QOSSort, NodeResourcesAllocatable, SySched, PodState
+   and PreemptionToleration over 1,024 nodes, 3,072 bound and 1,024
+   pending pods and a 360-name syscall universe) and `metric_1k` (the
+   JAX metric roster on `metric_affinity_scenario(1024, 1024)`): the
+   parity solve (card == CPU, 0 fit and InterPodAffinity violations, 64
+   pods' SySched rows on the card equal to the reference's set loop), the
+   work a step enqueues, the batched solve; the roster's two cycles, the
+   second's 36 preemptors held to the toleration policies (evicted,
+   spared and overridden counted, none evicted that its policy spares);
+   and the cross-node preemption script (4,096 subsets a preemptor),
+   card against CPU (`[roster]` lines). Phases 9 to 15 launch no election
+   kernel: their counts print 0 / 0 / 0;
+16. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
+
+After phase 3 (the card, the build and the kernel grid together) and
+each later one, a `[smoke] phase=n seconds=... total_s=...` line gives
+the phase's wall seconds and the run's so far.
 
 Times: `ms` is the mean of 50 back-to-back calls of the Python wrapper
 between CUDA events, so at these small shapes it is mostly the host's cost
@@ -195,6 +217,17 @@ MIXED_FULL = dict(n_nodes=1024, n_pods=1024)
 INTREE_1K = dict(n_nodes=1024, n_pods=1024, n_bound=256)
 #: pods added between the in-tree phase's two cycles, with a Namespace
 INTREE_CYCLE2_PODS = 256
+#: the roster phase's problems at full width: the whole new roster
+#: (QOSSort, NodeResourcesAllocatable, SySched, PodState,
+#: PreemptionToleration) on `tests/torch_roster_cases.roster_cluster`
+#: with the 360-name syscall universe, and the JAX metric roster on
+#: `metric_affinity_scenario`; the roster's second cycle adds the
+#: preemptors
+ROSTER_1K = dict(n_nodes=1024, n_pods=1024)
+METRIC_1K = dict(n_nodes=1024, n_pods=1024)
+ROSTER_PREEMPTORS = dict(n_mid=32, n_high=4)
+#: queued pods whose SySched rows the host oracle recomputes
+SYSCHED_ORACLE_ROWS = 64
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -565,9 +598,9 @@ def parity_violations(snap, result) -> dict:
 def parity_drive(label: str, cluster, device,
                  make_scheduler=flagship_scheduler) -> None:
     """QueueSort, snapshot and `Scheduler.solve` of `cluster` on the card
-    with the profile `make_scheduler()` builds: twice under sync-debug
-    "error" (`cold_s` pays the kernels' first loads, `debug_s` is warm),
-    then once without it (`solve_s`, the time reported per pod); then the
+    with the profile `make_scheduler()` builds: once under sync-debug
+    "error" (`cold_s`, paying the kernels' first loads), then once without
+    it (`solve_s`, the time reported per pod); then the
     same on the CPU (`cpu_s`, `cpu_ms_per_pod`). Every output and final
     carry must be identical (tolerance 0) and pass `parity_violations`.
     Returns the CPU's result, snapshot and meta."""
@@ -584,7 +617,7 @@ def parity_drive(label: str, cluster, device,
     _sync(device)
     setup_s = time.perf_counter() - t0
     runs = []
-    for mode in ("error", "error", "default"):
+    for mode in ("error", "default"):
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode(mode)
         try:
@@ -593,7 +626,7 @@ def parity_drive(label: str, cluster, device,
             torch.cuda.set_sync_debug_mode("default")
         _sync(device)
         runs.append(time.perf_counter() - t0)
-    cold_s, debug_s, solve_s = runs
+    cold_s, solve_s = runs
 
     cpu = torch.device("cpu")
     sched_cpu = make_scheduler()
@@ -612,7 +645,6 @@ def parity_drive(label: str, cluster, device,
     print(
         f"[parity] {label} nodes={len(meta.node_names)} pods={len(pending)} "
         f"rows={P} setup_s={setup_s:.3f} cold_s={cold_s:.3f} "
-        f"debug_s={debug_s:.3f} "
         f"solve_s={solve_s:.3f} ms_per_pod={solve_s * 1e3 / P:.4f} "
         f"pods_per_s={P / solve_s:.1f} cpu_s={cpu_s:.3f} "
         f"cpu_ms_per_pod={cpu_s * 1e3 / P:.4f} placed={placed} "
@@ -2300,6 +2332,287 @@ def intree_phase(device) -> None:
     print(f"[intree] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+def roster_problem(name: str):
+    """(make_cluster, make_scheduler) of the roster phase's problem
+    `roster_1k` or `metric_1k`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+    from scheduler_plugins_tpu_torch.models import metric_affinity_scenario
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_roster_cases import (
+        METRIC_PROFILE,
+        ROSTER_PROFILE,
+        roster_cluster,
+    )
+
+    if name == "metric_1k":
+        return (lambda: metric_affinity_scenario(**METRIC_1K),
+                lambda: Scheduler(load_profile(METRIC_PROFILE)))
+    pkg = SimpleNamespace(objects=objects, Cluster=Cluster)
+    return (lambda: roster_cluster(pkg, **ROSTER_1K),
+            lambda: Scheduler(load_profile(ROSTER_PROFILE)))
+
+
+def sysched_oracle(label: str, cluster, sched, snap, meta) -> int:
+    """SySched's raw rows of SYSCHED_ORACLE_ROWS seeded queued pods,
+    `score_batch` and the per-pod `score` on the snapshot's device,
+    against `tests/torch_roster_cases.sysched_reference_rows` (the
+    reference's set loop over the store's objects): returns the rows that
+    differ, printing the count."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from torch_roster_cases import sysched_reference_rows
+
+    plugin = next(p for p in sched.profile.plugins if p.name == "SySched")
+    n_pods, n_nodes = len(meta.pod_names), len(meta.node_names)
+    rows = sorted(np.random.default_rng(0).choice(
+        n_pods, size=min(SYSCHED_ORACLE_ROWS, n_pods),
+        replace=False).tolist())
+    t0 = time.perf_counter()
+    batch = plugin.score_batch(None, snap)[rows][:, :n_nodes].cpu()
+    per_pod = torch.stack([plugin.score(None, snap, r)
+                           for r in rows])[:, :n_nodes].cpu()
+    pending = [cluster.pods[uid] for uid in meta.pod_names]
+    want = sysched_reference_rows(cluster, pending, rows, meta.node_names)
+    bad = sum(1 for k in range(len(rows))
+              if batch[k].tolist() != want[k]
+              or per_pod[k].tolist() != want[k])
+    print(f"[roster] {label} sysched_oracle rows={len(rows)} "
+          f"differ={bad} syscalls={snap.syscalls.pod_sets.shape[1]} "
+          f"seconds={time.perf_counter() - t0:.3f}", flush=True)
+    return bad
+
+
+def roster_parity(label: str, make_cluster, make_scheduler, device):
+    """`Scheduler.solve` of the problem on the card, first under sync-debug
+    "error" (`cold_s`), then timed (`solve_s`), and on the CPU: every
+    output and final carry identical, no violation of `parity_violations`
+    (nor of `intree_oracle` where InterPodAffinity's tables exist), the
+    SySched oracle equal on the card, no election kernel launched. Returns
+    the cluster."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+
+    cluster = make_cluster()
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        sched = make_scheduler()
+        for plugin in sched.profile.plugins:
+            plugin.configure_cluster(cluster)
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+        sched.prepare(meta, cluster)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        runs = []
+        pk.reset_launches()
+        for debug in ((True, False) if dev is device else (False,)):
+            t0 = time.perf_counter()
+            with (sync_errors(dev) if debug else contextlib.nullcontext()):
+                result = sched.solve(snap, device=dev)
+            _sync(dev)
+            runs.append(time.perf_counter() - t0)
+        outs.append((result, snap, meta, setup_s, runs, pk.launches(),
+                     sched))
+    (result, snap, meta, setup_s, runs, launches, sched), (
+        on_cpu, snap_cpu, meta_cpu, _, (cpu_s,), _, _) = outs
+    got, want = parity_outputs(result), parity_outputs(on_cpu)
+    differ = [k for k in got if (got[k] is None) != (want[k] is None) or (
+        got[k] is not None and not torch.equal(got[k].cpu(), want[k]))]
+    viol = parity_violations(snap_cpu, on_cpu)
+    if snap_cpu.scheduling is not None:
+        viol.update(intree_oracle(cluster, meta_cpu, on_cpu.assignment))
+    viol["sysched_oracle"] = sysched_oracle(f"parity_{label}", cluster,
+                                            sched, snap, meta)
+    P = snap.num_pods
+    cold_s, solve_s = runs
+    codes = on_cpu.failed_plugin.numpy()
+    failed_by = dict(zip(*[v.tolist() for v in np.unique(
+        codes[codes >= 0], return_counts=True)]))
+    nodes = snap_cpu.nodes
+    print(
+        f"[roster] parity_{label} nodes={len(meta.node_names)} "
+        f"pods={len(meta.pod_names)} rows={P} setup_s={setup_s:.3f} "
+        f"cold_s={cold_s:.3f} solve_s={solve_s:.3f} "
+        f"ms_per_pod={solve_s * 1e3 / P:.4f} pods_per_s={P / solve_s:.1f} "
+        f"cpu_s={cpu_s:.3f} cpu_ms_per_pod={cpu_s * 1e3 / P:.4f} "
+        f"placed={int((on_cpu.assignment >= 0).sum())} "
+        f"failed_by={failed_by} "
+        f"terminating={int(nodes.terminating.sum())} "
+        f"nominated={int(nodes.nominated.sum())} "
+        f"identical={not differ} violations={viol}", flush=True)
+    no_election_launches("roster", f"parity_{label}", launches)
+    if differ:
+        raise AssertionError(f"{label}: card != CPU in {differ}")
+    if any(viol.values()):
+        raise AssertionError(f"{label}: violations {viol}")
+    return cluster
+
+
+def roster_cycles(device) -> None:
+    """`roster_1k` through two `run_cycle`s on the card and, from a fresh
+    cluster, on the CPU: the first binds the batch, the second (at the
+    later ROSTER_NOW, after `add_preemptors`) preempts; identical reports
+    and store bookkeeping after each, no store violation, no election
+    kernel; each cycle's stage times, and the second's preemption counts
+    against the toleration policies (`toleration_outcomes`: evicted,
+    spared, overridden, and no victim its policy spares at that time)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    from torch_roster_cases import (
+        ROSTER_NOW,
+        add_preemptors,
+        toleration_outcomes,
+    )
+
+    pkg = SimpleNamespace(objects=objects)
+    make_cluster, make_scheduler = roster_problem("roster_1k")
+    states = []
+    for dev in (device, torch.device("cpu")):
+        cluster = make_cluster()
+        sched = make_scheduler()
+        pk.reset_launches()
+        out = []
+        for k, now in enumerate(ROSTER_NOW):
+            if k:
+                add_preemptors(pkg, cluster, **ROSTER_PREEMPTORS)
+            timings = {}
+            t0 = time.perf_counter()
+            report = run_cycle(sched, cluster, now=now, device=dev,
+                               timings=timings)
+            _sync(dev)
+            cycle_s = time.perf_counter() - t0
+            viol = store_violations(cluster)
+            tol = toleration_outcomes(cluster, report.preempted, now)
+            print(f"[roster] cycle_roster_1k cycle={k + 1} "
+                  f"device={dev.type} pods={len(cluster.pods)} "
+                  f"cycle_s={cycle_s} stage_s={timings} "
+                  f"bound={len(report.bound)} failed={len(report.failed)} "
+                  f"nominated={len(report.preempted)} "
+                  f"preemption={tol} violations={viol}", flush=True)
+            if any(viol.values()) or tol["violations"]:
+                raise AssertionError(f"roster cycle {k + 1} on {dev}: "
+                                     f"{viol}, {tol}")
+            if k == 0 and (len(report.bound) != ROSTER_1K["n_pods"]
+                           or report.preempted):
+                raise AssertionError(f"roster cycle 1 on {dev}: "
+                                     f"{len(report.bound)} bound")
+            if k == 1 and not (tol["evicted"] and tol["overridden"]
+                               and tol["spared"]):
+                raise AssertionError(f"roster cycle 2 on {dev}: {tol}")
+            out.append(cycle_state(report, cluster))
+        no_election_launches("roster", f"cycle_roster_1k device={dev.type}",
+                             pk.launches())
+        states.append(out)
+    if states[0] != states[1]:
+        raise AssertionError("roster cycles: card != CPU")
+    print("[roster] cycle_roster_1k identical=True", flush=True)
+
+
+def cross_node_phase(device) -> None:
+    """`tests/torch_roster_cases.cross_node_script` (three cycles of
+    CrossNodePreemption over a pool of 12, 4,096 subsets a preemptor) on
+    the card and on the CPU, compared cycle by cycle, with the
+    nominations and binds the script is built to reach."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from scheduler_plugins_tpu_torch import plugins
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import (
+        Profile,
+        Scheduler,
+        run_cycle,
+    )
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    _tests_on_path()
+    from torch_roster_cases import cross_node_script
+
+    pkg = SimpleNamespace(o=objects, Cluster=Cluster, Profile=Profile,
+                          Scheduler=Scheduler, plugins=plugins)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        cluster, sched, steps = cross_node_script(pkg)
+        pk.reset_launches()
+        out, reports = [], []
+        for now, mutate in steps:
+            if mutate is not None:
+                mutate(pkg, cluster)
+            t0 = time.perf_counter()
+            report = run_cycle(sched, cluster, now=now, device=dev)
+            cycle_s = time.perf_counter() - t0
+            reports.append(report)
+            out.append(cycle_state(report, cluster))
+            print(f"[roster] cross_node_script device={dev.type} now={now} "
+                  f"cycle_s={cycle_s} bound={report.bound} "
+                  f"preempted={report.preempted}", flush=True)
+        no_election_launches("roster", f"cross_node_script "
+                             f"device={dev.type}", pk.launches())
+        runs[dev.type] = (out, reports)
+    (card, reports), (cpu, _) = runs[device.type], runs["cpu"]
+    got = ([r.preempted for r in reports], reports[2].bound)
+    want = ([{"default/small": ("a", ["default/v-a2"]),
+              "default/big": ("c", ["default/v-c"])}, {}, {}],
+            {"default/small": "a", "default/big": "c"})
+    print(f"[roster] cross_node_script identical={card == cpu} "
+          f"outcomes={got}", flush=True)
+    if card != cpu:
+        raise AssertionError("cross-node script: card != CPU")
+    if got != want:
+        raise AssertionError(f"cross-node script: {got}")
+
+
+def roster_phase(device) -> None:
+    """Phase 15: the rest of the plugin roster on `roster_1k` and
+    `metric_1k` at 1,024 nodes x 1,024 pods: the parity solve with its
+    SySched oracle and the work a step enqueues, the batched solve, the
+    roster's two cycles with its preemptions, and the cross-node script
+    (card == CPU everywhere, 0 oracle violations, no election kernel)."""
+    t_phase = time.perf_counter()
+    for label in ("roster_1k", "metric_1k"):
+        t0 = time.perf_counter()
+        make_cluster, make_scheduler = roster_problem(label)
+        cluster = roster_parity(label, make_cluster, make_scheduler, device)
+        launches_per_step(cluster, device, make_scheduler=make_scheduler,
+                          label=f"{label} ")
+        batch_drive(f"batch_{label}", cluster, make_scheduler, device)
+        del cluster
+        print(f"[roster] {label} phase_s={time.perf_counter() - t0}",
+              flush=True)
+    t0 = time.perf_counter()
+    roster_cycles(device)
+    print(f"[roster] cycle_roster_1k phase_s={time.perf_counter() - t0}",
+          flush=True)
+    t0 = time.perf_counter()
+    cross_node_phase(device)
+    print(f"[roster] cross_node_script phase_s={time.perf_counter() - t0}",
+          flush=True)
+    print(f"[roster] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -2342,6 +2655,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_start = t_phase = time.perf_counter()
+
+    def phase_done(n: int) -> None:
+        """Print phase n's wall seconds and the run's so far."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"[smoke] phase={n} seconds={now - t_phase} "
+              f"total_s={now - t_start}", flush=True)
+        t_phase = now
 
     # 1. the card
     smi = subprocess.run(
@@ -2372,6 +2694,8 @@ def main() -> int:
               f"strides={key[2]} "
               + " ".join(f"{k}={v}" for k, v in r.items()), flush=True)
 
+    phase_done(3)
+
     # 4. north star through the blocked path
     t0 = time.perf_counter()
     cluster = allocatable_scenario(NORTH_STAR["n_nodes"], NORTH_STAR["n_pods"])
@@ -2381,12 +2705,16 @@ def main() -> int:
         rescue_window=NORTH_STAR["rescue_window"], pad_to=NORTH_STAR["chunk"],
     )
 
+    phase_done(4)
+
     # 5. the streamed chunk pipeline: the north star as bench drives it,
     # bench config 6 through one streamed cycle, the streamed script
     north_star_pipeline(cluster, device)
     del cluster
     config6_cycle(device)
     script_phase(device, stream_chunk=4)
+
+    phase_done(5)
 
     # 6. gang + quota, and a tight problem (rescue waves, hopeless pods)
     # solved on the card and, through the plain versions, on the CPU
@@ -2399,6 +2727,8 @@ def main() -> int:
     for key in ("assignment", "admitted", "wait"):
         if not torch.equal(on_card[key].cpu(), on_cpu[key]):
             raise AssertionError(f"tight problem: card != CPU ({key})")
+
+    phase_done(6)
 
     # 7. the sequential parity solve, card against CPU
     from scheduler_plugins_tpu_torch.api import objects
@@ -2413,30 +2743,54 @@ def main() -> int:
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
     live_weights_phase(device, config4, launches_per_step(config4, device))
 
+    phase_done(7)
+
     # 8. the scheduling cycle, card against CPU
     cycle_phase(device)
+
+    phase_done(8)
 
     # 9. the Trimaran plugins (bench config 2 and the small cases)
     trimaran_phase(device)
 
+    phase_done(9)
+
     # 10. NUMA: bench config 3 through the parity solve and a cycle
     numa_phase(device)
+
+    phase_done(10)
 
     # 11. the network-aware plugins: bench config 5 through the parity
     # solve and a cycle
     network_phase(device)
 
+    phase_done(11)
+
     # 12. the NRT cache tier through a four-cycle script
     nrt_cache_phase(device)
+
+    phase_done(12)
 
     # 13. the batched profile solve on configs 3, 2, 4 and 5
     batch_phase(device)
 
+    phase_done(13)
+
     # 14. the in-tree plugins and the batched solve's validators
     intree_phase(device)
 
-    # 15. the kernel table, the card, the result
-    print(json.dumps({"kernels": kernel_table(north, device)}), flush=True)
+    phase_done(14)
+
+    # 15. the rest of the roster: SySched, PodState, QOSSort and the two
+    # preemption plugins
+    roster_phase(device)
+
+    phase_done(15)
+
+    # 16. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(16)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,8 @@ to a `framework.Profile`:
 
 `profile_spec` is its inverse. The plugin constructors carry the
 reference's defaulting and validation (each raises ValueError on invalid
-args, validation_pluginargs.go).
-Plugins the JAX package has and the port does not yet raise
-NotImplementedError naming them; a name neither knows is a ValueError.
+args, validation_pluginargs.go). The port loads the JAX package's whole
+roster (`ROSTER`); an unknown plugin name or arg is a ValueError.
 """
 
 from __future__ import annotations
@@ -78,6 +77,16 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
         "namespaces": "namespaces",
     },
     "TopologicalSort": {"namespaces": "namespaces"},
+    "SySched": {
+        "defaultProfileNamespace": "default_profile_namespace",
+        "defaultProfileName": "default_profile_name",
+    },
+    "PreemptionToleration": {
+        "minCandidateNodesPercentage": "min_candidate_nodes_percentage",
+        "minCandidateNodesAbsolute": "min_candidate_nodes_absolute",
+    },
+    "PodState": {},
+    "QOSSort": {},
     "NodeAffinity": {"addedAffinity": "added_affinity"},
     "TaintToleration": {},
     "PodTopologySpread": {},
@@ -86,10 +95,11 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
         "ignorePreferredTermsOfExistingPods":
             "ignore_preferred_terms_of_existing_pods",
     },
+    "CrossNodePreemption": {"maxPool": "max_pool"},
 }
 
-#: the JAX package's full plugin roster: the names the port has not
-#: ported yet raise NotImplementedError, not "unknown plugin"
+#: the JAX package's full plugin roster, every name of which the port
+#: loads
 ROSTER = (
     "CapacityScheduling", "Coscheduling", "CrossNodePreemption",
     "InterPodAffinity", "LoadVariationRiskBalancing",
@@ -118,6 +128,11 @@ def _registry():
         "TaintToleration": p.TaintToleration,
         "PodTopologySpread": p.PodTopologySpread,
         "InterPodAffinity": p.InterPodAffinity,
+        "SySched": p.SySched,
+        "PodState": p.PodState,
+        "QOSSort": p.QOSSort,
+        "PreemptionToleration": p.PreemptionToleration,
+        "CrossNodePreemption": p.CrossNodePreemption,
     }
 
 
@@ -217,11 +232,6 @@ def load_profile(config: Mapping) -> Profile:
     for name in config.get("plugins", []):
         cls = registry.get(name)
         if cls is None:
-            if name in ROSTER:
-                raise NotImplementedError(
-                    f"plugin {name!r} is not ported yet: the port has "
-                    f"{available_plugins()}"
-                )
             raise ValueError(f"unknown plugin {name!r}")
         arg_map = _ARG_MAPS.get(name, {})
         kwargs = {}

@@ -5,7 +5,7 @@ The "Resource/Action" strings the store's mutators note
 that plugin failed re-enters the queue only on one of its events. The kinds
 of the objects the port's store holds (nodes, pods, PodGroups,
 ElasticQuotas, NodeResourceTopologies, AppGroups, NetworkTopologies,
-PodDisruptionBudgets, Namespaces); the rest come with their objects.
+SeccompProfiles, PriorityClasses, PodDisruptionBudgets, Namespaces).
 """
 
 from __future__ import annotations
@@ -31,6 +31,12 @@ APP_GROUP_DELETE = "AppGroup/Delete"
 NETWORK_TOPOLOGY_ADD = "NetworkTopology/Add"
 NETWORK_TOPOLOGY_UPDATE = "NetworkTopology/Update"
 NETWORK_TOPOLOGY_DELETE = "NetworkTopology/Delete"
+SECCOMP_PROFILE_ADD = "SeccompProfile/Add"
+SECCOMP_PROFILE_UPDATE = "SeccompProfile/Update"
+SECCOMP_PROFILE_DELETE = "SeccompProfile/Delete"
+PRIORITY_CLASS_ADD = "PriorityClass/Add"
+PRIORITY_CLASS_UPDATE = "PriorityClass/Update"
+PRIORITY_CLASS_DELETE = "PriorityClass/Delete"
 PDB_ADD = "PodDisruptionBudget/Add"
 PDB_UPDATE = "PodDisruptionBudget/Update"
 PDB_DELETE = "PodDisruptionBudget/Delete"

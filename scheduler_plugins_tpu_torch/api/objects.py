@@ -8,7 +8,9 @@ reads, and the network-aware CRs (`AppGroup`, `NetworkTopology`) that
 NetworkOverhead and TopologicalSort read, and the core/v1 scheduling-spec
 fragments the in-tree plugins read (taints and tolerations, label and
 node selectors, topology spread constraints, pod (anti-)affinity terms,
-the `Namespace` a namespaceSelector targets). Derived-request
+the `Namespace` a namespaceSelector targets), the `SeccompProfile` CR
+SySched reads and the `PriorityClass` PreemptionToleration reads.
+Derived-request
 semantics follow the reference: the effective request is max(sum of app
 containers, max over init containers) plus overhead (upstream
 pkg/util/resource.go:45-85). The Trimaran plugins add the pod's effective
@@ -281,6 +283,9 @@ class Container:
     #: a restartable (sidecar) init container: the NRT cache counts its
     #: requests toward exclusive-resource use (exclusive.go:47-95)
     restart_policy_always: bool = False
+    #: the SeccompProfile CR this container references, for SySched: a
+    #: bare name, "namespace/name" or a localhost path; None = unconfined
+    seccomp_profile: Optional[str] = None
 
 
 @dataclass
@@ -293,6 +298,9 @@ class Pod:
     overhead: Mapping[str, int] = field(default_factory=dict)
     priority: int = 0
     labels: Mapping[str, str] = field(default_factory=dict)
+    #: metadata.annotations: SySched reads the Security Profiles Operator's
+    #: seccomp annotation
+    annotations: Mapping[str, str] = field(default_factory=dict)
     node_name: Optional[str] = None
     #: node the scheduler nominated this pod for after preemption
     nominated_node_name: Optional[str] = None
@@ -302,6 +310,8 @@ class Pod:
     #: non-None marks a terminating pod (deletionTimestamp set)
     deletion_ms: Optional[int] = None
     scheduling_gated: bool = False
+    #: spec.priorityClassName: PreemptionToleration looks its policy up
+    priority_class_name: str = ""
     #: spec.preemptionPolicy: "Never" disqualifies the pod from preempting
     #: (capacity_scheduling.go:412-416)
     preemption_policy: Optional[str] = None
@@ -584,3 +594,27 @@ class NetworkTopology:
     weights: Mapping[str, Mapping[str, Mapping[tuple[str, str], int]]] = (
         field(default_factory=dict)
     )
+
+
+@dataclass
+class SeccompProfile:
+    """The syscall allow-list a pod's containers or its Security Profiles
+    Operator annotation reference, for SySched (sysched.go:124-210)."""
+
+    name: str
+    namespace: str = "default"
+    syscalls: frozenset[str] = frozenset()
+
+    @property
+    def full_name(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class PriorityClass:
+    """A PriorityClass with the preemption-toleration annotations
+    PreemptionToleration reads (preemption_toleration_policy.go)."""
+
+    name: str
+    value: int = 0
+    annotations: Mapping[str, str] = field(default_factory=dict)

@@ -4,7 +4,8 @@
 nested dict of numpy arrays — `{"nodes": {"alloc": ..., ...}, "pods":
 {...}, "gangs": {...} or None, "quota": {...} or None, "nominees": {...}
 or None, "metrics": {...} or None, "numa": {...} or None, "network":
-{...} or None, "scheduling": {...} or None}` — and returns the port's `ClusterSnapshot` on `device`, so both
+{...} or None, "syscalls": {...} or None, "scheduling": {...} or None}`
+— and returns the port's `ClusterSnapshot` on `device`, so both
 packages can solve the very same tensors. Fields the port's slice does not
 carry are ignored; a field the port needs and the tree lacks raises
 `KeyError`; an absent table is None. The NUMA table's `pack_scales` is a
@@ -35,6 +36,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     NumaState,
     PodState,
     QuotaState,
+    SyscallState,
 )
 from scheduler_plugins_tpu_torch.state.scheduling import SchedulingState
 
@@ -47,6 +49,7 @@ _TABLES = {
     "metrics": MetricsState,
     "numa": NumaState,
     "network": NetworkState,
+    "syscalls": SyscallState,
     "scheduling": SchedulingState,
 }
 

@@ -13,6 +13,13 @@ rules (SURVEY.md §3.3):
   outside any quota preys on lower-priority pods outside any quota. The
   post-removal quota gates (own Max, aggregate Min) apply, and the reprieve
   loop re-checks them.
+- `CROSS_NODE` mode (CrossNodePreemption): victim SUBSETS spanning nodes,
+  enumerated exhaustively over the lowest-priority pool
+  (`_preempt_cross_node`).
+- Preemption toleration (PreemptionToleration): a victim whose
+  PriorityClass carries the toleration annotations is exempt while the
+  preemptor's priority is below its MinimumPreemptablePriority and the
+  victim is inside its toleration window (`exempted`).
 
 The dry run is host numpy, exact: every node's free capacity plus the
 eligible victims' demand at once, then the reprieve per sampled candidate
@@ -22,9 +29,6 @@ priority sum, fewest victims, lowest index). The reprieve tries the
 PDB-violating victims first (`partition_pdb_violations`, over the store's
 `pdbs`). It reads the snapshot through `host_view`: each column it needs
 copied to the host once per preemption pass, never per preemptor.
-
-`CROSS_NODE` mode and preemption toleration come with the plugins that
-select them (CrossNodePreemption, PreemptionToleration).
 """
 
 from __future__ import annotations
@@ -40,6 +44,11 @@ import numpy as np
 from scheduler_plugins_tpu_torch.api.objects import Pod
 from scheduler_plugins_tpu_torch.api.resources import PODS
 from scheduler_plugins_tpu_torch.ops.quota import nominee_contribution
+
+#: PriorityClass annotations (preemption_toleration_policy.go:26-28)
+ANNOTATION_PREFIX = "preemption-toleration.scheduling.x-k8s.io/"
+ANNOTATION_MIN_PREEMPTABLE = ANNOTATION_PREFIX + "minimum-preemptable-priority"
+ANNOTATION_TOLERATION_SECONDS = ANNOTATION_PREFIX + "toleration-seconds"
 
 
 def encode_demand(index, pod: Pod):
@@ -99,29 +108,30 @@ class PreemptionEngine:
     DEFAULT_MIN_CANDIDATE_NODES_PERCENTAGE = 10
     DEFAULT_MIN_CANDIDATE_NODES_ABSOLUTE = 100
 
+    #: CROSS_NODE pool bound: the reference enumerates every 2^n victim
+    #: subset with no cap (its own caveat); the search stays exact over
+    #: the lowest-priority pods this many deep
+    CROSS_NODE_MAX_POOL = 12
+
     def __init__(self, mode: PreemptionMode = PreemptionMode.DEFAULT,
                  toleration: bool = False,
+                 cross_node_max_pool: Optional[int] = None,
                  min_candidate_nodes_percentage: Optional[int] = None,
-                 min_candidate_nodes_absolute: Optional[int] = None):
-        if mode == PreemptionMode.CROSS_NODE:
-            raise NotImplementedError(
-                "CrossNodePreemption mode comes with the CrossNodePreemption "
-                "plugin's slice"
-            )
-        if toleration:
-            raise NotImplementedError(
-                "preemption toleration comes with the PreemptionToleration "
-                "plugin's slice (PriorityClass objects in the store)"
-            )
+                 min_candidate_nodes_absolute: Optional[int] = None,
+                 candidate_rng=None):
         self.mode = mode
+        self.toleration = toleration
+        if cross_node_max_pool is not None:
+            self.CROSS_NODE_MAX_POOL = cross_node_max_pool
         pct, absolute = self.validate_sampling_args(
             min_candidate_nodes_percentage, min_candidate_nodes_absolute
         )
         self.min_candidate_nodes_percentage = pct
         self.min_candidate_nodes_absolute = absolute
-        # seed 0, one stream per engine, drawn across cycles: snapshot ->
-        # decision stays reproducible, where upstream uses rand.Int31n
-        self._candidate_rng = random.Random(0)
+        # seed 0 by default, one stream per engine, drawn across cycles:
+        # snapshot -> decision stays reproducible, where upstream uses
+        # rand.Int31n; pass a Random for upstream-style jitter
+        self._candidate_rng = candidate_rng or random.Random(0)
 
     # -- candidate sampling ----------------------------------------------------
     @classmethod
@@ -169,6 +179,36 @@ class PreemptionEngine:
         want = self.calculate_num_candidates(int(pool.size))
         offset = self._candidate_rng.randrange(int(pool.size))
         return pool[(np.arange(pool.size) + offset) % pool.size], want
+
+    # -- exemption -------------------------------------------------------------
+    def exempted(self, victim: Pod, preemptor: Pod, cluster,
+                 now_ms: int) -> bool:
+        """ExemptedFromPreemption (preemption_toleration.go:129-181): the
+        victim's PriorityClass policy spares it from `preemptor` at
+        `now_ms`. An absent toleration-seconds means 0 (no time-based
+        toleration), a negative one forever; a policy with an unparsable
+        int tolerates nothing. The victim's creation time stands in for
+        the time it was scheduled."""
+        if not self.toleration or not victim.priority_class_name:
+            return False
+        pc = cluster.priority_classes.get(victim.priority_class_name)
+        if pc is None:
+            return False
+        raw = pc.annotations.get(ANNOTATION_MIN_PREEMPTABLE)
+        if raw is None:
+            return False
+        try:
+            min_preemptable = int(raw)
+            toleration_s = int(
+                pc.annotations.get(ANNOTATION_TOLERATION_SECONDS, 0)
+            )
+        except ValueError:
+            return False
+        if preemptor.priority >= min_preemptable:
+            return False
+        if toleration_s < 0:
+            return True
+        return victim.creation_ms + toleration_s * 1000 > now_ms
 
     # -- preemptor eligibility ---------------------------------------------
     @staticmethod
@@ -248,8 +288,10 @@ class PreemptionEngine:
         return True
 
     # -- victim eligibility ----------------------------------------------------
-    def _eligible(self, victims, preemptor, view, meta, nom_aggs=None):
-        """(V,) bool victim eligibility per mode."""
+    def _eligible(self, victims, preemptor, cluster, view, meta, now_ms,
+                  nom_aggs=None):
+        """(V,) bool victim eligibility per mode, the exempted victims
+        (preemption toleration) left out."""
         pri = np.array([v.priority for v in victims])
         same_ns = np.array(
             [v.namespace == preemptor.namespace for v in victims]
@@ -264,11 +306,20 @@ class PreemptionEngine:
             p_ns = ns_codes.get(preemptor.namespace, -1)
             if p_ns >= 0 and bool(has_q[p_ns]):
                 if more_than_min:
-                    return v_has_q & same_ns & lower
-                v_over = (v_ns >= 0) & over_min[np.maximum(v_ns, 0)]
-                return v_has_q & ~same_ns & v_over
-            return ~v_has_q & lower
-        return lower
+                    eligible = v_has_q & same_ns & lower
+                else:
+                    v_over = (v_ns >= 0) & over_min[np.maximum(v_ns, 0)]
+                    eligible = v_has_q & ~same_ns & v_over
+            else:
+                eligible = ~v_has_q & lower
+        else:
+            eligible = lower
+        if self.toleration:
+            eligible = eligible & ~np.array([
+                self.exempted(v, preemptor, cluster, now_ms)
+                for v in victims
+            ])
+        return eligible
 
     @staticmethod
     def _nominated_aggregates(cluster, preemptor, view, meta):
@@ -313,7 +364,6 @@ class PreemptionEngine:
         GATED sentinel (terminations in flight on the nominated node:
         callers keep the nomination). `view` is `host_view(snap)`, made
         once per pass by the caller (made here when not given)."""
-        del now_ms  # read by preemption toleration only
         if preemptor.preemption_policy == "Never":
             return None
         view = view or host_view(snap)
@@ -325,6 +375,10 @@ class PreemptionEngine:
         if not self.pod_eligible(cluster, preemptor, snap, meta, nom_aggs,
                                  scheduler, view=view):
             return GATED
+        if self.mode == PreemptionMode.CROSS_NODE:
+            return self._preempt_cross_node(cluster, scheduler, preemptor,
+                                            snap, meta, extra_reserved,
+                                            view=view)
 
         victims_all = [
             p for p in cluster.pods.values()
@@ -349,8 +403,8 @@ class PreemptionEngine:
             v_req[i, index.position(PODS)] = 1
         v_pri = np.array([v.priority for v in victims_all])
 
-        eligible = self._eligible(victims_all, preemptor, view, meta,
-                                  nom_aggs)
+        eligible = self._eligible(victims_all, preemptor, cluster, view,
+                                  meta, now_ms, nom_aggs)
         if not eligible.any():
             return None
 
@@ -426,6 +480,88 @@ class PreemptionEngine:
             )
             if best is None or stats < best[0]:
                 best = (stats, int(n), final)
+        if best is None:
+            return None
+        _, chosen, final_victims = best
+        return PreemptionResult(
+            nominated_node=meta.node_names[chosen],
+            victims=[v.uid for v in final_victims],
+        )
+
+    def _preempt_cross_node(self, cluster, scheduler, preemptor, snap, meta,
+                            extra_reserved=None, view=None):
+        """The exhaustive search over victim SUBSETS spanning nodes (the
+        commented-out reference, cross_node_preemption.go:144-208): the
+        bound pods of lower priority, sorted by (priority, uid) and cut
+        to `CROSS_NODE_MAX_POOL`, every subset in the reference's
+        depth-first order, and for each subset every victim-hosting node
+        the preemptor then fits. The candidates rank by (PDB violations,
+        highest victim priority, priority sum, victims, node, leaf order),
+        so a tie goes to the first leaf. The plugin Filter chain is one
+        `scheduler.filter_verdicts` row against the current state; only
+        the resource fit varies by subset."""
+        view = view or host_view(snap)
+        node_pos = {name: i for i, name in enumerate(meta.node_names)}
+        pool = [
+            v for v in cluster.pods.values()
+            if v.node_name in node_pos and not v.terminating
+            and v.priority < preemptor.priority
+        ]
+        if not pool:
+            return None
+        # the most preemptable pods first, stable by uid
+        pool.sort(key=lambda v: (v.priority, v.uid))
+        pool = pool[: self.CROSS_NODE_MAX_POOL]
+        n_pool = len(pool)
+
+        index = meta.index
+        R = len(index)
+        N = len(meta.node_names)
+        v_node = np.array([node_pos[v.node_name] for v in pool])
+        v_req = np.zeros((n_pool, R), np.int64)
+        for i, v in enumerate(pool):
+            v_req[i] = encode_demand(index, v)
+        demand = encode_demand(index, preemptor)
+        free = (view.nodes.alloc - view.nodes.requested)[:N]
+        if extra_reserved is not None:
+            free = free - extra_reserved[:N]
+        static_fit = view.nodes.mask[:N].copy()
+        if scheduler is not None and preemptor.uid in meta.pod_names:
+            p_idx = meta.pod_names.index(preemptor.uid)
+            static_fit &= scheduler.filter_verdicts(
+                snap, p_idx).cpu().numpy()[:N]
+
+        pdbs = list(cluster.pdbs.values())
+        best = None
+        # leaf k of the depth-first enumeration: the reference tries "pick
+        # pod i" before "skip pod i" at every level, so pod i sits at bit
+        # n_pool-1-i and a CLEARED bit picks it
+        for order in range(1 << n_pool):
+            subset = [i for i in range(n_pool)
+                      if not (order >> (n_pool - 1 - i)) & 1]
+            if not subset:
+                continue
+            removed = np.zeros((N, R), np.int64)
+            # repeated nodes accumulate
+            np.add.at(removed, v_node[subset], v_req[subset])
+            for n in np.unique(v_node[subset]):
+                if not static_fit[n]:
+                    continue
+                if not np.all(free[n] + removed[n] >= demand):
+                    continue
+                victims = [pool[i] for i in subset]
+                violating, _ = self.partition_pdb_violations(
+                    list(enumerate(victims)), pdbs)
+                stats = (
+                    len(violating),
+                    max(v.priority for v in victims),
+                    sum(v.priority for v in victims),
+                    len(victims),
+                    int(n),
+                    order,
+                )
+                if best is None or stats < best[0]:
+                    best = (stats, int(n), victims)
         if best is None:
             return None
         _, chosen, final_victims = best

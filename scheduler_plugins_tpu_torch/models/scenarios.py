@@ -25,9 +25,12 @@ from scheduler_plugins_tpu_torch.api.objects import (
     NodeResourceTopology,
     NUMAZone,
     Pod,
+    PodAffinityTerm,
     PodGroup,
+    SeccompProfile,
     TopologyManagerPolicy,
     TopologySpreadConstraint,
+    WeightedPodAffinityTerm,
 )
 from scheduler_plugins_tpu_torch.api.resources import CPU, MEMORY, PODS
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
@@ -278,5 +281,61 @@ def mixed_scenario(n_nodes=16, n_pods=32, zones=2, n_regions=2,
                     label_selector=mesh,
                 ),
             ],
+        ))
+    return cluster
+
+
+def metric_affinity_scenario(n_nodes=16, n_pods=32, seed=3) -> Cluster:
+    """The JAX package's metric-roster problem: synthetic load metrics
+    (TargetLoadPacking, LoadVariationRiskBalancing), inter-pod affinity
+    terms over four zones with an assigned seed pod (InterPodAffinity's
+    symmetric carry) and two seccomp profiles (SySched's syscall sets).
+    Pods come in threes: a db pod, then two web pods, the first of which
+    requires its zone to hold a db pod; each prefers one (weight 50)."""
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    for i, node in enumerate(_nodes(n_nodes, cpu=16_000, mem=64 * GIB,
+                                    pods=40)):
+        node.labels = {ZONE_LABEL: f"z-{i % 4}"}
+        cluster.add_node(node)
+    cluster.node_metrics = {
+        f"node-{i:05d}": {
+            "cpu_avg": float(rng.uniform(5, 80)),
+            "cpu_std": float(rng.uniform(0, 12)),
+            "mem_avg": float(rng.uniform(5, 70)),
+            "mem_std": float(rng.uniform(0, 8)),
+        }
+        for i in range(n_nodes)
+    }
+    cluster.add_seccomp_profile(SeccompProfile(
+        name="web", syscalls=frozenset({"read", "write", "accept"})))
+    cluster.add_seccomp_profile(SeccompProfile(
+        name="db", syscalls=frozenset({"read", "write", "fsync"})))
+    seed_pod = Pod(name="seed-db", labels={"app": "db"},
+                   containers=[Container(
+                       requests={CPU: 500},
+                       seccomp_profile="operator/default/db.json")])
+    seed_pod.node_name = "node-00000"
+    cluster.add_pod(seed_pod)
+    affinity = PodAffinityTerm(
+        topology_key=ZONE_LABEL,
+        label_selector=LabelSelector(match_labels={"app": "db"}),
+    )
+    for j in range(n_pods):
+        kind = j % 3
+        cluster.add_pod(Pod(
+            name=f"p{j}", creation_ms=j,
+            labels={"app": "web" if kind else "db"},
+            containers=[Container(
+                requests={
+                    CPU: int(rng.integers(200, 1500)),
+                    MEMORY: int(rng.integers(1, 4)) * GIB},
+                seccomp_profile=(
+                    "operator/default/web.json" if kind
+                    else "operator/default/db.json"
+                ))],
+            pod_affinity_preferred=[WeightedPodAffinityTerm(
+                weight=50, term=affinity)],
+            pod_affinity_required=[affinity] if kind == 1 else [],
         ))
     return cluster

@@ -17,7 +17,9 @@ store's pod, bind, reserve and NRT mutators drive its lifecycle hooks,
 and the snapshot then reads the cache's adjusted view with its stale
 nodes. For the network-aware plugins it holds the AppGroup and
 NetworkTopology CRs. For the in-tree plugins it holds the Namespace
-objects a PodAffinityTerm's namespaceSelector matches. The JAX store's
+objects a PodAffinityTerm's namespaceSelector matches. For SySched it
+holds the SeccompProfile CRs and the default profile the plugin installs,
+and for PreemptionToleration the PriorityClasses. The JAX store's
 native mirror, delta sink, pending index and ledger hooks come with their
 slices.
 """
@@ -45,6 +47,8 @@ from scheduler_plugins_tpu_torch.api.objects import (
     PodDisruptionBudget,
     PodGroup,
     PodPhase,
+    PriorityClass,
+    SeccompProfile,
 )
 from scheduler_plugins_tpu_torch.state.snapshot import build_snapshot
 
@@ -71,6 +75,10 @@ class Cluster:
     network_topologies: dict[str, NetworkTopology] = field(
         default_factory=dict
     )
+    #: ns/name -> SeccompProfile CR (SySched's syscall sets)
+    seccomp_profiles: dict[str, SeccompProfile] = field(default_factory=dict)
+    #: name -> PriorityClass (PreemptionToleration's policies)
+    priority_classes: dict[str, PriorityClass] = field(default_factory=dict)
     #: ns/name -> PodDisruptionBudget, read by preemption's victim ranking
     pdbs: dict[str, PodDisruptionBudget] = field(default_factory=dict)
     #: name -> Namespace (labels): PodAffinityTerm.namespaceSelector targets
@@ -96,6 +104,10 @@ class Cluster:
     #: `configure_cluster` when its cache arguments are given; when set,
     #: snapshots read the cache's adjusted zone view instead of `nrts`
     nrt_cache: Optional[object] = None
+    #: "namespace/name" of the all-syscalls SeccompProfile a pod that
+    #: names no profile falls back to, installed by SySched's
+    #: `configure_cluster` (sysched.go:198-208); None = no fallback
+    sysched_default_profile: Optional[str] = None
 
     # scheduling-runtime bookkeeping (host-only)
     reserved: dict[str, str] = field(default_factory=dict)  # uid -> node
@@ -249,6 +261,20 @@ class Cluster:
         )
         self.network_topologies[key] = nt
 
+    def add_seccomp_profile(self, sp: SeccompProfile):
+        self.note_event(
+            ev.SECCOMP_PROFILE_UPDATE if sp.full_name in self.seccomp_profiles
+            else ev.SECCOMP_PROFILE_ADD
+        )
+        self.seccomp_profiles[sp.full_name] = sp
+
+    def add_priority_class(self, pc: PriorityClass):
+        self.note_event(
+            ev.PRIORITY_CLASS_UPDATE if pc.name in self.priority_classes
+            else ev.PRIORITY_CLASS_ADD
+        )
+        self.priority_classes[pc.name] = pc
+
     def add_namespace(self, ns: Namespace):
         self.note_event(
             ev.NAMESPACE_UPDATE if ns.name in self.namespaces
@@ -393,7 +419,8 @@ class Cluster:
         reference's waiting pods. The metrics table carries the
         missing-CPU compensation at `now_ms`; the zone tables are the NRT
         CRs as published, or the cache tier's adjusted view with its
-        stale nodes when a cache is installed."""
+        stale nodes when a cache is installed. The SeccompProfile CRs
+        and the default profile become the syscall tables."""
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -418,6 +445,8 @@ class Cluster:
             node_metrics=self._metrics_with_missing(now_ms),
             tlp_prediction=self.tlp_prediction,
             namespaces=list(self.namespaces.values()),
+            seccomp_profiles=list(self.seccomp_profiles.values()),
+            sysched_default_profile=self.sysched_default_profile,
             **kwargs,
         )
 

@@ -25,10 +25,12 @@ int64 tensors with bucketed static shapes:
          (`state.scheduling.SchedulingState`: node-affinity and toleration
          rows, selector groups, topology-domain codes and the counts the
          spread and inter-pod affinity carries start from).
+- syscalls: SySched's (P, S) pending pods' and (N, S) per-node syscall
+         sets over the SeccompProfile CRs' syscall universe, with the
+         (N, S) per-syscall pod counts.
 
-This slice lowers what the ported plugins read; the JAX snapshot's
-syscall tables wait for a later slice, and
-node/pod fields nothing here reads are left out. The lowering runs in numpy (the
+This slice lowers what the ported plugins read; node/pod fields nothing
+here reads are left out. The lowering runs in numpy (the
 same arithmetic as the JAX builder, so both packages produce the same
 tensors) and moves the result to the requested device once.
 """
@@ -112,6 +114,8 @@ class NodeState(_Tensors):
     region: torch.Tensor  # (N,) int32 region code (-1 unset)
     zone: torch.Tensor  # (N,) int32 zone code (-1 unset)
     pod_count: torch.Tensor  # (N,) int32 assigned pods
+    terminating: torch.Tensor  # (N,) int32 terminating pods (PodState)
+    nominated: torch.Tensor  # (N,) int32 nominated pods (PodState)
 
 
 @dataclass
@@ -263,6 +267,21 @@ class NetworkState(_Tensors):
 
 
 @dataclass
+class SyscallState(_Tensors):
+    """SySched's syscall sets (sysched.go). The sum over a node's existing
+    pods of |newHost - p| decomposes per syscall into
+    pod_count * |newHost| - sum_s newHost[s] * counts[n, s], so only the
+    per-node unions and per-syscall pod counts are needed."""
+
+    pod_sets: torch.Tensor  # (P, S) bool pending pods' syscall sets
+    has_profile: torch.Tensor  # (P,) bool
+    host_sets: torch.Tensor  # (N, S) bool union over the assigned pods
+    #: (N, S) int32 assigned pods on the node whose set holds syscall s
+    counts: torch.Tensor
+    host_pod_count: torch.Tensor  # (N,) int32 assigned pods
+
+
+@dataclass
 class ClusterSnapshot(_Tensors):
     nodes: NodeState
     pods: PodState
@@ -272,6 +291,7 @@ class ClusterSnapshot(_Tensors):
     metrics: Optional[MetricsState] = None
     numa: Optional[NumaState] = None
     network: Optional[NetworkState] = None
+    syscalls: Optional[SyscallState] = None
     #: `state.scheduling.SchedulingState`, None when no node has a taint
     #: and no pod an in-tree spec
     scheduling: Optional[object] = None
@@ -349,6 +369,8 @@ def build_snapshot(
     stale_nrt_nodes: Sequence[str] = (),
     app_groups: Sequence[AppGroup] = (),
     namespaces: Sequence = (),
+    seccomp_profiles: Sequence = (),
+    sysched_default_profile: Optional[str] = None,
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
@@ -362,7 +384,9 @@ def build_snapshot(
     the zone tables (None without any), `stale_nrt_nodes` not fresh there;
     `app_groups` the network table (None without any); `namespaces` (the
     store's Namespace objects, the namespaceSelector targets) feed the
-    in-tree scheduling tables, None when nothing makes them relevant. Codes and
+    in-tree scheduling tables, None when nothing makes them relevant;
+    `seccomp_profiles` the syscall tables (None without any), a pod
+    naming no profile taking `sysched_default_profile`'s set. Codes and
     padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
@@ -399,6 +423,8 @@ def build_snapshot(
     region = np.full(N, -1, I32)
     zone = np.full(N, -1, I32)
     pod_count = np.zeros(N, I32)
+    terminating = np.zeros(N, I32)
+    nominated = np.zeros(N, I32)
     node_pos = {}
     for i, node in enumerate(nodes):
         node_pos[node.name] = i
@@ -419,23 +445,27 @@ def build_snapshot(
         node_limits[i] += np.maximum(index.encode(pod.effective_limits()),
                                      req)
         pod_count[i] += 1
+        if pod.terminating:
+            terminating[i] += 1
     # the "pods" resource is accounted as a count, not a request sum
     requested[:, pods_i] = pod_count
 
-    # nominee capacity holds: every unbound pod nominated to a known node,
-    # wherever it lives (upstream's nominator keeps a popped pod's own
-    # nomination until assume, so the batch is included)
+    # nominee capacity holds and PodState's nominated count: every unbound
+    # pod nominated to a known node, wherever it lives, once by uid
+    # (upstream's nominator keeps a popped pod's own nomination until
+    # assume, so the batch is included)
     nominee_pods = []
     seen_nominated = set()
     for pod in list(pending_pods) + list(assigned_pods) + list(extra_pods):
         if (pod.node_name is None and pod.nominated_node_name in node_pos
                 and pod.uid not in seen_nominated):
             seen_nominated.add(pod.uid)
+            nominated[node_pos[pod.nominated_node_name]] += 1
             nominee_pods.append(pod)
     node_state = NodeState(
         alloc=alloc, capacity=capacity, requested=requested,
         limits=node_limits, mask=node_mask, region=region, zone=zone,
-        pod_count=pod_count,
+        pod_count=pod_count, terminating=terminating, nominated=nominated,
     )
 
     # --- gangs ---------------------------------------------------------
@@ -632,10 +662,17 @@ def build_snapshot(
     )
     meta.scheduling_s = time.perf_counter() - t0
 
+    syscall_state = None
+    if seccomp_profiles:
+        syscall_state = _syscall_state(seccomp_profiles, pending_pods,
+                                       assigned_pods, node_pos, N, P,
+                                       sysched_default_profile)
+
     snapshot = ClusterSnapshot(
         nodes=node_state, pods=pod_state, gangs=gang_state,
         quota=quota_state, nominees=nominee_state, metrics=metrics_state,
-        numa=numa_state, network=network_state, scheduling=scheduling_state,
+        numa=numa_state, network=network_state, syscalls=syscall_state,
+        scheduling=scheduling_state,
     )
     return snapshot.to(device), meta
 
@@ -832,4 +869,99 @@ def _network_state(app_groups, pending_pods, assigned_pods, node_pos: dict,
         placed_node=placed_node, zone_region=zone_region,
         cls_dep_workload=cls_dep_workload,
         cls_dep_max_cost=cls_dep_max_cost, cls_dep_mask=cls_dep_mask,
+    )
+
+
+#: a pod annotation whose key holds this mark names a Security Profiles
+#: Operator profile path (sysched.go SPO_ANNOTATION)
+SPO_ANNOTATION = "seccomp.security.alpha.kubernetes.io"
+
+
+def parse_profile_path(path: str):
+    """parseNameNS (sysched.go:67-83): "namespace/name" from a profile
+    path, the namespace its second-to-last segment and the name its last
+    without the extension; None for fewer than two segments."""
+    if not path:
+        return None
+    parts = path.split("/")
+    if len(parts) < 2:
+        return None
+    name = parts[-1]
+    if "." in name:
+        name = name[: name.rindex(".")]
+    return f"{parts[-2]}/{name}"
+
+
+def _syscall_state(profiles, pending_pods, assigned_pods, node_pos: dict,
+                   N: int, P: int, default_profile=None) -> SyscallState:
+    """The syscall tables (host numpy), as the JAX builder lowers them
+    (`_build_syscalls`, snapshot.py:1081-1163). The universe is every
+    profile's syscalls, profiles in insertion order and each one's names
+    sorted. A pod's set is the union of its containers' (then init
+    containers') profile references and the first SPO annotation's, its
+    keys sorted (Go's map order is random); a reference is a localhost
+    path (two or more slashes, or a .json suffix), "namespace/name", or a
+    bare name in the pod's namespace. A pod that resolves nothing takes
+    `default_profile`'s set when that CR exists and is not empty; else it
+    has no profile. Pods on nodes outside the snapshot are skipped."""
+    by_name = {}
+    pos: dict[str, int] = {}
+    for prof in profiles:
+        by_name[prof.full_name] = prof
+        for sc in sorted(prof.syscalls):
+            if sc not in pos:
+                pos[sc] = len(pos)
+    S = max(len(pos), 1)
+
+    def resolve(ref, namespace):
+        if not ref:
+            return None
+        if ref.count("/") >= 2 or ref.endswith(".json"):
+            ref = parse_profile_path(ref)
+        elif "/" not in ref:
+            ref = f"{namespace}/{ref}"
+        return by_name.get(ref) if ref else None
+
+    def pod_set(pod):
+        vec = np.zeros(S, bool)
+        found = False
+        for cont in list(pod.containers) + list(pod.init_containers):
+            prof = resolve(cont.seccomp_profile, pod.namespace)
+            if prof is not None:
+                found = True
+                vec[[pos[sc] for sc in prof.syscalls]] = True
+        # the reference merges the FIRST seccomp annotation, then stops
+        # (sysched.go:171-196)
+        for key in sorted(pod.annotations):
+            if SPO_ANNOTATION in key:
+                prof = resolve(pod.annotations[key], pod.namespace)
+                if prof is not None:
+                    found = True
+                    vec[[pos[sc] for sc in prof.syscalls]] = True
+                break
+        if not found and default_profile is not None:
+            prof = by_name.get(default_profile)
+            if prof is not None and prof.syscalls:
+                found = True
+                vec[[pos[sc] for sc in prof.syscalls]] = True
+        return vec, found
+
+    pod_sets = np.zeros((P, S), bool)
+    has_profile = np.zeros(P, bool)
+    for i, pod in enumerate(pending_pods):
+        pod_sets[i], has_profile[i] = pod_set(pod)
+    host_sets = np.zeros((N, S), bool)
+    counts = np.zeros((N, S), I32)
+    host_pods = np.zeros(N, I32)
+    for pod in assigned_pods:
+        if pod.node_name not in node_pos:
+            continue
+        ni = node_pos[pod.node_name]
+        vec, _ = pod_set(pod)
+        host_sets[ni] |= vec
+        counts[ni] += vec
+        host_pods[ni] += 1
+    return SyscallState(
+        pod_sets=pod_sets, has_profile=has_profile, host_sets=host_sets,
+        counts=counts, host_pod_count=host_pods,
     )

@@ -14,8 +14,9 @@ and `ops.assign.waterfill_assign_stateful`) against the JAX package.
   assignment, admitted, wait, occupancy and waves equal JAX's, with no
   zone violation in the order the waves committed.
 - The scenarios of `tests/test_parallel.py` TestBatchedStateDependentFilters,
-  TestSparseStragglerWaves (with two port scoring plugins, the port having
-  no PodState yet) and TestTargetedFastPathGate, on both packages.
+  TestSparseStragglerWaves (with JAX's pairing, NodeResourcesAllocatable +
+  PodState, and with two NodeResourcesAllocatable plugins) and
+  TestTargetedFastPathGate, on both packages.
 - The batch-versus-sequential score drift of the port within the bounds
   of `tests/test_drift_bounds.py`.
 - Each normalizer over (P, N) rows equals its per-row call.
@@ -450,12 +451,17 @@ class TestParallelScenarios:
         seq = sched.solve(snap2, device="cpu").assignment.numpy()
         assert int((r.a[:24] >= 0).sum()) == int((seq[:24] >= 0).sum())
 
-    # two scoring plugins: the general stateful branch (the JAX test pairs
-    # NodeResourcesAllocatable with PodState, which the port has not yet)
-    STRAGGLER = ("NodeResourcesAllocatable", "NodeResourcesAllocatable")
-    STRAGGLER_ARGS = ({}, {"mode": "Most"})
+    # two scoring plugins: the general stateful branch, not the targeted
+    # fast path; JAX's test pairs NodeResourcesAllocatable with PodState
+    STRAGGLER = pytest.mark.parametrize("plugins,args", [
+        (("NodeResourcesAllocatable", "NodeResourcesAllocatable"),
+         ({}, {"mode": "Most"})),
+        (("NodeResourcesAllocatable", "PodState"), ({}, {})),
+    ], ids=["alloc_pair", "alloc_podstate"])
 
-    def test_cordoned_node_unreachable_in_straggler_waves(self):
+    @STRAGGLER
+    def test_cordoned_node_unreachable_in_straggler_waves(self, plugins,
+                                                          args):
         def build(pkg):
             o = pkg.objects
             c = pkg.Cluster()
@@ -469,11 +475,12 @@ class TestParallelScenarios:
                     o.Container(requests={"cpu": 1000})]))
             return c
 
-        r = self.solve_both(build, self.STRAGGLER, self.STRAGGLER_ARGS)
+        r = self.solve_both(build, plugins, args)
         placed = {p.uid: r.a[i] for i, p in enumerate(r.pending)}
         assert placed["default/a"] == 0 and placed["default/b"] == -1
 
-    def test_head_cohort_does_not_starve_tail_pod(self):
+    @STRAGGLER
+    def test_head_cohort_does_not_starve_tail_pod(self, plugins, args):
         def build(pkg):
             o = pkg.objects
             c = pkg.Cluster()
@@ -491,7 +498,7 @@ class TestParallelScenarios:
                                     requests={"cpu": 1000})]))
             return c
 
-        r = self.solve_both(build, self.STRAGGLER, self.STRAGGLER_ARGS)
+        r = self.solve_both(build, plugins, args)
         placed = {p.uid: r.a[i] for i, p in enumerate(r.pending)}
         assert placed["default/a"] >= 0 and placed["default/b"] >= 0
         assert placed["default/a"] != placed["default/b"]

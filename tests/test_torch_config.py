@@ -1,25 +1,31 @@
 """The port's profile loader (`scheduler_plugins_tpu_torch.api.config`)
-against JAX `load_profile` for the ported plugins (the flagship three,
-the four Trimaran plugins, NodeResourceTopologyMatch, the network-aware
-pair and the in-tree four): arguments and
-their defaults, weights, the
-auto-selected preemption engine, and the validation errors (mirrors
-tests/test_config.py). Plugins JAX has and the port does not raise
-NotImplementedError naming them. `profile_spec`, the loader's inverse,
-must export what JAX's does and load back to the same profile (mirrors
-tests/test_tuning.py TestWeightsRoundTrip); for the Trimaran plugins that
-export is lossy in both packages alike (`TestTrimaranSpec`)."""
+against JAX `load_profile` for the whole roster (the flagship three, the
+four Trimaran plugins, NodeResourceTopologyMatch, the network-aware pair,
+the in-tree four, SySched, PodState, QOSSort and the two preemption
+plugins): arguments and their defaults, weights, the auto-selected
+preemption engine (its mode, toleration, sampling and cross-node pool),
+the queue sort, and the validation errors (mirrors tests/test_config.py).
+The port loads every plugin JAX does. `profile_spec`, the loader's
+inverse, must export what JAX's does and load back to the same profile
+(mirrors tests/test_tuning.py TestWeightsRoundTrip); for the Trimaran
+plugins that export is lossy in both packages alike
+(`TestTrimaranSpec`)."""
 
 import pytest
 
 import scheduler_plugins_tpu.api.config as jax_config
 from scheduler_plugins_tpu_torch.api import config as port_config
 
-PORTED = ("CapacityScheduling", "Coscheduling", "InterPodAffinity",
-          "LoadVariationRiskBalancing", "LowRiskOverCommitment",
-          "NetworkOverhead", "NodeAffinity", "NodeResourceTopologyMatch",
-          "NodeResourcesAllocatable", "Peaks", "PodTopologySpread",
-          "TaintToleration", "TargetLoadPacking", "TopologicalSort")
+#: the plugins the port loaded before the rest of the roster
+EARLIER = ("CapacityScheduling", "Coscheduling", "InterPodAffinity",
+           "LoadVariationRiskBalancing", "LowRiskOverCommitment",
+           "NetworkOverhead", "NodeAffinity", "NodeResourceTopologyMatch",
+           "NodeResourcesAllocatable", "Peaks", "PodTopologySpread",
+           "TaintToleration", "TargetLoadPacking", "TopologicalSort")
+#: the rest of the roster
+REST = ("CrossNodePreemption", "PodState", "PreemptionToleration",
+        "QOSSort", "SySched")
+PORTED = tuple(sorted(EARLIER + REST))
 
 #: per plugin, the attributes its constructor arguments land in
 ATTRS = {
@@ -46,6 +52,12 @@ ATTRS = {
     "TaintToleration": (),
     "PodTopologySpread": (),
     "InterPodAffinity": ("hard_pod_affinity_weight", "ignore_preferred"),
+    "SySched": ("default_profile_namespace", "default_profile_name"),
+    "PodState": (),
+    "QOSSort": (),
+    "PreemptionToleration": ("min_candidate_nodes_percentage",
+                             "min_candidate_nodes_absolute"),
+    "CrossNodePreemption": ("max_pool",),
 }
 
 TRIMARAN = ("TargetLoadPacking", "LoadVariationRiskBalancing",
@@ -135,7 +147,8 @@ def summary(profile):
     engine = profile.preemption
     pre = None if engine is None else (
         engine.mode.value, engine.min_candidate_nodes_percentage,
-        engine.min_candidate_nodes_absolute,
+        engine.min_candidate_nodes_absolute, engine.toleration,
+        engine.CROSS_NODE_MAX_POOL,
     )
     qs = profile.queue_sort
     return (profile.name, profile.solve_mode, plugins, pre,
@@ -332,14 +345,71 @@ def test_validation_errors_match_jax(config, match):
 
 def test_roster_is_the_jax_roster():
     assert port_config.ROSTER == jax_config.available_plugins()
+    assert set(port_config.ROSTER) == set(port_config.available_plugins())
 
 
-@pytest.mark.parametrize(
-    "name", sorted(set(port_config.ROSTER) - set(PORTED)))
-def test_unported_plugin_raises_not_implemented(name):
-    jax_config.load_profile({"plugins": [name]})  # a real plugin in JAX
-    with pytest.raises(NotImplementedError, match=name):
-        port_config.load_profile({"plugins": ["Coscheduling", name]})
+@pytest.mark.parametrize("name", REST)
+def test_ported_plugin_loads_like_jax(name):
+    """Each plugin of the rest of the roster loads in both packages to
+    the same plugin, arguments, engine and queue sort."""
+    config = {"plugins": ["Coscheduling", name]}
+    port, jax = (port_config.load_profile(config),
+                 jax_config.load_profile(config))
+    assert type(port.plugins[1]).__name__ == type(jax.plugins[1]).__name__
+    assert summary(port) == summary(jax)
+
+
+REST_CONFIGS = [
+    {"plugins": ["SySched"], "pluginConfig": [
+        {"name": "SySched", "args": {"defaultProfileNamespace": "ops",
+                                     "defaultProfileName": "full"}}]},
+    {"plugins": ["NodeResourcesAllocatable", "PreemptionToleration"],
+     "pluginConfig": [
+         {"name": "PreemptionToleration",
+          "args": {"minCandidateNodesPercentage": 20,
+                   "minCandidateNodesAbsolute": 7}}]},
+    {"plugins": ["NodeResourcesAllocatable", "CrossNodePreemption"],
+     "pluginConfig": [{"name": "CrossNodePreemption",
+                       "args": {"maxPool": 5}}]},
+    {"profileName": "roster",
+     "plugins": ["QOSSort", "NodeResourcesAllocatable", "SySched",
+                 "PodState", "PreemptionToleration"],
+     "weights": [1, 2, 3, 1, 1]},
+]
+
+
+@pytest.mark.parametrize("config", REST_CONFIGS,
+                         ids=range(len(REST_CONFIGS)))
+def test_rest_load_profile_and_spec_match_jax(config):
+    """SySched's two default-profile arguments, PreemptionToleration's
+    sampling arguments and CrossNodePreemption's maxPool load as JAX's
+    loader builds them, export JAX's spec and round-trip."""
+    port, jax = (port_config.load_profile(config),
+                 jax_config.load_profile(config))
+    assert summary(port) == summary(jax)
+    spec = port_config.profile_spec(port)
+    assert spec == jax_config.profile_spec(jax)
+    assert port_config.profile_spec(port_config.load_profile(spec)) == spec
+    assert summary(port_config.load_profile(spec)) == summary(
+        jax_config.load_profile(spec))
+
+
+@pytest.mark.parametrize("config,match", [
+    ({"plugins": ["CrossNodePreemption"], "pluginConfig": [
+        {"name": "CrossNodePreemption", "args": {"maxPool": 0}}]},
+     "max_pool"),
+    ({"plugins": ["PreemptionToleration"], "pluginConfig": [
+        {"name": "PreemptionToleration",
+         "args": {"minCandidateNodesPercentage": 101}}]},
+     "minCandidateNodesPercentage"),
+    ({"plugins": ["SySched"], "pluginConfig": [
+        {"name": "SySched", "args": {"profile": "x"}}]}, "unknown arg"),
+], ids=["max_pool", "percentage", "sysched_arg"])
+def test_rest_validation_errors_match_jax(config, match):
+    with pytest.raises(ValueError, match=match):
+        jax_config.load_profile(config)
+    with pytest.raises(ValueError, match=match):
+        port_config.load_profile(config)
 
 
 def test_packing_mode_raises_not_implemented():

@@ -953,15 +953,34 @@ class TestPreemptionEngine:
                 assert jw == pw and np.array_equal(jr, pr)
 
     def test_validation_and_unported_modes(self, jax_package):
+        """The sampling arguments validate alike, and the CROSS_NODE and
+        toleration engines build with JAX's attributes."""
         for args in ((-1, None), (101, None), (None, -1), (0, 0)):
             with pytest.raises(ValueError):
                 PORT.pre.PreemptionEngine.validate_sampling_args(*args)
             with pytest.raises(ValueError):
                 JAX.pre.PreemptionEngine.validate_sampling_args(*args)
-        with pytest.raises(NotImplementedError, match="CrossNode"):
-            PORT.pre.PreemptionEngine(PORT.pre.PreemptionMode.CROSS_NODE)
-        with pytest.raises(NotImplementedError, match="PreemptionToleration"):
-            PORT.pre.PreemptionEngine(toleration=True)
+
+        def attrs(engine):
+            return (engine.mode.value, engine.toleration,
+                    engine.CROSS_NODE_MAX_POOL,
+                    engine.min_candidate_nodes_percentage,
+                    engine.min_candidate_nodes_absolute)
+
+        for kw in ({"mode": "CROSS_NODE"},
+                   {"mode": "CROSS_NODE", "cross_node_max_pool": 4},
+                   {"toleration": True},
+                   {"toleration": True, "min_candidate_nodes_absolute": 9}):
+            built = []
+            for pkg in (JAX, PORT):
+                args = dict(kw)
+                if "mode" in args:
+                    args["mode"] = getattr(pkg.pre.PreemptionMode,
+                                           args["mode"])
+                built.append(attrs(pkg.pre.PreemptionEngine(**args)))
+            assert built[0] == built[1], kw
+        assert PORT.pre.PreemptionEngine.CROSS_NODE_MAX_POOL == \
+            JAX.pre.PreemptionEngine.CROSS_NODE_MAX_POOL == 12
 
     @pytest.mark.parametrize("case", range(8))
     def test_pod_eligible_gate(self, jax_package, case):

@@ -17,6 +17,11 @@ an integer or a bool):
 - `CycleReport.explain`: the retention window, the empty cycle, a uid
   outside the batch and a retained report explained with its own cycle's
   configuration (mirrors tests/test_explain.py);
+- the metric roster of tests/test_explain.py (`metric_affinity_scenario(8,
+  16)` with a pod that fits nowhere; TargetLoadPacking,
+  LoadVariationRiskBalancing, InterPodAffinity and SySched) through one
+  `run_cycle` in both packages: `CycleReport.explain` of every pod equal
+  to JAX's, SySched's column among the scores;
 - `Scheduler.set_live_weights` + `solve` equal JAX's, with JAX's
   validation errors, the `None` revert and `weights_key`; the explain
   columns under a live vector are JAX's and scale with its weights, and
@@ -398,6 +403,37 @@ class TestCycleReportExplain:
             seen.append((before, report_b.bound, report_c.bound,
                          report_c.explain("default/late")))
         assert seen[0] == seen[1]
+
+
+class TestMetricRosterExplain:
+    def test_cycle_explain_matches_jax(self):
+        """Every placed and failed pod's explain table, the SySched
+        column included, equals JAX's."""
+        names = ("TargetLoadPacking", "LoadVariationRiskBalancing",
+                 "InterPodAffinity", "SySched")
+        tables = []
+        for pkg, plugins, sched_cls, profile_cls, run in (
+                (JAX, jax_plugins, JScheduler, JProfile,
+                 lambda s, c: jax_cycle.run_cycle(s, c, now=1000)),
+                (PORT, port_plugins, PScheduler, PProfile,
+                 lambda s, c: port_cycle.run_cycle(s, c, now=1000,
+                                                   device=CPU))):
+            cluster = pkg.scenarios.metric_affinity_scenario(8, 16)
+            cluster.add_pod(pkg.objects.Pod(
+                name="impossible", creation_ms=10 ** 6,
+                containers=[pkg.objects.Container(
+                    requests={"cpu": 10 ** 9})]))
+            sched = sched_cls(profile_cls(plugins=[getattr(plugins, n)()
+                                                   for n in names]))
+            report = run(sched, cluster)
+            uids = list(report.bound) + list(report.failed)
+            tables.append({uid: report.explain(uid) for uid in uids})
+        assert tables[0] == tables[1]
+        port = tables[1]
+        assert "default/impossible" in port and len(port) == 17
+        sysched = [c["scores"]["SySched"] for t in port.values()
+                   for c in t["candidates"]]
+        assert sysched and len(set(sysched)) > 1
 
 
 # --- live weights ------------------------------------------------------------

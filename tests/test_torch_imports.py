@@ -52,7 +52,12 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.plugins.networkaware",
         "scheduler_plugins_tpu_torch.state.scheduling",
         "scheduler_plugins_tpu_torch.ops.selectors",
-        "scheduler_plugins_tpu_torch.plugins.intree"} <= set(names), names
+        "scheduler_plugins_tpu_torch.plugins.intree",
+        "scheduler_plugins_tpu_torch.plugins.sysched",
+        "scheduler_plugins_tpu_torch.plugins.podstate",
+        "scheduler_plugins_tpu_torch.plugins.qos",
+        "scheduler_plugins_tpu_torch.plugins.preemptiontoleration",
+        "scheduler_plugins_tpu_torch.plugins.crossnodepreemption"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))

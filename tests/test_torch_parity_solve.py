@@ -177,7 +177,7 @@ def jax_snapshot_tree(snap_j) -> dict:
         name: None if getattr(snap_j, name) is None
         else numpy_tree(getattr(snap_j, name))
         for name in ("nodes", "pods", "gangs", "quota", "nominees",
-                     "metrics", "numa", "network", "scheduling")
+                     "metrics", "numa", "network", "syscalls", "scheduling")
     }
 
 

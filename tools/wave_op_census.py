@@ -38,7 +38,13 @@ in-tree roster problem `intree_1k` (`tests/torch_intree_cases.py`
 NodeAffinity, TaintToleration, PodTopologySpread, InterPodAffinity), and
 `parity_step_mixed` for `mixed_full` (`mixed_scenario(1024, 1024)` under
 NodeResourcesAllocatable, NodeResourceTopologyMatch, NetworkOverhead and
-PodTopologySpread).
+PodTopologySpread), `parity_step_roster` for `roster_1k`
+(`tests/torch_roster_cases.py` `roster_cluster()`: QOSSort,
+NodeResourcesAllocatable, SySched, PodState, PreemptionToleration) and
+`parity_step_metric` for `metric_1k` (`metric_affinity_scenario(1024,
+1024)` under TargetLoadPacking, LoadVariationRiskBalancing,
+InterPodAffinity and SySched), each with every plugin's
+`configure_cluster` run first, as the cycle runs it.
 
 `validator_intree`: the ATen ops of one row of the batched solve's
 validator walk on `intree_1k` (both validators' `validate_at` and the
@@ -162,8 +168,8 @@ def _op_counter():
 def _problem(which: str):
     """(cluster, scheduler) of bench config 4 (the flagship profile), 3
     (NUMA), 5 (NetworkOverhead + TopologicalSort), the full-roster mixed
-    profile, the in-tree roster problem or 2 (TLP + LVRB) at full
-    width."""
+    profile, the in-tree roster problem, the rest of the roster's
+    problem, the metric roster's or 2 (TLP + LVRB) at full width."""
     from scheduler_plugins_tpu_torch import plugins as P
     from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
     from scheduler_plugins_tpu_torch.models import (
@@ -189,6 +195,34 @@ def _problem(which: str):
         return mixed_scenario(1024, 1024), Scheduler(Profile(plugins=[
             P.NodeResourcesAllocatable(), P.NodeResourceTopologyMatch(),
             P.NetworkOverhead(), P.PodTopologySpread()]))
+    if which in ("roster", "metric"):
+        from types import SimpleNamespace
+
+        from scheduler_plugins_tpu_torch.api import objects
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.models import (
+            metric_affinity_scenario,
+        )
+        from scheduler_plugins_tpu_torch.state import Cluster
+
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                               / "tests"))
+        from torch_roster_cases import (
+            METRIC_PROFILE,
+            ROSTER_PROFILE,
+            roster_cluster,
+        )
+
+        if which == "metric":
+            cluster = metric_affinity_scenario(1024, 1024)
+            scheduler = Scheduler(load_profile(METRIC_PROFILE))
+        else:
+            cluster = roster_cluster(SimpleNamespace(objects=objects,
+                                                     Cluster=Cluster))
+            scheduler = Scheduler(load_profile(ROSTER_PROFILE))
+        for plugin in scheduler.profile.plugins:
+            plugin.configure_cluster(cluster)
+        return cluster, scheduler
     if which == "intree":
         from types import SimpleNamespace
 
@@ -308,6 +342,8 @@ def main(argv=None) -> int:
         "parity_step_config5": parity_step_census(root, which="config5"),
         "parity_step_intree": parity_step_census(root, which="intree"),
         "parity_step_mixed": parity_step_census(root, which="mixed"),
+        "parity_step_roster": parity_step_census(root, which="roster"),
+        "parity_step_metric": parity_step_census(root, which="metric"),
         "validator_intree": validator_census(root),
         "batch": batch_census(root),
     }))
