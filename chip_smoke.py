@@ -141,9 +141,22 @@ Phases (any failure exits non-zero and prints no result line):
    second's 36 preemptors held to the toleration policies (evicted,
    spared and overridden counted, none evicted that its policy spares);
    and the cross-node preemption script (4,096 subsets a preemptor),
-   card against CPU (`[roster]` lines). Phases 9 to 15 launch no election
+   card against CPU (`[roster]` lines);
+16. the packing solve mode at bench config 13's full size
+   (`packing_scenario(768, 0.92, 0.05)`: 768 nodes, 19,213 pending pods,
+   uncut): `packing_solve` at budgets 0, 8, 32 and 128 (knobs 4.0, 0.0,
+   0.5) on the card and on the CPU, identical outputs and statistics, the
+   JAX package's rounds / moves / emptied, budget 0 equal to
+   `batch_solve`, 0 `tuning.gates` violations, the placed set kept and
+   packed utilization up at 128, each arm's median solve seconds and
+   pods/s; the host calls that enqueue device work a refinement round
+   (`torch.profiler`); `packing_refine`'s 128 rounds under sync-debug
+   "error"; the packing-mode profile through `Scheduler.solve` and one
+   `run_cycle` (card == CPU, the cycle binding the direct solve's
+   placements, the quality stamped); the test-only modes on a 24 x 160
+   problem (`[packing]` lines). Phases 9 to 16 launch no election
    kernel: their counts print 0 / 0 / 0;
-16. the kernel table as one JSON line (times at the shapes, dtypes and
+17. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -228,6 +241,26 @@ METRIC_1K = dict(n_nodes=1024, n_pods=1024)
 ROSTER_PREEMPTORS = dict(n_mid=32, n_high=4)
 #: queued pods whose SySched rows the host oracle recomputes
 SYSCHED_ORACLE_ROWS = 64
+#: bench config 13 (`bench.py:3120-3352`, `PACKING_SHAPE`): the packing
+#: problem uncut, 768 nodes and 19,213 pending pods; the budgets run
+#: (0, the wave path, first) with the knobs (budget, 4.0, 0.0, 0.5)
+PACKING = dict(n_nodes=768, demand_frac=0.92, empty_frac=0.05)
+PACKING_BUDGETS = (0, 8, 32, 128)
+PACKING_KNOBS = (4.0, 0.0, 0.5)
+#: (rounds, moves, emptied) by budget, and the pods placed, of the JAX
+#: package's `packing_solve` on this problem (run on a CPU): the port must
+#: reproduce them exactly
+PACKING_STATS = {0: (0, 0, 0), 8: (8, 49, 7), 32: (32, 136, 15),
+                 128: (128, 312, 15)}
+PACKING_PLACED = 19_213
+#: the packing-mode profile of the phase's profile path, and its JAX
+#: statistics on the same problem
+PACKING_PROFILE = {"plugins": ["NodeResourcesAllocatable"],
+                   "solveMode": "packing",
+                   "packingConfig": {"iterations": 32}}
+PACKING_PROFILE_STATS = (32, 136, 15)
+#: timed runs of each packing arm (the median is kept)
+PACKING_RUNS = 3
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
 #: the flagship profile's plugins, and the live weight vector its parity
@@ -667,6 +700,32 @@ def parity_drive(label: str, cluster, device,
 WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
 
 
+def profiled_work(run, device) -> tuple:
+    """`run()` once to warm, then once under `torch.profiler`: (device
+    records, the host calls that enqueue device work by name (names
+    matching WORK_CALLS), device microseconds, the profile). The host
+    calls are exact; the device records come back through CUPTI's device
+    buffers, which may drop some."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync(device)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    work = Counter(e.name for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cu")
+                   and any(w in e.name for w in WORK_CALLS))
+    return (len(kernels), work,
+            sum(e.time_range.elapsed_us() for e in kernels), prof)
+
+
 def launches_per_step(cluster, device, live_weights=None,
                       make_scheduler=flagship_scheduler,
                       label: str = "") -> dict:
@@ -681,12 +740,6 @@ def launches_per_step(cluster, device, live_weights=None,
     WORK_CALLS) by name, and `events`, the device records. The host calls
     are exact; the device records are read back through CUPTI's device
     buffers, which may drop some (a step then reads below its calls)."""
-    from collections import Counter
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     sched = make_scheduler()
     sched.set_live_weights(live_weights)
     if live_weights is not None:
@@ -697,22 +750,9 @@ def launches_per_step(cluster, device, live_weights=None,
         snap, meta = cluster.snapshot(pending[:n], now_ms=0, device=device,
                                       pad_pods=n)
         sched.prepare(meta, cluster)
-        sched.solve(snap, device=device)  # warm
-        _sync(device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sched.solve(snap, device=device)
-            _sync(device)
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        counts[n] = (
-            len(kernels),
-            Counter(e.name for e in prof.events()
-                    if e.device_type == DeviceType.CPU
-                    and e.name.startswith("cu")
-                    and any(w in e.name for w in WORK_CALLS)),
-            sum(e.time_range.elapsed_us() for e in kernels),
-        )
+        events, work, device_us, prof = profiled_work(
+            lambda: sched.solve(snap, device=device), device)
+        counts[n] = (events, work, device_us)
     (k1, w1, us1), (k2, w2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
     work = {name: (w2[name] - w1[name]) / PROFILE_PODS
             for name in sorted(w1 | w2)}
@@ -2613,6 +2653,259 @@ def roster_phase(device) -> None:
     print(f"[roster] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+def packing_arm(snap, weights, budget: int, device) -> dict:
+    """`packing_solve` at `budget` with `PACKING_KNOBS` on `device`,
+    PACKING_RUNS times: the last run's host outputs and stats, and the
+    median solve seconds (host clock around a synchronised call)."""
+    from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
+    from scheduler_plugins_tpu_torch.parallel.solver import packing_solve
+
+    aux = pack_aux_vector(budget, *PACKING_KNOBS)
+    times = []
+    for _ in range(PACKING_RUNS):
+        _sync(device)
+        t0 = time.perf_counter()
+        assignment, admitted, wait, stats = packing_solve(
+            snap, weights, aux, collect_stats=True)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    return {
+        "assignment": assignment.cpu(), "admitted": admitted.cpu(),
+        "wait": wait.cpu(), "waves": stats["waves"],
+        "stats": tuple(int(stats["packing"][k])
+                       for k in ("rounds", "moves", "emptied")),
+        "seconds": statistics.median(times), "out": (assignment, wait),
+    }
+
+
+def packing_work_per_round(snap, weights, device) -> dict:
+    """What a refinement round puts on the card, from `torch.profiler`:
+    `packing_solve` at budgets 8 and 16 differ by 8 rounds (the wave path,
+    the head and the tail are the same work). Returns the host calls that
+    enqueue device work a round (names matching WORK_CALLS), by name, and
+    the device records and microseconds a round."""
+    from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
+    from scheduler_plugins_tpu_torch.parallel.solver import packing_solve
+
+    counts = {}
+    for budget in (8, 16):
+        aux = pack_aux_vector(budget, *PACKING_KNOBS)
+        counts[budget] = profiled_work(
+            lambda: packing_solve(snap, weights, aux), device)[:3]
+    (k1, w1, us1), (k2, w2, us2) = counts[8], counts[16]
+    work = {name: (w2[name] - w1[name]) / 8 for name in sorted(w1 | w2)}
+    return {"work": work, "work_calls": sum(work.values()),
+            "device_events": (k2 - k1) / 8, "device_us": (us2 - us1) / 8}
+
+
+def packing_modes_small(device) -> None:
+    """The test-only placement modes (`greedy_assign`, `wave_assign`,
+    `waterfill_assign`) on `tests/test_parallel.py`'s 24-node x 160-pod
+    problem (the pods slot in its canonical column), card == CPU."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.ops import CPU_I
+    from scheduler_plugins_tpu_torch.ops import assign as A
+    from scheduler_plugins_tpu_torch.ops.fit import fits, fits_one
+    from scheduler_plugins_tpu_torch.ops.normalize import minmax_normalize
+
+    rng = np.random.default_rng(5)
+    N, P, gib = 24, 160, 1 << 30
+    free0 = np.stack([rng.integers(4000, 16000, N),
+                      rng.integers(8, 64, N) * gib,
+                      np.zeros(N), np.full(N, 110)], axis=1).astype(np.int64)
+    req = np.stack([rng.integers(100, 2500, P), rng.integers(1, 8, P) * gib,
+                    np.zeros(P), np.zeros(P)], axis=1).astype(np.int64)
+    raw = rng.integers(0, 1000, N).astype(np.int64)
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        f0, r, s = (torch.as_tensor(x).to(dev) for x in (free0, req, raw))
+        mask = torch.ones(P, dtype=torch.bool, device=dev)
+        node_mask = torch.ones(N, dtype=torch.bool, device=dev)
+
+        def batch_fn(free, active, r=r, s=s):
+            feasible = fits(r, free, pod_mask=active)
+            return feasible, minmax_normalize(
+                torch.broadcast_to(s[None, :], feasible.shape), feasible)
+
+        def step_fn(free, p, r=r, node_mask=node_mask):
+            return fits_one(r[p], free, node_mask), free[:, CPU_I]
+
+        outs[dev.type] = {
+            "greedy": A.greedy_assign(step_fn, r, mask, f0),
+            "wave": A.wave_assign(batch_fn, r, mask, f0),
+            "waterfill": A.waterfill_assign(batch_fn, r, mask, f0),
+        }
+    for mode, (a, f) in outs[device.type].items():
+        ca, cf = outs["cpu"][mode]
+        same = torch.equal(a.cpu(), ca) and torch.equal(f.cpu(), cf)
+        print(f"[packing] small_{mode} placed={int((a >= 0).sum())} "
+              f"identical={same}", flush=True)
+        if not same:
+            raise AssertionError(f"{mode}: card != CPU")
+
+
+def packing_phase(device, smi: str) -> None:
+    """Phase 16: the packing solve mode at bench config 13's full size.
+    `packing_solve` at budgets 0 / 8 / 32 / 128 on the card and on the CPU
+    (identical outputs and statistics, the JAX statistics, budget 0 ==
+    `batch_solve`, 0 `tuning.gates` violations, the placed set kept,
+    packed utilization up at 128), the work a refinement round enqueues,
+    `packing_refine` at budget 128 under sync-debug "error", the
+    packing-mode profile through `Scheduler.solve` and one `run_cycle`
+    (card == CPU, the cycle binding the direct solve's placements, the
+    quality stamped), and the test-only modes (`[packing]` lines). No
+    election kernel is launched."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.models import packing_scenario
+    from scheduler_plugins_tpu_torch.ops.packing import (
+        pack_aux_vector,
+        packing_refine,
+    )
+    from scheduler_plugins_tpu_torch.ops.assign import (
+        waterfill_assign_targeted,
+    )
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        _solve_head,
+        batch_solve,
+    )
+    from scheduler_plugins_tpu_torch.tuning.gates import hard_violations
+    from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    _, snap_c, _, weights_c = packing_scenario(**PACKING, device="cpu")
+    print(f"[packing] scenario_s={time.perf_counter() - t0} "
+          f"nodes={int(snap_c.nodes.mask.sum())}/{snap_c.num_nodes} "
+          f"pending={int(snap_c.pods.mask.sum())}/{snap_c.num_pods} "
+          f"R={snap_c.num_resources}", flush=True)
+    snap_d, weights_d = snap_c.to(device), weights_c.to(device)
+
+    # the budget sweep, card against CPU
+    arms = {}
+    for budget in PACKING_BUDGETS:
+        card = packing_arm(snap_d, weights_d, budget, device)
+        host = packing_arm(snap_c, weights_c, budget, cpu)
+        same = all(torch.equal(card[k], host[k])
+                   for k in ("assignment", "admitted", "wait")) and (
+            card["stats"] == host["stats"] and card["waves"] == host["waves"])
+        viol = hard_violations(snap_d, *card["out"])
+        q = cycle_quality(snap_d, card["out"][0], None, card["out"][1])
+        q_cpu = cycle_quality(snap_c, host["out"][0], None, host["out"][1])
+        placed = int((card["assignment"] >= 0).sum())
+        print(f"[packing] budget={budget} card={smi!r} "
+              f"solve_s={card['seconds']} cpu_solve_s={host['seconds']} "
+              f"pods_per_s={placed / card['seconds']} "
+              f"cpu_pods_per_s={placed / host['seconds']} "
+              f"placed={placed} waves={card['waves']} "
+              f"rounds_moves_emptied={card['stats']} violations={viol} "
+              f"quality={q} cpu_quality={q_cpu} identical={same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"packing budget {budget}: card != CPU")
+        if card["stats"] != PACKING_STATS[budget]:
+            raise AssertionError(f"packing budget {budget}: stats "
+                                 f"{card['stats']} != JAX's "
+                                 f"{PACKING_STATS[budget]}")
+        if viol["total"] or placed != PACKING_PLACED:
+            raise AssertionError(f"packing budget {budget}: {viol}, "
+                                 f"{placed} placed")
+        arms[budget] = (card, q)
+    wave = batch_solve(snap_d, weights_d)
+    base = arms[0][0]
+    if not all(torch.equal(a.cpu(), base[k]) for a, k in zip(
+            wave, ("assignment", "admitted", "wait"))):
+        raise AssertionError("packing budget 0 != batch_solve")
+    for budget, (card, _) in arms.items():
+        if not torch.equal(card["assignment"] >= 0, base["assignment"] >= 0):
+            raise AssertionError(f"budget {budget} changed the placed set")
+    gain = (arms[128][1]["packed_utilization"]
+            - arms[0][1]["packed_utilization"])
+    print(f"[packing] budget0_equals_batch_solve=True placed_set_kept=True "
+          f"packed_utilization_gain={gain} fragmentation_gain="
+          f"{arms[0][1]['fragmentation'] - arms[128][1]['fragmentation']}",
+          flush=True)
+    if not gain > 0:
+        raise AssertionError(f"packed utilization did not rise: {gain}")
+
+    # the work a round enqueues, and the rounds under sync-debug "error"
+    work = packing_work_per_round(snap_d, weights_d, device)
+    print(f"[packing] per_round work_calls={work['work_calls']} "
+          f"{work['work']} device_events={work['device_events']} "
+          f"device_us={work['device_us']} card={smi!r}", flush=True)
+    free0, admitted, raw = _solve_head(snap_d, weights_d)
+    a_w, f_w, _ = waterfill_assign_targeted(
+        raw, snap_d.pods.req, admitted,
+        torch.where(snap_d.nodes.mask[:, None], free0, 0))
+    _sync(device)
+    t0 = time.perf_counter()
+    with sync_errors(device):
+        a_r, _, _ = packing_refine(
+            raw, snap_d.pods.req, admitted, snap_d.nodes.alloc,
+            snap_d.nodes.mask, f_w, a_w, pack_aux_vector(128, *PACKING_KNOBS))
+    _sync(device)
+    refine_s = time.perf_counter() - t0
+    same = torch.equal(a_r.cpu(), arms[128][0]["assignment"])
+    print(f"[packing] refine_128_sync_debug_error ok=True refine_s={refine_s} "
+          f"equals_solve={same} card={smi!r}", flush=True)
+    if not same:
+        raise AssertionError("refine under sync-debug != the budget-128 arm")
+
+    # the packing-mode profile: Scheduler.solve, then one run_cycle
+    views, states = {}, {}
+    for dev in (device, cpu):
+        cluster = packing_scenario(**PACKING, device="cpu")[0]
+        sched = Scheduler(load_profile(PACKING_PROFILE))
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+        sched.prepare(meta, cluster)
+        _sync(dev)
+        t0 = time.perf_counter()
+        view = sched.solve(snap, device=dev)
+        _sync(dev)
+        solve_s = time.perf_counter() - t0
+        a = view.assignment.cpu().numpy()
+        want = {pending[i].uid: meta.node_names[int(a[i])]
+                for i in range(len(pending)) if a[i] >= 0}
+        views[dev.type] = (a, view.stats)
+        cluster = packing_scenario(**PACKING, device="cpu")[0]
+        timings = {}
+        t0 = time.perf_counter()
+        report = run_cycle(Scheduler(load_profile(PACKING_PROFILE)),
+                           cluster, now=1000, device=dev, timings=timings)
+        cycle_s = time.perf_counter() - t0
+        stats = tuple(view.stats[k] for k in ("rounds", "moves", "emptied"))
+        print(f"[packing] profile device={dev.type} card={smi!r} "
+              f"solve_s={solve_s} stats={view.stats} placed={len(want)} "
+              f"cycle_s={cycle_s} stage_s={timings} "
+              f"bound={len(report.bound)} failed={len(report.failed)} "
+              f"binds_direct_solve={report.bound == want} "
+              f"quality={report.quality}", flush=True)
+        if (stats != PACKING_PROFILE_STATS or len(want) != PACKING_PLACED
+                or report.bound != want
+                or "packed_utilization" not in report.quality):
+            raise AssertionError(f"packing profile on {dev}: {stats}, "
+                                 f"{len(want)} placed")
+        states[dev.type] = cycle_state(report, cluster)
+    same = (states[device.type] == states["cpu"]
+            and (views[device.type][0] == views["cpu"][0]).all()
+            and views[device.type][1] == views["cpu"][1])
+    print(f"[packing] profile identical={same}", flush=True)
+    if not same:
+        raise AssertionError("packing profile: card != CPU")
+
+    packing_modes_small(device)
+    no_election_launches("packing", "packing_phase", pk.launches())
+    print(f"[packing] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -2787,9 +3080,14 @@ def main() -> int:
 
     phase_done(15)
 
-    # 16. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 16. the packing solve mode at bench config 13's full size
+    packing_phase(device, smi)
+
     phase_done(16)
+
+    # 17. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(17)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ to a `framework.Profile`:
       "weights": [1, 1, 1],
     }
 
-`profile_spec` is its inverse. The plugin constructors carry the
+`"solveMode": "packing"` with a `packingConfig` of knobs selects the
+packing solve mode, for a profile on the targeted fast path (one scoring
+plugin such as NodeResourcesAllocatable, no filters). `profile_spec` is
+its inverse. The plugin constructors carry the
 reference's defaulting and validation (each raises ValueError on invalid
 args, validation_pluginargs.go). The port loads the JAX package's whole
 roster (`ROSTER`); an unknown plugin name or arg is a ValueError.
@@ -25,6 +28,7 @@ from typing import Mapping
 
 from scheduler_plugins_tpu_torch.framework.runtime import (
     SOLVE_MODES,
+    PackingConfig,
     Profile,
 )
 
@@ -96,6 +100,16 @@ _ARG_MAPS: dict[str, dict[str, str]] = {
             "ignore_preferred_terms_of_existing_pods",
     },
     "CrossNodePreemption": {"maxPool": "max_pool"},
+}
+
+#: camelCase packingConfig arg -> `framework.runtime.PackingConfig` kwarg
+#: (validation lives in the PackingConfig constructor)
+_PACKING_ARG_MAP = {
+    "iterations": "iterations",
+    "priceWeight": "price_weight",
+    "temperature": "temperature",
+    "decay": "decay",
+    "moverCap": "mover_cap",
 }
 
 #: the JAX package's full plugin roster, every name of which the port
@@ -194,8 +208,10 @@ def profile_spec(profile: Profile) -> dict:
     their defaults (0, False), and no `cache` block, as JAX's does: a
     reload of the spec then counts them as given and installs the
     passthrough cache. `weights` is
-    exported only when some weight differs from its class default. The
-    port's profiles are all "sequential", so no `solveMode` is exported."""
+    exported only when some weight differs from its class default, and
+    `solveMode` / `packingConfig` only off the "sequential" default (the
+    packing knobs that differ from theirs), so a sequential spec
+    round-trips unchanged."""
     names = []
     plugin_config = []
     for plugin in profile.plugins:
@@ -214,6 +230,16 @@ def profile_spec(profile: Profile) -> dict:
     spec = {"profileName": profile.name, "plugins": names}
     if plugin_config:
         spec["pluginConfig"] = plugin_config
+    if profile.solve_mode != "sequential":
+        spec["solveMode"] = profile.solve_mode
+        pk = profile.packing
+        packing_args = {
+            camel: getattr(pk, kwarg)
+            for camel, kwarg in _PACKING_ARG_MAP.items()
+            if getattr(pk, kwarg) != getattr(PackingConfig, kwarg)
+        }
+        if packing_args:
+            spec["packingConfig"] = packing_args
     if any(p.weight != type(p).weight for p in profile.plugins):
         spec["weights"] = [int(p.weight) for p in profile.plugins]
     return spec
@@ -253,17 +279,31 @@ def load_profile(config: Mapping) -> Profile:
                 raise ValueError(f"plugin weight must be >= 1, got {w}")
             plugin.weight = w
     solve_mode = config.get("solveMode", "sequential")
-    if solve_mode == "packing" or "packingConfig" in config:
-        raise NotImplementedError(
-            "solveMode 'packing' comes with the packing slice "
-            "(ops/packing.py)"
-        )
     if solve_mode not in SOLVE_MODES:
         raise ValueError(
             f"unknown solveMode {solve_mode!r}; expected one of "
-            f"{SOLVE_MODES + ('packing',)}"
+            f"{SOLVE_MODES}"
         )
-    return Profile(
+    packing_kwargs = {}
+    for key, value in config.get("packingConfig", {}).items():
+        if key not in _PACKING_ARG_MAP:
+            raise ValueError(f"unknown packingConfig arg {key!r}")
+        packing_kwargs[_PACKING_ARG_MAP[key]] = value
+    profile = Profile(
         plugins=plugins, name=config.get("profileName", "tpu-scheduler"),
-        solve_mode=solve_mode,
+        solve_mode=solve_mode, packing=PackingConfig(**packing_kwargs),
     )
+    if solve_mode == "packing":
+        # refinement re-places pods on any fitting node, sound only on the
+        # targeted fast-path profile shape: refuse at config time
+        from scheduler_plugins_tpu_torch.parallel.solver import (
+            fast_path_scoring,
+        )
+
+        if fast_path_scoring(profile.plugins) is None:
+            raise ValueError(
+                "solveMode 'packing' requires a targeted fast-path "
+                "profile (exactly one pod-invariant scoring plugin with "
+                "positive weight and no filter plugins)"
+            )
+    return profile

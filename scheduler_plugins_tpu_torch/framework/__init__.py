@@ -11,6 +11,7 @@ from scheduler_plugins_tpu_torch.framework.plugin import (  # noqa: F401
     SolverState,
 )
 from scheduler_plugins_tpu_torch.framework.runtime import (  # noqa: F401
+    PackingConfig,
     Profile,
     Scheduler,
     SolveResult,

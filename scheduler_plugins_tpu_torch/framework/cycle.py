@@ -249,8 +249,11 @@ def _cycle_snapshot(ctx: CycleCtx) -> None:
 
 def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
     """The streamed solve when `stream_chunk` is set and the profile
-    qualifies, else the sequential solve (which on the card only enqueues
-    work). The outputs stay device tensors until the fence."""
+    qualifies, else the profile's solve: the sequential solve (which on
+    the card only enqueues work) or, under `solveMode: packing`, the
+    packing solve's `PackingSolveView` (no failure codes: the failures
+    are attributed from the cycle-initial verdicts). The outputs stay
+    device tensors until the fence."""
     result = None
     if ctx.stream_chunk:
         streamed = streamed_profile_solve(

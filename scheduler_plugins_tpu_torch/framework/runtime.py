@@ -44,6 +44,8 @@ from scheduler_plugins_tpu_torch.ops.fit import (
     free_capacity,
     pod_fit_demand,
 )
+from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
+from scheduler_plugins_tpu_torch.parallel.solver import packing_profile_solve
 
 #: attribution name for failures owned by the framework, not a profile
 #: plugin: scheduling gates and resource-fit exhaustion (the upstream
@@ -423,9 +425,55 @@ def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
     )
 
 
-#: the solve modes a profile may select; the packing optimizer
-#: (`ops/packing.py`) comes with the packing slice
-SOLVE_MODES = ("sequential",)
+#: the solve modes a profile may select (`Profile.solve_mode`): the
+#: bit-faithful sequential parity solve (default), or the packing optimizer,
+#: wave placement plus consolidation rounds
+#: (`parallel.solver.packing_profile_solve`)
+SOLVE_MODES = ("sequential", "packing")
+
+
+@dataclass
+class PackingConfig:
+    """Knobs of the packing solve mode. `iterations`, `price_weight`,
+    `temperature` and `decay` make the host knob vector `aux()`;
+    `mover_cap` is the per-round mover window."""
+
+    #: refinement-round budget (0 = the wave placement)
+    iterations: int = 32
+    #: weight of the fragmentation price against the score term of a bid
+    price_weight: float = 4.0
+    #: initial minimum fill edge a target must have over the donor
+    temperature: float = 0.0
+    #: per-round multiplicative temperature decay, in (0, 1]
+    decay: float = 0.5
+    #: per-round mover-window width
+    mover_cap: int = 128
+
+    def __post_init__(self):
+        if self.iterations < 0:
+            raise ValueError("packing iterations must be >= 0")
+        if int(self.iterations) != self.iterations:
+            # a fractional budget would be floored by the solve: refuse it
+            # rather than silently rounding a tuner's proposal
+            raise ValueError(
+                f"packing iterations must be integral, got "
+                f"{self.iterations!r}"
+            )
+        if self.price_weight < 0:
+            raise ValueError("packing priceWeight must be >= 0")
+        if self.temperature < 0:
+            raise ValueError("packing temperature must be >= 0")
+        if not 0 < self.decay <= 1:
+            raise ValueError("packing decay must be in (0, 1]")
+        if self.mover_cap < 1:
+            raise ValueError("packing moverCap must be >= 1")
+
+    def aux(self):
+        """The (4,) float64 host knob vector (`ops.packing`)."""
+        return pack_aux_vector(
+            self.iterations, self.price_weight, self.temperature,
+            self.decay,
+        )
 
 
 @dataclass
@@ -444,13 +492,14 @@ class Profile:
     name: str = "tpu-scheduler"
     #: which solve serves this profile's cycles (`SOLVE_MODES`)
     solve_mode: str = "sequential"
+    #: packing-mode knobs (unread under other modes)
+    packing: PackingConfig = field(default_factory=PackingConfig)
 
     def __post_init__(self):
         if self.solve_mode not in SOLVE_MODES:
             raise ValueError(
-                f"solve mode {self.solve_mode!r} is not ported yet: the "
-                f"port has {SOLVE_MODES}; 'packing' comes with the packing "
-                f"slice (ops/packing.py)"
+                f"unknown solve mode {self.solve_mode!r}; "
+                f"expected one of {SOLVE_MODES}"
             )
         if self.queue_sort is None:
             for plugin in self.plugins:
@@ -590,11 +639,39 @@ class Scheduler:
         )
 
     def solve(self, snap, state0: Optional[SolverState] = None, *,
-              device=None) -> SolveResult:
+              device=None, mode: Optional[str] = None):
         """Run the profile's plugins over the snapshot's pending batch on
         `device` (None = the CUDA card; the snapshot and `state0` move
         there if they live elsewhere). Returns device tensors; nothing is
-        read on the host. Neither `snap` nor `state0` is modified."""
+        read on the host. Neither `snap` nor `state0` is modified.
+
+        `mode` selects the solve (None = the profile's `solve_mode`):
+        "sequential" is the parity scan (a `SolveResult`); "packing"
+        dispatches to `parallel.solver.packing_profile_solve` and returns
+        its `PackingSolveView` (assignment, admitted, wait, no carry; its
+        stats are the one host read). Packing refuses live weights (its
+        bids have no weight channel) and a caller's `state0` (it builds
+        its own initial state), as JAX's does."""
+        if mode is None:
+            mode = self.profile.solve_mode
+        if mode == "packing":
+            if self._live_weights is not None:
+                raise ValueError(
+                    "live weights require the sequential parity path "
+                    "(profile solve_mode 'packing' has no traced-weight "
+                    "channel)"
+                )
+            if state0 is not None:
+                raise ValueError(
+                    "state0= requires the sequential parity path "
+                    "(pass mode='sequential')"
+                )
+            return packing_profile_solve(
+                self, snap, mover_cap=self.profile.packing.mover_cap,
+                device=device,
+            )
+        if mode != "sequential":
+            raise ValueError(f"unknown solve mode {mode!r}")
         device = resolve_device(device)
         if snap.device != device:
             snap = snap.to(device)

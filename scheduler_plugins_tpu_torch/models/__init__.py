@@ -7,5 +7,6 @@ from scheduler_plugins_tpu_torch.models.scenarios import (  # noqa: F401
     mixed_scenario,
     network_scenario,
     numa_scenario,
+    packing_scenario,
     trimaran_scenario,
 )

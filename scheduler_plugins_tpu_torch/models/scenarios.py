@@ -339,3 +339,91 @@ def metric_affinity_scenario(n_nodes=16, n_pods=32, seed=3) -> Cluster:
             pod_affinity_required=[affinity] if kind == 1 else [],
         ))
     return cluster
+
+
+#: bench config 13's packing problem: a mid-life cluster of four
+#: heterogeneous SKUs with uneven resident load, the iteration budgets its
+#: sweep runs (0, the wave-path anchor, always first)
+PACKING_SHAPE = dict(
+    n_nodes=768, demand_frac=0.92, empty_frac=0.05, budgets=(8, 32, 128),
+)
+#: the reduced packing shape (the JAX package's pack-smoke gate)
+PACK_SMOKE_SHAPE = dict(
+    n_nodes=96, demand_frac=0.8, empty_frac=0.1, budgets=(8, 32),
+)
+
+
+def packing_scenario(n_nodes, demand_frac=0.8, empty_frac=0.1, seed=0, *,
+                     device=None):
+    """(cluster, snap, meta, weights) of the packing problem (bench config
+    13, the JAX `bench.packing_problem`, same draws in the same order):
+    `1 - empty_frac` of the nodes carry bound residents at 20-80 % of
+    their cpu over four SKUs, the last `empty_frac` stand empty on the
+    biggest SKU, and a pending batch asks for `demand_frac` of the
+    cluster's free cpu. The snapshot lowers the pending pods in creation
+    order onto `device` (None = the CUDA card); `weights` is the (R,)
+    int64 allocatable weight vector (cpu 2^20, memory 1) on that
+    device."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.api.resources import ResourceIndex
+    from scheduler_plugins_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    skus = [
+        (64_000, 256 * GIB, 256),
+        (32_000, 128 * GIB, 220),
+        (96_000, 384 * GIB, 256),
+        (16_000, 64 * GIB, 128),
+    ]
+    cluster = Cluster()
+    serial = 0
+    free_cpu = 0
+    n_empty = max(1, int(n_nodes * empty_frac))
+    for i in range(n_nodes):
+        # the last n_empty nodes stand empty on the biggest SKU
+        empty = i >= n_nodes - n_empty
+        sku = 2 if empty else int(rng.integers(0, len(skus)))
+        cpu, mem, pods = skus[sku]
+        cluster.add_node(Node(
+            name=f"node-{i:05d}",
+            allocatable={CPU: cpu, MEMORY: mem, PODS: pods},
+        ))
+        used = 0
+        if not empty:
+            # uneven resident fill: 20-80 % of cpu in 100-2000m pieces
+            target = int(cpu * rng.uniform(0.2, 0.8))
+            while used < target:
+                c = int(rng.integers(100, 2000))
+                m = int(rng.integers(256 << 20, 2 * GIB))
+                pod = Pod(
+                    name=f"bound-{serial:06d}", creation_ms=serial,
+                    containers=[Container(requests={CPU: c, MEMORY: m})],
+                )
+                pod.node_name = f"node-{i:05d}"
+                cluster.add_pod(pod)
+                used += c
+                serial += 1
+        free_cpu += cpu - used
+    base_ms = serial
+    target_demand = int(free_cpu * demand_frac)
+    demand = 0
+    j = 0
+    while demand < target_demand:
+        c = int(rng.integers(100, 2000))
+        cluster.add_pod(Pod(
+            name=f"pend-{j:06d}", creation_ms=base_ms + j,
+            containers=[Container(requests={
+                CPU: c,
+                MEMORY: int(rng.integers(256 << 20, 2 * GIB))})],
+        ))
+        demand += c
+        j += 1
+    pending = sorted(cluster.pending_pods(), key=lambda p: p.creation_ms)
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
+    weights = torch.as_tensor(
+        ResourceIndex().encode({CPU: 1 << 20, MEMORY: 1}),
+        dtype=torch.int64,
+    ).to(device)
+    return cluster, snap, meta, weights

@@ -1,4 +1,4 @@
-"""Waterfill wave placement (port of `scheduler_plugins_tpu.ops.assign`).
+"""Wave placement (port of `scheduler_plugins_tpu.ops.assign`).
 
 `waterfill_assign_stateful` is the profile-generic waterfill of the
 batched profile solve (the JAX `waterfill_assign_stateful`,
@@ -27,6 +27,14 @@ one device-to-host sync.
 Every float64 sum below is of exact integers below 2^53, so its value does
 not depend on summation order: the two formulations, and the JAX package,
 agree bit for bit.
+
+The JAX package's test-only placement modes come along, each returning
+(assignment (P,) int32, free): `greedy_assign`, one pod at a time against
+the live free capacity (the JAX `lax.scan` as a host loop over pods);
+`waterfill_assign`, the stateless front of `waterfill_assign_stateful`;
+and `wave_assign`, every active pod on its argmax node each wave, admitted
+in queue order. Ties go to the lowest node index, made explicit
+(`_first_max`).
 """
 
 from __future__ import annotations
@@ -85,6 +93,23 @@ def _scatter_verdicts(order, ok_sorted, choice):
     return (choice >= 0) & admitted
 
 
+def _first_max(key, index, dim: int = 0):
+    """The lowest index of the maximum of `key` along `dim`, keeping
+    `dim`: JAX's `argmax` tie-break, made explicit. `index` is the
+    broadcast index along `dim` and its size the sentinel."""
+    hi = key.amax(dim=dim, keepdim=True)
+    return torch.where(key == hi, index, index.shape[-1]).amin(
+        dim=dim, keepdim=True)
+
+
+def _first_min(key, index, dim: int = 0):
+    """The lowest index of the minimum of `key` along `dim` (`_first_max`'s
+    twin: JAX's `argmin` tie-break)."""
+    lo = key.amin(dim=dim, keepdim=True)
+    return torch.where(key == lo, index, index.shape[-1]).amin(
+        dim=dim, keepdim=True)
+
+
 def _queue_order_admission_choice(choice, demand, free):
     """(W,) bool: a pod is admitted iff its chosen node still fits after all
     earlier same-wave choosers of that node (exact float64 prefix sums)."""
@@ -93,6 +118,28 @@ def _queue_order_admission_choice(choice, demand, free):
     free_row = free[torch.clamp(seg, max=N - 1)].to(F64)
     ok_sorted = torch.all(within <= free_row, dim=1) & (seg < N)
     return _scatter_verdicts(order, ok_sorted, choice)
+
+
+def _queue_order_admission(onehot, demand, free):
+    """`_queue_order_admission_choice` for a caller holding a (P, N)
+    one-hot of choices."""
+    N = onehot.shape[1]
+    index = torch.arange(N, device=onehot.device).expand_as(onehot)
+    first = _first_max(onehot.to(torch.int8), index, dim=1)[:, 0]
+    choice = torch.where(onehot.any(dim=1), first, -1)
+    return _queue_order_admission_choice(choice, demand, free)
+
+
+#: the masked score of the test-only modes' picks (the JAX `-(2**62)`)
+PICK_MASKED = -(2 ** 62)
+
+
+def _pick(feasible, scores):
+    """The highest score among feasible nodes, lowest index on a tie, as
+    a (1,) int32 tensor; -1 if none is feasible."""
+    index = torch.arange(feasible.shape[0], device=feasible.device)
+    best = _first_max(torch.where(feasible, scores, PICK_MASKED), index)
+    return torch.where(feasible.any(), best, -1).to(torch.int32)
 
 
 def _cumulative_demand_positions(dem, free, order_n):
@@ -552,3 +599,64 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
                                          "waves": len(occupancy),
                                          "wave_of": wave_of, "walk": walk}
     return assignment, free, state
+
+
+def greedy_assign(step_fn, req, pod_mask, free0):
+    """Sequential greedy placement: `step_fn(free, p)` gives pod `p`'s
+    (feasible (N,), scores (N,)) against the live free capacity; the pick
+    commits the pod's fit demand before the next pod runs (the JAX
+    `lax.scan`, a host loop over pods here)."""
+    demand = pod_fit_demand(req)
+    N = free0.shape[0]
+    node_index = torch.arange(N, device=req.device)
+    free = free0
+    choices = []
+    for p in range(req.shape[0]):
+        feasible, scores = step_fn(free, p)
+        choice = _pick(feasible & pod_mask[p], scores)
+        delta = torch.where((node_index == choice)[:, None], demand[p], 0)
+        free = free - delta
+        choices.append(choice)
+    return torch.cat(choices), free
+
+
+def waterfill_assign(batch_fn, req, pod_mask, free0, max_waves: int = 4):
+    """Capacity-aware wave placement, `batch_fn(free, active) ->
+    (feasible (P, N), scores (P, N))`: the stateless front of
+    `waterfill_assign_stateful` (no carry, no guards)."""
+    assignment, free, _ = waterfill_assign_stateful(
+        lambda f, _state, active: batch_fn(f, active),
+        lambda state, _placed, _choice: state,
+        (), (), req, pod_mask, free0, None, max_waves=max_waves,
+    )
+    return assignment, free
+
+
+def wave_assign(batch_fn, req, pod_mask, free0, max_waves: int = 8):
+    """Wave-parallel placement over `max_waves` waves: every still-active
+    pod picks its argmax node (`batch_fn(free, active) -> (feasible (P,
+    N), scores (P, N))`); pods that chose the same node are admitted in
+    queue order while its capacity lasts, the rest retry next wave."""
+    P = req.shape[0]
+    N = free0.shape[0]
+    device = req.device
+    demand = pod_fit_demand(req)
+    index = torch.arange(N, device=device).expand(P, N)
+    free = free0
+    assignment = torch.full((P,), -1, dtype=torch.int32, device=device)
+    for _ in range(max_waves):
+        active = (assignment == -1) & pod_mask
+        feasible, scores = batch_fn(free, active)
+        feasible = feasible & active[:, None]
+        masked = torch.where(feasible, scores, PICK_MASKED)
+        choice = torch.where(feasible.any(dim=1),
+                             _first_max(masked, index, dim=1)[:, 0], -1)
+        onehot = (choice[:, None] == index) & (choice[:, None] >= 0)
+        admitted = _queue_order_admission(onehot, demand, free)
+        assignment = torch.where(admitted, choice, assignment).to(
+            torch.int32)
+        used = torch.zeros_like(free)
+        used.index_add_(0, torch.where(admitted, choice, 0),
+                        torch.where(admitted[:, None], demand, 0))
+        free = free - used
+    return assignment, free

@@ -17,6 +17,10 @@ admission, quota caps, gang quorum) hold in both.
 streamed solve (`parallel.pipeline.streamed_profile_solve`) runs instead
 of the fixed allocatable head of the two solvers above.
 
+`packing_solve` and `packing_profile_solve` append the packing
+refinement (`ops.packing.packing_refine`) to the targeted waterfill: the
+packing solve mode, which a profile selects with `solveMode: packing`.
+
 `profile_batch_solve` is the batched solve of ANY profile the port
 loads: the targeted waterfill when the profile passes `fast_path_scoring`,
 else the (P, N) filter and score rows of every plugin against the
@@ -49,6 +53,7 @@ from scheduler_plugins_tpu_torch.ops.assign import (
 )
 from scheduler_plugins_tpu_torch.ops.fit import fits, free_capacity
 from scheduler_plugins_tpu_torch.ops.gang import gang_admit
+from scheduler_plugins_tpu_torch.ops.packing import packing_refine
 from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
 from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
 
@@ -238,6 +243,109 @@ def batch_solve(snap, weights, max_waves: int = 8, rescue_window: int = 512,
         parts.append(a)
     assignment, wait = finalize_assignment(torch.cat(parts), snap)
     return assignment, admitted, wait
+
+
+def _packing_body(snap, raw, admitted, free0, pack_aux, max_waves: int,
+                  mover_cap: int):
+    """The packing solve after its head: the targeted waterfill from
+    `free0` (masked nodes zeroed), the refinement, the shared tail.
+    Returns (assignment, wait, waterfill stats, refinement stats)."""
+    assignment, free_w, wstats = waterfill_assign_targeted(
+        raw, snap.pods.req, admitted, free0, max_waves=max_waves,
+    )
+    assignment, _, pstats = packing_refine(
+        raw, snap.pods.req, admitted, snap.nodes.alloc, snap.nodes.mask,
+        free_w, assignment, pack_aux, mover_cap=mover_cap,
+    )
+    assignment, wait = finalize_assignment(assignment, snap)
+    return assignment, wait, wstats, pstats
+
+
+def packing_solve(snap, weights, pack_aux, max_waves: int = 8,
+                  mover_cap: int = 128, collect_stats: bool = False):
+    """`batch_solve`'s flagship semantics with the packing refinement
+    appended (the JAX `packing_solve`, parallel/solver.py:253): admission,
+    the static allocatable ranking and the targeted waterfill, then
+    `ops.packing.packing_refine` rounds over the wave placement, then the
+    shared `finalize_assignment` tail. `pack_aux` is the host knob vector
+    (`ops.packing.pack_aux_vector`); budget 0 is `batch_solve` bit for bit.
+    Refinement never changes which pods are placed, so the quota prefix
+    and gang quorum see the wave path's placed set. Returns (assignment,
+    admitted, wait[, stats]) with stats = the waterfill's plus
+    "packing": {rounds, moves, emptied} (int32 device scalars)."""
+    free0, admitted, raw = _solve_head(snap, weights)
+    assignment, wait, wstats, pstats = _packing_body(
+        snap, raw, admitted, torch.where(snap.nodes.mask[:, None], free0, 0),
+        pack_aux, max_waves, mover_cap)
+    if collect_stats:
+        return assignment, admitted, wait, {**wstats, "packing": pstats}
+    return assignment, admitted, wait
+
+
+class PackingSolveView:
+    """The (assignment, admitted, wait) a packing-mode solve returns to
+    the cycle: not a `SolveResult` (no carry, no per-pod failure codes,
+    so the cycle attributes failures from the cycle-initial verdicts).
+    `stats` carries the refinement counters as host ints."""
+
+    __slots__ = ("assignment", "admitted", "wait", "failed_plugin", "stats")
+
+    def __init__(self, assignment, admitted, wait, stats=None):
+        self.assignment = assignment
+        self.admitted = admitted
+        self.wait = wait
+        self.failed_plugin = None
+        self.stats = stats
+
+
+def packing_profile_solve(scheduler, snap, mover_cap: int = 128,
+                          max_waves: int = 8, *, device=None):
+    """The packing-mode profile solve, `Scheduler.solve(mode="packing")`
+    (the JAX `packing_profile_solve` with `packing_profile_fn`'s body,
+    parallel/solver.py:339-430), on `device` (None = the CUDA card; the
+    snapshot moves there if it lives elsewhere): the fast-path head
+    (PreFilter and the one scoring plugin's static ranking,
+    `fast_solve_head`), the targeted waterfill, the refinement with the
+    profile's `packing` knobs, and the shared tail. Returns a
+    `PackingSolveView`; reading its stats is the one host read.
+
+    The profile must pass `fast_path_scoring` (one pod-invariant scoring
+    plugin, no filters): refinement re-places pods on any fitting node,
+    sound only when fit is the sole per-node constraint. Other profiles
+    raise TypeError (`load_profile` refuses them at config time). Under
+    `SPT_PACK_CERTIFY=1` the placements are replayed through the
+    `tuning.gates` oracles, and any violation raises AssertionError."""
+    import os
+
+    device = resolve_device(device)
+    if snap.device != device:
+        snap = snap.to(device)
+    plugins = tuple(scheduler.profile.plugins)
+    scoring = fast_path_scoring(plugins)
+    if scoring is None:
+        raise TypeError(
+            "packing solve mode requires a profile on the targeted "
+            "fast path (one pod-invariant scoring plugin, no filters) — "
+            f"profile {scheduler.profile.name!r} does not qualify"
+        )
+    admitted, raw, free0 = fast_solve_head(
+        plugins, scoring, snap, scheduler.initial_state(snap))
+    assignment, wait, _, pstats = _packing_body(
+        snap, raw, admitted, free0, scheduler.profile.packing.aux(),
+        max_waves, mover_cap)
+    names = tuple(pstats)
+    values = torch.stack([pstats[k] for k in names]).tolist()
+    view = PackingSolveView(assignment, admitted, wait,
+                            stats=dict(zip(names, values)))
+    if os.environ.get("SPT_PACK_CERTIFY") == "1":
+        from scheduler_plugins_tpu_torch.tuning.gates import hard_violations
+
+        verdict = hard_violations(snap, assignment, wait)
+        if verdict["total"]:
+            raise AssertionError(
+                f"packing solve violated hard constraints: {verdict}"
+            )
+    return view
 
 
 def pad_to_shards(n: int, n_shards: int) -> int:

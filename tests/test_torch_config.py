@@ -412,11 +412,14 @@ def test_rest_validation_errors_match_jax(config, match):
         port_config.load_profile(config)
 
 
-def test_packing_mode_raises_not_implemented():
-    config = {"plugins": ["NodeResourcesAllocatable"], "solveMode": "packing"}
-    jax_config.load_profile(config)
-    with pytest.raises(NotImplementedError, match="packing"):
-        port_config.load_profile(config)
+def test_packing_mode_loads_as_jax():
+    config = {"plugins": ["NodeResourcesAllocatable"], "solveMode": "packing",
+              "packingConfig": {"iterations": 8, "priceWeight": 2.0}}
+    want = jax_config.load_profile(config)
+    got = port_config.load_profile(config)
+    assert got.solve_mode == want.solve_mode == "packing"
+    assert (got.packing.iterations, got.packing.price_weight) == (8, 2.0)
+    assert port_config.profile_spec(got) == jax_config.profile_spec(want)
 
 
 @pytest.mark.parametrize("config", CONFIGS, ids=range(len(CONFIGS)))

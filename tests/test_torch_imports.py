@@ -57,7 +57,9 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.plugins.podstate",
         "scheduler_plugins_tpu_torch.plugins.qos",
         "scheduler_plugins_tpu_torch.plugins.preemptiontoleration",
-        "scheduler_plugins_tpu_torch.plugins.crossnodepreemption"} <= set(names), names
+        "scheduler_plugins_tpu_torch.plugins.crossnodepreemption",
+        "scheduler_plugins_tpu_torch.ops.packing",
+        "scheduler_plugins_tpu_torch.tuning.gates"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -176,6 +178,33 @@ class TestDeviceDefault:
         hyp = cluster.post_eviction_tables(snap, meta, [
             p.uid for p in cluster.pods.values() if p.node_name][:2])
         assert hyp.scheduling.track_base.device.type == "cpu"
+
+    def test_packing_entry_points_raise(self, no_cuda):
+        """The packing slice's entry points (the scenario's snapshot, the
+        packing-mode solve, the cycle) default to the card too."""
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+        from scheduler_plugins_tpu_torch.models import packing_scenario
+        from scheduler_plugins_tpu_torch.parallel.solver import (
+            packing_profile_solve,
+        )
+
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            packing_scenario(8, 0.5, 0.25)
+        cluster, snap, meta, _ = packing_scenario(8, 0.5, 0.25, device="cpu")
+        sched = Scheduler(load_profile({
+            "plugins": ["NodeResourcesAllocatable"],
+            "solveMode": "packing"}))
+        sched.prepare(meta, cluster)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            sched.solve(snap)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            packing_profile_solve(sched, snap)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            run_cycle(sched, cluster, now=1000)
+        view = sched.solve(snap, device="cpu")
+        assert view.assignment.device.type == "cpu"
+        assert (view.assignment >= 0).any()
 
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0

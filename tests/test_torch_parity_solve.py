@@ -561,8 +561,10 @@ class TestFramework:
         plugins = [PORT_PLUGINS[n]() for n in FLAGSHIP]
         assert Profile(plugins=plugins).queue_sort is plugins[1]
         assert Profile(plugins=plugins[:1]).queue_sort is None
-        with pytest.raises(ValueError, match="packing"):
-            Profile(plugins=plugins, solve_mode="packing")
+        assert Profile(plugins=plugins,
+                       solve_mode="packing").solve_mode == "packing"
+        with pytest.raises(ValueError, match="unknown solve mode"):
+            Profile(plugins=plugins, solve_mode="annealing")
 
     def test_plugin_arguments_validated_as_jax(self):
         for kwargs in ({"min_candidate_nodes_percentage": 101},

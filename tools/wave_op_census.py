@@ -56,6 +56,13 @@ row, a straggler wave 128.
 2 (`trimaran_scenario(5000, 2048)`, TLP + LVRB) at full width: its waves,
 occupancy, placed pods and the ATen ops of the whole solve.
 
+`packing_round`: the packing solve (`parallel.solver.packing_solve`) of
+bench config 13 at full size (`packing_scenario(768, 0.92, 0.05)`: 768
+nodes, 19,213 pending pods) at refinement budgets 8 and 16, knobs (b, 4.0,
+0.0, 0.5); the two differ by 8 rounds, so their difference over 8 is one
+round's `aten` / `views` / `launching` ops (`by_op` by name), and
+`solve_128` the launching ops of the whole budget-128 solve.
+
 Prints one JSON object.
 """
 
@@ -328,6 +335,33 @@ def batch_census(root: Path) -> dict:
     return out
 
 
+def packing_census(root: Path) -> dict:
+    """Per-round op counts of the packing refinement (see the module
+    docstring)."""
+    sys.path.insert(0, str(root))
+    from scheduler_plugins_tpu_torch.models import packing_scenario
+    from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
+    from scheduler_plugins_tpu_torch.parallel.solver import packing_solve
+
+    _, snap, _, weights = packing_scenario(768, 0.92, 0.05, device="cpu")
+    counters = {}
+    for budget in (8, 16, 128):
+        counter = _op_counter()
+        with counter:
+            packing_solve(snap, weights,
+                          pack_aux_vector(budget, 4.0, 0.0, 0.5))
+        counters[budget] = counter
+    short, long = counters[8], counters[16]
+    by_op = {k: (v - short.by_op.get(k, 0)) / 8
+             for k, v in long.by_op.items()}
+    return {
+        **{k: (long.counts[k] - short.counts[k]) / 8 for k in short.counts},
+        "by_op": {k: v for k, v in sorted(by_op.items(),
+                                          key=lambda kv: -kv[1]) if v},
+        "solve_128": counters[128].counts["launching"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path,
@@ -346,6 +380,7 @@ def main(argv=None) -> int:
         "parity_step_metric": parity_step_census(root, which="metric"),
         "validator_intree": validator_census(root),
         "batch": batch_census(root),
+        "packing_round": packing_census(root),
     }))
     return 0
 
