@@ -154,9 +154,21 @@ Phases (any failure exits non-zero and prints no result line):
    "error"; the packing-mode profile through `Scheduler.solve` and one
    `run_cycle` (card == CPU, the cycle binding the direct solve's
    placements, the quality stamped); the test-only modes on a 24 x 160
-   problem (`[packing]` lines). Phases 9 to 16 launch no election
-   kernel: their counts print 0 / 0 / 0;
-17. the kernel table as one JSON line (times at the shapes, dtypes and
+   problem (`[packing]` lines);
+17. the serving path (`serving.engine.ServeEngine` through
+   `run_cycle(serve=)`): bench config 7 at its full shape (2,000 nodes,
+   12,288 bound pods, 4 + 48 cycles of Poisson churn with node adds and
+   deletes, `tests/torch_churn_cases.py`) served on the card, with a full
+   re-snapshot every cycle on the card, and served on the CPU: every
+   cycle's decisions identical across the three, 0 capacity violations,
+   the engines' rebases and generation equal; a steady-state refresh under
+   sync-debug "error"; the host calls that enqueue device work in one
+   refresh and in its apply (`torch.profiler`); the anti-entropy verify
+   exact; the bench's line (cycles/s of each arm, `vs_full_resnapshot`,
+   decision latency p50 / p99); the flagship profile's thirty served
+   churn cycles card == CPU (`[serving]` lines). Phases 9 to 17 launch no
+   election kernel: their counts print 0 / 0 / 0;
+18. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -2906,6 +2918,287 @@ def packing_phase(device, smi: str) -> None:
     print(f"[packing] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+def _port_namespace():
+    """The port's names for `tests/torch_churn_cases.py`'s helpers."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch import plugins
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import Profile, Scheduler
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    return SimpleNamespace(objects=objects, Cluster=Cluster,
+                           Profile=Profile, Scheduler=Scheduler,
+                           plugins=plugins)
+
+
+def serving_run(device, serve: bool) -> dict:
+    """Bench config 7 at `SERVING_SHAPE` through `run_cycle` on `device`,
+    served (`run_cycle(serve=ServeEngine().attach(cluster))`) or with a
+    full re-snapshot every cycle: the churn record, each stage's seconds
+    summed over the timed cycles and the snapshot stage's seconds a timed
+    cycle, the capacity violations, the engine (or None) and the
+    cluster."""
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    import torch_churn_cases as churn
+
+    pkg = _port_namespace()
+    shape = churn.SERVING_SHAPE
+    t0 = time.perf_counter()
+    cluster = churn.churn_cluster(pkg, shape["n_nodes"], shape["prefill"])
+    build_s = time.perf_counter() - t0
+    engine = ServeEngine().attach(cluster) if serve else None
+    stages, snapshot_s, seen = {}, [], [0]
+    # per cycle: (served, rebased) -- whether the engine's refresh gave
+    # the cycle's snapshot (else `run_cycle` fell back to
+    # `Cluster.snapshot`) and whether that refresh rebased
+    served = []
+    if engine is not None:
+        refresh = engine.refresh
+
+        def counted_refresh(*args, **kwargs):
+            rebases = engine.rebases
+            out = refresh(*args, **kwargs)
+            served.append((out is not None, engine.rebases != rebases))
+            return out
+        engine.refresh = counted_refresh
+
+    def run(sched, c, now, e):
+        timings = {}
+        report = run_cycle(sched, c, now=now, serve=e, device=device,
+                           timings=timings)
+        _sync(device)
+        seen[0] += 1
+        if seen[0] > shape["warmup"]:
+            for k, v in timings.items():
+                stages[k] = stages.get(k, 0.0) + v
+            snapshot_s.append(timings["snapshot"])
+        return report
+
+    out = churn.run_churn(pkg, cluster,
+                          Scheduler(load_profile(churn.CHURN_PROFILE)),
+                          shape, run, engine=engine)
+    if engine is not None:
+        engine.refresh = refresh
+    out.update(build_s=build_s, stage_s=stages, snapshot_s=snapshot_s,
+               engine=engine, served=served,
+               cluster=cluster,
+               violations=churn.capacity_violations(cluster))
+    return out
+
+
+def serving_served_checks(label: str, run: dict, engine) -> None:
+    """Every cycle of a served arm took its snapshot from the engine, none
+    from the `Cluster.snapshot` fallback; the engine rebased at its first
+    refresh and at each node delete and nowhere else (no anti-entropy
+    divergence), so the timed cycles are all served and all but the
+    delete cycles steady-state."""
+    import torch_churn_cases as churn
+
+    shape = churn.SERVING_SHAPE
+    n = shape["warmup"] + shape["cycles"]
+    every = shape["node_remove_every"]
+    deletes = [c for c in range(n) if every and c % every == every - 1]
+    timed = run["served"][shape["warmup"]:]
+    n_served = sum(s for s, _ in run["served"])
+    timed_steady = sum(s and not r for s, r in timed)
+    want_steady = shape["cycles"] - sum(c >= shape["warmup"]
+                                        for c in deletes)
+    print(f"[serving] {label} served_cycles={n_served}/{n} "
+          f"timed_served={sum(s for s, _ in timed)}/{shape['cycles']} "
+          f"timed_steady={timed_steady} want_steady={want_steady} "
+          f"rebases={engine.rebases} want_rebases={1 + len(deletes)}",
+          flush=True)
+    if (len(run["served"]) != n or n_served != n
+            or timed_steady != want_steady
+            or engine.rebases != 1 + len(deletes)
+            or engine.antientropy_divergences):
+        raise AssertionError(f"{label}: the engine did not serve the "
+                             f"cycles as config 7 should")
+
+
+def serving_refresh_checks(run, device) -> None:
+    """On the served card arm's live engine and store: one more cycle's
+    churn, then a steady-state `refresh` under sync-debug "error" (no
+    host read: the periodic verify, a host read on purpose, is held off
+    for it); the host calls that enqueue device work in one refresh and
+    in its apply alone (`torch.profiler`); then the anti-entropy verify
+    against a fresh host snapshot must find the resident columns exact."""
+    import numpy as np
+
+    import torch_churn_cases as churn
+
+    pkg = _port_namespace()
+    engine, cluster = run["engine"], run["cluster"]
+    rng = np.random.default_rng(99)
+    shape = dict(churn.SERVING_SHAPE, node_add_every=0, node_remove_every=0)
+    state = {"serial": 10 ** 6, "now": 10 ** 6}
+
+    def churned():
+        state["now"] += 1000
+        state["serial"] = churn.churn_events(
+            pkg, cluster, rng, shape, 1, state["now"], state["serial"])
+        return cluster.pending_pods()
+
+    every, engine.verify_every = engine.verify_every, 0
+    rebases = engine.rebases
+    try:
+        pending = churned()
+        with sync_errors(device):
+            served = engine.refresh(cluster, pending, now_ms=state["now"],
+                                    device=device)
+        _sync(device)
+        if served is None or engine.rebases != rebases:
+            raise AssertionError("steady-state refresh did not serve")
+        print(f"[serving] sync_debug_refresh ok pending={len(pending)} "
+              f"generation={engine.generation}", flush=True)
+
+        def refresh():
+            engine.refresh(cluster, churned(), now_ms=state["now"],
+                           device=device)
+
+        def apply_only():
+            churned()
+            upserts, usage, side, rebase = engine._classify(
+                engine._sink.drain())
+            assert rebase is None
+            engine._apply_batch(upserts, usage, side)
+
+        for label, fn in (("refresh", refresh), ("apply", apply_only)):
+            n_dev, work, dev_us, _ = profiled_work(fn, device)
+            print(f"[serving] {label}_work work_calls={sum(work.values())} "
+                  f"by_name={dict(sorted(work.items()))} "
+                  f"device_records={n_dev} device_us={dev_us}", flush=True)
+    finally:
+        engine.verify_every = every
+    reason = engine.verify(cluster)
+    print(f"[serving] verify={reason} rebases={engine.rebases} "
+          f"divergences={engine.antientropy_divergences}", flush=True)
+    if reason is not None or engine.rebases != rebases:
+        raise AssertionError(f"resident columns diverged: {reason}")
+
+
+def serving_bench_line(serve: dict, base: dict, cpu: dict) -> dict:
+    """`bench.py` `serving_churn`'s line for the card arms, with the CPU
+    serve arm's cycles/s beside it."""
+    import numpy as np
+
+    n_cycles = len(serve["times"])
+    serve_s, base_s, cpu_s = (sum(r["times"]) for r in (serve, base, cpu))
+    lat = np.repeat(serve["times"], serve["decided"])
+    base_lat = np.repeat(base["times"], base["decided"])
+    engine = serve["engine"]
+    return {
+        "cycles": n_cycles,
+        "cycles_per_sec": n_cycles / serve_s,
+        "baseline_cycles_per_sec": n_cycles / base_s,
+        "cpu_serve_cycles_per_sec": n_cycles / cpu_s,
+        "vs_full_resnapshot": base_s / serve_s,
+        "decision_latency_p50_ms": float(np.percentile(lat, 50)) * 1000,
+        "decision_latency_p99_ms": float(np.percentile(lat, 99)) * 1000,
+        "baseline_latency_p50_ms": float(np.percentile(base_lat, 50)) * 1000,
+        "baseline_latency_p99_ms": float(np.percentile(base_lat, 99)) * 1000,
+        "pods_per_sec": sum(serve["decided"]) / serve_s,
+        "placements_match": serve["reports"] == base["reports"],
+        "capacity_violations": serve["violations"],
+        "rebases": engine.rebases,
+        "resident_generation": engine.generation,
+        "decisions": sum(serve["decided"]),
+    }
+
+
+def serving_phase(device) -> None:
+    """Phase 17: the serving path. Bench config 7 at `SERVING_SHAPE`
+    (2,000 nodes, 12,288 bound pods, 4 + 48 cycles of Poisson churn,
+    uncut) served on the card, re-snapshotted on the card and served on
+    the CPU: every cycle's decisions identical across the three, 0
+    capacity violations, the engines' rebases and generation equal; the
+    steady-state refresh checks (`serving_refresh_checks`); the bench's
+    line; then the flagship profile's thirty served churn cycles, card
+    == CPU (`[serving]` lines). No election kernel is launched."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    _tests_on_path()
+    import torch_churn_cases as churn
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    pk.reset_launches()
+    runs = {}
+    for label, dev, serve in (("serve_card", device, True),
+                              ("full_card", device, False),
+                              ("serve_cpu", cpu, True)):
+        t0 = time.perf_counter()
+        r = runs[label] = serving_run(dev, serve)
+        e = r["engine"]
+        print(f"[serving] {label} run_s={time.perf_counter() - t0} "
+              f"build_s={r['build_s']} timed_s={sum(r['times'])} "
+              f"decided={sum(r['decided'])} "
+              f"placed={len(r['placements'])} "
+              f"violations={r['violations']} stage_s={r['stage_s']} "
+              f"snapshot_ms_median="
+              f"{statistics.median(r['snapshot_s']) * 1000} "
+              f"snapshot_ms_max={max(r['snapshot_s']) * 1000} "
+              + (f"rebases={e.rebases} generation={e.generation} "
+                 f"gang_fallbacks={e.gang_fallbacks} "
+                 f"divergences={e.antientropy_divergences} npad={e.npad}"
+                 if e is not None else ""), flush=True)
+        if r["violations"]:
+            raise AssertionError(f"{label}: {r['violations']} violations")
+        if e is not None:
+            serving_served_checks(label, r, e)
+    serve, base, on_cpu = (runs[k] for k in ("serve_card", "full_card",
+                                             "serve_cpu"))
+    same = (serve["reports"] == base["reports"] == on_cpu["reports"])
+
+    def state(e):
+        return (e.rebases, e.generation, e.gang_fallbacks,
+                e.antientropy_divergences)
+
+    print(f"[serving] identical={same} engines_equal="
+          f"{state(serve['engine']) == state(on_cpu['engine'])}",
+          flush=True)
+    if not same or state(serve["engine"]) != state(on_cpu["engine"]):
+        raise AssertionError("config 7: serve card, full card and serve "
+                             "CPU disagree")
+    serving_refresh_checks(serve, device)
+    print(f"[serving] bench {json.dumps(serving_bench_line(serve, base, on_cpu))}",
+          flush=True)
+
+    results = []
+    for dev in (device, cpu):
+        t0 = time.perf_counter()
+        r = churn.flagship_churn(
+            _port_namespace(),
+            lambda s, c, now, e, dev=dev: run_cycle(s, c, now=now, serve=e,
+                                                    device=dev),
+            serve=lambda c: ServeEngine().attach(c))
+        e = r["engine"]
+        results.append((r["reports"], r["placements"], state(e)))
+        print(f"[serving] flagship_churn device={dev.type} "
+              f"run_s={time.perf_counter() - t0} "
+              f"placed={len(r['placements'])} "
+              f"violations={r['violations']} plain_left={r['plain_left']} "
+              f"rebases={e.rebases} generation={e.generation} "
+              f"gang_fallbacks={e.gang_fallbacks}", flush=True)
+        if r["violations"] or r["plain_left"]:
+            raise AssertionError(f"flagship churn on {dev}: "
+                                 f"{r['violations']} {r['plain_left']}")
+    print(f"[serving] flagship_churn identical={results[0] == results[1]}",
+          flush=True)
+    if results[0] != results[1]:
+        raise AssertionError("flagship churn: card != CPU")
+    no_election_launches("serving", "serving_phase", pk.launches())
+    print(f"[serving] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -3085,9 +3378,15 @@ def main() -> int:
 
     phase_done(16)
 
-    # 17. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 17. the serving path: bench config 7 served, re-snapshotted and on
+    # the CPU; the flagship profile's served churn
+    serving_phase(device)
+
     phase_done(17)
+
+    # 18. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(18)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

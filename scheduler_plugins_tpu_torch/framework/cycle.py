@@ -37,11 +37,20 @@ ticks the load-watcher collectors the Trimaran plugins configure
 metrics. After the gang rejections, failures mark the cache's nodes with
 assumed pods maybe-overreserved (`_mark_overreserved_on_failures`).
 
-Left out until their slices: the serving engine (`serve`), the solve
-watchdog (`resilience`), the rank-aware gang phase (`gangs`), the online
-tuner (`tuner`), tracer spans, the pod ledger, the flight recorder and
-the sanitizer. Passing one of those arguments raises
-NotImplementedError.
+`serve` (a `serving.engine.ServeEngine` attached to the store) takes the
+snapshot stage from the engine's resident node columns, refreshed with
+O(changed) deltas; when the engine cannot own the state the cycle falls
+back to `Cluster.snapshot`. The solve is the same, so served placements
+equal a fresh-snapshot cycle's.
+
+The cycle counts and traces itself through `utils.observability`: the
+cycle counters, the spans of each stage (the JAX package's names) and,
+in serve mode, the decision-latency histogram.
+
+Left out until their slices: the solve watchdog (`resilience`), the
+rank-aware gang phase (`gangs`), the online tuner (`tuner`), the pod
+ledger, the flight recorder and the sanitizer. Passing one of those
+arguments raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,18 +79,19 @@ from scheduler_plugins_tpu_torch.parallel.pipeline import (
     streamed_profile_solve,
 )
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
+from scheduler_plugins_tpu_torch.resilience import faults
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
 from scheduler_plugins_tpu_torch.state.collector import (
     AsyncLoadWatcherCollector,
     make_metrics_client,
 )
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
+from scheduler_plugins_tpu_torch.utils import observability as obs
 from scheduler_plugins_tpu_torch.utils.flightrec import explain_solver
 
 #: the `run_cycle` options of the JAX package that later slices bring,
 #: each with the slice that brings it
 _LATER_SLICES = {
-    "serve": "the resident-state serving engine (serving/)",
     "resilience": "the solve watchdog (resilience/)",
     "gangs": "the rank-aware gang phase (gangs/)",
     "tuner": "the online tuner (tuning/shadow.py)",
@@ -191,6 +201,13 @@ class CycleCtx:
     report: CycleReport
     #: pods per chunk of the streamed solve; None = the sequential solve
     stream_chunk: Optional[int] = None
+    #: the serving engine, or None
+    serve: object = None
+    #: the engine assembled this cycle's snapshot
+    served: bool = False
+    #: host clock at the snapshot stage of a serve cycle (the decision
+    #: latency's start)
+    serve_t0: Optional[float] = None
     cosched: object = None
     pending: list = field(default_factory=list)
     snap: object = None
@@ -209,31 +226,37 @@ class CycleCtx:
     failed_by_gang: dict = field(default_factory=dict)
 
 
-def _cycle_open(scheduler, cluster, now, device,
-                stream_chunk=None) -> CycleCtx:
-    """Cycle prologue: the Coscheduling instance, each plugin's cluster
-    wiring, permit expiry and the collector ticks."""
+def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
+                serve=None) -> CycleCtx:
+    """Cycle prologue: the cycle counter, the Coscheduling instance, each
+    plugin's cluster wiring, permit expiry, the NRT cache resync and the
+    collector ticks."""
     ctx = CycleCtx(scheduler=scheduler, cluster=cluster, now=now,
                    device=device, report=CycleReport(),
-                   stream_chunk=stream_chunk)
+                   stream_chunk=stream_chunk, serve=serve)
+    obs.metrics.inc(obs.SCHEDULING_CYCLES)
     ctx.cosched = next(
         (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
         None,
     )
     for plugin in scheduler.profile.plugins:
         plugin.configure_cluster(cluster)
-    _expire_gangs(cluster, now, ctx.report)
-    _resync_nrt_cache(cluster, now)
-    _refresh_metrics(scheduler, cluster, now)
+    with obs.tracer.span("ExpireGangs", tid="cycle"):
+        _expire_gangs(cluster, now, ctx.report)
+    with obs.tracer.span("NRTResync", tid="cycle"):
+        _resync_nrt_cache(cluster, now)
+    with obs.tracer.span("Collectors", tid="cycle"):
+        _refresh_metrics(scheduler, cluster, now)
     return ctx
 
 
 def _cycle_pending(ctx: CycleCtx) -> None:
     """Pending batch: requeue gating, then QueueSort. Sets `ctx.done` on
     an empty batch."""
-    pending = _requeue_eligible(ctx.scheduler, ctx.cluster,
-                                ctx.cluster.pending_pods(), ctx.now,
-                                ctx.report)
+    with obs.tracer.span("Requeue", tid="cycle"):
+        pending = _requeue_eligible(ctx.scheduler, ctx.cluster,
+                                    ctx.cluster.pending_pods(), ctx.now,
+                                    ctx.report)
     if not pending:
         ctx.done = True
         return
@@ -241,9 +264,19 @@ def _cycle_pending(ctx: CycleCtx) -> None:
 
 
 def _cycle_snapshot(ctx: CycleCtx) -> None:
-    """Lower the store onto the cycle's device and prepare the plugins."""
-    ctx.snap, ctx.meta = ctx.cluster.snapshot(ctx.pending, now_ms=ctx.now,
-                                              device=ctx.device)
+    """The cycle's snapshot on its device, from the serving engine's
+    resident columns when it can own the state, else lowered from the
+    store; then the plugins' prepare."""
+    with obs.tracer.span("Snapshot", tid="cycle", pending=len(ctx.pending)):
+        refreshed = None
+        if ctx.serve is not None:
+            refreshed = ctx.serve.refresh(ctx.cluster, ctx.pending,
+                                          now_ms=ctx.now, device=ctx.device)
+            ctx.served = refreshed is not None
+        if refreshed is None:
+            refreshed = ctx.cluster.snapshot(ctx.pending, now_ms=ctx.now,
+                                             device=ctx.device)
+    ctx.snap, ctx.meta = refreshed
     ctx.scheduler.prepare(ctx.meta, ctx.cluster)
 
 
@@ -273,7 +306,8 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
     first copy waits for the card; later stages read only these. Then the
     report's explain context is attached, with the plugins' `aux()`
     frozen here: the preemption pass re-prepares the shared plugins for
-    its own snapshot, and a later cycle for its own."""
+    its own snapshot, and a later cycle for its own. A served cycle keeps
+    none."""
     def host(x):
         return x.cpu().numpy()
 
@@ -290,6 +324,12 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
         pods=SimpleNamespace(req=host(snap.pods.req),
                              mask=host(snap.pods.mask)),
     )
+    if ctx.served:
+        # a served snapshot's node columns are the engine's resident
+        # tensors, which the next refresh updates in place: keep no
+        # explain context
+        ctx.report._explain_ctx = _CTX_RELEASED
+        return
     _attach_explain_ctx(ctx.report, (
         ctx.scheduler, snap, ctx.meta, ctx.assignment,
         tuple(p.aux() for p in ctx.scheduler.profile.plugins),
@@ -302,33 +342,48 @@ def _cycle_bind(ctx: CycleCtx) -> None:
     cluster, report, now = ctx.cluster, ctx.report, ctx.now
     meta, cosched = ctx.meta, ctx.cosched
     assignment, admitted, wait = ctx.assignment, ctx.admitted, ctx.wait
-    for i, pod in enumerate(ctx.pending):
-        node_idx = int(assignment[i])
-        pg = cluster.pod_group_of(pod)
-        if node_idx < 0 or not admitted[i]:
-            report.failed.append(pod.uid)
-            ctx.failed_idx.append((i, pod.uid))
-            cluster.mark_unschedulable(pod.uid, now)
-            if pg is not None:
-                ctx.failed_by_gang.setdefault(pg.full_name, []).append(
-                    pod.uid
-                )
-            continue
-        node_name = meta.node_names[node_idx]
-        if wait[i]:
-            cluster.reserve(pod.uid, node_name)
-            report.reserved[pod.uid] = node_name
-            # per-POD waiting timer from THIS pod's reservation time
-            # (upstream waitingPods, coscheduling.go:227-235;
-            # GetWaitTimeDuration: ScheduleTimeoutSeconds else
-            # PermitWaitingTimeSeconds)
-            timeout_s = pg.schedule_timeout_seconds if pg is not None else None
-            if timeout_s is None and cosched is not None:
-                timeout_s = cosched.permit_waiting_seconds
-            cluster.pod_deadline_ms[pod.uid] = now + 1000 * (timeout_s or 0)
-        else:
-            cluster.bind(pod.uid, node_name, now)
-            report.bound[pod.uid] = node_name
+    with obs.tracer.span("Bind", tid="cycle"):
+        for i, pod in enumerate(ctx.pending):
+            node_idx = int(assignment[i])
+            pg = cluster.pod_group_of(pod)
+            if node_idx < 0 or not admitted[i]:
+                report.failed.append(pod.uid)
+                ctx.failed_idx.append((i, pod.uid))
+                cluster.mark_unschedulable(pod.uid, now)
+                if pg is not None:
+                    ctx.failed_by_gang.setdefault(pg.full_name, []).append(
+                        pod.uid
+                    )
+                continue
+            node_name = meta.node_names[node_idx]
+            if wait[i]:
+                cluster.reserve(pod.uid, node_name)
+                report.reserved[pod.uid] = node_name
+                # per-POD waiting timer from THIS pod's reservation time
+                # (upstream waitingPods, coscheduling.go:227-235;
+                # GetWaitTimeDuration: ScheduleTimeoutSeconds else
+                # PermitWaitingTimeSeconds)
+                timeout_s = (pg.schedule_timeout_seconds if pg is not None
+                             else None)
+                if timeout_s is None and cosched is not None:
+                    timeout_s = cosched.permit_waiting_seconds
+                cluster.pod_deadline_ms[pod.uid] = (
+                    now + 1000 * (timeout_s or 0))
+            else:
+                cluster.bind(pod.uid, node_name, now)
+                report.bound[pod.uid] = node_name
+
+    if ctx.serve_t0 is not None:
+        # serve-mode decision latency: delta ingest through host-visible
+        # bind decisions, observed on fallback cycles too
+        obs.metrics.observe_ms(obs.SERVE_DECISION_LATENCY,
+                               (time.perf_counter() - ctx.serve_t0) * 1000.0)
+
+    if faults.ACTIVE is not None:
+        # fault injection only: die after the bindings landed, the report
+        # riding the exception
+        if faults.ACTIVE.fire(faults.CRASH_POST_BIND) is not None:
+            raise faults.CrashInjected(ctx.report)
 
 
 def _cycle_postbind(ctx: CycleCtx) -> None:
@@ -341,8 +396,9 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
 
     # Permit Allow fan-out: quorum reached this cycle releases waiting
     # siblings
-    for pg in list(cluster.pod_groups.values()):
-        _maybe_release_gang(cluster, pg, report, now)
+    with obs.tracer.span("Permit", tid="cycle"):
+        for pg in list(cluster.pod_groups.values()):
+            _maybe_release_gang(cluster, pg, report, now)
 
     # PostFilter: whole-gang rejection (coscheduling.go:160-209)
     for gang_name in ctx.failed_by_gang:
@@ -365,8 +421,16 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
         _reject_gang(cluster, pg, now, report, cosched, len(members))
 
     _mark_overreserved_on_failures(cluster, report)
-    _run_preemption(ctx.scheduler, cluster, ctx.pending, report, now,
-                    ctx.device)
+    engine = ctx.scheduler.profile.preemption
+    with obs.extension_span(
+        "PostFilter", type(engine).__name__ if engine else "none",
+        failed=len(report.failed),
+    ):
+        _run_preemption(ctx.scheduler, cluster, ctx.pending, report, now,
+                        ctx.device)
+    obs.metrics.inc(obs.PODS_BOUND, len(report.bound))
+    obs.metrics.inc(obs.PODS_FAILED, len(report.failed))
+    obs.metrics.inc(obs.GANG_REJECTIONS, len(report.rejected_gangs))
 
 
 def _cycle_finalize(ctx: CycleCtx) -> None:
@@ -400,14 +464,16 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     `stream_chunk` streams the solve through the chunk pipeline in chunks
     of that many pods when the profile qualifies for the targeted fast
     path and the snapshot's pod rows are a multiple of it; otherwise the
-    sequential solve runs. `timings`, a dict, receives each stage's wall
-    seconds (`open`, `pending`, then `_STAGES`' names), and
-    `scheduling_tables`: the host seconds of the in-tree scheduling tables
-    (`state.scheduling.build_scheduling`) inside the snapshot stage. The JAX package's
-    `serve`, `resilience`, `gangs` and `tuner` options are not ported yet:
-    passing one raises NotImplementedError."""
-    options = dict(serve=serve, resilience=resilience, gangs=gangs,
-                   tuner=tuner)
+    sequential solve runs. `serve`, a `serving.engine.ServeEngine`
+    attached to `cluster`, assembles the snapshot from its resident node
+    columns (falling back to `Cluster.snapshot` when it cannot own the
+    state); a served cycle keeps no explain context. `timings`, a dict,
+    receives each stage's wall seconds (`open`, `pending`, then `_STAGES`'
+    names), and `scheduling_tables`: the host seconds of the in-tree
+    scheduling tables (`state.scheduling.build_scheduling`) inside the
+    snapshot stage. The JAX package's `resilience`, `gangs` and `tuner`
+    options are not ported yet: passing one raises NotImplementedError."""
+    options = dict(resilience=resilience, gangs=gangs, tuner=tuner)
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(
@@ -418,7 +484,7 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         now = _now_ms()
     clock = time.perf_counter
     t0 = clock()
-    ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk)
+    ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve)
     t1 = clock()
     _cycle_pending(ctx)
     if timings is not None:
@@ -426,24 +492,44 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         timings["pending"] = clock() - t1
     if ctx.done:
         return ctx.report
-    for name, stage in _STAGES:
+    stages = dict(_STAGES)
+
+    def run(name):
         t0 = clock()
-        stage(ctx)
+        stages[name](ctx)
         if timings is not None:
             timings[name] = clock() - t0
             if name == "snapshot":
                 timings["scheduling_tables"] = ctx.meta.scheduling_s
+
+    if serve is not None:
+        ctx.serve_t0 = clock()
+    with obs.flow("cycle",
+                  generation=getattr(cluster.nrt_cache, "generation", None),
+                  pending=len(ctx.pending)):
+        run("snapshot")
+        # the Solve span covers the dispatch and the fence's host copy
+        with obs.extension_span("Solve", scheduler.profile.name,
+                                pending=len(ctx.pending)):
+            run("solve")
+            run("fence")
+    for name in ("bind", "postbind", "finalize"):
+        run(name)
     return ctx.report
 
 
 def _observe_quality(report, view, assignment, admitted, wait) -> None:
-    """Stamp the cycle's placement-quality objectives on the report."""
+    """Stamp the cycle's placement-quality objectives on the report and
+    export them as `scheduler_placement_quality{objective}` gauges."""
     q = cycle_quality_np(view, assignment, admitted, wait)
     q["nominations"] = float(len(report.preempted))
     q["preemptions"] = float(
         sum(len(v) for _, v in report.preempted.values())
     )
     report.quality = q
+    for objective, value in q.items():
+        obs.metrics.set_gauge(obs.PLACEMENT_QUALITY, value,
+                              objective=objective)
 
 
 def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
@@ -454,16 +540,19 @@ def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
     fit ("NodeResourcesFit")."""
     if not failed_idx:
         return
-    if codes is not None:
-        per_failure = [codes[i] for i, _ in failed_idx]
-    else:
-        per_failure = scheduler.attribution_codes(
-            snap, [i for i, _ in failed_idx]
-        )
-    names = scheduler.fail_plugin_names()
-    for (_, uid), code in zip(failed_idx, per_failure):
-        code = int(code)
-        report.failed_by[uid] = names[code] if code > 0 else names[0]
+    with obs.tracer.span("Attribution", tid="cycle", failed=len(failed_idx)):
+        if codes is not None:
+            per_failure = [codes[i] for i, _ in failed_idx]
+        else:
+            per_failure = scheduler.attribution_codes(
+                snap, [i for i, _ in failed_idx]
+            )
+        names = scheduler.fail_plugin_names()
+        for (_, uid), code in zip(failed_idx, per_failure):
+            code = int(code)
+            name = names[code] if code > 0 else names[0]
+            report.failed_by[uid] = name
+            obs.metrics.inc(obs.UNSCHEDULABLE_BY_PLUGIN, plugin=name)
 
 
 def _requeue_eligible(scheduler, cluster, pending, now, report):
@@ -494,6 +583,7 @@ def _requeue_eligible(scheduler, cluster, pending, now, report):
         if pod.nominated_node_name is not None:
             return True
         if now < cluster.pod_backoff_until_ms.get(pod.uid, 0):
+            obs.metrics.inc(obs.REQUEUE_BACKOFF_SKIPS)
             return False
         if now >= flush_at:
             return True
@@ -568,6 +658,7 @@ def _run_preemption(scheduler, cluster, pending, report, now, device=None):
         pg = cluster.pod_group_of(pod)
         if pg is not None and pg.full_name in rejected:
             continue  # the whole gang was rejected: no point preempting
+        obs.metrics.inc(obs.PREEMPTION_ATTEMPTS)
         extra = nominated_extra.copy()
         for n_, demand_, prio_, uid_ in holds:
             if prio_ >= pod.priority and uid_ != pod.uid:
@@ -582,10 +673,17 @@ def _run_preemption(scheduler, cluster, pending, report, now, device=None):
             # the nomination did not help and nothing is terminating:
             # clear it (upstream clears NominatedNodeName)
             pod.nominated_node_name = None
+            if cluster.delta_sink is not None:
+                # an in-place change passes no store mutator: tell the
+                # serving engine's gate
+                cluster.delta_sink.note_nomination(pod)
             continue
+        obs.metrics.inc(obs.PREEMPTION_VICTIMS, len(result.victims))
         # nominate now, so later preemptors' live nominated aggregates see
         # this pod exactly once
         pod.nominated_node_name = result.nominated_node
+        if cluster.delta_sink is not None:
+            cluster.delta_sink.note_nomination(pod)
         n = node_pos[result.nominated_node]
         demand = encode_demand(meta.index, pod)
         victim_freed = np.zeros(len(meta.index), np.int64)

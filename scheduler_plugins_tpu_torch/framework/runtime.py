@@ -46,6 +46,7 @@ from scheduler_plugins_tpu_torch.ops.fit import (
 )
 from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
 from scheduler_plugins_tpu_torch.parallel.solver import packing_profile_solve
+from scheduler_plugins_tpu_torch.utils import observability as obs
 
 #: attribution name for failures owned by the framework, not a profile
 #: plugin: scheduling gates and resource-fit exhaustion (the upstream
@@ -531,29 +532,32 @@ class Scheduler:
         Plugins exposing a pairwise `queue_compare` are used via
         cmp_to_key, preserving exact Less() semantics."""
         qs = self.profile.queue_sort
-        if qs is not None and hasattr(qs, "queue_compare"):
-            return sorted(pods, key=functools.cmp_to_key(
-                lambda a, b: qs.queue_compare(a, b, cluster)
-            ))
+        qs_name = qs.name if qs is not None else "PrioritySort"
+        with obs.extension_span("QueueSort", qs_name, pods=len(pods)):
+            if qs is not None and hasattr(qs, "queue_compare"):
+                return sorted(pods, key=functools.cmp_to_key(
+                    lambda a, b: qs.queue_compare(a, b, cluster)
+                ))
 
-        def key(pod):
-            if qs is not None:
-                k = qs.queue_key(pod, cluster)
-                if k is not None:
-                    return k
-            return (-pod.priority, pod.creation_ms,
-                    f"{pod.namespace}/{pod.name}")
+            def key(pod):
+                if qs is not None:
+                    k = qs.queue_key(pod, cluster)
+                    if k is not None:
+                        return k
+                return (-pod.priority, pod.creation_ms,
+                        f"{pod.namespace}/{pod.name}")
 
-        return sorted(pods, key=key)
+            return sorted(pods, key=key)
 
     def prepare(self, meta, cluster=None):
         """Bake each plugin's per-layout tensors onto `meta.device`, then
         let a plugin with a `prepare_cluster(meta, cluster)` hook read the
         host store (the NUMA plugin's uniform-scope selection)."""
         for plugin in self.profile.plugins:
-            plugin.prepare(meta)
-            if hasattr(plugin, "prepare_cluster"):
-                plugin.prepare_cluster(meta, cluster)
+            with obs.extension_span("Prepare", plugin.name):
+                plugin.prepare(meta)
+                if hasattr(plugin, "prepare_cluster"):
+                    plugin.prepare_cluster(meta, cluster)
 
     # -- live weights (the online tuner's rollout seam) ------------------
     @property

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from scheduler_plugins_tpu_torch.parallel.solver import (
     fast_solve_head,
     finalize_assignment,
 )
+from scheduler_plugins_tpu_torch.utils import observability as obs
 
 
 @dataclass
@@ -65,8 +67,8 @@ class PipelineTimeline:
     and charges the rest of the wall time as the pipeline bubble.
 
     The stamps and `summary` are the JAX class's arithmetic, with its
-    rounding. Its Perfetto replay (`emit_trace`) and tracer anchor come
-    with the tracing slice."""
+    rounding; `emit_trace` replays the stamps as Perfetto rows when the
+    tracer is on."""
 
     n_chunks: int = 0
     #: [{stage: dispatch|h2d|d2h, chunk, start_s, end_s}] on the caller's
@@ -74,9 +76,14 @@ class PipelineTimeline:
     events: list = field(default_factory=list)
     start_s: float = 0.0
     end_s: float = 0.0
+    #: tracer-clock ns at `open` when the tracer was on (aligns the
+    #: replayed rows with live spans), else None
+    _anchor_ns: Optional[int] = None
 
     def open(self, start_s: float) -> None:
         self.start_s = start_s
+        if obs.tracer.enabled:
+            self._anchor_ns = obs.tracer.now_ns()
 
     def add(self, stage: str, chunk: int, start_s: float, end_s: float) -> None:
         self.events.append(
@@ -139,6 +146,41 @@ class PipelineTimeline:
             exposed = min(stage_total, bubble * stage_total / host_total)
             out[key] = round(1.0 - exposed / stage_total, 4)
         return out
+
+    def emit_trace(self, tracer=None) -> None:
+        """Replay the stamps as Perfetto rows: h2d / dispatch / d2h per
+        buffer (chunk parity, the double buffering), plus a solve row per
+        chunk from its dispatch returning to its fetch completing, a
+        conservative envelope (the host sees no tighter bound)."""
+        tracer = tracer or obs.tracer
+        if not tracer.enabled or self._anchor_ns is None:
+            return
+
+        def ns(t_s: float) -> int:
+            return self._anchor_ns + int((t_s - self.start_s) * 1e9)
+
+        dispatch_end = {}
+        d2h_end = {}
+        for e in self.events:
+            if e["stage"] == "dispatch":
+                dispatch_end[e["chunk"]] = e["end_s"]
+            elif e["stage"] == "d2h":
+                d2h_end[e["chunk"]] = e["end_s"]
+            tracer.complete(
+                f'{e["stage"]} chunk {e["chunk"]}', ns(e["start_s"]),
+                int((e["end_s"] - e["start_s"]) * 1e9),
+                tid=f'pipeline/{e["stage"]}/buf{e["chunk"] % 2}',
+                args={"chunk": e["chunk"]},
+            )
+        for k, disp_end in sorted(dispatch_end.items()):
+            end = d2h_end.get(k)
+            if end is None:
+                continue
+            tracer.complete(
+                f"solve chunk {k}", ns(disp_end), int((end - disp_end) * 1e9),
+                tid=f"pipeline/solve/buf{k % 2}",
+                args={"chunk": k, "envelope": "dispatch->d2h (conservative)"},
+            )
 
 
 def _on_device(t, device) -> bool:
@@ -260,6 +302,7 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
         timeline.add("d2h", n - 1, t0, t1)
         done_s.append(t1 - start)
     timeline.close(clock())
+    timeline.emit_trace()
     return results, carry, done_s, timeline
 
 

@@ -19,9 +19,13 @@ nodes. For the network-aware plugins it holds the AppGroup and
 NetworkTopology CRs. For the in-tree plugins it holds the Namespace
 objects a PodAffinityTerm's namespaceSelector matches. For SySched it
 holds the SeccompProfile CRs and the default profile the plugin installs,
-and for PreemptionToleration the PriorityClasses. The JAX store's
-native mirror, delta sink, pending index and ledger hooks come with their
-slices.
+and for PreemptionToleration the PriorityClasses.
+
+For the serving engine (`serving.engine.ServeEngine`) the mutators push
+typed node-column deltas into `delta_sink` when one is attached: the
+O(changed) feed the engine folds into its resident tensors instead of
+re-snapshotting. The JAX store's native mirror, pending index and ledger
+hooks come with their slices.
 """
 
 from __future__ import annotations
@@ -134,6 +138,14 @@ class Cluster:
     #: last failure stamp per pod: one cycle can mark a pod twice (bind
     #: failure, then whole-gang rejection); only the first is an attempt
     _pod_last_failure_ms: dict[str, int] = field(default_factory=dict)
+    #: uids of live pods carrying spread / inter-pod affinity specs: while
+    #: any exists the serving engine cannot own the snapshot (the
+    #: scheduling tables need the assigned pod objects)
+    _selector_spec_pods: set = field(default_factory=set)
+    #: the serving engine's `serving.deltas.DeltaSink` (`ServeEngine
+    #: .attach`), or None: when set, the mutators push typed node-column
+    #: deltas beside their `note_event` calls
+    delta_sink: Optional[object] = None
 
     def note_event(self, kind: str) -> None:
         """Record a cluster event ("Resource/Action", `api.events`) for
@@ -179,16 +191,75 @@ class Cluster:
             ev.NODE_UPDATE if node.name in self.nodes else ev.NODE_ADD
         )
         self.nodes[node.name] = node
+        if self.delta_sink is not None:
+            self.delta_sink.node_upsert(node)
 
     def remove_node(self, name: str):
         if self.nodes.pop(name, None) is not None:
             self.note_event(ev.NODE_DELETE)
+            if self.delta_sink is not None:
+                self.delta_sink.node_delete(name)
+
+    @staticmethod
+    def _has_selector_specs(pod: Pod) -> bool:
+        return bool(
+            pod.topology_spread
+            or pod.pod_affinity_required
+            or pod.pod_anti_affinity_required
+            or pod.pod_affinity_preferred
+            or pod.pod_anti_affinity_preferred
+        )
+
+    def _held_node(self, pod: Optional[Pod]) -> Optional[str]:
+        """The node whose usage columns `pod` contributes to: its binding,
+        else its permit reservation (reserved pods hold capacity exactly
+        like bound ones in the snapshot's assigned view); None for a plain
+        pending pod."""
+        if pod is None:
+            return None
+        return pod.node_name or self.reserved.get(pod.uid)
+
+    def _gang_gated_key(self, pod: Optional[Pod]) -> Optional[str]:
+        """The gang `pod` counts into as an unbound, scheduling-gated
+        member (the `gated_pods()` share of the snapshot's gang gated and
+        total counts), or None: the serving engine's gang side table
+        follows transitions of this predicate."""
+        if pod is None or pod.node_name is not None:
+            return None
+        if not pod.scheduling_gated or pod.terminating:
+            return None
+        name = pod.pod_group()
+        if not name:
+            return None
+        return f"{pod.namespace}/{name}"
 
     def add_pod(self, pod: Pod):
-        self.note_event(
-            ev.POD_UPDATE if pod.uid in self.pods else ev.POD_ADD
-        )
+        old = self.pods.get(pod.uid)
+        self.note_event(ev.POD_UPDATE if old is not None else ev.POD_ADD)
+        if self.delta_sink is not None:
+            # an upsert swaps the pod's contribution wholesale (its
+            # requests may have changed; a stale echo may drop the node)
+            old_hold = self._held_node(old)
+            if old_hold is not None:
+                self.delta_sink.pod_unassigned(old, old_hold)
+            # the gated-gang transition, taken at event time: the upsert
+            # replaces the object
+            old_gated = self._gang_gated_key(old)
+            new_gated = self._gang_gated_key(pod)
+            if old_gated != new_gated:
+                if old_gated is not None:
+                    self.delta_sink.gang_gated(old_gated, -1)
+                if new_gated is not None:
+                    self.delta_sink.gang_gated(new_gated, +1)
         self.pods[pod.uid] = pod
+        if self.delta_sink is not None:
+            new_hold = self._held_node(pod)
+            if new_hold is not None:
+                self.delta_sink.pod_assigned(pod, new_hold)
+            self.delta_sink.note_nomination(pod)
+        if self._has_selector_specs(pod):
+            # pod specs are immutable: count on add and remove
+            self._selector_spec_pods.add(pod.uid)
         if self.nrt_cache is not None and hasattr(self.nrt_cache,
                                                   "track_pod"):
             # foreign-pod detection (cache/foreign_pods.go:42-99)
@@ -196,11 +267,21 @@ class Cluster:
 
     def remove_pod(self, uid: str):
         self.release_reservation(uid)  # notifies the NRT cache too
+        self._selector_spec_pods.discard(uid)
         self.unschedulable_since.pop(uid, None)
         self._clear_backoff(uid)
         pod = self.pods.pop(uid, None)
         if pod is not None:
             self.note_event(ev.POD_DELETE)
+            if self.delta_sink is not None:
+                if pod.node_name is not None:
+                    # a bound pod's usage leaves with it (a reserved pod's
+                    # hold was released above)
+                    self.delta_sink.pod_unassigned(pod, pod.node_name)
+                gated = self._gang_gated_key(pod)
+                if gated is not None:
+                    self.delta_sink.gang_gated(gated, -1)
+                self.delta_sink.forget_nomination(uid)
             if pod.node_name is not None and self.nrt_cache is not None:
                 # a bound pod's assumed deduction must not outlive it
                 self.nrt_cache.unreserve(pod.node_name, pod)
@@ -211,8 +292,24 @@ class Cluster:
         pod = self.pods.get(uid)
         if pod is None:
             return
+        was_terminating = pod.terminating
+        # the gated-gang share, taken before the in-place flip (a
+        # terminating gated member leaves `gated_pods()`)
+        gated = (
+            self._gang_gated_key(pod)
+            if self.delta_sink is not None and not was_terminating else None
+        )
         pod.deletion_ms = now_ms
+        if gated is not None:
+            self.delta_sink.gang_gated(gated, -1)
         self.note_event(ev.POD_UPDATE)
+        if self.delta_sink is not None and not was_terminating:
+            # at the held node, binding or reservation: a reserved
+            # victim's flag counts at its reserved node, and the release
+            # later subtracts the event-time flag
+            held = self._held_node(pod)
+            if held is not None:
+                self.delta_sink.pod_terminating(pod, held)
 
     def add_pod_group(self, pg: PodGroup):
         self.note_event(
@@ -330,11 +427,24 @@ class Cluster:
 
     # -- binding and reservations ---------------------------------------------
     def bind(self, uid: str, node_name: str, now_ms: int = 0):
-        self.reserved.pop(uid, None)
+        held = self.reserved.pop(uid, None)
         self.pod_deadline_ms.pop(uid, None)
         self.unschedulable_since.pop(uid, None)
         self._clear_backoff(uid)
         self.note_event(ev.POD_UPDATE)  # assigned: spec.nodeName set
+        if self.delta_sink is not None:
+            if held != node_name:
+                # a reservation bound on its own node is counted already;
+                # anything else moves the contribution
+                if held is not None:
+                    self.delta_sink.pod_unassigned(self.pods[uid], held)
+                self.delta_sink.pod_assigned(self.pods[uid], node_name)
+            # a gated pod leaves `gated_pods()` once nodeName lands
+            gated = self._gang_gated_key(self.pods[uid])
+            if gated is not None:
+                self.delta_sink.gang_gated(gated, -1)
+            # bound pods never count toward the nominated column
+            self.delta_sink.forget_nomination(uid)
         self.pods[uid].node_name = node_name
         self.recent_bindings[uid] = (now_ms, node_name)
         if self.nrt_cache is not None:
@@ -345,12 +455,17 @@ class Cluster:
     def reserve(self, uid: str, node_name: str):
         """Permit said Wait: hold the placement without binding."""
         self.reserved[uid] = node_name
+        if self.delta_sink is not None:
+            # a reservation holds capacity exactly like a binding
+            self.delta_sink.pod_assigned(self.pods[uid], node_name)
         if self.nrt_cache is not None:
             self.nrt_cache.reserve(node_name, self.pods[uid])
 
     def release_reservation(self, uid: str):
         self.pod_deadline_ms.pop(uid, None)
         node = self.reserved.pop(uid, None)
+        if node is not None and self.delta_sink is not None:
+            self.delta_sink.pod_unassigned(self.pods[uid], node)
         if node is not None and self.nrt_cache is not None:
             self.nrt_cache.unreserve(node, self.pods[uid])
 

@@ -42,6 +42,7 @@ from scheduler_plugins_tpu_torch.api.resources import (
     MEMORY,
     add_quantities,
 )
+from scheduler_plugins_tpu_torch.utils import observability as obs
 
 
 def uses_exclusive_resources(pod: Pod) -> bool:
@@ -326,4 +327,5 @@ class OverReserveCache(NrtCache):
             flushed.append(node)
         if flushed:
             self.generation += 1  # overreserve.go:369
+            obs.metrics.inc(obs.CACHE_RESYNC_FLUSHES, len(flushed))
         return flushed

@@ -352,6 +352,118 @@ class _Interner:
         return self.pos.get(name, -1)
 
 
+def build_pod_state(pending_pods: Sequence[Pod], P: int,
+                    index: ResourceIndex, ns_in: _Interner, gang_of,
+                    tlp_prediction: tuple = (1.5, 1000)) -> PodState:
+    """The pending batch as `PodState` (host numpy): the one copy of the
+    pod lowering, shared by `build_snapshot` and the serving engine's
+    assembly (`serving.engine.ServeEngine._assemble`), so both produce the
+    same pod tensors. `ns_in` interns namespace codes into the caller's
+    meta; `gang_of(pod)` gives a pod's gang code (-1 outside a gang)."""
+    R = len(index)
+    preq = np.zeros((P, R), I64)
+    plimits = np.zeros((P, R), I64)
+    ppredicted = np.zeros(P, I64)
+    C = max(max((len(p.init_containers) + len(p.containers)
+                 for p in pending_pods), default=1), 1)
+    pcreq = np.zeros((P, C, R), I64)
+    pcinit = np.zeros((P, C), bool)
+    pcmask = np.zeros((P, C), bool)
+    ppriority = np.zeros(P, I64)
+    pns = np.zeros(P, I32)
+    pgang = np.full(P, -1, I32)
+    pqos = np.zeros(P, I32)
+    pmask = np.zeros(P, bool)
+    pcreated = np.zeros(P, I64)
+    pgated = np.zeros(P, bool)
+    for i, pod in enumerate(pending_pods):
+        preq[i] = index.encode(pod.effective_request())
+        plimits[i] = index.encode(pod.effective_limits())
+        ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
+        for c, cont in enumerate(list(pod.init_containers)
+                                 + list(pod.containers)):
+            pcreq[i, c] = index.encode(cont.requests)
+            pcinit[i, c] = c < len(pod.init_containers)
+            pcmask[i, c] = True
+        pqos[i] = int(pod.qos_class())
+        ppriority[i] = pod.priority
+        pns[i] = ns_in.code(pod.namespace)
+        pgang[i] = gang_of(pod)
+        pmask[i] = True
+        pcreated[i] = pod.creation_ms
+        pgated[i] = pod.scheduling_gated
+    return PodState(
+        req=preq, limits=plimits, predicted_cpu_millis=ppredicted,
+        container_req=pcreq, container_is_init=pcinit,
+        container_mask=pcmask, priority=ppriority, ns=pns, gang=pgang,
+        qos=pqos, mask=pmask, creation_ms=pcreated, gated=pgated,
+    )
+
+
+def gang_object_tables(pod_groups, gang_pos: dict, index: ResourceIndex,
+                       G: int, backed_off_gangs) -> dict:
+    """The `GangState` columns the PodGroup objects give (min_member,
+    creation, backoff, MinResources with the pods slot set to MinMember,
+    mask): one copy shared by `build_snapshot` and the serving engine.
+    The per-pod aggregates (total, assigned, gated, cluster_slack) are
+    the caller's: the fresh path sums the pods, the serving engine reads
+    its resident side tables."""
+    R = len(index)
+    pods_i = index.position(PODS)
+    backed_off = set(backed_off_gangs)
+    gang_min = np.ones(G, I32)
+    gang_minres = np.zeros((G, R), I64)
+    gang_has_minres = np.zeros(G, bool)
+    gang_created = np.zeros(G, I64)
+    gang_backoff = np.zeros(G, bool)
+    gang_mask = np.zeros(G, bool)
+    for pg in pod_groups:
+        g = gang_pos[pg.full_name]
+        gang_mask[g] = True
+        gang_min[g] = pg.min_member
+        gang_created[g] = pg.creation_ms
+        gang_backoff[g] = pg.full_name in backed_off
+        if pg.min_resources:
+            gang_minres[g] = index.encode(pg.min_resources)
+            gang_has_minres[g] = True
+            # MinResources demand includes a pods slot of MinMember
+            # (core.go:295-297)
+            gang_minres[g, pods_i] = pg.min_member
+    return {
+        "min_member": gang_min, "min_resources": gang_minres,
+        "has_min_resources": gang_has_minres, "creation_ms": gang_created,
+        "backed_off": gang_backoff, "mask": gang_mask,
+    }
+
+
+def quota_object_tables(quotas, index: ResourceIndex, ns_in: _Interner,
+                        Q: int):
+    """(min, max, has_quota) of the ElasticQuota objects by namespace
+    code, shared by `build_snapshot` and the serving engine. Every quota
+    namespace must be interned in `ns_in` already (the fresh order: the
+    batch, then the quotas, then the assigned pods)."""
+    R = len(index)
+    qmin = np.zeros((Q, R), I64)
+    # absent resources in Max are unbounded (UpperBound semantics,
+    # elasticquota.go:96-120)
+    qmax = np.full((Q, R), np.iinfo(I64).max, I64)
+    qhas = np.zeros(Q, bool)
+    for q in quotas:
+        nsi = ns_in.get(q.namespace)
+        qhas[nsi] = True
+        qmin[nsi] = index.encode(q.min)
+        qmax[nsi] = index.encode(q.max, default=np.iinfo(I64).max)
+    return qmin, qmax, qhas
+
+
+def empty_quota_nominees(R: int, P: int):
+    """The nominee tables of an empty nominated set (M = 1 zero rows,
+    batch index -1): the serving engine's case, since its gate admits no
+    nomination."""
+    return (np.zeros((1, R), I64), np.zeros((1, P), bool),
+            np.zeros((1, P), bool), np.full(1, -1, I32))
+
+
 def build_snapshot(
     nodes: Sequence[Node],
     pending_pods: Sequence[Pod],
@@ -471,25 +583,8 @@ def build_snapshot(
     # --- gangs ---------------------------------------------------------
     gang_pos = {pg.full_name: gangs_in.code(pg.full_name) for pg in pod_groups}
     G = max(len(gang_pos), 1)
-    backed_off = set(backed_off_gangs)
-    gang_min = np.ones(G, I32)
-    gang_minres = np.zeros((G, R), I64)
-    gang_has_minres = np.zeros(G, bool)
-    gang_created = np.zeros(G, I64)
-    gang_backoff = np.zeros(G, bool)
-    gang_mask = np.zeros(G, bool)
-    for pg in pod_groups:
-        g = gang_pos[pg.full_name]
-        gang_mask[g] = True
-        gang_min[g] = pg.min_member
-        gang_created[g] = pg.creation_ms
-        gang_backoff[g] = pg.full_name in backed_off
-        if pg.min_resources:
-            gang_minres[g] = index.encode(pg.min_resources)
-            gang_has_minres[g] = True
-            # MinResources demand includes a pods slot of MinMember
-            # (core.go:295-297)
-            gang_minres[g, pods_i] = pg.min_member
+    gang_obj = gang_object_tables(pod_groups, gang_pos, index, G,
+                                  backed_off_gangs)
 
     def gang_of(pod: Pod) -> int:
         name = pod.pod_group()
@@ -515,51 +610,13 @@ def build_snapshot(
         elif pod.scheduling_gated:
             gang_gated[g] += 1
     gang_state = GangState(
-        min_member=gang_min, total_members=gang_total,
-        assigned=gang_assigned, gated=gang_gated,
-        min_resources=gang_minres, has_min_resources=gang_has_minres,
-        creation_ms=gang_created, backed_off=gang_backoff,
-        cluster_slack=gang_slack, mask=gang_mask,
+        total_members=gang_total, assigned=gang_assigned, gated=gang_gated,
+        cluster_slack=gang_slack, **gang_obj,
     ) if pod_groups else None
 
     # --- pods (pending batch) -----------------------------------------
-    preq = np.zeros((P, R), I64)
-    plimits = np.zeros((P, R), I64)
-    ppredicted = np.zeros(P, I64)
-    C = max(max((len(p.init_containers) + len(p.containers)
-                 for p in pending_pods), default=1), 1)
-    pcreq = np.zeros((P, C, R), I64)
-    pcinit = np.zeros((P, C), bool)
-    pcmask = np.zeros((P, C), bool)
-    ppriority = np.zeros(P, I64)
-    pns = np.zeros(P, I32)
-    pgang = np.full(P, -1, I32)
-    pqos = np.zeros(P, I32)
-    pmask = np.zeros(P, bool)
-    pcreated = np.zeros(P, I64)
-    pgated = np.zeros(P, bool)
-    for i, pod in enumerate(pending_pods):
-        preq[i] = index.encode(requests[pod.uid])
-        plimits[i] = index.encode(pod.effective_limits())
-        ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
-        for c, cont in enumerate(list(pod.init_containers)
-                                 + list(pod.containers)):
-            pcreq[i, c] = index.encode(cont.requests)
-            pcinit[i, c] = c < len(pod.init_containers)
-            pcmask[i, c] = True
-        pqos[i] = int(pod.qos_class())
-        ppriority[i] = pod.priority
-        pns[i] = ns_in.code(pod.namespace)
-        pgang[i] = gang_of(pod)
-        pmask[i] = True
-        pcreated[i] = pod.creation_ms
-        pgated[i] = pod.scheduling_gated
-    pod_state = PodState(
-        req=preq, limits=plimits, predicted_cpu_millis=ppredicted,
-        container_req=pcreq, container_is_init=pcinit,
-        container_mask=pcmask, priority=ppriority, ns=pns, gang=pgang,
-        qos=pqos, mask=pmask, creation_ms=pcreated, gated=pgated,
-    )
+    pod_state = build_pod_state(pending_pods, P, index, ns_in, gang_of,
+                                tlp_prediction)
 
     # --- quota ---------------------------------------------------------
     quota_state = None
@@ -569,16 +626,7 @@ def build_snapshot(
         for pod in assigned_pods:
             ns_in.code(pod.namespace)
         Q = max(len(meta.namespaces), 1)
-        qmin = np.zeros((Q, R), I64)
-        # absent resources in Max are unbounded (UpperBound semantics,
-        # elasticquota.go:96-120)
-        qmax = np.full((Q, R), np.iinfo(I64).max, I64)
-        qhas = np.zeros(Q, bool)
-        for q in quotas:
-            nsi = ns_in.get(q.namespace)
-            qhas[nsi] = True
-            qmin[nsi] = index.encode(q.min)
-            qmax[nsi] = index.encode(q.max, default=np.iinfo(I64).max)
+        qmin, qmax, qhas = quota_object_tables(quotas, index, ns_in, Q)
         qused = np.zeros((Q, R), I64)
         for pod in assigned_pods:
             if pod.node_name is None:

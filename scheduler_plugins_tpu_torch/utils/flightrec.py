@@ -1,15 +1,24 @@
-"""The "why this node" table (port of `explain_solver` from
+"""The "why this node" table and the content digests (port of
+`explain_solver`, `array_digest` and `_pack_digest` from
 `scheduler_plugins_tpu.utils.flightrec`).
 
 `explain_solver` turns the explain rows of one pod (`Scheduler.explain_rows`,
 or `parallel.solver.batch_explain_rows`) into the upstream `--v=10`
-per-plugin score dump as a JSON-able dict. The JAX module's flight
-recorder, its bundles and their replay come with the observability slice.
+per-plugin score dump as a JSON-able dict. `pack_digest` is the content
+address of a tree of arrays (blake2b over canonical bytes) that the
+serving engine's anti-entropy check compares; it equals the JAX
+package's digest of the same arrays. The JAX module's flight recorder,
+its bundles and their replay come with their own slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
+
 import numpy as np
+import torch
 
 #: the fit-margin sentinel of masked nodes (`Scheduler.explain_rows`); also
 #: the shift that ranks infeasible nodes after every feasible one
@@ -102,7 +111,7 @@ def explain_solver(scheduler, snap, meta, uid: str, top_k: int = 5,
     return {
         "uid": uid,
         # the flight recorder's cycle number; set by the recorder, which
-        # comes with the observability slice
+        # comes with its own slice
         "cycle": None,
         "pod_index": pod_index,
         "profile": scheduler.profile.name,
@@ -117,3 +126,51 @@ def explain_solver(scheduler, snap, meta, uid: str, top_k: int = 5,
         "weights": {p.name: int(p.weight) for p in plugins},
         "candidates": candidates,
     }
+
+
+def array_digest(arr: np.ndarray) -> str:
+    """Content address of one array: blake2b-128 over dtype, shape and
+    C-order bytes (dtype and shape first, so a reshape or a cast never
+    collides with the original)."""
+    arr = np.ascontiguousarray(arr)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(arr.dtype).encode())
+    h.update(b":")
+    h.update(",".join(map(str, arr.shape)).encode())
+    h.update(b":")
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def pack_tree(value) -> object:
+    """A JSON-able spec of a tree of dataclasses, containers, scalars and
+    arrays (numpy or tensors, read to the host), each array by its
+    `array_digest`: the JAX `pack_pytree`'s spec without the blobs."""
+    if value is None:
+        return None
+    if isinstance(value, (bool, int, float, str)):
+        return {"v": value}
+    if isinstance(value, np.generic):
+        return {"v": value.item()}
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return {"s": type(value).__name__,
+                "f": {f.name: pack_tree(getattr(value, f.name))
+                      for f in dataclasses.fields(value)}}
+    if isinstance(value, (tuple, list)):
+        return {"t": [pack_tree(v) for v in value],
+                "k": "tuple" if isinstance(value, tuple) else "list"}
+    if isinstance(value, dict):
+        return {"d": {str(k): pack_tree(v) for k, v in value.items()}}
+    if isinstance(value, torch.Tensor):
+        value = value.cpu().numpy()
+    arr = np.asarray(value)
+    if arr.dtype == object:
+        raise TypeError(f"undigestable value of type {type(value).__name__}")
+    return {"a": array_digest(arr), "dtype": str(arr.dtype),
+            "shape": list(arr.shape)}
+
+
+def pack_digest(tree) -> str:
+    """blake2b-128 of `tree`'s canonical spec (`pack_tree`)."""
+    spec = json.dumps(pack_tree(tree), sort_keys=True, separators=(",", ":"))
+    return hashlib.blake2b(spec.encode(), digest_size=16).hexdigest()

@@ -1072,13 +1072,23 @@ def test_filter_verdicts_matches(jax_package):
 
 
 class TestUnportedOptions:
-    @pytest.mark.parametrize("option", ["serve", "resilience", "gangs",
-                                        "tuner"])
+    @pytest.mark.parametrize("option", ["resilience", "gangs", "tuner"])
     def test_option_raises(self, option):
         c, s, _ = basic_binds_pending(PORT)
         with pytest.raises(NotImplementedError, match=option):
             port_cycle.run_cycle(s, c, now=0, device=CPU, **{option: 4})
         assert all(p.node_name is None for p in c.pending_pods())
+
+    def test_serve_option_runs(self):
+        """An attached engine serves the cycle; its first refresh builds
+        the resident base."""
+        from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+        c, s, _ = basic_binds_pending(PORT)
+        engine = ServeEngine().attach(c)
+        report = port_cycle.run_cycle(s, c, now=0, device=CPU, serve=engine)
+        assert report.bound and engine.rebases == 1
+        assert all(p.node_name is not None for p in c.pods.values())
 
     def test_explain_raises(self):
         """Explain raises KeyError for a pod outside the cycle's batch and

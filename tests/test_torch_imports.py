@@ -59,7 +59,11 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.plugins.preemptiontoleration",
         "scheduler_plugins_tpu_torch.plugins.crossnodepreemption",
         "scheduler_plugins_tpu_torch.ops.packing",
-        "scheduler_plugins_tpu_torch.tuning.gates"} <= set(names), names
+        "scheduler_plugins_tpu_torch.tuning.gates",
+        "scheduler_plugins_tpu_torch.utils.observability",
+        "scheduler_plugins_tpu_torch.resilience.faults",
+        "scheduler_plugins_tpu_torch.serving.deltas",
+        "scheduler_plugins_tpu_torch.serving.engine"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -205,6 +209,26 @@ class TestDeviceDefault:
         view = sched.solve(snap, device="cpu")
         assert view.assignment.device.type == "cpu"
         assert (view.assignment >= 0).any()
+
+    def test_serving_entry_points_raise(self, no_cuda):
+        """The serving slice's entry points (the engine's refresh, the
+        served cycle) default to the card too."""
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+        from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+        cluster = allocatable_scenario(4, 8)
+        engine = ServeEngine().attach(cluster)
+        sched = Scheduler(load_profile(
+            {"plugins": ["NodeResourcesAllocatable"]}))
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            engine.refresh(cluster, cluster.pending_pods())
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            run_cycle(sched, cluster, now=1000, serve=engine)
+        report = run_cycle(sched, cluster, now=1000, serve=engine,
+                           device="cpu")
+        assert report.bound and engine.resident_nodes.alloc.device.type == (
+            "cpu")
 
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0
