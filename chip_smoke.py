@@ -168,7 +168,35 @@ Phases (any failure exits non-zero and prints no result line):
    decision latency p50 / p99); the flagship profile's thirty served
    churn cycles card == CPU (`[serving]` lines). Phases 9 to 17 launch no
    election kernel: their counts print 0 / 0 / 0;
-18. the kernel table as one JSON line (times at the shapes, dtypes and
+18. the resilience layer (`[resilience]` lines): bench config 9 at its
+   full shape (`tests/torch_chaos_cases.py` `CHAOS_SHAPE`: 500 nodes,
+   4,096 bound pods, 4 + 32 cycles of churn under the standard fault
+   plan through the serving engine and the solve watchdog), the control
+   arm on the card and the chaos arm on the card and on the CPU: every
+   timed cycle's bound map equal across the three, 0 capacity
+   violations, one crash restored from the checkpoint, the failovers,
+   degraded cycles, rebases, divergences and recovery windows equal on
+   card and CPU, the control never on the host path, each arm's p50 / p99
+   cycle time and abandoned workers; `host_sequential_solve` bit-identical
+   to `Scheduler.solve` on the card (config 7's served snapshot,
+   `allocatable_scenario(1024, 4096)`); the checkpoint (an exact one
+   resumes with no rebase, a stale one rebases within one window); the
+   north star through `run_chunk_pipeline(fetch_deadline_s=30)` equal to
+   the call without, and `cycle_script` through `run_cycle(stream_chunk=4,
+   resilience=)` equal to `run_cycle(stream_chunk=4)`;
+19. the rank-aware gangs (`[gangs]` lines): bench config 10 at its full
+   shape (`tests/torch_gang_cases.py` `RANK_GANG_SHAPE`: 384 nodes, 24
+   MPI gangs of 8 ranks, 8 elastic jobs) through
+   `run_cycle(gangs=GangPhase(check_twin=True))`, the elastic grow and
+   shrink and the quorum-only baseline, card == CPU, drift 0.0, 0
+   violations, the wave phase placing identically; bench config 12 at its
+   full shape (`MEGA_GANG_SHAPE`: 10,240 nodes, 1,024 gangs) through
+   `gang_solve` (under sync-debug "error") and `wave_gang_solve` on the
+   card and on the CPU and `gang_solve_np`, all bit-identical, 0
+   violations, each solver's seconds and ranks/s, the work a gang step
+   enqueues and the wave solve's host syncs a wave. Phases 18 and 19
+   launch no election kernel;
+20. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -3199,6 +3227,544 @@ def serving_phase(device) -> None:
     print(f"[serving] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: resilience
+# ---------------------------------------------------------------------------
+
+
+def _chaos_namespace(device):
+    """The port's names for `tests/torch_chaos_cases.py`, its cycles and
+    checkpoint restores on `device`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch import resilience
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    return SimpleNamespace(
+        **vars(_port_namespace()), Engine=ServeEngine,
+        faults=resilience.faults, Resilience=resilience.Resilience,
+        SolveWatchdog=resilience.SolveWatchdog,
+        run=lambda s, c, now, e, rz: run_cycle(s, c, now=now, serve=e,
+                                               resilience=rz, device=device),
+        restore=lambda e, ckpt: e.restore_checkpoint(ckpt, device=device),
+    )
+
+
+def chaos_arms(device) -> None:
+    """Bench config 9 at `CHAOS_SHAPE`, uncut: the fault-free control arm
+    on the card, the chaos arm (the standard plan, seed 0) on the card and
+    on the CPU. Every timed cycle's bound map equal across the three, 0
+    capacity violations, one crash restored from the checkpoint, the
+    failovers, degraded cycles, rebases, divergences and recovery windows
+    equal on card and CPU with every window closed within the bench's
+    bound, the control never on the host path; each arm's p50 / p99 cycle
+    time and abandoned workers (`[resilience]` lines)."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+
+    import torch_chaos_cases as chaos
+    import torch_churn_cases as churn
+
+    shape = chaos.CHAOS_SHAPE
+    cpu = torch.device("cpu")
+    arms, plans = {}, {}
+    schedulers = {}
+    for label, dev, faulted in (("control_card", device, False),
+                                ("chaos_card", device, True),
+                                ("chaos_cpu", cpu, True)):
+        pkg = _chaos_namespace(dev)
+        sched = schedulers.setdefault(
+            dev.type, Scheduler(load_profile(churn.CHURN_PROFILE)))
+        plan = chaos.chaos_fault_plan(pkg, shape) if faulted else None
+        t0 = time.perf_counter()
+        r = arms[label] = chaos.run_chaos_arm(pkg, sched, shape, plan=plan)
+        plans[label] = plan
+        times = np.asarray(r["times"])
+        print(f"[resilience] config9 {label} run_s={time.perf_counter() - t0} "
+              f"cycles={len(times)} cycle_ms_p50="
+              f"{float(np.percentile(times, 50)) * 1000} cycle_ms_p99="
+              f"{float(np.percentile(times, 99)) * 1000} "
+              f"decided={sum(r['decided'])} paths="
+              f"{ {p: r['paths'].count(p) for p in sorted(set(r['paths']))} } "
+              f"degraded_cycles={r['degraded_cycles']} "
+              f"crashes={r['crashes']} rebases={r['rebases']} "
+              f"divergences={r['divergences']} "
+              f"recoveries={r['recoveries']} abandoned={r['abandoned']} "
+              f"violations={churn.capacity_violations(r['cluster'])}",
+              flush=True)
+        if faulted:
+            # each hang leaves workers asleep for hang_seconds: wait them
+            # out before anything else runs (sync-debug is process-wide)
+            time.sleep(shape["hang_seconds"])
+    control = arms["control_card"]
+    gates = {label: chaos.chaos_gates(arms[label], control, plans[label])
+             for label in ("chaos_card", "chaos_cpu")}
+    for label, g in gates.items():
+        print(f"[resilience] config9 {label} gates {json.dumps(g)}",
+              flush=True)
+
+    def bookkeeping(r):
+        return (r["paths"], r["degraded_cycles"], r["crashes"],
+                r["rebases"], r["divergences"], r["recoveries"],
+                r["abandoned"])
+
+    card, on_cpu = arms["chaos_card"], arms["chaos_cpu"]
+    same_bound = control["bound"] == card["bound"] == on_cpu["bound"]
+    same_books = bookkeeping(card) == bookkeeping(on_cpu)
+    print(f"[resilience] config9 bound_identical={same_bound} "
+          f"card_cpu_bookkeeping_identical={same_books} "
+          f"control_paths={sorted(set(control['paths']))}", flush=True)
+    problems = []
+    if not same_bound:
+        problems.append("bound maps differ across the arms")
+    if not same_books:
+        problems.append("chaos card != chaos CPU bookkeeping")
+    if set(control["paths"]) != {"device"}:
+        problems.append("the control arm left the device path")
+    for label in ("chaos_card", "chaos_cpu"):
+        g, r = gates[label], arms[label]
+        if (g["capacity_violations"] or g["faults_unfired"]
+                or g["crashes"] != 1 or "host" not in r["paths"]
+                or g["recovery_cycles_max"] > chaos.RECOVERY_BOUND
+                or r["resilience"].degraded):
+            problems.append(f"{label}: gates {g}")
+    if churn.capacity_violations(control["cluster"]):
+        problems.append("control: capacity violations")
+    if problems:
+        raise AssertionError(f"config 9: {problems}")
+
+
+def host_solve_check(device) -> tuple:
+    """`host_sequential_solve` against `Scheduler.solve` on the card: on
+    config 7's served snapshot (`SERVING_SHAPE`'s cluster plus one cycle
+    of arrivals, through the serving engine) and on
+    `allocatable_scenario(1024, 4096)`: assignment, admitted, wait and the
+    failure codes bit-identical. Returns config 7's cluster and engine."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler
+    from scheduler_plugins_tpu_torch.models import allocatable_scenario
+    from scheduler_plugins_tpu_torch.resilience import (
+        host_sequential_solve,
+        supports_host_solve,
+    )
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    import torch_churn_cases as churn
+
+    pkg = _port_namespace()
+    shape = churn.SERVING_SHAPE
+    cluster = churn.churn_cluster(pkg, shape["n_nodes"], shape["prefill"])
+    engine = ServeEngine().attach(cluster)
+    churn.churn_events(pkg, cluster, np.random.default_rng(1), shape, 0,
+                       1000, 0)
+    sched = Scheduler(load_profile(churn.CHURN_PROFILE))
+    problems = {"config7_served": (cluster, engine),
+                "alloc_1024x4096": (allocatable_scenario(1024, 4096), None)}
+    for label, (c, e) in problems.items():
+        pending = sched.sort_pending(c.pending_pods(), c)
+        if e is not None:
+            snap, meta = e.refresh(c, pending, now_ms=1000, device=device)
+        else:
+            snap, meta = c.snapshot(pending, now_ms=0, device=device)
+        sched.prepare(meta, c)
+        assert supports_host_solve(sched, snap)
+        _sync(device)
+        t0 = time.perf_counter()
+        res = sched.solve(snap, device=device)
+        card = [x.cpu().numpy() for x in (res.assignment, res.admitted,
+                                          res.wait, res.failed_plugin)]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = host_sequential_solve(sched, snap)
+        host_s = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(card, host))
+        print(f"[resilience] host_solve {label} nodes={len(meta.node_names)} "
+              f"pods={len(pending)} placed={int((host[0] >= 0).sum())} "
+              f"failed={len(pending) - int((host[0] >= 0).sum())} "
+              f"card_s={card_s} "
+              f"host_s={host_s} identical={same}", flush=True)
+        if not same:
+            raise AssertionError(f"host solve != card solve on {label}")
+    return cluster, engine
+
+
+def checkpoint_check(cluster, engine, device) -> None:
+    """On config 7's served engine on the card: an exact checkpoint
+    restored into a fresh engine serves the next refresh with no
+    divergence and no rebase (generation continuity); a checkpoint made
+    stale by a pod delete rebases at the first refresh and is clean at the
+    second."""
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    engine.refresh(cluster, [], now_ms=2000, device=device)  # settle
+    ckpt = engine.checkpoint_bytes()
+    gen = engine.generation
+    engine.detach()
+    exact = ServeEngine().attach(cluster)
+    exact.verify_every = 1
+    exact.restore_checkpoint(ckpt, device=device)
+    served = exact.refresh(cluster, [], now_ms=3000, device=device)
+    exact_ok = (served is not None and exact.rebases == 0
+                and exact.antientropy_divergences == 0
+                and exact.generation > gen)
+    stale_ckpt = exact.checkpoint_bytes()
+    exact.detach()
+    victim = next(uid for uid, p in cluster.pods.items()
+                  if p.node_name is not None)
+    cluster.remove_pod(victim)
+    stale = ServeEngine().attach(cluster)
+    stale.verify_every = 1
+    stale.restore_checkpoint(stale_ckpt, device=device)
+    first = stale.refresh(cluster, [], now_ms=4000, device=device)
+    books = (stale.antientropy_divergences, stale.rebases)
+    second = stale.refresh(cluster, [], now_ms=5000, device=device)
+    stale_ok = (first is not None and second is not None and books == (1, 1)
+                and (stale.antientropy_divergences, stale.rebases) == (1, 1))
+    print(f"[resilience] checkpoint bytes={len(ckpt)} exact_resumed="
+          f"{exact_ok} stale_divergences_rebases={books} "
+          f"stale_recovered={stale_ok}", flush=True)
+    if not (exact_ok and stale_ok):
+        raise AssertionError("checkpoint restore misbehaved")
+
+
+def fetch_deadline_check(device) -> None:
+    """The north-star snapshot through `run_chunk_pipeline` with
+    `fetch_deadline_s=30` and without: equal results, both elapsed times;
+    then `cycle_script` through `run_cycle(stream_chunk=4, resilience=)`
+    on the card equal to `run_cycle(stream_chunk=4)`, every solved cycle
+    on the device path."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.models import allocatable_scenario
+    from scheduler_plugins_tpu_torch.ops.allocatable import (
+        MODE_LEAST,
+        allocatable_scores,
+        demote_scores_int32,
+    )
+    from scheduler_plugins_tpu_torch.ops.assign import (
+        waterfill_assign_targeted,
+    )
+    from scheduler_plugins_tpu_torch.ops.fit import free_capacity
+    from scheduler_plugins_tpu_torch.parallel.pipeline import (
+        run_chunk_pipeline,
+    )
+    from scheduler_plugins_tpu_torch.resilience import Resilience, SolveWatchdog
+    from scheduler_plugins_tpu_torch.state import Cluster
+
+    from torch_cycle_scripts import SCRIPT_COSCHED, cycle_script
+
+    chunk, rescue = NORTH_STAR["chunk"], NORTH_STAR["rescue_window"]
+    cluster = allocatable_scenario(NORTH_STAR["n_nodes"], NORTH_STAR["n_pods"])
+    pending = sorted(cluster.pending_pods(), key=lambda p: p.creation_ms)
+    padded = -(-len(pending) // chunk) * chunk
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device,
+                                  pad_pods=padded)
+    weights = meta.index.encode({"cpu": 1 << 20, "memory": 1})
+    raw = demote_scores_int32(allocatable_scores(
+        snap.nodes.alloc, torch.as_tensor(weights, device=device), MODE_LEAST
+    )).to(torch.int64)
+
+    def solve_chunk(raw, node_mask, req_chunk, mask_chunk, free0):
+        a, free, _ = waterfill_assign_targeted(
+            raw, req_chunk, mask_chunk,
+            torch.where(node_mask[:, None], free0, 0), max_waves=8,
+            rescue_window=rescue)
+        return a, free
+
+    req_np = snap.pods.req.cpu().numpy()
+    mask_np = snap.pods.mask.cpu().numpy()
+    inputs = [(req_np[lo:lo + chunk], mask_np[lo:lo + chunk])
+              for lo in range(0, padded, chunk)]
+    outs, elapsed = {}, {}
+    for label, deadline in (("warm", None), ("plain", None),
+                            ("deadline", 30.0)):
+        free = free_capacity(snap.nodes.alloc, snap.nodes.requested)
+        _sync(device)
+        t0 = time.perf_counter()
+        results, _, _, _ = run_chunk_pipeline(
+            solve_chunk, (raw, snap.nodes.mask), inputs, free,
+            fetch_deadline_s=deadline, device=device)
+        elapsed[label] = time.perf_counter() - t0
+        outs[label] = np.concatenate(results)
+    same = np.array_equal(outs["plain"], outs["deadline"])
+    print(f"[resilience] fetch_deadline north_star chunks={len(inputs)} "
+          f"plain_s={elapsed['plain']} deadline_s={elapsed['deadline']} "
+          f"identical={same} placed={int((outs['plain'] >= 0).sum())}",
+          flush=True)
+    if not same:
+        raise AssertionError("run_chunk_pipeline with a deadline differs")
+    del cluster, snap
+
+    states, paths = [], []
+    for rz in (None, Resilience(watchdog=SolveWatchdog(timeout_s=30.0))):
+        c, steps = cycle_script(objects, Cluster)
+        sched = flagship_scheduler(**SCRIPT_COSCHED)
+        arm = []
+        for now, mutate in steps:
+            if mutate is not None:
+                mutate(objects, c)
+            report = run_cycle(sched, c, now, 4, resilience=rz,
+                               device=device)
+            if rz is not None and report.solve_path is not None:
+                paths.append(report.solve_path)
+            report.solve_path = None
+            arm.append(cycle_state(report, c))
+        states.append(arm)
+    same = states[0] == states[1]
+    print(f"[resilience] streamed_script_under_watchdog cycles="
+          f"{len(states[0])} identical={same} paths="
+          f"{ {p: paths.count(p) for p in set(paths)} }", flush=True)
+    if not same or set(paths) != {"device"}:
+        raise AssertionError("the streamed script under the watchdog "
+                             "differs or left the device path")
+
+
+def resilience_phase(device) -> None:
+    """Phase 18: the resilience layer. Bench config 9 at its full shape
+    (`chaos_arms`), the host solve against the card (`host_solve_check`),
+    the fetch deadline (`fetch_deadline_check`) and the checkpoint
+    (`checkpoint_check`), `[resilience]` lines. No election kernel."""
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    t_phase = time.perf_counter()
+    pk.reset_launches()
+    chaos_arms(device)
+    cluster, engine = host_solve_check(device)
+    checkpoint_check(cluster, engine, device)
+    del cluster, engine
+    fetch_deadline_check(device)
+    no_election_launches("resilience", "resilience_phase", pk.launches())
+    print(f"[resilience] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: rank-aware gangs
+# ---------------------------------------------------------------------------
+
+
+def _gang_namespace(device):
+    """The port's names for `tests/torch_gang_cases.py`, its cycles on
+    `device`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch import gangs
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.gangs import phase, topology
+    from scheduler_plugins_tpu_torch.models import rank_gang_scenario
+    from scheduler_plugins_tpu_torch.tuning import quality
+
+    return SimpleNamespace(
+        **vars(_port_namespace()), rank_gang_scenario=rank_gang_scenario,
+        run=lambda s, c, now, ph: run_cycle(s, c, now=now, gangs=ph,
+                                            device=device),
+        GangPhase=gangs.GangPhase, elastic_bounds=gangs.elastic_bounds,
+        block_cost_view=phase.block_cost_view,
+        gang_cost_stats=topology.gang_cost_stats,
+        rank_gang_quality=quality.rank_gang_quality,
+        elastic_satisfaction_quality=quality.elastic_satisfaction_quality,
+        RankGangState=topology.RankGangState,
+    )
+
+
+def config10_gangs(device) -> None:
+    """Bench config 10 at `RANK_GANG_SHAPE`, uncut, through
+    `run_cycle(gangs=GangPhase(check_twin=True))` until the queue drains,
+    then the elastic grow and shrink transitions and the quorum-only
+    Coscheduling baseline arm, on the card and on the CPU: reports,
+    stores and `rank_gangs` stats identical, `max_drift` 0.0, 0 fit /
+    quota / quorum violations, the bench line; then `GangPhase(wave=True)`
+    on the card placing identically (`[gangs]` lines)."""
+    import torch
+
+    import torch_gang_cases as gcases
+
+    shape = gcases.RANK_GANG_SHAPE
+    records = {}
+    for label, dev, wave in (("card", device, False),
+                             ("cpu", torch.device("cpu"), False),
+                             ("card_wave", device, True)):
+        pkg = _gang_namespace(dev)
+        phase = pkg.GangPhase(check_twin=True, wave=wave)
+        t0 = time.perf_counter()
+        out = gcases.rank_gangs(pkg, shape, phase)
+        run_s = time.perf_counter() - t0
+        records[label] = {
+            "rank_reports": out["rank"]["reports"],
+            "transitions": out["transitions"],
+            "base_reports": out["base"]["reports"],
+            "rank_store": gcases.store_state(out["rank"]["cluster"]),
+            "base_store": gcases.store_state(out["base"]["cluster"]),
+            "line": out["line"],
+        }
+        line = out["line"]
+        print(f"[gangs] config10 {label} run_s={run_s} "
+              f"rank_arm_s={out['rank']['elapsed']} "
+              f"rank_cycles={out['rank']['cycles']} "
+              f"transition_s={out['transition_s']} "
+              f"baseline_s={out['base']['elapsed']} line={json.dumps(line)}",
+              flush=True)
+        if (line["twin_drift"] != 0.0
+                or any(line["violations"].values())
+                or line["gangs_admitted"] != line["gangs"]
+                or line["elastic_grow_convergence_cycles"] > 2
+                or line["elastic_shrink_convergence_cycles"] > 2):
+            raise AssertionError(f"config 10 on {label}: {line}")
+    same = records["card"] == records["cpu"]
+    wave_same = (records["card_wave"]["rank_store"]
+                 == records["card"]["rank_store"]
+                 and records["card_wave"]["transitions"]
+                 == records["card"]["transitions"])
+    print(f"[gangs] config10 card_cpu_identical={same} "
+          f"wave_places_identically={wave_same}", flush=True)
+    if not (same and wave_same):
+        raise AssertionError("config 10: card != CPU or wave != sequential")
+
+
+def _gang_rows(gangs, k):
+    """The first `k` gangs of a `RankGangState` (the node-side tables
+    whole)."""
+    from dataclasses import replace
+
+    return replace(gangs, **{name: getattr(gangs, name)[:k] for name in (
+        "rank_req", "rank_mask", "prev_assigned", "min_ranks", "gang_ns",
+        "gang_mask")})
+
+
+def config12_gangs(device) -> None:
+    """Bench config 12 at `MEGA_GANG_SHAPE`, uncut: `gang_solve` (the
+    sequential solve, on the card under sync-debug "error") and
+    `wave_gang_solve` (waves of 64) on the card and on the CPU, and
+    `gang_solve_np`, all bit-identical; 0 violations of the independent
+    replay; waves, accepted runs and host solves; each solver's seconds
+    and newly placed ranks/s; the host calls that enqueue device work a
+    gang step (`torch.profiler`); the wave solve's host syncs a wave
+    under sync-debug "warn" (`[gangs]` lines)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.gangs import topology as T
+    from scheduler_plugins_tpu_torch.gangs import waves as GW
+
+    import torch_gang_cases as gcases
+
+    shape = gcases.MEGA_GANG_SHAPE
+    t0 = time.perf_counter()
+    problem = gcases.mega_gang_problem(shape, T.RankGangState)
+    build_s = time.perf_counter() - t0
+    gangs = problem["gangs"]
+    args = (problem["free0"], problem["eq_used0"], problem["node_mask"])
+    cpu = torch.device("cpu")
+    outs, secs, stats = {}, {}, {}
+
+    def sequential(dev, gangs_np=gangs):
+        g_dev = gangs_np.to(dev)
+        state0 = T.initial_state(gangs_np, *args[:2], device=dev)
+        mask = T._tensor(args[2], torch.bool, dev)
+        _sync(dev)
+        return lambda: T.gang_solve(g_dev, state0, mask, device=dev)
+
+    # the sequential solve on the card: first under sync-debug "error" (a
+    # host read inside a step raises), then timed
+    run = sequential(device)
+    with sync_errors(device):
+        run()
+    _sync(device)
+    print("[gangs] config12 sequential_sync_debug_error ok", flush=True)
+    for dev in (device, cpu):
+        run = sequential(dev)
+        t0 = time.perf_counter()
+        rn, adm, new, state = run()
+        out = tuple(x.cpu().numpy() for x in (rn, adm, new, state.free,
+                                              state.eq_used))
+        secs[f"sequential_{dev.type}"] = time.perf_counter() - t0
+        outs[f"sequential_{dev.type}"] = out
+    for dev in (device, cpu):
+        GW.wave_gang_solve(gangs, *args, wave=shape["wave"], device=dev)
+        st: dict = {}
+        t0 = time.perf_counter()
+        outs[f"wave_{dev.type}"] = GW.wave_gang_solve(
+            gangs, *args, wave=shape["wave"], stats=st, device=dev)
+        secs[f"wave_{dev.type}"] = time.perf_counter() - t0
+        stats[dev.type] = st
+    t0 = time.perf_counter()
+    outs["twin"] = T.gang_solve_np(gangs, *args)
+    secs["twin"] = time.perf_counter() - t0
+    ref = outs["twin"]
+    differ = [label for label, out in outs.items()
+              if not all(np.array_equal(a, b) for a, b in zip(out, ref))]
+    placed = int(ref[2].sum())
+    viol = gcases.mega_gang_violations(problem, *ref[:3])
+    st = stats[device.type]
+    print(f"[gangs] config12 nodes={shape['n_nodes']} "
+          f"gangs={shape['n_gangs']} build_s={build_s} "
+          f"admitted={int(ref[1].sum())} placed_ranks={placed} "
+          f"violations={viol} waves={st['waves']} "
+          f"accepted={st['accepted']} host_solves={st['host_solves']} "
+          f"stats_card_cpu_identical={stats[device.type] == stats['cpu']} "
+          f"seconds={json.dumps(secs)} ranks_per_s="
+          f"{json.dumps({k: placed / v for k, v in secs.items()})} "
+          f"identical={not differ} differ={differ}", flush=True)
+    if differ or any(viol.values()) or stats[device.type] != stats["cpu"]:
+        raise AssertionError(f"config 12: {differ} {viol}")
+
+    # the work a gang step enqueues: two solves of 64 and 128 gangs differ
+    # by 64 gangs' steps
+    counts = {}
+    for k in (64, 128):
+        run = sequential(device, _gang_rows(gangs, k))
+        counts[k] = profiled_work(run, device)[:3]
+    (e1, w1, us1), (e2, w2, us2) = counts[64], counts[128]
+    work = {n: (w2[n] - w1[n]) / 64 for n in sorted(w1 | w2)}
+    print(f"[gangs] config12 work_calls_per_gang={sum(work.values())} "
+          f"by_name={work} device_records_per_gang={(e2 - e1) / 64} "
+          f"device_us_per_gang={(us2 - us1) / 64}", flush=True)
+
+    # the wave solve's host syncs, a wave
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st = {}
+            GW.wave_gang_solve(gangs, *args, wave=shape["wave"], stats=st,
+                               device=device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    print(f"[gangs] config12 wave_host_syncs={syncs} waves={st['waves']} "
+          f"syncs_per_wave={syncs / st['waves']}", flush=True)
+    if syncs != st["waves"]:
+        raise AssertionError(f"wave solve: {syncs} host syncs in "
+                             f"{st['waves']} waves (one a wave expected)")
+
+
+def gangs_phase(device) -> None:
+    """Phase 19: the rank-aware gangs, bench configs 10 and 12 at their
+    full shapes (`config10_gangs`, `config12_gangs`), `[gangs]` lines. No
+    election kernel."""
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    t_phase = time.perf_counter()
+    pk.reset_launches()
+    config10_gangs(device)
+    config12_gangs(device)
+    no_election_launches("gangs", "gangs_phase", pk.launches())
+    print(f"[gangs] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -3384,9 +3950,20 @@ def main() -> int:
 
     phase_done(17)
 
-    # 18. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 18. resilience: bench config 9, the host solve, the checkpoint and
+    # the fetch deadline
+    resilience_phase(device)
+
     phase_done(18)
+
+    # 19. rank-aware gangs: bench configs 10 and 12
+    gangs_phase(device)
+
+    phase_done(19)
+
+    # 20. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(20)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -476,6 +476,18 @@ class PodGroup:
     #: PermitWaitingTimeSeconds (GetWaitTimeDuration)
     schedule_timeout_seconds: Optional[int] = None
     creation_ms: int = 0
+    #: rank-aware workload family (beyond the upstream reference): members
+    #: are RANKS, placed as a whole gang by the topology-block waterfill
+    #: (`gangs.topology`) ahead of the per-pod solve, minimizing the
+    #: inter-rank network cost under the same hard constraints;
+    #: min_member stays the quorum
+    rank_aware: bool = False
+    #: elastic job bounds: the replica width this gang should run at
+    #: (clamped into [min_member, max_replicas]); None = a rigid gang
+    #: (desired == min). The gang phase's reconcile grows or shrinks the
+    #: members between cycles (`gangs.elastic`)
+    desired_replicas: Optional[int] = None
+    max_replicas: Optional[int] = None
 
     @property
     def full_name(self) -> str:

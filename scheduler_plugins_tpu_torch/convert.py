@@ -15,6 +15,10 @@ the tree holds for it.
 `state_from_numpy(tree, device)` does the same for a JAX `SolverState`
 (`Scheduler.initial_state`) given as a dict of numpy arrays or None, so
 both solves can start from the very same carry.
+
+`rank_gang_state_from_numpy(tree, device)` turns a JAX
+`gangs.topology.RankGangState` given as a dict of numpy arrays into the
+port's, each field in the port's dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.framework.plugin import SolverState
+from scheduler_plugins_tpu_torch.gangs.topology import RankGangState
 from scheduler_plugins_tpu_torch.state.snapshot import (
     ClusterSnapshot,
     GangState,
@@ -98,3 +103,12 @@ def state_from_numpy(tree: dict, device=None) -> SolverState:
         f.name: torch.tensor(np.asarray(tree[f.name]), device=device)
         for f in fields(SolverState) if tree.get(f.name) is not None
     })
+
+
+def rank_gang_state_from_numpy(tree: dict, device=None) -> RankGangState:
+    """The port's `RankGangState` on `device` from a JAX one as a dict of
+    numpy arrays (every field required)."""
+    device = resolve_device(device)
+    return RankGangState(**{
+        f.name: np.asarray(tree[f.name]) for f in fields(RankGangState)
+    }).to(device)

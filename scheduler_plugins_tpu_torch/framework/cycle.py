@@ -43,14 +43,24 @@ O(changed) deltas; when the engine cannot own the state the cycle falls
 back to `Cluster.snapshot`. The solve is the same, so served placements
 equal a fresh-snapshot cycle's.
 
+`resilience` (a `resilience.watchdog.Resilience`) routes the solve
+through the solve watchdog: the dispatch and the host copy that waits for
+the card run in a worker thread with a deadline, with seeded-jitter
+retries and, on an exhausted budget, failover to the host parity solve
+(`CycleReport.solve_path` "host", `degraded`).
+
+`gangs` (a `gangs.phase.GangPhase`) runs the rank-aware gang phase after
+QueueSort and before the snapshot: rank-aware PodGroups' members leave
+the batch and are placed as whole gangs by the topology-block waterfill,
+bound through the store, so the per-pod snapshot carries their usage.
+
 The cycle counts and traces itself through `utils.observability`: the
 cycle counters, the spans of each stage (the JAX package's names) and,
 in serve mode, the decision-latency histogram.
 
-Left out until their slices: the solve watchdog (`resilience`), the
-rank-aware gang phase (`gangs`), the online tuner (`tuner`), the pod
-ledger, the flight recorder and the sanitizer. Passing one of those
-arguments raises NotImplementedError.
+Left out until their slices: the online tuner (`tuner`: passing one
+raises NotImplementedError), the pod ledger, the flight recorder and the
+sanitizer.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from typing import Optional
 
 import numpy as np
 
+from scheduler_plugins_tpu_torch.api import events as ev_api
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.framework.plugin import BUILTIN_EVENTS
 from scheduler_plugins_tpu_torch.framework.preemption import (
@@ -88,15 +99,6 @@ from scheduler_plugins_tpu_torch.state.collector import (
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
 from scheduler_plugins_tpu_torch.utils import observability as obs
 from scheduler_plugins_tpu_torch.utils.flightrec import explain_solver
-
-#: the `run_cycle` options of the JAX package that later slices bring,
-#: each with the slice that brings it
-_LATER_SLICES = {
-    "resilience": "the solve watchdog (resilience/)",
-    "gangs": "the rank-aware gang phase (gangs/)",
-    "tuner": "the online tuner (tuning/shadow.py)",
-}
-
 
 @dataclass
 class SolveResultView:
@@ -132,6 +134,18 @@ class CycleReport:
     #: (`tuning.quality.cycle_quality_np` plus the preemption and
     #: nomination counts); None when the cycle ran no solve
     quality: Optional[dict] = None
+    #: which solve served this cycle when a `resilience` state machine is
+    #: attached: "device" (the fast path) or "host" (degraded failover or
+    #: a probation miss: `resilience.hostsolve`); None without one
+    solve_path: Optional[str] = None
+    #: True when the process served from the host parity path at the END
+    #: of this cycle (the `scheduler_degraded` gauge's report twin)
+    degraded: bool = False
+    #: per-gang outcome of the rank-aware gang phase (`gangs.phase`):
+    #: gang full_name -> {admitted, placed_new, resident, desired,
+    #: max_cost, sum_cost}; empty without a gang phase or when no
+    #: rank-aware gang had pending members
+    rank_gangs: dict = field(default_factory=dict)
 
     def explain(self, uid: str, top_k: int = 5) -> dict:
         """The "why this node" table for one pod of THIS cycle's pending
@@ -203,6 +217,10 @@ class CycleCtx:
     stream_chunk: Optional[int] = None
     #: the serving engine, or None
     serve: object = None
+    #: the solve watchdog's state machine, or None
+    resilience: object = None
+    #: the rank-aware gang phase, or None
+    gangs: object = None
     #: the engine assembled this cycle's snapshot
     served: bool = False
     #: host clock at the snapshot stage of a serve cycle (the decision
@@ -227,13 +245,14 @@ class CycleCtx:
 
 
 def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
-                serve=None) -> CycleCtx:
+                serve=None, resilience=None, gangs=None) -> CycleCtx:
     """Cycle prologue: the cycle counter, the Coscheduling instance, each
     plugin's cluster wiring, permit expiry, the NRT cache resync and the
     collector ticks."""
     ctx = CycleCtx(scheduler=scheduler, cluster=cluster, now=now,
                    device=device, report=CycleReport(),
-                   stream_chunk=stream_chunk, serve=serve)
+                   stream_chunk=stream_chunk, serve=serve,
+                   resilience=resilience, gangs=gangs)
     obs.metrics.inc(obs.SCHEDULING_CYCLES)
     ctx.cosched = next(
         (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
@@ -251,16 +270,40 @@ def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
 
 
 def _cycle_pending(ctx: CycleCtx) -> None:
-    """Pending batch: requeue gating, then QueueSort. Sets `ctx.done` on
-    an empty batch."""
+    """Pending batch: requeue gating, QueueSort, then the rank-gang
+    phase. Sets `ctx.done` when the cycle ends here (an empty batch, or a
+    batch the gang phase took whole)."""
+    cluster, report, gangs = ctx.cluster, ctx.report, ctx.gangs
     with obs.tracer.span("Requeue", tid="cycle"):
-        pending = _requeue_eligible(ctx.scheduler, ctx.cluster,
-                                    ctx.cluster.pending_pods(), ctx.now,
-                                    ctx.report)
-    if not pending:
+        pending = _requeue_eligible(ctx.scheduler, cluster,
+                                    cluster.pending_pods(), ctx.now,
+                                    report, gang_phase=gangs is not None)
+    if gangs is None and not pending:
         ctx.done = True
         return
-    ctx.pending = ctx.scheduler.sort_pending(pending, ctx.cluster)
+    pending = ctx.scheduler.sort_pending(pending, cluster)
+    if gangs is not None:
+        # the phase runs even on an empty batch: the elastic reconcile
+        # must see desired-width changes, and the clones it creates join
+        # THIS cycle's batch
+        with obs.extension_span("GangPhase", type(gangs).__name__,
+                                pending=len(pending)):
+            pending = gangs.run(ctx.scheduler, cluster, pending, ctx.now,
+                                report, serve=ctx.serve, device=ctx.device)
+        if not pending:
+            # a gang-only cycle: every pending pod was a rank-gang member.
+            # A serving engine still drains now (a refresh with an empty
+            # batch), so the phase's binds reach its resident columns and
+            # rank mirror
+            if ctx.serve is not None:
+                ctx.serve.refresh(cluster, [], now_ms=ctx.now,
+                                  device=ctx.device)
+            obs.metrics.inc(obs.PODS_BOUND, len(report.bound))
+            obs.metrics.inc(obs.PODS_FAILED, len(report.failed))
+            obs.metrics.inc(obs.GANG_REJECTIONS, len(report.rejected_gangs))
+            ctx.done = True
+            return
+    ctx.pending = pending
 
 
 def _cycle_snapshot(ctx: CycleCtx) -> None:
@@ -286,8 +329,19 @@ def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
     the card only enqueues work) or, under `solveMode: packing`, the
     packing solve's `PackingSolveView` (no failure codes: the failures
     are attributed from the cycle-initial verdicts). The outputs stay
-    device tensors until the fence."""
+    device tensors until the fence. Under `resilience` the watchdog runs
+    the dispatch and the host copy in its worker (or serves the host
+    solve), and the outputs come back as host arrays."""
     result = None
+    if ctx.resilience is not None:
+        (assignment, admitted, wait, codes_np,
+         ctx.report.solve_path) = ctx.resilience.solve_cycle(
+            ctx.scheduler, ctx.snap, stream_chunk=ctx.stream_chunk,
+            device=ctx.device,
+        )
+        ctx.result = SolveResultView(assignment, admitted, wait,
+                                     failed_plugin=codes_np)
+        return
     if ctx.stream_chunk:
         streamed = streamed_profile_solve(
             ctx.scheduler, ctx.snap, chunk=ctx.stream_chunk,
@@ -309,7 +363,9 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
     its own snapshot, and a later cycle for its own. A served cycle keeps
     none."""
     def host(x):
-        return x.cpu().numpy()
+        # the watchdog's outputs are host arrays already (it copied them
+        # in its worker)
+        return x if isinstance(x, np.ndarray) else x.cpu().numpy()
 
     result, snap = ctx.result, ctx.snap
     ctx.assignment = host(result.assignment)
@@ -317,6 +373,8 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
     ctx.wait = host(result.wait)
     if result.failed_plugin is not None:
         ctx.failed_plugin = host(result.failed_plugin)
+    ctx.report.degraded = (ctx.resilience is not None
+                           and ctx.resilience.degraded)
     ctx.quality_view = SimpleNamespace(
         nodes=SimpleNamespace(alloc=host(snap.nodes.alloc),
                               requested=host(snap.nodes.requested),
@@ -471,20 +529,28 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     receives each stage's wall seconds (`open`, `pending`, then `_STAGES`'
     names), and `scheduling_tables`: the host seconds of the in-tree
     scheduling tables (`state.scheduling.build_scheduling`) inside the
-    snapshot stage. The JAX package's `resilience`, `gangs` and `tuner`
-    options are not ported yet: passing one raises NotImplementedError."""
-    options = dict(resilience=resilience, gangs=gangs, tuner=tuner)
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"run_cycle({name}=...) comes with {_LATER_SLICES[name]}"
-            )
+    snapshot stage.
+
+    `resilience`, a `resilience.watchdog.Resilience`, routes the solve
+    through the watchdog: retries, then failover to the host parity solve
+    (`CycleReport.solve_path`, `degraded`). It raises
+    `resilience.BackendUnavailable` only when the backend is gone AND the
+    profile has no host fallback. `gangs`, a `gangs.phase.GangPhase`,
+    places rank-aware gangs whole ahead of the per-pod solve
+    (`CycleReport.rank_gangs`). The JAX package's `tuner` option is not
+    ported yet: passing one raises NotImplementedError."""
+    if tuner is not None:
+        raise NotImplementedError(
+            "run_cycle(tuner=...) comes with the online tuner "
+            "(tuning/shadow.py)"
+        )
     device = resolve_device(device)
     if now is None:
         now = _now_ms()
     clock = time.perf_counter
     t0 = clock()
-    ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve)
+    ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve,
+                      resilience, gangs)
     t1 = clock()
     _cycle_pending(ctx)
     if timings is not None:
@@ -555,7 +621,8 @@ def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
             obs.metrics.inc(obs.UNSCHEDULABLE_BY_PLUGIN, plugin=name)
 
 
-def _requeue_eligible(scheduler, cluster, pending, now, report):
+def _requeue_eligible(scheduler, cluster, pending, now, report,
+                      gang_phase=False):
     """EnqueueExtensions gating (upstream scheduling-queue semantics): a pod
     parked unschedulable re-enters the batch only when
 
@@ -568,10 +635,15 @@ def _requeue_eligible(scheduler, cluster, pending, now, report):
     and its requeue backoff window has expired (upstream backoffQ: an
     event moves a pod to the backoff queue, and it pops into the active
     queue only once its backoff completes). Nominated pods bypass the
-    backoff as they bypass the event gate. Pods never parked always run."""
+    backoff as they bypass the event gate. Pods never parked always run.
+
+    `gang_phase` registers `api.events.GANG_EVENTS` on top: a pod the
+    rank-gang phase parked has no profile plugin to register its events."""
     if not cluster.unschedulable_since:
         return pending
     registered = set(BUILTIN_EVENTS)
+    if gang_phase:
+        registered.update(ev_api.GANG_EVENTS)
     for plugin in scheduler.profile.plugins:
         registered.update(plugin.events_to_register())
 

@@ -43,6 +43,7 @@ solve, before the loop, and hoists pod-invariant work out of it.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -54,8 +55,8 @@ from scheduler_plugins_tpu_torch.api import events as ev
 @dataclass
 class SolverState:
     """State carried from pod to pod through the sequential solve, and
-    from wave to wave through the batched one. The fields of the ported
-    plugins; the JAX state's rank-gang carry comes with its slice.
+    from wave to wave through the batched one: the fields of the ported
+    plugins, and the rank-gang solve's `rank_nodes` (`gangs.topology`).
 
     `free` mirrors NodeInfo leftover capacity, `eq_used` the
     ElasticQuotaInfos usage map, `gang_scheduled` the members placed in
@@ -94,6 +95,9 @@ class SolverState:
     #: (E2, D) int64 symmetric-score carrier counts (the existing pods'
     #: preferred and required affinity terms per domain)
     sym_counts: Optional[torch.Tensor] = None
+    #: (G, M) int32 rank -> node assignment of the rank-gang solve
+    #: (`gangs.topology.gang_solve`), initialized from the residents
+    rank_nodes: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SolverState":
         return dataclasses.replace(self, **changes)
@@ -139,7 +143,35 @@ class Plugin:
     #: carry, and the pod commits (`ops.selectors.commit_tracks`, then
     #: `commit`) only when every validator agrees.
     validate_at = None
-    _presolve = None
+
+    # -- per-solve context, kept per thread -----------------------------
+    # `_presolve` (the `prepare_solve` result) and `_memo` (a plugin's
+    # last-pod cache) belong to the solve running in the calling thread:
+    # the watchdog may leave an abandoned worker solving a stale
+    # snapshot while the cycle solves the next one with the same plugins
+    # (`resilience.watchdog`), and neither may see the other's context.
+    def _per_thread(self) -> threading.local:
+        local = self.__dict__.get("_thread_local")
+        if local is None:
+            local = self.__dict__.setdefault("_thread_local",
+                                             threading.local())
+        return local
+
+    @property
+    def _presolve(self):
+        return getattr(self._per_thread(), "presolve", None)
+
+    @_presolve.setter
+    def _presolve(self, ctx) -> None:
+        self._per_thread().presolve = ctx
+
+    @property
+    def _memo(self):
+        return getattr(self._per_thread(), "memo", None)
+
+    @_memo.setter
+    def _memo(self, memo) -> None:
+        self._per_thread().memo = memo
 
     def prepare(self, meta) -> None:
         """Build per-snapshot-layout tensors (resource weights) on

@@ -8,5 +8,6 @@ from scheduler_plugins_tpu_torch.models.scenarios import (  # noqa: F401
     network_scenario,
     numa_scenario,
     packing_scenario,
+    rank_gang_scenario,
     trimaran_scenario,
 )

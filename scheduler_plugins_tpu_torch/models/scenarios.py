@@ -427,3 +427,96 @@ def packing_scenario(n_nodes, demand_frac=0.8, empty_frac=0.1, seed=0, *,
         dtype=torch.int64,
     ).to(device)
     return cluster, snap, meta, weights
+
+
+def rank_gang_scenario(n_nodes=96, n_regions=2, zones_per_region=3,
+                       n_mpi=6, mpi_ranks=8, n_dl=4, dl_min=2, dl_desired=4,
+                       dl_max=8, node_cpu=8_000, node_pods=16,
+                       seed=0) -> Cluster:
+    """Bench config 10: rank-aware MPI gangs and elastic DL jobs on a
+    3-level topology (node / zone block / region).
+
+    Zones go ROUND-ROBIN over the node index (node i -> zone i % Z), so
+    index-order packing (what quorum-only Coscheduling does on a
+    homogeneous fleet) stripes a gang ACROSS blocks, while the
+    topology-block waterfill packs block-first. Zone-pair weights exist
+    only WITHIN a region (cost 5); cross-region pairs fall through to the
+    region weight (50).
+
+    - MPI gangs are rigid (`min_member == ranks`) and heterogeneous: rank
+      0 (the launcher) requests 2x its workers' cpu.
+    - DL jobs are elastic: `min_member=dl_min`, `desired_replicas=
+      dl_desired`, `max_replicas=dl_max`, members created at the desired
+      width.
+    - The namespace carries an ElasticQuota sized to the fleet.
+    """
+    rng = np.random.default_rng(seed)
+    cluster = Cluster()
+    Z = n_regions * zones_per_region
+    zone_names = [f"zone-{z}" for z in range(Z)]
+    for i, node in enumerate(
+        _nodes(n_nodes, cpu=node_cpu, mem=32 * GIB, pods=node_pods)
+    ):
+        z = i % Z
+        node.labels = {
+            REGION_LABEL: f"region-{z // zones_per_region}",
+            ZONE_LABEL: zone_names[z],
+        }
+        cluster.add_node(node)
+    zone_weights = {
+        (a, b): 5
+        for za, a in enumerate(zone_names)
+        for zb, b in enumerate(zone_names)
+        if a != b and za // zones_per_region == zb // zones_per_region
+    }
+    region_names = [f"region-{r}" for r in range(n_regions)]
+    cluster.add_network_topology(NetworkTopology(weights={
+        "UserDefined": {
+            "zone": zone_weights,
+            "region": {
+                (a, b): 50
+                for a in region_names for b in region_names if a != b
+            },
+        }
+    }))
+    ns = "mpi-team"
+    # min covers the fleet on every requested resource (the aggregated-min
+    # borrowing rule charges every resource a pod requests); max stays the
+    # live cap the gang solve and CapacityScheduling both enforce
+    cluster.add_quota(ElasticQuota(
+        name=f"eq-{ns}", namespace=ns,
+        min={CPU: n_nodes * node_cpu, MEMORY: n_nodes * 32 * GIB},
+        max={CPU: n_nodes * node_cpu, MEMORY: n_nodes * 32 * GIB},
+    ))
+
+    def add_members(pg_name, count, cpus, base_ms):
+        for m in range(count):
+            cluster.add_pod(Pod(
+                name=f"{pg_name}-r{m:03d}", namespace=ns,
+                creation_ms=base_ms + m,
+                containers=[Container(
+                    requests={CPU: int(cpus[m]), MEMORY: 1 * GIB}
+                )],
+                labels={POD_GROUP_LABEL: pg_name},
+            ))
+
+    for g in range(n_mpi):
+        name = f"mpi-{g:03d}"
+        cluster.add_pod_group(PodGroup(
+            name=name, namespace=ns, min_member=mpi_ranks,
+            creation_ms=g * 1000, rank_aware=True,
+        ))
+        worker = int(rng.integers(800, 1600))
+        cpus = [2 * worker] + [worker] * (mpi_ranks - 1)
+        add_members(name, mpi_ranks, cpus, g * 1000)
+    for j in range(n_dl):
+        name = f"dl-{j:03d}"
+        cluster.add_pod_group(PodGroup(
+            name=name, namespace=ns, min_member=dl_min,
+            creation_ms=(n_mpi + j) * 1000, rank_aware=True,
+            desired_replicas=dl_desired, max_replicas=dl_max,
+        ))
+        cpu = int(rng.integers(600, 1200))
+        add_members(name, dl_desired, [cpu] * dl_desired,
+                    (n_mpi + j) * 1000)
+    return cluster

@@ -249,19 +249,30 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
     - ``carry``: the threaded state (free capacity), rebound from each
       call's return.
     - ``clock``: a ``time.perf_counter``-like callable for the stamps.
-    - ``fetch_deadline_s``: the JAX package's per-fetch deadline; it comes
-      with the resilience slice, and anything but None raises.
+    - ``fetch_deadline_s``: a per-fetch deadline in seconds. The fetch is
+      where a hung backend strands the host (it waits for the card), so
+      each one runs through `resilience.watchdog.call_with_deadline`
+      (label ``pipeline-d2h``) and raises `BackendUnavailable` on a
+      timeout instead of hanging the cycle. None keeps the direct call.
 
     Returns ``(results, carry, done_s, timeline)``: ``results[k]`` is
     chunk k's result with its tensors fetched to numpy, ``done_s[k]`` the
     seconds from the start to that fetch's completion (observed one
     dispatch later: conservative, never optimistic) and ``timeline`` the
     `PipelineTimeline` of the dispatch, h2d and d2h stamps."""
-    if fetch_deadline_s is not None:
-        raise NotImplementedError(
-            "run_chunk_pipeline(fetch_deadline_s=...) comes with the "
-            "resilience slice (resilience/watchdog.py)"
+    if fetch_deadline_s is None:
+        fetch = finish_fetch
+    else:
+        from scheduler_plugins_tpu_torch.resilience.watchdog import (
+            call_with_deadline,
         )
+
+        def fetch(pending):
+            return call_with_deadline(
+                lambda: finish_fetch(pending), fetch_deadline_s,
+                label="pipeline-d2h",
+            )
+
     device = resolve_device(device)
     clock = clock or time.perf_counter
     stager = _Stager(device)
@@ -280,7 +291,7 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
         t0 = clock()
         stager.consume(*staged)
         result, carry = solve_chunk(*invariant_args, *staged[0], carry)
-        fetch = start_fetch(result, device)
+        started = start_fetch(result, device)
         timeline.add("dispatch", k, t0, clock())
         if k + 1 < n:
             # chunk k+1's copy overlaps solve(k)
@@ -290,14 +301,14 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
         if pending is not None:
             # chunk k-1's fetch waits only for its own solve
             t0 = clock()
-            results.append(finish_fetch(pending))
+            results.append(fetch(pending))
             t1 = clock()
             timeline.add("d2h", k - 1, t0, t1)
             done_s.append(t1 - start)
-        pending = fetch
+        pending = started
     if pending is not None:
         t0 = clock()
-        results.append(finish_fetch(pending))
+        results.append(fetch(pending))
         t1 = clock()
         timeline.add("d2h", n - 1, t0, t1)
         done_s.append(t1 - start)
@@ -319,7 +330,7 @@ STREAM_RESCUE_WINDOW = 256
 
 
 def streamed_profile_solve(scheduler, snap, chunk: int = 4096, *,
-                           device=None):
+                           fetch_deadline_s=None, device=None):
     """The targeted fast-path solve of `scheduler`'s profile over `snap`,
     streamed in queue-order chunks of `chunk` pods through
     `run_chunk_pipeline` on `device` (None = the CUDA card; the snapshot
@@ -327,6 +338,10 @@ def streamed_profile_solve(scheduler, snap, chunk: int = 4096, *,
     ranking are computed once (`fast_solve_head`); the free capacity is
     carried from chunk to chunk; the queue-order quota prefix and gang
     quorum run once over the whole batch (`finalize_assignment`).
+
+    `fetch_deadline_s` bounds each chunk's fetch
+    (`run_chunk_pipeline`); the solve watchdog passes its timeout
+    (`resilience.watchdog.Resilience`).
 
     Returns (assignment, admitted, wait) device tensors, or None when the
     profile fails the gate (`parallel.solver.fast_path_scoring`) or the
@@ -361,6 +376,7 @@ def streamed_profile_solve(scheduler, snap, chunk: int = 4096, *,
         (snap.pods.req[lo:lo + chunk], admitted[lo:lo + chunk])
         for lo in range(0, P, chunk)
     ]
-    run_chunk_pipeline(solve_one, (raw,), chunk_inputs, free0, device=device)
+    run_chunk_pipeline(solve_one, (raw,), chunk_inputs, free0,
+                       fetch_deadline_s=fetch_deadline_s, device=device)
     assignment, wait = finalize_assignment(torch.cat(parts), snap)
     return assignment, admitted, wait

@@ -28,14 +28,21 @@ tainted nodes, nominations and extended resources still fall back. While
 incompatible, `refresh` returns None (the cycle takes the full snapshot)
 but keeps absorbing deltas, so serving resumes without a rebuild.
 
+Checkpoint: `checkpoint_bytes` / `save_checkpoint` write the resident
+columns and the slot and interning tables as one npz with a JSON header;
+`restore_checkpoint` rebuilds the resident base from one and marks it for
+an anti-entropy verify at the next refresh, so a stale checkpoint rebases
+within one window and an exact one resumes with no rebase.
+
 Deferred to their slices: the streaming engine (`StreamingServeEngine`,
-with the pipelined cycle), the checkpoint (`checkpoint_bytes`,
-`save_checkpoint`, `restore_checkpoint`, with resilience) and the flight
-recorder's serve provenance (`annotate_record`).
+with the pipelined cycle) and the flight recorder's serve provenance
+(`annotate_record`).
 """
 
 from __future__ import annotations
 
+import io
+import json
 import os
 from typing import Optional
 
@@ -47,6 +54,7 @@ from scheduler_plugins_tpu_torch.serving import deltas as D
 from scheduler_plugins_tpu_torch.state.snapshot import (
     ClusterSnapshot,
     GangState,
+    NodeState,
     QuotaState,
     SnapshotMeta,
     _Interner,
@@ -718,6 +726,105 @@ class ServeEngine:
     @staticmethod
     def _node_columns(nodes) -> dict:
         return {k: getattr(nodes, k) for k in NODE_COLUMNS}
+
+    # -- checkpoint / restore -------------------------------------------
+    #: checkpoint format version (bumped on a layout change; restore
+    #: refuses versions it does not know). The port's `NodeState` has no
+    #: `nonzero_requested` column, so a port checkpoint and a JAX one are
+    #: not interchangeable
+    CHECKPOINT_VERSION = 1
+
+    def checkpoint_bytes(self) -> Optional[bytes]:
+        """A self-contained npz of the resident columns and the slot and
+        interning tables, or None before the first refresh. A process
+        killed after writing one resumes serving through
+        `restore_checkpoint` without rebuilding the resident base from the
+        store. Reads the columns to the host."""
+        if self._nodes is None:
+            return None
+        cols = {k: t.cpu().numpy()
+                for k, t in self._node_columns(self._nodes).items()}
+        cols["nominated"] = self._nodes.nominated.cpu().numpy()
+        header = {
+            "version": self.CHECKPOINT_VERSION,
+            "npad": self._npad,
+            "generation": self._generation,
+            "staleness": self._staleness,
+            "names": self._names,
+            "regions": self._regions,
+            "zones": self._zones,
+            "node_labels": {k: list(v) for k, v in
+                            self._node_labels.items()},
+            "tainted": sorted(self._tainted),
+        }
+        buf = io.BytesIO()
+        np.savez(
+            buf,
+            header=np.frombuffer(
+                json.dumps(header, sort_keys=True).encode(), np.uint8
+            ),
+            **cols,
+        )
+        return buf.getvalue()
+
+    def save_checkpoint(self, path: str) -> bool:
+        """Crash-safe checkpoint write (`obs.atomic_write`: a temporary
+        file, then a rename). False when there is no resident base."""
+        data = self.checkpoint_bytes()
+        if data is None:
+            return False
+        obs.atomic_write(path, data)
+        return True
+
+    def restore_checkpoint(self, source, *, device=None) -> bool:
+        """Rebuild the resident base from a checkpoint (`bytes` or a file
+        path) on `device` (None = the CUDA card); call it AFTER `attach`.
+        The restored state is not trusted blindly: `note_fault` marks it
+        for an anti-entropy verify at the next refresh, so a checkpoint
+        stale against the live store rebases within one window, while an
+        exact one resumes serving with generation continuity and no
+        rebase. The side tables are rebuilt lazily at their next use."""
+        if isinstance(source, (str, bytes, bytearray)):
+            data = source
+            if isinstance(source, str):
+                with open(source, "rb") as f:
+                    data = f.read()
+        else:
+            raise TypeError(f"checkpoint source {type(source).__name__}")
+        device = resolve_device(device)
+        with np.load(io.BytesIO(data), allow_pickle=False) as z:
+            header = json.loads(bytes(z["header"].tobytes()).decode())
+            if header.get("version") != self.CHECKPOINT_VERSION:
+                raise ValueError(
+                    f"checkpoint version {header.get('version')} != "
+                    f"{self.CHECKPOINT_VERSION}"
+                )
+            names = NODE_COLUMNS + ("nominated",)
+            # copies: an npz member reads back read-only, and the refresh
+            # adds into the resident columns in place
+            columns = D.stage(tuple(np.array(z[k]) for k in names), device)
+        self._nodes = NodeState(**dict(zip(names, columns)))
+        self._npad = int(header["npad"])
+        self._generation = int(header["generation"])
+        self._staleness = int(header["staleness"])
+        self._names = list(header["names"])
+        self._slots = {n: i for i, n in enumerate(self._names)}
+        self._regions = list(header["regions"])
+        self._zones = list(header["zones"])
+        self._regions_in = _Interner(self._regions)
+        self._zones_in = _Interner(self._zones)
+        self._node_labels = {
+            k: tuple(v) for k, v in header["node_labels"].items()
+        }
+        self._tainted = set(header["tainted"])
+        self._side = None
+        self._side_dirty = True
+        self._gang_rows = {}
+        self._ns_rows = {}
+        self._quota_tracking = False
+        self.note_fault("checkpoint-restore")
+        self._observe()
+        return True
 
     def _assemble(self, cluster, pending, now_ms: int = 0):
         """The cycle's snapshot: the resident node columns plus the pending

@@ -177,3 +177,67 @@ def cycle_quality_np(snap, assignment, admitted, wait) -> dict:
         / max(int(placed.sum()), 1),
         "unplaced_frac": 1.0 - float(placed.sum()) / n_real,
     }
+
+
+# ---------------------------------------------------------------------------
+# rank-aware gang placement objectives (gangs.topology)
+# ---------------------------------------------------------------------------
+
+
+def rank_gang_quality(rank_nodes, rank_mask, node_block, block_cost) -> dict:
+    """Placement-quality objectives of a rank-gang solve: host float64
+    reductions over `gangs.topology.pair_costs`.
+
+    - ``gang_spread_cost``: the mean over solved gangs of the SUM of
+      inter-rank pair costs (each unordered pair once);
+    - ``rank_cost_max``: the max inter-rank pair cost across every gang
+      (one slow link paces a whole collective);
+    - ``rank_cost_p99``: the 99th percentile over ALL valid rank-pair
+      costs.
+
+    Gangs with fewer than 2 placed ranks contribute no pairs; with no
+    pairs at all every objective is 0.0."""
+    from scheduler_plugins_tpu_torch.gangs.topology import pair_costs
+
+    pc = np.asarray(
+        pair_costs(rank_nodes, rank_mask, node_block, block_cost)
+    )
+    valid = pc >= 0
+    if not valid.any():
+        return {
+            "gang_spread_cost": 0.0, "rank_cost_max": 0.0,
+            "rank_cost_p99": 0.0,
+        }
+    per_gang_sum = np.sum(np.where(valid, pc, 0), axis=(1, 2)) / 2.0
+    gang_has = valid.any(axis=(1, 2))
+    flat = pc[valid].astype(np.float64)
+    return {
+        "gang_spread_cost": float(per_gang_sum[gang_has].mean()),
+        "rank_cost_max": float(flat.max()),
+        "rank_cost_p99": float(np.percentile(flat, 99)),
+    }
+
+
+def elastic_satisfaction_quality(reports_or_counts) -> float:
+    """The fleet's elastic-satisfaction fraction (`gangs.elastic`): from
+    (live_counts, desired_counts) arrays, or from an iterable of
+    `CycleReport.rank_gangs` dicts (the LAST observation of each gang
+    wins: satisfaction is a state, not a flow)."""
+    from scheduler_plugins_tpu_torch.gangs.elastic import (
+        elastic_satisfaction,
+    )
+
+    if isinstance(reports_or_counts, tuple):
+        return elastic_satisfaction(*reports_or_counts)
+    latest: dict = {}
+    for stats in reports_or_counts:
+        for gang, row in stats.items():
+            latest[gang] = (
+                row.get("resident", 0) + row.get("placed_new", 0),
+                row.get("desired", 0),
+            )
+    if not latest:
+        return 1.0
+    live = [v[0] for v in latest.values()]
+    desired = [v[1] for v in latest.values()]
+    return elastic_satisfaction(live, desired)

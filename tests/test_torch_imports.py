@@ -63,7 +63,13 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.utils.observability",
         "scheduler_plugins_tpu_torch.resilience.faults",
         "scheduler_plugins_tpu_torch.serving.deltas",
-        "scheduler_plugins_tpu_torch.serving.engine"} <= set(names), names
+        "scheduler_plugins_tpu_torch.serving.engine",
+        "scheduler_plugins_tpu_torch.resilience.watchdog",
+        "scheduler_plugins_tpu_torch.resilience.hostsolve",
+        "scheduler_plugins_tpu_torch.gangs.topology",
+        "scheduler_plugins_tpu_torch.gangs.elastic",
+        "scheduler_plugins_tpu_torch.gangs.waves",
+        "scheduler_plugins_tpu_torch.gangs.phase"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -229,6 +235,57 @@ class TestDeviceDefault:
                            device="cpu")
         assert report.bound and engine.resident_nodes.alloc.device.type == (
             "cpu")
+
+    def test_resilience_and_gang_entry_points_raise(self, no_cuda):
+        """The resilience and gang slice's entry points (the watchdog's
+        cycle solve, the checkpoint restore, the gang phase, the gang and
+        wave solves) default to the card too: a watchdog without a card
+        raises before it dispatches, never failing over to the host."""
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+        from scheduler_plugins_tpu_torch.gangs import (
+            GangPhase,
+            gang_solve,
+            wave_gang_solve,
+        )
+        from scheduler_plugins_tpu_torch.gangs.topology import initial_state
+        from scheduler_plugins_tpu_torch.models import rank_gang_scenario
+        from scheduler_plugins_tpu_torch.resilience import Resilience
+        from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+        cluster = allocatable_scenario(4, 8)
+        sched = Scheduler(load_profile(
+            {"plugins": ["NodeResourcesAllocatable"]}))
+        rz = Resilience()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            run_cycle(sched, cluster, now=1000, resilience=rz)
+        assert rz.mode == "fast" and rz.failovers == 0
+        engine = ServeEngine().attach(cluster)
+        run_cycle(sched, cluster, now=1000, serve=engine, device="cpu")
+        ckpt = engine.checkpoint_bytes()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ServeEngine().attach(cluster).restore_checkpoint(ckpt)
+        gangs = rank_gang_scenario(n_nodes=8, n_mpi=1, mpi_ranks=2, n_dl=0)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            run_cycle(sched, gangs, now=1000, gangs=GangPhase())
+        state = gangs.pending_pods()
+        assert all(p.node_name is None for p in state)
+        from scheduler_plugins_tpu_torch.gangs.phase import (
+            build_rank_gang_problem,
+        )
+
+        prob = build_rank_gang_problem(gangs, gangs.pending_pods(), 0,
+                                       device="cpu")
+        args = (prob["gangs"], prob["free0"], prob["eq_used0"],
+                prob["node_mask"])
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            wave_gang_solve(*args)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            initial_state(*args[:3])
+        state0 = initial_state(*args[:3], device="cpu")
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            gang_solve(prob["gangs"], state0,
+                       torch.from_numpy(prob["node_mask"]))
 
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0

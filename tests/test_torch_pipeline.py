@@ -11,6 +11,7 @@ or the same float arithmetic: tolerance 0 throughout. The scripts of
 not stream run streamed here (`test_streamed_cycle_matches_jax`)."""
 
 import inspect
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -255,13 +256,29 @@ class TestRunChunkPipeline:
         assert results == [] and done_s == [] and carry is free0
         assert tl.events == [] and tl.n_chunks == 0
 
-    def test_fetch_deadline_raises(self):
+    def test_fetch_deadline_raises(self, monkeypatch):
+        """A fetch past `fetch_deadline_s` raises `BackendUnavailable`
+        naming the pipeline's fetch (the hung backend's signature); a fetch
+        inside it returns what the call without a deadline returns."""
+        from scheduler_plugins_tpu_torch.resilience import BackendUnavailable
+
         raw, free0, chunks = chunk_problem(n_pods=32)
-        with pytest.raises(NotImplementedError, match="resilience"):
-            t_pipeline.run_chunk_pipeline(
-                port_solve, (torch.from_numpy(raw),), chunks,
-                torch.from_numpy(free0), fetch_deadline_s=1.0, device=CPU,
-            )
+        args = (port_solve, (torch.from_numpy(raw),), chunks,
+                torch.from_numpy(free0))
+        plain, _, _, _ = t_pipeline.run_chunk_pipeline(*args, device=CPU)
+        timed, _, _, _ = t_pipeline.run_chunk_pipeline(
+            *args, fetch_deadline_s=30.0, device=CPU)
+        assert all(np.array_equal(a, b) for a, b in zip(plain, timed))
+        finish = t_pipeline.finish_fetch
+
+        def hung(pending):
+            time.sleep(0.5)
+            return finish(pending)
+
+        monkeypatch.setattr(t_pipeline, "finish_fetch", hung)
+        with pytest.raises(BackendUnavailable, match="pipeline-d2h"):
+            t_pipeline.run_chunk_pipeline(*args, fetch_deadline_s=0.05,
+                                          device=CPU)
 
     def test_entry_points_default_to_the_card(self, monkeypatch):
         raw, free0, chunks = chunk_problem(n_pods=32)
