@@ -196,7 +196,23 @@ Phases (any failure exits non-zero and prints no result line):
    violations, each solver's seconds and ranks/s, the work a gang step
    enqueues and the wave solve's host syncs a wave. Phases 18 and 19
    launch no election kernel;
-20. the kernel table as one JSON line (times at the shapes, dtypes and
+20. the pipelined cycle engine (`[life]` lines): bench config 11 at its
+   full shape (`tests/torch_life_cases.py` `CLUSTER_LIFE_SHAPE`: 2,000
+   nodes, 12,288 bound pods, 4 warm-up cycles, then 48 churn, 12 gang,
+   16 chaos and 16 node-wave cycles) through three arms stepped
+   interleaved, each with its own pod-lifecycle ledger:
+   `PipelinedCycle` + `StreamingServeEngine` on the card, `run_cycle` +
+   `ServeEngine` on the card, and the pipelined arm on the CPU. Every
+   cycle's bound / reserved / failed / attribution, the final store and
+   the ledger sequences equal across the three, 0 capacity violations, 0
+   decomposition errors, row compactions in the waves phase and fewer
+   rebases than the serial arm; each arm and phase's cycles/s, decision
+   p50 / p99, rebases, compactions and late binds, the pipelined arms'
+   mean overlap efficiency and pipeline bubble, the ledger's stage
+   shares; then `cycle_script` through `PipelinedCycle(stream_chunk=4)`
+   equal to `run_cycle(stream_chunk=4)` on the card, every cycle. Phase
+   20 launches no election kernel;
+21. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -3765,6 +3781,179 @@ def gangs_phase(device) -> None:
     print(f"[gangs] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the pipelined cycle engine
+# ---------------------------------------------------------------------------
+
+
+def _life_namespace(device):
+    """The port's names for `tests/torch_life_cases.py`, its cycles on
+    `device`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.framework import PipelinedCycle
+    from scheduler_plugins_tpu_torch.obs import ledger
+    from scheduler_plugins_tpu_torch.serving import StreamingServeEngine
+
+    return SimpleNamespace(
+        **vars(_chaos_namespace(device)),
+        StreamingEngine=StreamingServeEngine, ledger=ledger,
+        Pipelined=lambda s, c, e: PipelinedCycle(s, c, serve=e,
+                                                 device=device),
+    )
+
+
+def life_arm_lines(label: str, arm: dict) -> None:
+    """The `[life]` lines of one finished arm: each phase's cycles/s,
+    decision p50 / p99, rebases, compactions and late binds, then the
+    arm's totals."""
+    import torch_life_cases as life
+
+    for phase in life.CLUSTER_LIFE_PHASES:
+        p50, p99 = life.decision_latency_ms(arm, phase)
+        rebases, compactions = arm["phase_counters"][phase]
+        print(f"[life] {label} phase={phase} "
+              f"cycles={len(arm['times'][phase])} "
+              f"cycles_per_s={life.cycles_per_sec(arm, phase)} "
+              f"decided={sum(arm['decided'][phase])} "
+              f"decision_p50_ms={p50} decision_p99_ms={p99} "
+              f"rebases={rebases} compactions={compactions} "
+              f"late_binds={arm.get('phase_late_binds', {}).get(phase)}",
+              flush=True)
+    p50, p99 = life.decision_latency_ms(arm)
+    print(f"[life] {label} all cycles_per_s={life.cycles_per_sec(arm)} "
+          f"decision_p50_ms={p50} decision_p99_ms={p99} "
+          f"build_s={arm['build_s']} rebases={arm['rebases']} "
+          f"compactions={arm['compactions']} "
+          f"divergences={arm['antientropy_divergences']} "
+          f"faults_fired={arm['faults_fired']} "
+          f"gang_fallbacks={arm['gang_fallbacks']} "
+          f"violations={arm['violations']} "
+          f"ledger_events={len(arm['ledger_sequence'])} "
+          f"decomposition_errors={arm['ledger_decomposition_errors']} "
+          f"overlap_efficiency_mean={arm.get('overlap_efficiency_mean')} "
+          f"pipeline_bubble_ms_mean={arm.get('pipeline_bubble_ms_mean')} "
+          f"late_binds={arm.get('late_binds')}", flush=True)
+
+
+def life_stream_script(device) -> None:
+    """`cycle_script` (1024 nodes, the flagship profile) through
+    `PipelinedCycle(stream_chunk=4)` and through `run_cycle(stream_chunk=
+    4)`, both on the card: every report and the store equal after every
+    cycle (the pipelined arm fenced and its last cycle flushed before the
+    reports are read)."""
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.framework import (
+        PipelinedCycle,
+        run_cycle,
+    )
+    from scheduler_plugins_tpu_torch.state import Cluster
+    from torch_cycle_scripts import SCRIPT_COSCHED, cycle_script
+
+    pc, steps = cycle_script(objects, Cluster)
+    sc, ssteps = cycle_script(objects, Cluster)
+    pipe = PipelinedCycle(flagship_scheduler(**SCRIPT_COSCHED), pc,
+                          stream_chunk=4, device=device)
+    sched = flagship_scheduler(**SCRIPT_COSCHED)
+    got, want = [], []
+    t_pipe = t_serial = 0.0
+    for (now, mutate), (_, smutate) in zip(steps, ssteps):
+        if mutate is not None:
+            mutate(objects, pc)
+            smutate(objects, sc)
+        t0 = time.perf_counter()
+        got.append(pipe.tick(now))
+        pipe.fence()
+        t1 = time.perf_counter()
+        want.append(run_cycle(sched, sc, now, 4, device=device))
+        t_serial += time.perf_counter() - t1
+        t_pipe += t1 - t0
+        if cycle_state(got[-1], pc)[1:] != cycle_state(want[-1], sc)[1:]:
+            raise AssertionError(f"streamed script, cycle {len(got) - 1}: "
+                                 "pipelined store != run_cycle's")
+    pipe.close()
+    same = [cycle_state(g, pc)[0] == cycle_state(w, sc)[0]
+            for g, w in zip(got, want)]
+    print(f"[life] stream_script cycles={len(steps)} identical={all(same)} "
+          f"pipelined_s={t_pipe} serial_s={t_serial} "
+          f"failed_by={sum(len(r.failed_by) for r in got)} "
+          f"preempted={sum(len(r.preempted) for r in got)}", flush=True)
+    if not all(same):
+        raise AssertionError(f"streamed script: pipelined != run_cycle "
+                             f"at cycles {[k for k, s in enumerate(same) if not s]}")
+
+
+def life_phase(device) -> None:
+    """Phase 20: bench config 11 at `CLUSTER_LIFE_SHAPE`, uncut, through
+    the pipelined arm on the card, the serial arm on the card and the
+    pipelined arm on the CPU, stepped interleaved; the hard checks
+    (`torch_life_cases.life_gates` between the card's pipelined arm and
+    each of the others, and the engines' counters card == CPU); the
+    `[life]` lines; then the streamed script through the pipelined
+    engine. No election kernel is launched."""
+    import gc
+
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    import torch_life_cases as life
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    shape = life.CLUSTER_LIFE_SHAPE
+    pk.reset_launches()
+    arms = {
+        "pipelined_card": life.LifeArm(_life_namespace(device), shape, True),
+        "serial_card": life.LifeArm(_life_namespace(device), shape, False),
+        "pipelined_cpu": life.LifeArm(_life_namespace(cpu), shape, True),
+    }
+    print(f"[life] arms built_s={time.perf_counter() - t_phase} "
+          f"cycles={len(arms['serial_card'].schedule)}", flush=True)
+    # the arms' prefill populations leave the collector's scan set, so a
+    # full collection does not land on one arm's timed cycle
+    gc.collect()
+    gc.freeze()
+    try:
+        while not arms["serial_card"].done:
+            for arm in arms.values():
+                arm.step()
+        out = {label: arm.finish() for label, arm in arms.items()}
+    finally:
+        gc.unfreeze()
+    for label, arm in out.items():
+        life_arm_lines(label, arm)
+    pipe = out["pipelined_card"]
+    shares = pipe["sli"].get("stage_ms", {})
+    total = sum(shares.values())
+    print(f"[life] sli pods_bound={pipe['sli']['pods_bound']} "
+          f"e2e_ms={pipe['sli'].get('e2e_ms')} "
+          f"stage_shares={ {k: v / total for k, v in shares.items()} if total else {} }",
+          flush=True)
+    print(f"[life] vs_serial cycles_per_s_ratio="
+          f"{life.cycles_per_sec(pipe) / life.cycles_per_sec(out['serial_card'])} "
+          f"churn_ratio={life.cycles_per_sec(pipe, 'churn') / life.cycles_per_sec(out['serial_card'], 'churn')} "
+          f"cpu_vs_card={life.cycles_per_sec(out['pipelined_cpu']) / life.cycles_per_sec(pipe)}",
+          flush=True)
+    bad = life.life_gates(pipe, out["serial_card"])
+    bad += [f"card vs CPU: {b}"
+            for b in life.life_gates(pipe, out["pipelined_cpu"])]
+    for key in ("rebases", "compactions", "phase_counters",
+                "antientropy_divergences", "faults_fired", "gang_fallbacks"):
+        if pipe[key] != out["pipelined_cpu"][key]:
+            bad.append(f"card vs CPU: {key}")
+    if pipe["faults_fired"] != len(life.life_fault_plan(
+            _life_namespace(cpu), shape).specs):
+        bad.append(f"faults fired {pipe['faults_fired']}")
+    print(f"[life] gates failed={bad}", flush=True)
+    if bad:
+        raise AssertionError(f"config 11: {bad}")
+    life_stream_script(device)
+    no_election_launches("life", "life_phase", pk.launches())
+    print(f"[life] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -3961,9 +4150,14 @@ def main() -> int:
 
     phase_done(19)
 
-    # 20. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 20. the pipelined cycle engine: bench config 11
+    life_phase(device)
+
     phase_done(20)
+
+    # 21. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(21)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

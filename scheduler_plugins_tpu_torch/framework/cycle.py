@@ -58,9 +58,17 @@ The cycle counts and traces itself through `utils.observability`: the
 cycle counters, the spans of each stage (the JAX package's names) and,
 in serve mode, the decision-latency histogram.
 
+Every stage feeds the pod-lifecycle ledger (`obs.ledger.LEDGER`) when it
+is on: the cycle's scope and stamps, the batch, failure blame, requeue
+waits and nominations; off, each hook costs one branch.
+
+The stages are module functions (`_cycle_open` ... `_cycle_finalize`) so
+the pipelined engine (`framework.pipeline_cycle.PipelinedCycle`) composes
+the same ones with cycle N's solve in flight while cycle N-1's
+report-only finalize runs; `run_cycle` runs them strictly in order.
+
 Left out until their slices: the online tuner (`tuner`: passing one
-raises NotImplementedError), the pod ledger, the flight recorder and the
-sanitizer.
+raises NotImplementedError), the flight recorder and the sanitizer.
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ from scheduler_plugins_tpu_torch.framework.runtime import (
     Scheduler,
     now_ms as _now_ms,
 )
+from scheduler_plugins_tpu_torch.obs import ledger as podledger
 from scheduler_plugins_tpu_torch.parallel.pipeline import (
     streamed_profile_solve,
 )
@@ -206,7 +215,10 @@ def _attach_explain_ctx(report: CycleReport, ctx: tuple) -> None:
 
 @dataclass
 class CycleCtx:
-    """Mutable state threaded through one cycle's stages."""
+    """Mutable state threaded through one cycle's stages. `run_cycle`
+    runs the stages in order; `PipelinedCycle` runs the same ones with its
+    bind stage on a flusher thread and the finalize deferred into the next
+    cycle's overlap window."""
 
     scheduler: Scheduler
     cluster: Cluster
@@ -242,6 +254,13 @@ class CycleCtx:
     done: bool = False
     failed_idx: list = field(default_factory=list)
     failed_by_gang: dict = field(default_factory=dict)
+    #: tracer row of the bind and post-bind stages: the pipelined engine
+    #: runs them on its flusher thread, and spans of two threads on one
+    #: row would overlap
+    tid: str = "cycle"
+    #: this cycle's ledger context (`obs.ledger.LedgerCycle`), None while
+    #: the ledger is off
+    led: object = None
 
 
 def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
@@ -253,19 +272,31 @@ def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
                    device=device, report=CycleReport(),
                    stream_chunk=stream_chunk, serve=serve,
                    resilience=resilience, gangs=gangs)
-    obs.metrics.inc(obs.SCHEDULING_CYCLES)
-    ctx.cosched = next(
-        (p for p in scheduler.profile.plugins if isinstance(p, Coscheduling)),
-        None,
-    )
-    for plugin in scheduler.profile.plugins:
-        plugin.configure_cluster(cluster)
-    with obs.tracer.span("ExpireGangs", tid="cycle"):
-        _expire_gangs(cluster, now, ctx.report)
-    with obs.tracer.span("NRTResync", tid="cycle"):
-        _resync_nrt_cache(cluster, now)
-    with obs.tracer.span("Collectors", tid="cycle"):
-        _refresh_metrics(scheduler, cluster, now)
+    # the ledger scope opens before the permit expiry, whose whole-gang
+    # rejections are this cycle's decisions. Once this returns, the caller
+    # (`run_cycle`, `PipelinedCycle.tick`) pops it in its finally; a raise
+    # in the prologue pops it here. The stages push only nested scopes
+    ctx.led = podledger.LEDGER.cycle_open(now)
+    podledger.LEDGER.push_scope(ctx.led, 0)
+    try:
+        obs.metrics.inc(obs.SCHEDULING_CYCLES)
+        ctx.cosched = next(
+            (p for p in scheduler.profile.plugins
+             if isinstance(p, Coscheduling)),
+            None,
+        )
+        for plugin in scheduler.profile.plugins:
+            plugin.configure_cluster(cluster)
+        with obs.tracer.span("ExpireGangs", tid="cycle"):
+            _expire_gangs(cluster, now, ctx.report)
+        with obs.tracer.span("NRTResync", tid="cycle"):
+            _resync_nrt_cache(cluster, now)
+        with obs.tracer.span("Collectors", tid="cycle"):
+            _refresh_metrics(scheduler, cluster, now)
+    except BaseException:
+        podledger.LEDGER.pop_scope(ctx.led)
+        podledger.LEDGER.cycle_close(ctx.led)
+        raise
     return ctx
 
 
@@ -304,6 +335,11 @@ def _cycle_pending(ctx: CycleCtx) -> None:
             ctx.done = True
             return
     ctx.pending = pending
+    if ctx.led is not None:
+        # the batch gates the per-attempt stage split: binds of pods
+        # outside it (gang-phase binds, the permit fan-out of earlier
+        # reservations) charge their whole interval to the wait-state
+        ctx.led.batch = frozenset(p.uid for p in pending)
 
 
 def _cycle_snapshot(ctx: CycleCtx) -> None:
@@ -332,6 +368,9 @@ def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
     device tensors until the fence. Under `resilience` the watchdog runs
     the dispatch and the host copy in its worker (or serves the host
     solve), and the outputs come back as host arrays."""
+    if ctx.led is not None:
+        # dispatch entry: the in-batch wait ends when the solve starts
+        ctx.led.t_solve = podledger.LEDGER._now()
     result = None
     if ctx.resilience is not None:
         (assignment, admitted, wait, codes_np,
@@ -356,32 +395,54 @@ def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
 
 def _cycle_solve_fence(ctx: CycleCtx) -> None:
     """The cycle's one host copy: assignment, admitted, wait and the
-    failure codes, and the snapshot columns the quality stamp reads. The
-    first copy waits for the card; later stages read only these. Then the
-    report's explain context is attached, with the plugins' `aux()`
-    frozen here: the preemption pass re-prepares the shared plugins for
-    its own snapshot, and a later cycle for its own. A served cycle keeps
-    none."""
-    def host(x):
-        # the watchdog's outputs are host arrays already (it copied them
-        # in its worker)
-        return x if isinstance(x, np.ndarray) else x.cpu().numpy()
-
-    result, snap = ctx.result, ctx.snap
-    ctx.assignment = host(result.assignment)
-    ctx.admitted = host(result.admitted)
-    ctx.wait = host(result.wait)
+    failure codes, and the snapshot columns the quality stamp reads
+    (`_quality_view`). The first copy waits for the card; every later
+    stage reads only these, so a finalize deferred past the next cycle's
+    refresh (which updates the resident columns in place) still reads
+    this cycle's state."""
+    if ctx.led is not None and ctx.led.t_fence0 is None:
+        ctx.led.t_fence0 = podledger.LEDGER._now()
+    result = ctx.result
+    ctx.assignment = _host(result.assignment)
+    ctx.admitted = _host(result.admitted)
+    ctx.wait = _host(result.wait)
     if result.failed_plugin is not None:
-        ctx.failed_plugin = host(result.failed_plugin)
+        ctx.failed_plugin = _host(result.failed_plugin)
+    if ctx.led is not None and ctx.led.t_fence1 is None:
+        ctx.led.t_fence1 = podledger.LEDGER._now()
+    ctx.quality_view = _quality_view(ctx.snap)
+
+
+def _host(x) -> np.ndarray:
+    """A host copy of `x`. The watchdog's outputs are host arrays already
+    (its worker copied them). A CPU tensor is copied too: its numpy view
+    would share memory with a resident column the next refresh adds
+    into."""
+    return x if isinstance(x, np.ndarray) else x.to("cpu", copy=True).numpy()
+
+
+def _quality_view(snap):
+    """Host copies of exactly the snapshot columns `cycle_quality_np`
+    reads, in the same attribute shape."""
+    return SimpleNamespace(
+        nodes=SimpleNamespace(alloc=_host(snap.nodes.alloc),
+                              requested=_host(snap.nodes.requested),
+                              mask=_host(snap.nodes.mask)),
+        pods=SimpleNamespace(req=_host(snap.pods.req),
+                             mask=_host(snap.pods.mask)),
+    )
+
+
+def _cycle_post_solve(ctx: CycleCtx) -> None:
+    """After the fence: the degraded flag and the report's explain
+    context, with the plugins' `aux()` frozen here (the preemption pass
+    re-prepares the shared plugins for its own snapshot, and a later cycle
+    for its own). A served cycle keeps none."""
     ctx.report.degraded = (ctx.resilience is not None
                            and ctx.resilience.degraded)
-    ctx.quality_view = SimpleNamespace(
-        nodes=SimpleNamespace(alloc=host(snap.nodes.alloc),
-                              requested=host(snap.nodes.requested),
-                              mask=host(snap.nodes.mask)),
-        pods=SimpleNamespace(req=host(snap.pods.req),
-                             mask=host(snap.pods.mask)),
-    )
+    if ctx.led is not None:
+        ctx.led.degraded = ctx.report.degraded
+        ctx.led.solve_path = ctx.report.solve_path
     if ctx.served:
         # a served snapshot's node columns are the engine's resident
         # tensors, which the next refresh updates in place: keep no
@@ -389,18 +450,37 @@ def _cycle_solve_fence(ctx: CycleCtx) -> None:
         ctx.report._explain_ctx = _CTX_RELEASED
         return
     _attach_explain_ctx(ctx.report, (
-        ctx.scheduler, snap, ctx.meta, ctx.assignment,
+        ctx.scheduler, ctx.snap, ctx.meta, ctx.assignment,
         tuple(p.aux() for p in ctx.scheduler.profile.plugins),
     ))
 
 
 def _cycle_bind(ctx: CycleCtx) -> None:
     """The bind stage: flush this cycle's decisions through the store's
-    mutators (bind / reserve / mark_unschedulable)."""
+    mutators (bind / reserve / mark_unschedulable). Every mutation carries
+    THIS cycle's `now`: under the pipelined engine the flush may run while
+    the next cycle ingests, and backoff windows are still charged to the
+    cycle that observed the snapshot. The ledger scope follows the same
+    rule (lane 1 on this thread), and the plugins' per-thread solve
+    context is cleared here: on the pipelined engine's flusher thread it
+    would still hold an earlier cycle's presolve. The post-bind readers
+    bind their own (`Scheduler.attribution_codes` this cycle's presolve,
+    the preemption dry run none)."""
+    for plugin in ctx.scheduler.profile.plugins:
+        plugin.bind_presolve(None)
+        plugin._memo = None
+    podledger.LEDGER.push_scope(ctx.led, 1)
+    try:
+        _bind_decisions(ctx)
+    finally:
+        podledger.LEDGER.pop_scope(ctx.led)
+
+
+def _bind_decisions(ctx: CycleCtx) -> None:
     cluster, report, now = ctx.cluster, ctx.report, ctx.now
     meta, cosched = ctx.meta, ctx.cosched
     assignment, admitted, wait = ctx.assignment, ctx.admitted, ctx.wait
-    with obs.tracer.span("Bind", tid="cycle"):
+    with obs.tracer.span("Bind", tid=ctx.tid):
         for i, pod in enumerate(ctx.pending):
             node_idx = int(assignment[i])
             pg = cluster.pod_group_of(pod)
@@ -444,17 +524,32 @@ def _cycle_bind(ctx: CycleCtx) -> None:
             raise faults.CrashInjected(ctx.report)
 
 
-def _cycle_postbind(ctx: CycleCtx) -> None:
-    """Post-bind store machinery: failure attribution, Permit fan-out,
-    whole-gang PostFilter rejection and preemption."""
+def _cycle_postbind(ctx: CycleCtx, attribution: bool = True) -> None:
+    """Post-bind store machinery, fenced to the cycle that observed the
+    snapshot: failure attribution, Permit fan-out, whole-gang PostFilter
+    rejection, over-reserve marks and preemption. The pipelined engine
+    runs it before the next cycle's ingest boundary, so a nomination or a
+    backoff never lands mid-overlap. `attribution=False` lets that engine
+    defer the host-only failure decode to its overlap window when the
+    per-pod codes came back with the solve."""
+    podledger.LEDGER.push_scope(ctx.led, 1)
+    try:
+        _postbind_store(ctx, attribution)
+    finally:
+        podledger.LEDGER.pop_scope(ctx.led)
+
+
+def _postbind_store(ctx: CycleCtx, attribution: bool) -> None:
     cluster, report, now = ctx.cluster, ctx.report, ctx.now
     cosched = ctx.cosched
-    _attribute_failures(ctx.scheduler, ctx.snap, ctx.failed_plugin,
-                        ctx.failed_idx, report)
+    if attribution:
+        _attribute_failures(ctx.scheduler, ctx.snap, ctx.failed_plugin,
+                            ctx.failed_idx, report, tid=ctx.tid,
+                            led=ctx.led)
 
     # Permit Allow fan-out: quorum reached this cycle releases waiting
     # siblings
-    with obs.tracer.span("Permit", tid="cycle"):
+    with obs.tracer.span("Permit", tid=ctx.tid):
         for pg in list(cluster.pod_groups.values()):
             _maybe_release_gang(cluster, pg, report, now)
 
@@ -482,6 +577,7 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
     engine = ctx.scheduler.profile.preemption
     with obs.extension_span(
         "PostFilter", type(engine).__name__ if engine else "none",
+        tid="framework" if ctx.tid == "cycle" else ctx.tid,
         failed=len(report.failed),
     ):
         _run_preemption(ctx.scheduler, cluster, ctx.pending, report, now,
@@ -491,10 +587,22 @@ def _cycle_postbind(ctx: CycleCtx) -> None:
     obs.metrics.inc(obs.GANG_REJECTIONS, len(report.rejected_gangs))
 
 
-def _cycle_finalize(ctx: CycleCtx) -> None:
-    """Report-only epilogue: the placement-quality stamp."""
+def _cycle_finalize(ctx: CycleCtx, attribution: bool = False) -> None:
+    """Report-only epilogue: the placement-quality stamp, and under the
+    pipelined engine the deferred failure decode. It touches no store
+    state and reads only the fence's host copies, so that engine runs it
+    in the next cycle's overlap window."""
+    if attribution:
+        _attribute_failures(ctx.scheduler, ctx.snap, ctx.failed_plugin,
+                            ctx.failed_idx, ctx.report, tid=ctx.tid,
+                            led=ctx.led)
     _observe_quality(ctx.report, ctx.quality_view, ctx.assignment,
                      ctx.admitted, ctx.wait)
+
+
+def _cycle_fence_and_post(ctx: CycleCtx) -> None:
+    _cycle_solve_fence(ctx)
+    _cycle_post_solve(ctx)
 
 
 #: `run_cycle`'s stages after the pending batch, in order, with the names
@@ -502,7 +610,7 @@ def _cycle_finalize(ctx: CycleCtx) -> None:
 _STAGES = (
     ("snapshot", _cycle_snapshot),
     ("solve", _cycle_solve_dispatch),
-    ("fence", _cycle_solve_fence),
+    ("fence", _cycle_fence_and_post),
     ("bind", _cycle_bind),
     ("postbind", _cycle_postbind),
     ("finalize", _cycle_finalize),
@@ -551,6 +659,17 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     t0 = clock()
     ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve,
                       resilience, gangs)
+    try:
+        return _run_stages(ctx, clock, t0, timings)
+    finally:
+        # the lane-0 scope `_cycle_open` pushed: popped here so an early
+        # return or a raise cannot leak it, and events between cycles fall
+        # back to ambient attribution
+        podledger.LEDGER.pop_scope(ctx.led)
+        podledger.LEDGER.cycle_close(ctx.led)
+
+
+def _run_stages(ctx: CycleCtx, clock, t0, timings) -> CycleReport:
     t1 = clock()
     _cycle_pending(ctx)
     if timings is not None:
@@ -558,6 +677,7 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         timings["pending"] = clock() - t1
     if ctx.done:
         return ctx.report
+    scheduler, cluster = ctx.scheduler, ctx.cluster
     stages = dict(_STAGES)
 
     def run(name):
@@ -568,7 +688,7 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
             if name == "snapshot":
                 timings["scheduling_tables"] = ctx.meta.scheduling_s
 
-    if serve is not None:
+    if ctx.serve is not None:
         ctx.serve_t0 = clock()
     with obs.flow("cycle",
                   generation=getattr(cluster.nrt_cache, "generation", None),
@@ -598,7 +718,8 @@ def _observe_quality(report, view, assignment, admitted, wait) -> None:
                               objective=objective)
 
 
-def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
+def _attribute_failures(scheduler, snap, codes, failed_idx, report,
+                        tid="cycle", led=None) -> None:
     """Fill `CycleReport.failed_by`: from the sequential solve's per-pod
     codes (`SolveResult.failed_plugin`, host copy) when it carried them,
     else from the failed rows' cycle-initial verdicts
@@ -606,7 +727,7 @@ def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
     fit ("NodeResourcesFit")."""
     if not failed_idx:
         return
-    with obs.tracer.span("Attribution", tid="cycle", failed=len(failed_idx)):
+    with obs.tracer.span("Attribution", tid=tid, failed=len(failed_idx)):
         if codes is not None:
             per_failure = [codes[i] for i, _ in failed_idx]
         else:
@@ -619,6 +740,11 @@ def _attribute_failures(scheduler, snap, codes, failed_idx, report) -> None:
             name = names[code] if code > 0 else names[0]
             report.failed_by[uid] = name
             obs.metrics.inc(obs.UNSCHEDULABLE_BY_PLUGIN, plugin=name)
+            if led is not None:
+                # blame fills the observing cycle's Unschedulable event in
+                # place: this decode may run in the next tick's overlap
+                # window, where an appended event would order differently
+                podledger.LEDGER.set_blame(uid, led.cid, name)
 
 
 def _requeue_eligible(scheduler, cluster, pending, now, report,
@@ -646,6 +772,7 @@ def _requeue_eligible(scheduler, cluster, pending, now, report,
         registered.update(ev_api.GANG_EVENTS)
     for plugin in scheduler.profile.plugins:
         registered.update(plugin.events_to_register())
+    led = podledger.LEDGER
 
     def eligible(pod):
         rec = cluster.unschedulable_since.get(pod.uid)
@@ -656,12 +783,19 @@ def _requeue_eligible(scheduler, cluster, pending, now, report,
             return True
         if now < cluster.pod_backoff_until_ms.get(pod.uid, 0):
             obs.metrics.inc(obs.REQUEUE_BACKOFF_SKIPS)
+            if led.enabled:
+                led.on_wait(pod.uid, "backoff_held")
             return False
         if now >= flush_at:
             return True
-        return any(
-            cluster.event_last.get(kind, 0) > seq for kind in registered
-        )
+        if any(cluster.event_last.get(kind, 0) > seq for kind in registered):
+            return True
+        if led.enabled:
+            # backoff expired with no registered event yet: the pod now
+            # waits on the queue gate, not the backoff clock (one ledger
+            # transition a park episode)
+            led.on_wait(pod.uid, "queue_wait")
+        return False
 
     keep = [pod for pod in pending if eligible(pod)]
     kept_uids = {p.uid for p in keep}
@@ -749,6 +883,8 @@ def _run_preemption(scheduler, cluster, pending, report, now, device=None):
                 # an in-place change passes no store mutator: tell the
                 # serving engine's gate
                 cluster.delta_sink.note_nomination(pod)
+            if podledger.LEDGER.enabled:
+                podledger.LEDGER.on_nomination(pod.uid, None)
             continue
         obs.metrics.inc(obs.PREEMPTION_VICTIMS, len(result.victims))
         # nominate now, so later preemptors' live nominated aggregates see
@@ -756,6 +892,8 @@ def _run_preemption(scheduler, cluster, pending, report, now, device=None):
         pod.nominated_node_name = result.nominated_node
         if cluster.delta_sink is not None:
             cluster.delta_sink.note_nomination(pod)
+        if podledger.LEDGER.enabled:
+            podledger.LEDGER.on_nomination(pod.uid, result.nominated_node)
         n = node_pos[result.nominated_node]
         demand = encode_demand(meta.index, pod)
         victim_freed = np.zeros(len(meta.index), np.int64)

@@ -1,0 +1,13 @@
+"""Pod-level observability plane (the cross-cycle complement of
+`utils.observability`; port of `scheduler_plugins_tpu.obs`).
+
+`obs.ledger` follows a POD across scheduling cycles: first-seen, queued,
+backoff-held, gang-gated, nominated/reserved, bound-or-blamed. The JAX
+package's `obs.costmodel` reads XLA's cost analysis and has no PyTorch
+subject, so it is not carried over.
+"""
+
+from . import ledger
+from .ledger import LEDGER, Ledger, STAGES
+
+__all__ = ["ledger", "LEDGER", "Ledger", "STAGES"]

@@ -7,8 +7,10 @@ from scheduler_plugins_tpu_torch.serving.deltas import (  # noqa: F401
     NodeUpserts,
     UsageDeltas,
     apply_node_deltas,
+    compact_node_rows,
     pod_usage_vectors,
 )
 from scheduler_plugins_tpu_torch.serving.engine import (  # noqa: F401
     ServeEngine,
+    StreamingServeEngine,
 )

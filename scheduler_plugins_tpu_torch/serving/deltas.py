@@ -17,7 +17,9 @@ cycle costs O(changed), not O(cluster).
   pod_count, terminating), the per-pod sums `state.snapshot
   .build_snapshot` accumulates. A slot may repeat; the adds sum.
 - Node/Delete, a region or zone change and an extended resource rebuild
-  from a full snapshot instead (`api.events.SERVE_REBASE_EVENTS`).
+  from a full snapshot instead (`api.events.SERVE_REBASE_EVENTS`), except
+  under `StreamingServeEngine`, which compacts a deleted node's row out
+  with `compact_node_rows`.
 
 The port's `NodeState` has no `nonzero_requested` column (no ported reader
 needs it), so the usage deltas carry requested and limits only.
@@ -33,6 +35,7 @@ nothing on the host.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -114,7 +117,9 @@ class DeltaSink:
     """Typed event queue installed as `Cluster.delta_sink`: the store's
     mutators push the transitions that change node columns, and `drain()`
     hands the batch to the engine once a cycle. One list append a
-    mutation."""
+    mutation, under a lock: the pipelined engine's flusher thread runs
+    mutators while a caller on another thread may drain, and an append
+    must land either in the drained batch or in the next one."""
 
     #: backstop for a sink nobody drains: past this many events the queue
     #: collapses to an `overflowed` mark (the next refresh rebuilds)
@@ -124,6 +129,11 @@ class DeltaSink:
     def __init__(self):
         self.events: list[tuple] = []
         self.overflowed = False
+        #: drain generation, bumped by every `drain()`: the pipelined
+        #: engine compares it around a bind flush to tell whether the
+        #: flush crossed an ingest boundary (a late bind)
+        self.drains = 0
+        self._lock = threading.Lock()
         #: unbound pods carrying a NominatedNodeName the pending batch
         #: cannot show (scheduling-gated pods arrive through `add_pod`):
         #: any entry keeps `ServeEngine.compatible` False, since the full
@@ -142,10 +152,11 @@ class DeltaSink:
         self._push_one(ev)
 
     def _push_one(self, ev: tuple) -> None:
-        if len(self.events) >= self.MAX_EVENTS:
-            self.events.clear()
-            self.overflowed = True
-        self.events.append(ev)
+        with self._lock:
+            if len(self.events) >= self.MAX_EVENTS:
+                self.events.clear()
+                self.overflowed = True
+            self.events.append(ev)
 
     # -- node lifecycle --------------------------------------------------
     def node_upsert(self, node) -> None:
@@ -188,13 +199,16 @@ class DeltaSink:
         self.nominated_unbound.discard(uid)
 
     def drain(self) -> list[tuple]:
-        events, self.events = self.events, []
+        with self._lock:
+            events, self.events = self.events, []
+            self.drains += 1
         return events
 
     def consume_overflow(self) -> bool:
         """True once if the queue overflowed since the last drain: the
         surviving events are partial, so the caller must rebuild."""
-        overflowed, self.overflowed = self.overflowed, False
+        with self._lock:
+            overflowed, self.overflowed = self.overflowed, False
         return overflowed
 
 
@@ -350,6 +364,42 @@ def apply_node_deltas(nodes: NodeState,
     nodes.pod_count.index_add_(0, di, d_pod_count)
     nodes.terminating.index_add_(0, di, d_terminating)
     return nodes.replace(mask=mask.bool())
+
+
+def compact_node_rows(nodes: NodeState, gather_idx, valid) -> NodeState:
+    """Delete node rows: gather the surviving rows into their shifted
+    slots (`gather_idx`, (npad,) int64 built on the host) and re-pad the
+    freed tail (`valid` False) with the values a fresh `build_snapshot`
+    pad row carries (zeros; mask False; region and zone -1), so the
+    compacted columns equal a rebuild's byte for byte and the
+    anti-entropy digest cannot tell them apart. Row order is kept (a
+    shift, never a swap with the last row): the store's dict pop keeps the
+    order of the remaining nodes, and score ties break to the lowest
+    index. This turns the Node/Delete rebuild into an O(N) gather on the
+    device (`StreamingServeEngine`).
+
+    Every column comes back as a NEW tensor (the gathers allocate), so a
+    snapshot an earlier cycle still reads keeps its rows; the JAX package
+    donates the carry to the same gather instead."""
+    def take(cur, pad=0):
+        out = cur.index_select(0, gather_idx)
+        keep = valid.view((-1,) + (1,) * (out.dim() - 1))
+        return torch.where(keep, out, torch.full_like(out, pad))
+
+    return nodes.replace(
+        alloc=take(nodes.alloc),
+        capacity=take(nodes.capacity),
+        requested=take(nodes.requested),
+        limits=take(nodes.limits),
+        mask=take(nodes.mask, False),
+        region=take(nodes.region, -1),
+        zone=take(nodes.zone, -1),
+        pod_count=take(nodes.pod_count),
+        terminating=take(nodes.terminating),
+        # zero while serve mode owns the snapshot (the compatibility gate
+        # excludes nominations)
+        nominated=torch.zeros_like(nodes.nominated),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,10 @@ columns and the slot and interning tables as one npz with a JSON header;
 an anti-entropy verify at the next refresh, so a stale checkpoint rebases
 within one window and an exact one resumes with no rebase.
 
-Deferred to their slices: the streaming engine (`StreamingServeEngine`,
-with the pipelined cycle) and the flight recorder's serve provenance
+`StreamingServeEngine`, the pipelined cycle engine's serving engine,
+compacts a deleted node's row out on the device instead of rebasing,
+memoizes the per-pod encodes and verifies against columns summed from the
+store. Deferred to its slice: the flight recorder's serve provenance
 (`annotate_record`).
 """
 
@@ -237,7 +239,7 @@ class ServeEngine:
             self._side_dirty = True
         with obs.tracer.span("ServeRefresh/classify", tid="serve",
                              events=len(events)):
-            upserts, usage, side, rebase = self._classify(events)
+            upserts, usage, side, rebase = self._ingest(events)
         if self._sink.consume_overflow():
             # the queue collapsed undrained: the surviving events are a
             # partial window
@@ -283,10 +285,22 @@ class ServeEngine:
         return self._assemble(cluster, pending, now_ms)
 
     # -- event classification -------------------------------------------
-    @staticmethod
-    def _pod_vectors(pod):
-        """One pod's (requested, limits, quota) contribution vectors."""
+    def _ingest(self, events):
+        """Classification seam: the streaming engine splits the stream at
+        node deletes (compacting rows); the base engine classifies the
+        whole batch, a node delete forcing a rebase."""
+        return self._classify(events)
+
+    def _pod_vectors(self, pod, final=False):
+        """One pod's (requested, limits, quota) contribution vectors. The
+        streaming engine memoizes them per pod object (`final` marks the
+        pod's last event, releasing its entry)."""
         return D.pod_usage_vectors(pod) + (D.pod_quota_vector(pod),)
+
+    def _row_cache(self):
+        """The per-pod lowering memo handed to `build_pod_state` (None
+        here: every cycle lowers its batch from scratch)."""
+        return None
 
     def _gang_row(self, name: str) -> int:
         row = self._gang_rows.get(name)
@@ -403,7 +417,8 @@ class ServeEngine:
                     continue
                 sign = 1 if kind == D.POD_ASSIGN else -1
                 try:
-                    req, lim, qreq = self._pod_vectors(pod)
+                    req, lim, qreq = self._pod_vectors(
+                        pod, final=kind == D.POD_UNASSIGN)
                 except D.UnsupportedResource:
                     fail("extended-resource")
                     continue
@@ -510,40 +525,43 @@ class ServeEngine:
         interning tables to the store's order."""
         with obs.tracer.span("ServeRefresh/rebase", tid="serve",
                              nodes=len(cluster.nodes)):
-            npad = bucket_size(max(len(cluster.nodes), 1))
-            snap, meta = cluster.snapshot(pending, now_ms=now_ms,
-                                          pad_nodes=npad, device=device)
-            self._generation += 1
-            self._staleness = 0
-            self._rebases += 1
-            obs.metrics.inc(obs.SERVE_REBASES)
-            if len(meta.index) != len(D.CANON_INDEX):
-                # an extended resource somewhere in the store widens the
-                # axis past what the deltas carry: serve this cycle from
-                # the fresh snapshot and keep rebuilding until it goes
-                self._nodes = None
-                self._side_dirty = True
-                self._observe()
-                return snap, meta
-            self._nodes = snap.nodes
-            self._npad = npad
-            self._names = list(meta.node_names)
-            self._slots = {n: i for i, n in enumerate(self._names)}
-            self._regions = meta.regions  # shared: _assemble copies
-            self._zones = meta.zones
-            self._regions_in = _Interner(self._regions)
-            self._zones_in = _Interner(self._zones)
-            self._node_labels = {
-                n.name: (n.region or "", n.zone or "")
-                for n in cluster.nodes.values()
-            }
-            self._tainted = {n.name for n in cluster.nodes.values()
-                             if n.taints}
-            # a rebase is O(cluster) already: rebuild the side tables to
-            # match the fresh snapshot it serves
-            self._rebuild_side_tables(cluster)
+            return self._rebase_inner(cluster, pending, now_ms, device)
+
+    def _rebase_inner(self, cluster, pending, now_ms: int, device):
+        npad = bucket_size(max(len(cluster.nodes), 1))
+        snap, meta = cluster.snapshot(pending, now_ms=now_ms,
+                                      pad_nodes=npad, device=device)
+        self._generation += 1
+        self._staleness = 0
+        self._rebases += 1
+        obs.metrics.inc(obs.SERVE_REBASES)
+        if len(meta.index) != len(D.CANON_INDEX):
+            # an extended resource somewhere in the store widens the axis
+            # past what the deltas carry: serve this cycle from the fresh
+            # snapshot and keep rebuilding until it goes
+            self._nodes = None
+            self._side_dirty = True
             self._observe()
             return snap, meta
+        self._nodes = snap.nodes
+        self._npad = npad
+        self._names = list(meta.node_names)
+        self._slots = {n: i for i, n in enumerate(self._names)}
+        self._regions = meta.regions  # shared: _assemble copies
+        self._zones = meta.zones
+        self._regions_in = _Interner(self._regions)
+        self._zones_in = _Interner(self._zones)
+        self._node_labels = {
+            n.name: (n.region or "", n.zone or "")
+            for n in cluster.nodes.values()
+        }
+        self._tainted = {n.name for n in cluster.nodes.values()
+                         if n.taints}
+        # a rebase is O(cluster) already: rebuild the side tables to match
+        # the fresh snapshot it serves
+        self._rebuild_side_tables(cluster)
+        self._observe()
+        return snap, meta
 
     # -- resident gang/quota side tables --------------------------------
     def _ensure_side(self, cluster) -> bool:
@@ -865,7 +883,8 @@ class ServeEngine:
             return g
 
         pod_state = build_pod_state(pending, P, D.CANON_INDEX, ns_in,
-                                    gang_of, cluster.tlp_prediction)
+                                    gang_of, cluster.tlp_prediction,
+                                    row_cache=self._row_cache())
 
         gang_state = quota_state = None
         side = self._side_host() if (pod_groups or cluster.quotas) else None
@@ -931,6 +950,323 @@ class ServeEngine:
     def _observe(self) -> None:
         obs.metrics.set_gauge(obs.SERVE_GENERATION, self._generation)
         obs.metrics.set_gauge(obs.SERVE_STALENESS, self._staleness)
+
+
+def _shift_gather_args(npad: int, slot: int, survivors: int):
+    """(gather_idx, valid) for `compact_node_rows`: the rows above `slot`
+    shift down one and the freed tail re-pads; `survivors` real rows
+    remain."""
+    idx = np.empty(npad, np.int64)
+    idx[:slot] = np.arange(slot)
+    idx[slot:npad - 1] = np.arange(slot + 1, npad)
+    idx[npad - 1] = npad - 1
+    valid = np.zeros(npad, bool)
+    valid[:survivors] = True
+    return idx, valid
+
+
+class StreamingServeEngine(ServeEngine):
+    """The serving engine of the pipelined cycle engine
+    (`framework.pipeline_cycle.PipelinedCycle`): the base engine's
+    exactness contract, with three streaming-ingest upgrades.
+
+    - **Node-delete compaction.** A Node/Delete no longer forces the
+      O(cluster) rebase: the resident rows are shift-compacted by one
+      gather on the device (`serving.deltas.compact_node_rows`), keeping
+      the row order (the store's dict order after the pop) and re-padding
+      the freed tail exactly as a fresh snapshot pads. The event stream is
+      cut at each delete so slot numbers stay exact within every applied
+      batch. The other rebase-class events (a relabel, an extended
+      resource, a pod on an unknown node, a sink overflow) rebase as
+      before. The region and zone interning tables survive a compaction,
+      so deleting the first-seen carrier of a label code can make the next
+      anti-entropy digest diverge from a fresh interning: that divergence
+      rebases (exact, only slower), never mis-serves.
+    - **Usage-vector memo.** `pod_usage_vectors` is cached per pod object
+      (a feed upsert replaces the object, so the identity check
+      invalidates it); a pod's final unassign releases its entry.
+    - **Pod-row memo.** `build_pod_state` runs with a per-pod row cache,
+      so a retried pod is lowered once (a hit equals a cold lowering).
+
+    `verify` digests the resident columns against columns accumulated
+    straight from the store objects, O(nodes + assigned), instead of a
+    fresh snapshot.
+
+    The JAX engine compiles its compaction program at each rebase so the
+    first delete pays no trace; eager PyTorch compiles nothing, so there
+    is no warm-up here.
+    """
+
+    #: a safety valve on the memo tables, not a tuning knob: past this
+    #: many entries a cache clears and refills from misses
+    MAX_CACHE = 1 << 16
+
+    def __init__(self):
+        super().__init__()
+        self._vec_cache: dict = {}
+        self._rows: dict = {}
+        #: node-delete row compactions performed (each one replaces what
+        #: the base engine counts as a rebase)
+        self.compactions = 0
+
+    # -- memo seams ------------------------------------------------------
+    def _row_cache(self):
+        if len(self._rows) > self.MAX_CACHE:
+            self._rows.clear()
+        return self._rows
+
+    def _pod_vectors(self, pod, final=False):
+        ent = self._vec_cache.get(pod.uid)
+        if ent is not None and ent[0] is pod:
+            if final:
+                del self._vec_cache[pod.uid]
+            return ent[1]
+        vecs = D.pod_usage_vectors(pod) + (D.pod_quota_vector(pod),)
+        if final:
+            self._vec_cache.pop(pod.uid, None)
+        else:
+            if len(self._vec_cache) > self.MAX_CACHE:
+                self._vec_cache.clear()
+            self._vec_cache[pod.uid] = (pod, vecs)
+        return vecs
+
+    def _rebase_inner(self, cluster, pending, now_ms: int, device):
+        out = super()._rebase_inner(cluster, pending, now_ms, device)
+        # prime the usage-vector memo for the whole assigned population: a
+        # rebase is O(cluster) already, and the first fast verify then runs
+        # at memo speed. Prime the real pod objects (never
+        # `_assigned_pods`'s copies of reserved pods, which would never hit
+        # the identity check)
+        try:
+            for pod in cluster.pods.values():
+                if pod.node_name is not None or pod.uid in cluster.reserved:
+                    self._pod_vectors(pod)
+        except D.UnsupportedResource:
+            pass  # extended resources: verify delegates to the base engine
+        return out
+
+    # -- segmented ingest -----------------------------------------------
+    def _ingest(self, events):
+        """Cut the drained stream at node deletes: classify and apply each
+        segment before a delete (slot numbers are exact within a segment;
+        a delete renumbers them), compact the deleted row, go on. Returns
+        the delete-free tail for the base refresh. With no resident base
+        to compact, the base engine's whole-batch classify (a delete
+        rebases) runs instead."""
+        if self._nodes is None or not any(
+                ev[0] == D.NODE_DELETE for ev in events):
+            return self._classify(events)
+        segment: list = []
+        rebase = None
+        side_gang: list = []
+        side_ns: list = []
+        for ev in events:
+            if ev[0] == D.NODE_DELETE and rebase is None:
+                name = ev[1]
+                # apply the segment before the delete FIRST: a node added
+                # in this window gets its slot from the segment's upserts,
+                # and looking the slot up earlier would skip the delete and
+                # leave a ghost row (an add and a remove in one window)
+                ups, use, side, rebase = self._classify(segment)
+                segment = []
+                if rebase is not None:
+                    continue  # the resident base is rebuilt anyway
+                side_gang.extend(side[0])
+                side_ns.extend(side[1])
+                if ups or use:
+                    self._grow(bucket_size(max(len(self._names), 1)))
+                    self._apply_batch(ups, use)
+                slot = self._slots.get(name)
+                if slot is None:
+                    # a node the engine never saw: no resident row, only
+                    # the bookkeeping goes
+                    self._tainted.discard(name)
+                    self._node_labels.pop(name, None)
+                    continue
+                self._compact_row(name, slot)
+                continue
+            segment.append(ev)
+        ups, use, side, seg_rebase = self._classify(segment)
+        side = (side_gang + side[0], side_ns + side[1])
+        return ups, use, side, rebase if rebase is not None else seg_rebase
+
+    def _compact_row(self, name: str, slot: int) -> None:
+        with obs.tracer.span("ServeRefresh/compact", tid="serve", slot=slot):
+            self._tainted.discard(name)
+            self._node_labels.pop(name, None)
+            idx, valid = _shift_gather_args(self._npad, slot,
+                                            len(self._names) - 1)
+            self._nodes = D.compact_node_rows(
+                self._nodes,
+                *D.stage((idx, valid), self._nodes.alloc.device))
+            self._names.pop(slot)
+            self._slots = {n: i for i, n in enumerate(self._names)}
+            if self._gang_rows:
+                # a fresh snapshot drops the gang slack of pods bound to a
+                # deleted node: rebuild rather than drift
+                self._side_dirty = True
+            self.compactions += 1
+            self._generation += 1
+            self._staleness += 1
+            self._observe()
+
+    # -- O(nodes + assigned) anti-entropy --------------------------------
+    def verify(self, cluster) -> Optional[str]:
+        """Anti-entropy without the snapshot rebuild: the expected node
+        columns are summed straight from the store objects through the
+        same per-pod encode (`pod_usage_vectors`, memoized) and per-node
+        encode a fresh snapshot uses, then digest-compared with the
+        resident columns (read to the host). The resident columns came
+        through the sink and the device; the expectation comes from the
+        store, so the check stays independent. An extended resource
+        anywhere delegates to the base engine's fresh-snapshot verify."""
+        if self._nodes is None:
+            self._verify_pending = False
+            obs.metrics.inc(obs.ANTIENTROPY_CHECKS)
+            return None
+        names = list(cluster.nodes)
+        expected = side_exp = None
+        if names == self._names:
+            try:
+                expected, side_exp = self._expected_columns(
+                    cluster, names,
+                    want_side=self._side_verify_live(cluster))
+            except D.UnsupportedResource:
+                # the axis is wider than the canonical four: the base
+                # verify classifies it (one check, one count, one span)
+                return super().verify(cluster)
+        with obs.tracer.span("ServeRefresh/verify", tid="serve",
+                             staleness=self._staleness, fast=True):
+            self._verify_pending = False
+            obs.metrics.inc(obs.ANTIENTROPY_CHECKS)
+            reason = None
+            if expected is None:
+                reason = "row-order"
+            elif (pack_digest(self._node_columns(self._nodes))
+                  != pack_digest(expected)):
+                reason = "column-digest"
+            if reason is None and side_exp is not None:
+                reason = self._side_divergence(*side_exp)
+            if reason is not None:
+                self.antientropy_divergences += 1
+                obs.metrics.inc(obs.ANTIENTROPY_DIVERGENCE)
+                obs.logger.warning(
+                    "serve anti-entropy divergence (%s) after %d delta "
+                    "events%s: re-basing", reason, self._staleness,
+                    f" (last fault: {self.last_fault})"
+                    if self.last_fault else "",
+                )
+            return reason
+
+    def _expected_columns(self, cluster, names, want_side=False):
+        """The node columns a fresh `build_snapshot` at this padding would
+        give for the store's nodes in the order `names` (the store's own
+        order for a fresh snapshot), summed O(nodes + assigned): the
+        per-pod arithmetic is the
+        shared `pod_usage_vectors` (its requested pods slot carries 1 a
+        pod, so the sums equal the snapshot's pod_count overwrite). With
+        `want_side` the same walk also sums the expected gang and quota
+        aggregates (`_scan_side_aggregates`' rules). Returns (columns,
+        (gangs, namespaces) or None)."""
+        R = len(D.CANON_INDEX)
+        side_gangs: dict = {}
+        side_ns: dict = {}
+
+        def side_gang_acc(name):
+            acc = side_gangs.get(name)
+            if acc is None:
+                acc = side_gangs[name] = [0, 0, np.zeros(R, np.int64)]
+            return acc
+
+        def side_assigned(pod, held, req, qreq):
+            if self._quota_tracking:
+                acc = side_ns.get(pod.namespace)
+                if acc is None:
+                    acc = side_ns[pod.namespace] = [np.zeros(R, np.int64), 0]
+                acc[0] = acc[0] + qreq
+                acc[1] += 1
+            gang = pod.pod_group()
+            if gang:
+                acc = side_gang_acc(f"{pod.namespace}/{gang}")
+                acc[0] += 1
+                if held in cluster.nodes:
+                    acc[2] = acc[2] + req
+
+        npad = self._npad
+        alloc = np.zeros((npad, R), np.int64)
+        capacity = np.zeros((npad, R), np.int64)
+        requested = np.zeros((npad, R), np.int64)
+        limits = np.zeros((npad, R), np.int64)
+        mask = np.zeros(npad, bool)
+        region = np.full(npad, -1, np.int32)
+        zone = np.full(npad, -1, np.int32)
+        pod_count = np.zeros(npad, np.int32)
+        terminating = np.zeros(npad, np.int32)
+        # a fresh first-seen interning in store order (not the engine's
+        # surviving tables), which keeps the label-drift check of the
+        # fresh-snapshot verify: deleting a code's first-seen carrier
+        # diverges here and rebases
+        regions: dict = {}
+        zones: dict = {}
+        node_pos = {}
+        for i, name in enumerate(names):
+            node = cluster.nodes[name]
+            node_pos[name] = i
+            alloc[i] = D._encode(node.allocatable)
+            capacity[i] = D._encode(node.capacity)
+            mask[i] = not node.unschedulable
+            if node.region:
+                region[i] = regions.setdefault(node.region, len(regions))
+            if node.zone:
+                zone[i] = zones.setdefault(node.zone, len(zones))
+
+        def count(i, pod, req, lim):
+            requested[i] += req
+            limits[i] += lim
+            pod_count[i] += 1
+            if pod.terminating:
+                terminating[i] += 1
+
+        # the assigned view on the real pod objects: bound pods at their
+        # node, reserved pods at their held node (`Cluster._assigned_pods`
+        # without its copies, which would miss the memo's identity check)
+        for pod in cluster.pods.values():
+            if pod.node_name is None:
+                if want_side:
+                    # the `gated_pods()` predicate, whatever the
+                    # reservation: a reserved gated pod counts gated here
+                    # and assigned below, as in a fresh snapshot
+                    gang = pod.pod_group()
+                    if gang and pod.scheduling_gated and not pod.terminating:
+                        side_gang_acc(f"{pod.namespace}/{gang}")[1] += 1
+                continue
+            i = node_pos.get(pod.node_name)
+            if i is None:
+                if want_side:
+                    # bound to a node the store no longer has: still in
+                    # quota used and the gang count (never the slack)
+                    req, _lim, qreq = self._pod_vectors(pod)
+                    side_assigned(pod, pod.node_name, req, qreq)
+                continue
+            req, lim, qreq = self._pod_vectors(pod)
+            count(i, pod, req, lim)
+            if want_side:
+                side_assigned(pod, pod.node_name, req, qreq)
+        for uid, node in cluster.reserved.items():
+            pod = cluster.pods.get(uid)
+            if pod is None or pod.node_name is not None:
+                continue
+            req, lim, qreq = self._pod_vectors(pod)
+            if want_side:
+                side_assigned(pod, node, req, qreq)
+            i = node_pos.get(node)
+            if i is not None:
+                count(i, pod, req, lim)
+        return {
+            "alloc": alloc, "capacity": capacity, "requested": requested,
+            "limits": limits, "mask": mask, "region": region, "zone": zone,
+            "pod_count": pod_count, "terminating": terminating,
+        }, ((side_gangs, side_ns) if want_side else None)
 
 
 def _pad_rows(t, n: int, value=0):

@@ -24,8 +24,11 @@ and for PreemptionToleration the PriorityClasses.
 For the serving engine (`serving.engine.ServeEngine`) the mutators push
 typed node-column deltas into `delta_sink` when one is attached: the
 O(changed) feed the engine folds into its resident tensors instead of
-re-snapshotting. The JAX store's native mirror, pending index and ledger
-hooks come with their slices.
+re-snapshotting. The mutators also feed the pod-lifecycle ledger
+(`obs.ledger.LEDGER`, off by default: each hook is one branch then) and,
+once `enable_pending_index` turns it on, an O(changed) pending index that
+`pending_pods` reads in the scan's exact order (the pipelined engine's
+ingest path). The JAX store's native mirror comes with its slice.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
     PriorityClass,
     SeccompProfile,
 )
+from scheduler_plugins_tpu_torch.obs import ledger as podledger
 from scheduler_plugins_tpu_torch.state.snapshot import build_snapshot
 
 #: upstream podMaxInUnschedulablePodsDuration: a parked pod re-enters the
@@ -146,6 +150,17 @@ class Cluster:
     #: .attach`), or None: when set, the mutators push typed node-column
     #: deltas beside their `note_event` calls
     delta_sink: Optional[object] = None
+    #: opt-in O(changed) pending index (`enable_pending_index`, the
+    #: pipelined engine's ingest path): uid -> Pod for every schedulable
+    #: pod, kept by the same mutators that feed the delta sink. None (the
+    #: default) keeps `pending_pods` the O(pods) scan.
+    _pending_idx: Optional[dict] = None
+    #: admission serial per uid, reproducing the pods dict's iteration
+    #: order: assigned at the first add (an update keeps its place) and
+    #: again when a removed uid is re-added (the dict moves it to the
+    #: end), so the indexed queue order equals the scan's, ties and all
+    _pod_order: dict = field(default_factory=dict)
+    _order_next: int = 0
 
     def note_event(self, kind: str) -> None:
         """Record a cluster event ("Resource/Action", `api.events`) for
@@ -168,6 +183,16 @@ class Cluster:
             self.pod_backoff_until_ms[uid] = now_ms + int(
                 base * (0.5 + 0.5 * self._backoff_jitter(uid, attempts))
             )
+            led = podledger.LEDGER
+            if led.enabled:
+                # the charged branch only: a same-now re-mark is one
+                # attempt and one ledger transition
+                pod = self.pods.get(uid)
+                led.on_unschedulable(
+                    uid, attempts,
+                    self.pod_backoff_until_ms[uid] - now_ms,
+                    bool(pod is not None and pod.pod_group()),
+                )
         self.unschedulable_since[uid] = (
             self.event_seq, now_ms + REQUEUE_FLUSH_MS,
         )
@@ -236,6 +261,10 @@ class Cluster:
     def add_pod(self, pod: Pod):
         old = self.pods.get(pod.uid)
         self.note_event(ev.POD_UPDATE if old is not None else ev.POD_ADD)
+        if old is None and pod.node_name is None:
+            led = podledger.LEDGER
+            if led.enabled:
+                led.on_first_seen(pod)
         if self.delta_sink is not None:
             # an upsert swaps the pod's contribution wholesale (its
             # requests may have changed; a stale echo may drop the node)
@@ -264,6 +293,7 @@ class Cluster:
                                                   "track_pod"):
             # foreign-pod detection (cache/foreign_pods.go:42-99)
             self.nrt_cache.track_pod(pod)
+        self._index_add_pod(pod, was_present=old is not None)
 
     def remove_pod(self, uid: str):
         self.release_reservation(uid)  # notifies the NRT cache too
@@ -271,8 +301,16 @@ class Cluster:
         self.unschedulable_since.pop(uid, None)
         self._clear_backoff(uid)
         pod = self.pods.pop(uid, None)
+        # after the pop: the release above may have re-indexed the pod;
+        # a removed uid leaves both tables (a re-add lands at the end,
+        # as in the pods dict)
+        self._index_drop_pod(uid, forget_order=True)
         if pod is not None:
             self.note_event(ev.POD_DELETE)
+            if pod.node_name is None:
+                led = podledger.LEDGER
+                if led.enabled:
+                    led.on_delete(uid)
             if self.delta_sink is not None:
                 if pod.node_name is not None:
                     # a bound pod's usage leaves with it (a reserved pod's
@@ -300,8 +338,13 @@ class Cluster:
             if self.delta_sink is not None and not was_terminating else None
         )
         pod.deletion_ms = now_ms
+        if not was_terminating:
+            led = podledger.LEDGER
+            if led.enabled:
+                led.on_terminating(uid)
         if gated is not None:
             self.delta_sink.gang_gated(gated, -1)
+        self._index_drop_pod(uid)
         self.note_event(ev.POD_UPDATE)
         if self.delta_sink is not None and not was_terminating:
             # at the held node, binding or reservation: a reserved
@@ -404,6 +447,8 @@ class Cluster:
         ]
 
     def _pending_eligible(self, pod: Pod) -> bool:
+        """The schedulable-queue predicate, shared by the scan and the
+        index so the two views cannot drift."""
         return (
             pod.node_name is None
             and pod.uid not in self.reserved
@@ -413,11 +458,80 @@ class Cluster:
             and pod.scheduler_name in self.scheduler_names
         )
 
+    def enable_pending_index(self) -> None:
+        """Switch `pending_pods` from the O(pods) scan to a maintained
+        O(changed) index. Call after `scheduler_names` and the initial
+        population are set; the mutators keep it exact from then on. Code
+        that flips a pod's eligibility in place (outside the mutators, the
+        delta sink's blind spot too) must call `reindex_pod`."""
+        self._pod_order = {uid: i for i, uid in enumerate(self.pods)}
+        self._order_next = len(self._pod_order)
+        self._pending_idx = {
+            p.uid: p for p in self.pods.values() if self._pending_eligible(p)
+        }
+
+    def disable_pending_index(self) -> None:
+        self._pending_idx = None
+        self._pod_order = {}
+        self._order_next = 0
+
+    def reindex_pod(self, uid: str) -> None:
+        """Re-evaluate one pod's pending-index membership after an
+        in-place eligibility flip (phase, scheduling gate)."""
+        pod = self.pods.get(uid)
+        if pod is not None and pod.node_name is None:
+            led = podledger.LEDGER
+            if led.enabled:
+                led.on_gate_flip(uid, bool(pod.scheduling_gated))
+        if self._pending_idx is None:
+            return
+        if pod is not None and self._pending_eligible(pod):
+            self._pending_idx[uid] = pod
+        else:
+            self._pending_idx.pop(uid, None)
+
+    def _index_add_pod(self, pod: Pod, was_present: bool) -> None:
+        if self._pending_idx is None:
+            return
+        if not was_present or pod.uid not in self._pod_order:
+            # a first sighting, or a re-add after a remove: dicts append
+            self._pod_order[pod.uid] = self._order_next
+            self._order_next += 1
+        if self._pending_eligible(pod):
+            self._pending_idx[pod.uid] = pod
+        else:
+            self._pending_idx.pop(pod.uid, None)
+
+    def _index_drop_pod(self, uid: str, forget_order: bool = False) -> None:
+        if self._pending_idx is None:
+            return
+        self._pending_idx.pop(uid, None)
+        if forget_order:
+            self._pod_order.pop(uid, None)
+
     def pending_pods(self) -> list[Pod]:
         """The schedulable queue in insertion order: reserved and gated
         pods stay out, and only pods addressed to one of `scheduler_names`
-        enter."""
+        enter. With the index on, the list is assembled in O(pending log
+        pending) in the identical order."""
+        if self._pending_idx is not None:
+            order = self._pod_order
+            return sorted(
+                self._pending_idx.values(), key=lambda p: order[p.uid]
+            )
         return [p for p in self.pods.values() if self._pending_eligible(p)]
+
+    def admission_serial(self, uid: str) -> int:
+        """The pod's position in admission order (the K-lane engine's
+        reproducible "hash" partition key): the maintained serial with
+        the index on, else the dict-iteration position (the serial the
+        index would have given). -1 for an unknown uid."""
+        if self._pod_order:
+            return self._pod_order.get(uid, -1)
+        for i, known in enumerate(self.pods):
+            if known == uid:
+                return i
+        return -1
 
     def gated_pods(self) -> list[Pod]:
         return [
@@ -446,6 +560,10 @@ class Cluster:
             # bound pods never count toward the nominated column
             self.delta_sink.forget_nomination(uid)
         self.pods[uid].node_name = node_name
+        self._index_drop_pod(uid)
+        led = podledger.LEDGER
+        if led.enabled:
+            led.on_bind(uid, node_name)
         self.recent_bindings[uid] = (now_ms, node_name)
         if self.nrt_cache is not None:
             # the NRT cache's Reserve -> bind -> PostBind lifecycle
@@ -455,6 +573,10 @@ class Cluster:
     def reserve(self, uid: str, node_name: str):
         """Permit said Wait: hold the placement without binding."""
         self.reserved[uid] = node_name
+        self._index_drop_pod(uid)
+        led = podledger.LEDGER
+        if led.enabled:
+            led.on_reserve(uid, node_name)
         if self.delta_sink is not None:
             # a reservation holds capacity exactly like a binding
             self.delta_sink.pod_assigned(self.pods[uid], node_name)
@@ -468,6 +590,8 @@ class Cluster:
             self.delta_sink.pod_unassigned(self.pods[uid], node)
         if node is not None and self.nrt_cache is not None:
             self.nrt_cache.unreserve(node, self.pods[uid])
+        if node is not None:
+            self.reindex_pod(uid)
 
     def gang_reservations(self, pg: PodGroup) -> list[str]:
         return [

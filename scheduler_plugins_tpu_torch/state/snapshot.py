@@ -352,14 +352,46 @@ class _Interner:
         return self.pos.get(name, -1)
 
 
+class _PodRow:
+    """One pod's cached lowering pieces for `build_pod_state`: everything
+    its spec alone gives (request and limit encodes, container rows, QoS,
+    the TLP prediction), keyed by the pod object's identity, so a feed
+    upsert (which replaces the object) invalidates it. Codes that depend
+    on the meta (namespace, gang) and flags changed in place (the
+    scheduling gate) are never cached."""
+
+    __slots__ = ("pod", "index", "tlp", "req", "limits", "predicted",
+                 "creq", "cinit", "qos")
+
+    def __init__(self, pod, index, tlp_prediction):
+        self.pod = pod
+        self.index = index
+        self.tlp = tlp_prediction
+        self.req = index.encode(pod.effective_request())
+        self.limits = index.encode(pod.effective_limits())
+        self.predicted = pod.tlp_predicted_cpu_millis(*tlp_prediction)
+        conts = list(pod.init_containers) + list(pod.containers)
+        self.creq = (np.stack([index.encode(c.requests) for c in conts])
+                     if conts else np.zeros((0, len(index)), I64))
+        self.cinit = np.array(
+            [c < len(pod.init_containers) for c in range(len(conts))], bool
+        )
+        self.qos = int(pod.qos_class())
+
+
 def build_pod_state(pending_pods: Sequence[Pod], P: int,
                     index: ResourceIndex, ns_in: _Interner, gang_of,
-                    tlp_prediction: tuple = (1.5, 1000)) -> PodState:
+                    tlp_prediction: tuple = (1.5, 1000),
+                    row_cache: Optional[dict] = None) -> PodState:
     """The pending batch as `PodState` (host numpy): the one copy of the
     pod lowering, shared by `build_snapshot` and the serving engine's
     assembly (`serving.engine.ServeEngine._assemble`), so both produce the
     same pod tensors. `ns_in` interns namespace codes into the caller's
-    meta; `gang_of(pod)` gives a pod's gang code (-1 outside a gang)."""
+    meta; `gang_of(pod)` gives a pod's gang code (-1 outside a gang).
+    `row_cache` (uid -> `_PodRow`, the streaming engine's assembly) keeps
+    the spec-derived pieces across cycles for pods that retry; an entry is
+    rebuilt whenever the pod object, the resource axis or the TLP
+    parameters differ, so a hit equals a cold lowering."""
     R = len(index)
     preq = np.zeros((P, R), I64)
     plimits = np.zeros((P, R), I64)
@@ -377,15 +409,30 @@ def build_pod_state(pending_pods: Sequence[Pod], P: int,
     pcreated = np.zeros(P, I64)
     pgated = np.zeros(P, bool)
     for i, pod in enumerate(pending_pods):
-        preq[i] = index.encode(pod.effective_request())
-        plimits[i] = index.encode(pod.effective_limits())
-        ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
-        for c, cont in enumerate(list(pod.init_containers)
-                                 + list(pod.containers)):
-            pcreq[i, c] = index.encode(cont.requests)
-            pcinit[i, c] = c < len(pod.init_containers)
-            pcmask[i, c] = True
-        pqos[i] = int(pod.qos_class())
+        if row_cache is not None:
+            row = row_cache.get(pod.uid)
+            if (row is None or row.pod is not pod or row.index is not index
+                    or row.tlp != tlp_prediction):
+                row = row_cache[pod.uid] = _PodRow(pod, index,
+                                                   tlp_prediction)
+            preq[i] = row.req
+            plimits[i] = row.limits
+            ppredicted[i] = row.predicted
+            nC = row.creq.shape[0]
+            pcreq[i, :nC] = row.creq
+            pcinit[i, :nC] = row.cinit
+            pcmask[i, :nC] = True
+            pqos[i] = row.qos
+        else:
+            preq[i] = index.encode(pod.effective_request())
+            plimits[i] = index.encode(pod.effective_limits())
+            ppredicted[i] = pod.tlp_predicted_cpu_millis(*tlp_prediction)
+            for c, cont in enumerate(list(pod.init_containers)
+                                     + list(pod.containers)):
+                pcreq[i, c] = index.encode(cont.requests)
+                pcinit[i, c] = c < len(pod.init_containers)
+                pcmask[i, c] = True
+            pqos[i] = int(pod.qos_class())
         ppriority[i] = pod.priority
         pns[i] = ns_in.code(pod.namespace)
         pgang[i] = gang_of(pod)

@@ -162,6 +162,22 @@ class Metrics:
                 )
                 self._set_max(f"{name}_ms_max", ms_int)
 
+    def observe_batch(self, observations) -> None:
+        """Histogram-only batch feed under ONE lock acquisition:
+        `observations` is an iterable of (name, value, items) with
+        `items` pre-sorted label tuples (as `_label_items` returns).
+        No legacy `_ms_total` mirrors — this path exists for hot
+        per-pod feeds (the lifecycle ledger's bind-time SLI fan-out)
+        where per-call lock round-trips and kwargs packing dominate,
+        and for values that are not durations at all (attempt counts)."""
+        with self._lock:
+            for name, value, items in observations:
+                key = (name, items)
+                hist = self._hists.get(key)
+                if hist is None:
+                    hist = self._hists[key] = _Histogram()
+                hist.observe(value)
+
     def get(self, name: str, **labels) -> int:
         return self._counters.get((name, _label_items(labels)), 0)
 

@@ -69,7 +69,9 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.gangs.topology",
         "scheduler_plugins_tpu_torch.gangs.elastic",
         "scheduler_plugins_tpu_torch.gangs.waves",
-        "scheduler_plugins_tpu_torch.gangs.phase"} <= set(names), names
+        "scheduler_plugins_tpu_torch.gangs.phase",
+        "scheduler_plugins_tpu_torch.obs.ledger",
+        "scheduler_plugins_tpu_torch.framework.pipeline_cycle"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -290,3 +292,28 @@ class TestDeviceDefault:
     def test_chip_smoke_refuses_without_card(self, no_cuda, capsys):
         assert chip_smoke.main() != 0
         assert '"ok"' not in capsys.readouterr().out
+
+    def test_pipelined_entry_points_raise(self, no_cuda):
+        """The pipelined slice's entry points (`PipelinedCycle`, the
+        streaming engine's refresh) default to the card too: without one
+        they raise, naming `device="cpu"`, and never fall back."""
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import (
+            PipelinedCycle,
+            Scheduler,
+        )
+        from scheduler_plugins_tpu_torch.serving import StreamingServeEngine
+
+        cluster = allocatable_scenario(4, 8)
+        engine = StreamingServeEngine().attach(cluster)
+        sched = Scheduler(load_profile(
+            {"plugins": ["NodeResourcesAllocatable"]}))
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            PipelinedCycle(sched, cluster, serve=engine)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            engine.refresh(cluster, cluster.pending_pods())
+        pipe = PipelinedCycle(sched, cluster, serve=engine, device="cpu")
+        report = pipe.tick(now=1000)
+        pipe.close()
+        assert report.bound and engine.resident_nodes.alloc.device.type == (
+            "cpu")
