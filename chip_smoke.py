@@ -125,7 +125,8 @@ Phases (any failure exits non-zero and prints no result line):
    syncs a wave counted under sync-debug "warn" (`[batch]` lines).
 14. the in-tree plugins and the batched solve's validators on
    `mixed_full` (the JAX full-roster mixed profile on `mixed_scenario(1024,
-   1024)`) and `intree_1k` (`tests/torch_intree_cases.intree_cluster`):
+   512)`) and `intree_1k` (`tests/torch_intree_cases.intree_cluster`, 512
+   pending pods; both cut from 1,024 pods since phase 21 came in):
    the parity solve, the work a step enqueues, the batched solve through
    the validator walk, two `run_cycle`s and the in-tree preemption
    script, card against CPU, 0 violations of the host oracle
@@ -212,7 +213,24 @@ Phases (any failure exits non-zero and prints no result line):
    shares; then `cycle_script` through `PipelinedCycle(stream_chunk=4)`
    equal to `run_cycle(stream_chunk=4)` on the card, every cycle. Phase
    20 launches no election kernel;
-21. the kernel table as one JSON line (times at the shapes, dtypes and
+21. the laned cycle engine (`[lanes]` lines): bench config 15 at
+   `LANE_SHAPE`'s full width (`tests/torch_lane_cases.py`: 64 deep nodes
+   and `node-hot`, 64 tenants over 8 zones, R = 12, 12,288 bound pods,
+   12,288 arrivals and departures a cycle, 16 hot bidders for 8 slots),
+   its depth cut to one warm-up, one timed and one contended cycle: the
+   serial `Scheduler.solve` and `LaneSolver` K = 4 and K = 8 fused on the
+   card every cycle, K = 4 sequential on the card and the serial solve and
+   K = 4 fused on the CPU on the timed cycle, every digest equal to the
+   card's serial solve, 0 capacity violations, 0 serial fallbacks,
+   conflicts and re-resolves on the contended cycle, the bench's line and
+   each arm's solve seconds, fence and partition ms; the same stream
+   through `LanedCycle` (K = 4, fused, `StreamingServeEngine`, async
+   bind) and `run_cycle` (`ServeEngine`) on the card, every cycle's
+   decisions and the final store equal; the lane program's work calls a
+   step at K = 1 and K = 4 (`torch.profiler`, required equal) and a K = 4
+   program under sync-debug "error". Phase 21 launches no election
+   kernel;
+22. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -279,11 +297,13 @@ CONFIG5 = dict(n_nodes=1024, n_pods=1024)
 #: the in-tree phase's problems at full width: the JAX package's
 #: full-roster mixed profile (NodeResourcesAllocatable,
 #: NodeResourceTopologyMatch, NetworkOverhead, PodTopologySpread) on
-#: `mixed_scenario(1024, 1024)`, and the in-tree roster (NodeAffinity,
+#: `mixed_scenario(1024, 512)`, and the in-tree roster (NodeAffinity,
 #: TaintToleration, PodTopologySpread, InterPodAffinity beside
-#: NodeResourcesAllocatable) on `tests/torch_intree_cases.intree_cluster`
-MIXED_FULL = dict(n_nodes=1024, n_pods=1024)
-INTREE_1K = dict(n_nodes=1024, n_pods=1024, n_bound=256)
+#: NodeResourcesAllocatable) on `tests/torch_intree_cases.intree_cluster`;
+#: their depth cut from 1,024 to 512 pending pods (every check kept) to
+#: keep the whole smoke inside its limit once the laned phase 21 came in
+MIXED_FULL = dict(n_nodes=1024, n_pods=512)
+INTREE_1K = dict(n_nodes=1024, n_pods=512, n_bound=256)
 #: pods added between the in-tree phase's two cycles, with a Namespace
 INTREE_CYCLE2_PODS = 256
 #: the roster phase's problems at full width: the whole new roster
@@ -319,6 +339,12 @@ PACKING_PROFILE_STATS = (32, 136, 15)
 PACKING_RUNS = 3
 #: pods of config 4 whose steps the profiler counts (and twice as many)
 PROFILE_PODS = 64
+#: lane steps of config 15 the profiler counts at K = 1 and K = 4 (and
+#: twice as many)
+LANE_PROFILE_STEPS = 16
+#: pods of config 15's timed cycle that K = 4 "threads" and "sequential"
+#: solve to show what the threads overlap
+LANE_THREADS_PODS = 512
 #: the flagship profile's plugins, and the live weight vector its parity
 #: solve is held to
 FLAGSHIP = ("NodeResourcesAllocatable", "Coscheduling", "CapacityScheduling")
@@ -2393,7 +2419,7 @@ def intree_preemption(device) -> None:
 
 def intree_phase(device) -> None:
     """Phase 14: the in-tree plugins and the batched solve's validators on
-    `mixed_full` and `intree_1k` at 1,024 nodes x 1,024 pods: the parity
+    `mixed_full` and `intree_1k` at 1,024 nodes x 512 pods: the parity
     solve with the work a step enqueues, two cycles, the batched solve
     through the validator branch (card == CPU everywhere, 0 oracle
     violations, no election kernel), then the preemption script."""
@@ -3954,6 +3980,218 @@ def life_phase(device) -> None:
     print(f"[life] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+def _lane_namespace(device):
+    """The port's names for `tests/torch_lane_cases.py`: snapshots, solves
+    and lane solvers on the device each arm names; `LanedCycle` on
+    `device`, and `run_cycle`, the reference it is held to, on the CPU."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import LanedCycle, run_cycle
+    from scheduler_plugins_tpu_torch.parallel.lanes import LaneSolver
+    from scheduler_plugins_tpu_torch.serving import (
+        ServeEngine,
+        StreamingServeEngine,
+    )
+
+    def serial(sched, snap, dev):
+        r = sched.solve(snap, device=dev)
+        return tuple(x.cpu().numpy() for x in (r.assignment, r.admitted,
+                                               r.wait))
+
+    return SimpleNamespace(
+        **vars(_port_namespace()),
+        snapshot=lambda c, pending, now, dev: c.snapshot(
+            pending, now_ms=now, device=dev),
+        serial=serial,
+        LaneSolver=lambda s, k, part, disp, dev: LaneSolver(
+            s, k=k, partition=part, dispatch=disp, device=dev),
+        Engine=ServeEngine, StreamingEngine=StreamingServeEngine,
+        Laned=lambda s, c, e: LanedCycle(s, c, k=4, dispatch="fused",
+                                         serve=e, async_bind=True,
+                                         device=device),
+        run=lambda s, c, now, e: run_cycle(s, c, now=now, serve=e,
+                                           device=torch.device("cpu")),
+    )
+
+
+def lane_work_per_step(device, sched, snap) -> dict:
+    """What a fused lane step puts on the card at K = 1 and K = 4, from
+    `torch.profiler`: the lane program on `snap` (config 15's timed cycle,
+    its full width) at L = LANE_PROFILE_STEPS and twice that, the
+    difference divided by the steps (as `launches_per_step` does for the
+    parity step); the two must be equal. Then one K = 4 program under
+    sync-debug "error": a lane step reads nothing on the host."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.device import to_device
+    from scheduler_plugins_tpu_torch.parallel.lanes import lane_solve
+
+    t0 = time.perf_counter()
+    plugins = tuple(sched.profile.plugins)
+    state0 = sched.initial_state(snap)
+    auxes = tuple(p.aux() for p in plugins)
+
+    def inputs(k, steps):
+        idx = np.arange(k * steps).reshape(k, steps)
+        return (to_device(idx, device),
+                to_device(np.ones(idx.shape, bool), device))
+
+    out = {}
+    for k in (1, 4):
+        counts = {}
+        for steps in (LANE_PROFILE_STEPS, 2 * LANE_PROFILE_STEPS):
+            idx, live = inputs(k, steps)
+            counts[steps] = profiled_work(
+                lambda: lane_solve(plugins, snap, state0, auxes, idx, live),
+                device)[:3]
+        (e1, w1, us1), (e2, w2, us2) = (
+            counts[LANE_PROFILE_STEPS], counts[2 * LANE_PROFILE_STEPS])
+        work = {name: (w2[name] - w1[name]) / LANE_PROFILE_STEPS
+                for name in sorted(w1 | w2)}
+        out[k] = {"work": sum(work.values()),
+                  "events": (e2 - e1) / LANE_PROFILE_STEPS,
+                  "device_us": (us2 - us1) / LANE_PROFILE_STEPS}
+        print(f"[lanes] k={k} work_calls_per_step={out[k]['work']} {work} "
+              f"device_events_per_step={out[k]['events']} "
+              f"device_us_per_step={out[k]['device_us']} (work calls "
+              f"{sum(w1.values())} / {sum(w2.values())} for "
+              f"{LANE_PROFILE_STEPS} / {2 * LANE_PROFILE_STEPS} steps)",
+              flush=True)
+    idx, live = inputs(4, LANE_PROFILE_STEPS)
+    _sync(device)
+    t1 = time.perf_counter()
+    with sync_errors(device):
+        lane_solve(plugins, snap, state0, auxes, idx, live)
+    _sync(device)
+    print(f"[lanes] sync_debug_error k=4 steps={LANE_PROFILE_STEPS} "
+          f"s={time.perf_counter() - t1} host_reads=0 "
+          f"profile_s={time.perf_counter() - t0}", flush=True)
+    if out[4]["work"] != out[1]["work"]:
+        raise AssertionError(f"a K = 4 lane step enqueues {out[4]['work']} "
+                             f"work calls, a K = 1 step {out[1]['work']}")
+    return out
+
+
+def lane_threads_overlap(device, ns, lc, sched, pending, cluster,
+                         now) -> None:
+    """What `dispatch="threads"` overlaps on the card, where its K worker
+    threads share one stream: K = 4 "sequential" and "threads" on the
+    first LANE_THREADS_PODS pods of config 15's timed cycle (full width,
+    depth cut: at the whole cycle the threaded arm alone takes about 47
+    s), each digest equal to the card's serial solve of the same pods.
+    Prints each arm's lanes' summed wall over its wall (1.0 = one after
+    another, K = all at once) and the sequential wall over the threaded
+    one (the gain)."""
+    sub = pending[:LANE_THREADS_PODS]
+    snap, meta = ns.snapshot(cluster, sub, now, device)
+    sched.prepare(meta, cluster)
+    want = lc.digest(*ns.serial(sched, snap, device), len(sub))
+    walls = {}
+    for dispatch in ("sequential", "threads"):
+        solver = ns.LaneSolver(sched, 4, "namespace", dispatch, device)
+        t0 = time.perf_counter()
+        a, ok, w, _, st = solver.solve(snap, sub, cluster, meta=meta)
+        walls[dispatch] = wall_ms = (time.perf_counter() - t0) * 1000.0
+        solver.close()
+        got = lc.digest(a, ok, w, len(sub))
+        print(f"[lanes] overlap dispatch={dispatch} pods={len(sub)} "
+              f"path={st.path} sizes={st.sizes} lane_ms={st.lane_ms} "
+              f"lane_ms_sum={sum(st.lane_ms)} wall_ms={wall_ms} "
+              f"concurrency={sum(st.lane_ms) / wall_ms} "
+              f"digest_equal={got == want}", flush=True)
+        if got != want or st.path != "laned":
+            raise AssertionError(f"K = 4 {dispatch} on {len(sub)} pods: "
+                                 f"digest {got} != serial {want}, path "
+                                 f"{st.path}")
+    print(f"[lanes] overlap sequential_over_threads="
+          f"{walls['sequential'] / walls['threads']}", flush=True)
+
+
+def lanes_phase(device) -> None:
+    """Phase 21: bench config 15 at `LANE_SHAPE`'s full width, its depth
+    cut to one warm-up, one timed and one contended cycle
+    (`torch_lane_cases.LANE_CARD_SHAPE`): every cycle the serial
+    `Scheduler.solve` on the CPU (the reference) and `LaneSolver` K = 4
+    and K = 8 fused on the card; on the timed and contended cycles the
+    serial solve on the card; on the timed cycle K = 4 sequential on the
+    card and K = 4 fused on the CPU, and K = 4 threads against
+    sequential on a cut of it (`lane_threads_overlap`). Gates: every
+    arm's digest equal to the CPU's serial solve on every cycle it runs,
+    0 capacity violations, 0 serial fallbacks, conflicts and re-resolves
+    on the contended cycle. Then the same stream through
+    `LanedCycle(k=4, "fused", StreamingServeEngine, async_bind)` on the
+    card and `run_cycle(ServeEngine)` on the CPU, every cycle's bound,
+    reserved, failed and failed_by and the final store equal; the lane
+    program's work calls a step at K = 1 and K = 4. No election kernel
+    is launched."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    _tests_on_path()
+    import torch_lane_cases as lc
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    shape = lc.LANE_CARD_SHAPE
+    pk.reset_launches()
+    ns = _lane_namespace(device)
+    arms = [("serial_cpu", 0, None, cpu, None),
+            ("serial", 0, None, device, ("timed", "contended")),
+            ("fused4", 4, "fused", device, None),
+            ("fused8", 8, "fused", device, None),
+            ("seq4", 4, "sequential", device, ("timed",)),
+            ("fused4_cpu", 4, "fused", cpu, ("timed",))]
+
+    def probe(scheds, views, pending, cluster, now):
+        lane_work_per_step(device, scheds[device], views[device][0])
+        lane_threads_overlap(device, ns, lc, scheds[device], pending,
+                             cluster, now)
+
+    line = lc.lane_scaling(ns, shape, arms, probe=probe)
+    keys = ("lane_ratio", "lane_ratio_full", "lane_ratio_wall",
+            "digests_match", "conflicts", "re_resolved", "serial_fallbacks",
+            "capacity_violations")
+    print("[lanes] " + " ".join(f"{k}={line[k]}" for k in keys)
+          + f" curve={json.dumps(line['lanes']['curve'])}", flush=True)
+    for name, arm in line["arms"].items():
+        for rec in arm["cycles"]:
+            print(f"[lanes] arm={name} cycle={rec['cycle']} "
+                  f"solve_s={rec['wall_s']} path={rec.get('path')} "
+                  f"sizes={rec.get('sizes')} fence_ms={rec.get('fence_ms')} "
+                  f"partition_ms={rec.get('partition_ms')} "
+                  f"lane_ms={rec.get('lane_ms')} "
+                  f"conflicts={rec.get('conflicts')} "
+                  f"re_resolved={rec.get('re_resolved')}", flush=True)
+    print(f"[lanes] scaling_s={time.perf_counter() - t_phase}", flush=True)
+    bad = [k for k in ("digests_match",) if not line[k]]
+    bad += [k for k in ("capacity_violations", "serial_fallbacks")
+            if line[k]]
+    bad += [k for k in ("conflicts", "re_resolved") if not line[k] > 0]
+
+    t0 = time.perf_counter()
+    got, got_final, got_walls = lc.lane_engine_run(ns, shape, True)
+    want, want_final, want_walls = lc.lane_engine_run(ns, shape, False)
+    same = [g[:4] == w[:4] for g, w in zip(got, want)]
+    print(f"[lanes] engine cycles={len(got)} identical={same} "
+          f"final_store_equal={got_final == want_final} "
+          f"laned_cycle_s={got_walls} run_cycle_s={want_walls} "
+          f"bound={[len(g[0]) for g in got]} "
+          f"conflicts={[sum(g[4]['conflicts']) for g in got]} "
+          f"engine_s={time.perf_counter() - t0}", flush=True)
+    if not all(same):
+        bad.append(f"engine cycles {[k for k, s in enumerate(same) if not s]}")
+    if got_final != want_final:
+        bad.append("engine final store")
+    print(f"[lanes] gates failed={bad}", flush=True)
+    if bad:
+        raise AssertionError(f"config 15: {bad}")
+    no_election_launches("lanes", "lanes_phase", pk.launches())
+    print(f"[lanes] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -4155,9 +4393,14 @@ def main() -> int:
 
     phase_done(20)
 
-    # 21. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 21. the laned cycle engine: bench config 15
+    lanes_phase(device)
+
     phase_done(21)
+
+    # 22. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(22)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

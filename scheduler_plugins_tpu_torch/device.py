@@ -3,6 +3,7 @@ entry points."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -31,6 +32,16 @@ def map_tensors(fn, tree):
     if isinstance(tree, dict):
         return {k: map_tensors(fn, v) for k, v in tree.items()}
     return tree
+
+
+def to_device(array, device, dtype=None) -> torch.Tensor:
+    """A copy of the host array `array` (as `dtype` when given) on
+    `device`, staged through pinned memory and non-blocking on the card,
+    so the caller never waits for it."""
+    t = torch.tensor(np.ascontiguousarray(array), dtype=dtype)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def start_fetch(result, device):

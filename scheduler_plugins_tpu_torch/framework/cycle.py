@@ -155,6 +155,12 @@ class CycleReport:
     #: max_cost, sum_cost}; empty without a gang phase or when no
     #: rank-aware gang had pending members
     rank_gangs: dict = field(default_factory=dict)
+    #: lane attribution when the cycle ran under the K-lane engine
+    #: (`framework.laned_cycle.LanedCycle`): k, path ("laned" / "serial"
+    #: fallback), per-lane sizes / committed / conflicts, the re-resolve
+    #: count and the solve / fence wall ms (`LaneStats.as_dict`); None for
+    #: every other engine
+    lanes: Optional[dict] = None
 
     def explain(self, uid: str, top_k: int = 5) -> dict:
         """The "why this node" table for one pod of THIS cycle's pending

@@ -34,6 +34,7 @@ from scheduler_plugins_tpu_torch.device import (
     finish_fetch,
     resolve_device,
     start_fetch,
+    to_device,
 )
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
 from scheduler_plugins_tpu_torch.ops.numa import live_avail_init
@@ -47,6 +48,7 @@ from scheduler_plugins_tpu_torch.ops.fit import (
 from scheduler_plugins_tpu_torch.ops.packing import pack_aux_vector
 from scheduler_plugins_tpu_torch.parallel.solver import packing_profile_solve
 from scheduler_plugins_tpu_torch.utils import observability as obs
+from scheduler_plugins_tpu_torch.utils.intmath import add_rows
 
 #: attribution name for failures owned by the framework, not a profile
 #: plugin: scheduling gates and resource-fit exhaustion (the upstream
@@ -298,11 +300,9 @@ def run_explain_rows(scheduler, snap, indices, auxes, explain_fn, device):
             "columns": np.zeros((0, L, N), np.int64),
             "total": np.zeros((0, N), np.int64),
         }
-    rows = torch.tensor(idx, dtype=torch.int64)
-    if device.type == "cuda":
-        # pinned and non-blocking: the call never waits on the card
-        # before its one fetch
-        rows = rows.pin_memory().to(device, non_blocking=True)
+    # pinned and non-blocking: the call never waits on the card before its
+    # one fetch
+    rows = to_device(idx, device, torch.int64)
     with bound_auxes(plugins, auxes):
         for plugin in plugins:
             plugin.bind_presolve(plugin.prepare_solve(snap))
@@ -367,8 +367,8 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     # built-in Reserve: commit capacity
     placed = choice >= 0
     demand = torch.where(placed[:, None], pod_fit_demand(req)[None, :], 0)
-    state = state.replace(free=torch.index_add(
-        state.free, 0, torch.clamp(choice, min=0).long(), -demand
+    state = state.replace(free=add_rows(
+        state.free, torch.clamp(choice, min=0).long(), -demand
     ))
     if state.placed_mask is not None:
         state = state.replace(placed_mask=torch.slice_scatter(

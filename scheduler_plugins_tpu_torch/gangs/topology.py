@@ -49,7 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from scheduler_plugins_tpu_torch.device import resolve_device
+from scheduler_plugins_tpu_torch.device import resolve_device, to_device
 from scheduler_plugins_tpu_torch.ops.network import MAX_COST, SAME_ZONE_COST
 
 I64 = np.int64
@@ -84,11 +84,9 @@ def _tensor(x, dtype, device):
     """`x` (a numpy array or a tensor) as a `dtype` tensor on `device`; a
     host array goes to the card pinned and non-blocking, so staging never
     waits for it."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    if x.device.type == "cpu" and device.type == "cuda":
-        return x.to(dtype).pin_memory().to(device, non_blocking=True)
-    return x.to(device=device, dtype=dtype)
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return x.to(device=device, dtype=dtype)
+    return to_device(x, device, dtype)
 
 
 @dataclass

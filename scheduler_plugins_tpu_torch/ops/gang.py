@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from scheduler_plugins_tpu_torch.utils.intmath import add_rows
+
 
 def cluster_free_total(free: torch.Tensor) -> torch.Tensor:
     """(R,) whole-cluster leftover: raw per-node sums, negatives included."""
@@ -45,8 +47,8 @@ def gang_commit(gang_scheduled: torch.Tensor, gang_id: torch.Tensor,
     """Count in-cycle placements toward their gangs' quorum (`gang_id` and
     `placed` of one shape; a new tensor is returned)."""
     add = (placed & (gang_id >= 0)).to(gang_scheduled.dtype)
-    return torch.index_add(
-        gang_scheduled, 0, torch.clamp(gang_id, min=0).long().reshape(-1),
+    return add_rows(
+        gang_scheduled, torch.clamp(gang_id, min=0).long().reshape(-1),
         add.reshape(-1),
     )
 
@@ -57,7 +59,7 @@ def gang_inflight_commit(gang_inflight: torch.Tensor, gang_id: torch.Tensor,
     """Fold placed members' demand (`demand` (..., R) beside `gang_id`
     (...)) into their gangs' in-cycle add-back."""
     add = torch.where((placed & (gang_id >= 0))[..., None], demand, 0)
-    return torch.index_add(
-        gang_inflight, 0, torch.clamp(gang_id, min=0).long().reshape(-1),
+    return add_rows(
+        gang_inflight, torch.clamp(gang_id, min=0).long().reshape(-1),
         add.reshape(-1, gang_inflight.shape[1]),
     )

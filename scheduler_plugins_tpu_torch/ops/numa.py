@@ -40,6 +40,7 @@ from scheduler_plugins_tpu_torch.api.resources import (
     MEMORY,
     ResourceIndex,
 )
+from scheduler_plugins_tpu_torch.device import to_device
 from scheduler_plugins_tpu_torch.ops import MAX_NODE_SCORE
 from scheduler_plugins_tpu_torch.utils.intmath import (
     floordiv_exact,
@@ -125,10 +126,7 @@ def subset_masks(Z: int):
 def subset_tensors(Z: int, device: torch.device):
     """`subset_masks(Z)` on `device`, made once per (Z, device); to the
     card through pinned memory without waiting for it."""
-    out = tuple(torch.as_tensor(a) for a in subset_masks(Z))
-    if device.type == "cuda":
-        out = tuple(t.pin_memory().to(device, non_blocking=True) for t in out)
-    return out
+    return tuple(to_device(a, device) for a in subset_masks(Z))
 
 
 # ---------------------------------------------------------------------------

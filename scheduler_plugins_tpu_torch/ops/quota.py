@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from scheduler_plugins_tpu_torch.utils.intmath import add_rows
+
 
 def quota_admit(eq_used, eq_min, eq_max, has_quota, ns, req,
                 nominated_in_eq=None, nominated_total=None):
@@ -43,9 +45,8 @@ def quota_commit(eq_used, has_quota, ns, req, placed):
     `placed` of one shape, `req` that shape + (R,); returns a new tensor."""
     ns = ns.long()
     add = torch.where((placed & has_quota[ns])[..., None], req, 0)
-    return torch.index_add(
-        eq_used, 0, ns.reshape(-1), add.reshape(-1, eq_used.shape[1])
-    )
+    return add_rows(eq_used, ns.reshape(-1),
+                    add.reshape(-1, eq_used.shape[1]))
 
 
 def nominee_contribution(same_namespace: bool, nominee_priority: int,

@@ -107,3 +107,16 @@ def bucket_size(n: int, minimum: int = 8) -> int:
     if n <= size:
         return size
     return ((n + 1023) // 1024) * 1024
+
+
+def add_rows(target: torch.Tensor, index: torch.Tensor,
+             src: torch.Tensor) -> torch.Tensor:
+    """`torch.index_add(target, 0, index, src)` as a new tensor: `src`'s
+    rows added into `target`'s rows `index` ((M,) int64), duplicates
+    accumulating. Written as one `scatter_add` because under
+    `torch.func.vmap` (the lane solve, `parallel.lanes`) `index_add`'s
+    batching rule loops over the batch, one kernel a lane, while
+    `scatter_add`'s is one op. Exact for integer dtypes in any order."""
+    if target.dim() > 1:
+        index = index[:, None].expand(-1, *target.shape[1:])
+    return torch.scatter_add(target, 0, index, src)

@@ -71,7 +71,9 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.gangs.waves",
         "scheduler_plugins_tpu_torch.gangs.phase",
         "scheduler_plugins_tpu_torch.obs.ledger",
-        "scheduler_plugins_tpu_torch.framework.pipeline_cycle"} <= set(names), names
+        "scheduler_plugins_tpu_torch.framework.pipeline_cycle",
+        "scheduler_plugins_tpu_torch.parallel.lanes",
+        "scheduler_plugins_tpu_torch.framework.laned_cycle"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -317,3 +319,26 @@ class TestDeviceDefault:
         pipe.close()
         assert report.bound and engine.resident_nodes.alloc.device.type == (
             "cpu")
+
+    def test_laned_entry_points_raise(self, no_cuda):
+        """The K-lane slice's entry points (`LaneSolver`, `LanedCycle`)
+        default to the card too: without one they raise, naming
+        `device="cpu"`, and never fall back."""
+        from scheduler_plugins_tpu_torch.api.config import load_profile
+        from scheduler_plugins_tpu_torch.framework import (
+            LanedCycle,
+            Scheduler,
+        )
+        from scheduler_plugins_tpu_torch.parallel.lanes import LaneSolver
+
+        cluster = allocatable_scenario(4, 8)
+        sched = Scheduler(load_profile(
+            {"plugins": ["NodeResourcesAllocatable"]}))
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            LaneSolver(sched, k=2)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            LanedCycle(sched, cluster, k=2)
+        laned = LanedCycle(sched, cluster, k=2, device="cpu")
+        report = laned.tick(now=1000)
+        laned.close()
+        assert report.bound and report.lanes["k"] == 2
