@@ -230,7 +230,36 @@ Phases (any failure exits non-zero and prints no result line):
    step at K = 1 and K = 4 (`torch.profiler`, required equal) and a K = 4
    program under sync-debug "error". Phase 21 launches no election
    kernel;
-22. the kernel table as one JSON line (times at the shapes, dtypes and
+22. the flight recorder and the debug modes (`[record]`, `[golden]`,
+   `[sanitize]`, `[race]`, `[record_off]` lines): (a) the recorder on
+   (capacity 16) through the flagship `run_cycle` sequential
+   (`allocatable_scenario(256, 128)`) and streamed (1,024 x 1,024, chunks
+   of 256), config 7's first four served cycles at `SERVING_SHAPE`, a
+   packing-profile cycle (config 13's profile on `packing_scenario(16,
+   0.92, 0.05)`), a config-10 gang cycle (`RANK_GANG_SHAPE`), three ticks
+   of `PipelinedCycle` and of `LanedCycle` (K = 4) on a 256-node churn
+   cut; the bundle saved, loaded and every record replayed on the card and
+   on the CPU (digest intact, profile faithful, aux equal, a sequential
+   record's placements equal, card == CPU), the gang capture through the
+   numpy twin, the same cycles recorded on the CPU with the same digests;
+   the record and save times and nine interleaved recorder-off / on pairs
+   of a config-7 served cycle (no gate); (b) the JAX package's committed
+   bundle (`tests/fixtures/flightrec`) replayed on the card with its
+   failure attribution and a valid explain table; (c) under
+   `SPT_SANITIZE=1` the flagship streamed cycle, config 4's
+   `profile_batch_solve`, a served refresh and the north star cut to
+   2,048 nodes x 8,192 pods in S = 8 blocks through `sharded_wave_solve`
+   (the three kernels launched), each equal to the unchecked call with
+   checked calls and no error, then an out-of-range `add_rows` index
+   reported `out-of-bounds` with the card still working; (d) under
+   `SPT_RACE=1` the race composite (`tests/torch_race_cases.py`: a
+   256-node churn cut through `PipelinedCycle` with the watchdog, a
+   planted hang and the pod-lifecycle ledger) with three seeds and once
+   without the checker: no violation, each checked run with wrapped
+   locks and Events and at least one lock-order edge, identical
+   decisions; (e) a served `run_cycle` with the
+   recorder off, its hook stages under sync-debug "error";
+23. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -782,15 +811,63 @@ def parity_drive(label: str, cluster, device,
 WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
 
 
+def profile_records(prof) -> list:
+    """Every record `prof` (a finished `torch.profiler.profile`) took, as
+    (name, on_device, start_ns, end_ns, thread), read from the
+    profiler's raw results. `prof.events()` and `key_averages()` first
+    build torch's Python event tree, most of the profiled phases' time on
+    the card: for one 128-pod parity solve's 107,063 records 13.6 s
+    against 0.87 s for these tuples and `host_self_us`
+    (`tools/profiler_cost.py`)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns(),
+             e.end_ns(), e.start_thread_id())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def host_self_us(records) -> dict:
+    """{name: [calls, self µs]} of the host records, as torch's
+    `key_averages` gives them: a record's self time is its span less its
+    direct children's on the same thread (a child lies inside its
+    parent's span), and the only child of a record of the same name is
+    counted with it, not as a call of its own."""
+    from collections import defaultdict
+
+    threads = defaultdict(list)
+    for name, on_device, t0, t1, tid in records:
+        if not on_device:
+            threads[tid].append((t0, t1, name))
+    out = defaultdict(lambda: [0, 0])
+    for recs in threads.values():
+        recs.sort(key=lambda r: (r[0], -r[1]))
+        parent, children, stack = [], [0] * len(recs), []
+        for i, (t0, t1, _) in enumerate(recs):
+            while stack and (t0 >= recs[stack[-1]][1]
+                             or t1 > recs[stack[-1]][1]):
+                stack.pop()
+            parent.append(stack[-1] if stack else -1)
+            if stack:
+                children[stack[-1]] += 1
+            stack.append(i)
+        for i, (t0, t1, name) in enumerate(recs):
+            row, up = out[name], parent[i]
+            row[1] += t1 - t0
+            if up >= 0:
+                out[recs[up][2]][1] -= t1 - t0
+            if not (up >= 0 and recs[up][2] == name and children[up] == 1):
+                row[0] += 1
+    return {name: [calls, ns / 1e3] for name, (calls, ns) in out.items()}
+
+
 def profiled_work(run, device) -> tuple:
     """`run()` once to warm, then once under `torch.profiler`: (device
     records, the host calls that enqueue device work by name (names
-    matching WORK_CALLS), device microseconds, the profile). The host
-    calls are exact; the device records come back through CUPTI's device
-    buffers, which may drop some."""
+    matching WORK_CALLS), device microseconds, every record
+    (`profile_records`)). The host calls are exact; the device records
+    come back through CUPTI's device buffers, which may drop some."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -799,13 +876,13 @@ def profiled_work(run, device) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         run()
         _sync(device)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    work = Counter(e.name for e in prof.events()
-                   if e.device_type == DeviceType.CPU
-                   and e.name.startswith("cu")
-                   and any(w in e.name for w in WORK_CALLS))
+    records = profile_records(prof)
+    kernels = [r for r in records if r[1]]
+    work = Counter(r[0] for r in records
+                   if not r[1] and r[0].startswith("cu")
+                   and any(w in r[0] for w in WORK_CALLS))
     return (len(kernels), work,
-            sum(e.time_range.elapsed_us() for e in kernels), prof)
+            sum(t1 - t0 for _, _, t0, t1, _ in kernels) / 1e3, records)
 
 
 def launches_per_step(cluster, device, live_weights=None,
@@ -832,7 +909,7 @@ def launches_per_step(cluster, device, live_weights=None,
         snap, meta = cluster.snapshot(pending[:n], now_ms=0, device=device,
                                       pad_pods=n)
         sched.prepare(meta, cluster)
-        events, work, device_us, prof = profiled_work(
+        events, work, device_us, records = profiled_work(
             lambda: sched.solve(snap, device=device), device)
         counts[n] = (events, work, device_us)
     (k1, w1, us1), (k2, w2, us2) = counts[PROFILE_PODS], counts[2 * PROFILE_PODS]
@@ -851,15 +928,15 @@ def launches_per_step(cluster, device, live_weights=None,
     )
     # where the host's time goes: self CPU time by op in the longer run,
     # per pod (the profiler's own cost included)
-    ops = prof.key_averages()
+    ops = host_self_us(records)
     n = 2 * PROFILE_PODS
-    top = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:12]
     print(
         f"[parity] {label}host_us_per_step="
-        f"{sum(a.self_cpu_time_total for a in ops) / n} top ops (calls, "
+        f"{sum(us for _, us in ops.values()) / n} top ops (calls, "
         f"self CPU us per step): " + ", ".join(
-            f"{a.key} {a.count / n:.2f} {a.self_cpu_time_total / n:.2f}"
-            for a in top),
+            f"{name} {calls / n:.2f} {us / n:.2f}"
+            for name, (calls, us) in top),
         flush=True,
     )
     return out
@@ -2144,7 +2221,6 @@ def validator_walk(make_scheduler, cluster, device) -> float:
     inside those ranges, over the rows the walks visited, are the
     validators' and the selector commits' a row. (Profiling the whole
     solve would cost more host time than it measures.)"""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from scheduler_plugins_tpu_torch.parallel.solver import (
@@ -2163,13 +2239,13 @@ def validator_walk(make_scheduler, cluster, device) -> float:
         stats = profile_batch_solve(sched, snap, max_waves=2,
                                     collect_stats=True, device=device)[3]
         _sync(device)
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    walks = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == "validate_wave"]
+    events = [r for r in profile_records(prof) if not r[1]]
+    walks = [(t0, t1) for name, _, t0, t1, _ in events
+             if name == "validate_wave"]
     launches = sum(
-        1 for e in events
-        if e.name.startswith("cu") and "LaunchKernel" in e.name
-        and any(lo <= e.time_range.start <= hi for lo, hi in walks))
+        1 for name, _, t0, _, _ in events
+        if name.startswith("cu") and "LaunchKernel" in name
+        and any(lo <= t0 <= hi for lo, hi in walks))
     return launches / max(sum(rows for rows, _ in stats["walk"]), 1)
 
 
@@ -4192,6 +4268,575 @@ def lanes_phase(device) -> None:
     print(f"[lanes] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the flight recorder and the debug modes
+# ---------------------------------------------------------------------------
+
+#: the recorder's ring in phase 22: every recorded cycle of (a) fits
+RECORD_CAPACITY = 16
+#: phase 22 (a)'s cuts, each small enough that every record replays
+#: through the sequential parity solve on the card and on the CPU: the
+#: flagship cycle sequential and streamed, config 7 at SERVING_SHAPE's
+#: width for four served cycles, the packing profile of config 13 on a
+#: 16-node cut of its scenario, config 10 uncut, and three ticks of
+#: `PipelinedCycle` and of `LanedCycle` (K = 4) on a 256-node churn cut
+RECORD_SEQ = dict(n_nodes=256, n_pods=128)
+RECORD_STREAM = dict(n_nodes=1024, n_pods=1024, stream_chunk=256)
+RECORD_SERVED_CYCLES = 4
+RECORD_PACKING = dict(n_nodes=16, demand_frac=0.92, empty_frac=0.05)
+RECORD_ENGINE = dict(n_nodes=256, prefill=2048, ticks=3, lanes=4,
+                     lam_arrive=32, lam_depart=16, node_add_every=0,
+                     node_remove_every=0)
+#: interleaved recorder-off / recorder-on pairs of a config-7 served cycle
+RECORD_PAIRS = 9
+#: phase 22 (c)'s cuts: the flagship streamed cycle, config 4's batched
+#: solve, and the north star cut to 2,048 nodes and 8,192 pods in S = 8
+#: rank blocks
+SANITIZE_STREAM = dict(n_nodes=1024, n_pods=4096, stream_chunk=1024)
+SANITIZE_WAVE = dict(n_nodes=2048, n_pods=8192, chunk=1024)
+
+
+def _record_namespace(device):
+    """The port's names for the churn helpers and both cycle engines on
+    `device`."""
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.framework import (
+        LanedCycle,
+        PipelinedCycle,
+    )
+    from scheduler_plugins_tpu_torch.serving import StreamingServeEngine
+
+    return SimpleNamespace(**{
+        **vars(_life_namespace(device)), **vars(_gang_namespace(device)),
+        "StreamingEngine": StreamingServeEngine,
+        "Pipelined": lambda s, c, e: PipelinedCycle(s, c, serve=e,
+                                                    device=device),
+        "Laned": lambda s, c: LanedCycle(s, c, k=RECORD_ENGINE["lanes"],
+                                         async_bind=True, device=device),
+        "PipelinedResilient": lambda s, c, e, rz: PipelinedCycle(
+            s, c, serve=e, resilience=rz, device=device),
+    })
+
+
+def record_paths(device) -> dict:
+    """Every recorded path of phase 22 (a) on `device` with the recorder
+    on: the flagship cycle sequential and streamed, config 7's served
+    cycles, a packing-profile cycle, a config-10 gang cycle, three ticks
+    each of `PipelinedCycle` and `LanedCycle`. Returns the records (the
+    recorder's ring, in order), each path's label per record, the config-7
+    cluster and engine (for the on / off pairs) and the gang phase."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.models import (
+        allocatable_scenario,
+        packing_scenario,
+    )
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+    from scheduler_plugins_tpu_torch.utils import flightrec
+
+    import torch_churn_cases as churn
+    import torch_gang_cases as gcases
+
+    recorder = flightrec.recorder
+    recorder.start(capacity=RECORD_CAPACITY)
+    labels = []
+
+    def mark(label):
+        labels.extend([label] * (len(recorder.records()) - len(labels)))
+
+    run_cycle(flagship_scheduler(), allocatable_scenario(
+        RECORD_SEQ["n_nodes"], RECORD_SEQ["n_pods"]), now=1000,
+        device=device)
+    mark("sequential")
+    run_cycle(flagship_scheduler(), allocatable_scenario(
+        RECORD_STREAM["n_nodes"], RECORD_STREAM["n_pods"]), now=1000,
+        stream_chunk=RECORD_STREAM["stream_chunk"], device=device)
+    mark("streamed")
+
+    pkg = _record_namespace(device)
+    shape = churn.SERVING_SHAPE
+    served = churn.churn_cluster(pkg, shape["n_nodes"], shape["prefill"])
+    engine = ServeEngine().attach(served)
+    served_sched = Scheduler(load_profile(churn.CHURN_PROFILE))
+    rng = np.random.default_rng(1)
+    serial = 0
+    for cycle in range(RECORD_SERVED_CYCLES):
+        now = 1000 * (cycle + 1)
+        serial = churn.churn_events(pkg, served, rng, shape, cycle, now,
+                                    serial)
+        run_cycle(served_sched, served, now=now, serve=engine,
+                  device=device)
+    mark("served")
+
+    cluster, _, _, _ = packing_scenario(**RECORD_PACKING, device=device)
+    run_cycle(Scheduler(load_profile(PACKING_PROFILE)), cluster, now=1000,
+              device=device)
+    mark("packing")
+
+    gang_cluster = pkg.rank_gang_scenario(seed=0, **gcases.RANK_GANG_SHAPE)
+    phase = pkg.GangPhase()
+    run_cycle(pkg.Scheduler(gcases.flagship_profile(pkg)), gang_cluster,
+              now=gcases.GANG_CYCLE_MS, gangs=phase, device=device)
+    mark("gangs")
+
+    cfg = RECORD_ENGINE
+    for label in ("pipelined", "laned"):
+        cluster = churn.churn_cluster(pkg, cfg["n_nodes"], cfg["prefill"])
+        sched = Scheduler(load_profile(churn.CHURN_PROFILE))
+        eng = (pkg.Pipelined(sched, cluster,
+                             pkg.StreamingEngine().attach(cluster))
+               if label == "pipelined" else pkg.Laned(sched, cluster))
+        rng = np.random.default_rng(2)
+        serial = 0
+        for tick in range(cfg["ticks"]):
+            now = 1000 * (tick + 1)
+            serial = churn.churn_events(pkg, cluster, rng, cfg, tick, now,
+                                        serial)
+            eng.tick(now)
+        eng.close()
+        mark(label)
+    recs = recorder.records()
+    recorder.stop()
+    return {"records": recs, "labels": labels, "served": served,
+            "engine": engine, "sched": served_sched, "rng": rng,
+            "serial": serial, "gang_phase": phase}
+
+
+def record_phase(device) -> None:
+    """Phase 22 (a): record every path on the card; save, load and replay
+    every saved record on the card and on the CPU (digest intact, profile
+    faithful, aux equal, a sequential record's placements equal, card ==
+    CPU); the gang record's capture replayed through the numpy twin; the
+    same cycles recorded on the CPU give the same digests; the record and
+    save times and the recorder's on / off cost on a served cycle
+    (`[record]` lines)."""
+    import numpy as np
+
+    import tempfile
+
+    import torch
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.gangs.topology import (
+        RankGangState,
+        gang_solve_np,
+    )
+    from scheduler_plugins_tpu_torch.utils import flightrec
+
+    import torch_churn_cases as churn
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card = record_paths(device)
+    record_s = time.perf_counter() - t0
+    recs = card["records"]
+    bundle = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    summary = flightrec.recorder.save(bundle.name)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = record_paths(cpu)
+    host_s = time.perf_counter() - t0
+    digests = [r.to_manifest()["digest"] for r in recs]
+    host_digests = [r.to_manifest()["digest"] for r in host["records"]]
+    print(f"[record] paths={sorted(set(card['labels']))} "
+          f"records={len(recs)} card_s={record_s} cpu_s={host_s} "
+          f"card_cpu_digests_equal={digests == host_digests}", flush=True)
+    for label, rec in zip(card["labels"], recs):
+        print(f"[record] {label} cycle={rec.seq} complete={rec.complete} "
+              f"blobs={len(rec.blobs)} capture_ms={rec.capture_s * 1e3} "
+              f"mode={(rec.manifest.get('outputs') or {}).get('mode')}",
+              flush=True)
+    if len(recs) != len(card["labels"]) or len(recs) >= RECORD_CAPACITY:
+        raise AssertionError(f"recorder ring: {len(recs)} records")
+    if not all(r.complete for r in recs):
+        raise AssertionError("an incomplete record")
+    if digests != host_digests:
+        raise AssertionError("card and CPU records differ")
+
+    # the gang cycle's capture replays through the numpy twin
+    gang = [r for r, l in zip(recs, card["labels"]) if l == "gangs"]
+    cap = flightrec.unpack_pytree(gang[-1].manifest["rank_gangs"],
+                                  gang[-1].blobs)
+    twin = gang_solve_np(RankGangState(**cap["gangs"]), cap["free0"],
+                         cap["eq_used0"], cap["node_mask"])
+    gang_ok = ((twin[0] == cap["rank_nodes"]).all()
+               and (twin[1] == cap["admitted"]).all())
+    print(f"[record] gang capture ranks={int(cap['rank_nodes'].size)} "
+          f"twin_equal={bool(gang_ok)}", flush=True)
+    if not gang_ok:
+        raise AssertionError("the gang record does not replay")
+
+    with bundle as tmp:
+        size = sum(p.stat().st_size for p in Path(tmp).rglob("*")
+                   if p.is_file())
+        print(f"[record] save_s={save_s} bytes={size} "
+              f"summary={json.dumps(summary)}", flush=True)
+        loaded = flightrec.load_bundle(tmp)
+        saved = [r for r in recs if r.manifest.get("snapshot")]
+        if [lc.manifest["digest"] for lc in loaded] != [
+                r.to_manifest()["digest"] for r in saved]:
+            raise AssertionError("the bundle's manifest differs")
+        for lc in loaded:
+            t0 = time.perf_counter()
+            on_card = flightrec.replay_cycle(lc, device=device)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_cpu = flightrec.replay_cycle(lc, device=cpu)
+            cpu_s = time.perf_counter() - t0
+            mode = on_card["mode"]
+            ok = (on_card["digest_ok"] and on_card["profile_faithful"]
+                  and on_card["aux_match"]
+                  and (on_card["placements_match"] or mode != "sequential")
+                  and np.array_equal(on_card["_assignment"],
+                                     on_cpu["_assignment"]))
+            print(f"[record] replay cycle={lc.manifest['cycle']} "
+                  f"mode={mode} pods={len(lc.manifest['meta']['pod_names'])}"
+                  f" digest_ok={on_card['digest_ok']} "
+                  f"faithful={on_card['profile_faithful']} "
+                  f"aux_match={on_card['aux_match']} "
+                  f"placements_match={on_card['placements_match']} "
+                  f"card_s={card_s} cpu_s={cpu_s} ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"record {lc.manifest['cycle']} does not replay: "
+                    f"{on_card['mismatches'][:3]}")
+
+    # the recorder's cost on a config-7 served cycle: interleaved pairs
+    pkg = _record_namespace(device)
+    served, engine, sched = card["served"], card["engine"], card["sched"]
+    rng, serial = card["rng"], card["serial"]
+    recorder = flightrec.recorder
+    recorder.start(capacity=2)
+    pairs = []
+    for k in range(RECORD_PAIRS):
+        times = []
+        for on in (False, True):
+            cycle = RECORD_SERVED_CYCLES + 2 * k + on
+            now = 1000 * (cycle + 1)
+            serial = churn.churn_events(pkg, served, rng, churn.SERVING_SHAPE,
+                                        cycle, now, serial)
+            if on:
+                recorder.resume()
+            else:
+                recorder.stop()
+            t0 = time.perf_counter()
+            run_cycle(sched, served, now=now, serve=engine, device=device)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        pairs.append(times)
+    recorder.stop()
+    capture = [r.capture_s for r in recorder.records()]
+    off = statistics.median(t for t, _ in pairs)
+    on = statistics.median(t for _, t in pairs)
+    delta = statistics.median(b - a for a, b in pairs)
+    print(f"[record] served_pairs={RECORD_PAIRS} off_ms={off * 1e3} "
+          f"on_ms={on * 1e3} paired_delta_ms={delta * 1e3} "
+          f"record_share={delta / off} "
+          f"last_capture_ms={[c * 1e3 for c in capture]}", flush=True)
+
+
+def golden_phase(device) -> None:
+    """Phase 22 (b): the JAX package's committed bundle replayed on the
+    card: placements equal, the recorded failure attribution, an explain
+    table that passes the schema."""
+    from scheduler_plugins_tpu_torch.tools.replay import validate_explain
+    from scheduler_plugins_tpu_torch.utils import flightrec
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "flightrec"
+    lc = flightrec.load_bundle(str(fixture))[0]
+    out = flightrec.replay_cycle(lc, device=device)
+    table = flightrec.explain_record(lc, "default/huge", device=device)
+    errors = validate_explain(table)
+    failed_by = lc.manifest["report"]["failed_by"]
+    print(f"[golden] digest_ok={out['digest_ok']} "
+          f"placements_match={out['placements_match']} "
+          f"faithful={out['profile_faithful']} aux_match={out['aux_match']} "
+          f"failed_by={json.dumps(failed_by)} "
+          f"explain_failed_plugin={table['failed_plugin']} "
+          f"schema_errors={errors}", flush=True)
+    if not (out["digest_ok"] and out["placements_match"]
+            and out["profile_faithful"] and out["aux_match"]
+            and failed_by == {"default/huge": "NodeResourcesFit"}
+            and table["failed_plugin"] == "NodeResourcesFit"
+            and not errors):
+        raise AssertionError("the golden bundle does not replay on the card")
+
+
+def sanitize_phase(device) -> None:
+    """Phase 22 (c): under `SPT_SANITIZE=1`, the flagship streamed cycle,
+    config 4's `profile_batch_solve`, a served refresh (config 7's second
+    served cycle) and the north star's `sharded_wave_solve` cut to S = 8
+    blocks of 256 nodes, each equal to the same call without the
+    sanitizer, each cycle with checked calls and no error, the three
+    kernels launched; then an out-of-range commit index planted in
+    `add_rows`, reported `out-of-bounds` with the card still working
+    (`[sanitize]` lines)."""
+    import numpy as np
+
+    import os
+
+    import torch
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.models import (
+        allocatable_scenario,
+        gang_quota_scenario,
+    )
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        profile_batch_solve,
+        sharded_wave_solve,
+    )
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+    from scheduler_plugins_tpu_torch.utils import sanitize
+    from scheduler_plugins_tpu_torch.utils.intmath import add_rows
+
+    import torch_churn_cases as churn
+
+    def twice(fn):
+        """(fn() without the sanitizer, fn() with it, its reports)."""
+        os.environ.pop("SPT_SANITIZE", None)
+        off = fn()
+        os.environ["SPT_SANITIZE"] = "1"
+        sanitize.drain()
+        try:
+            on = fn()
+        finally:
+            os.environ.pop("SPT_SANITIZE", None)
+        return off, on, sanitize.drain()
+
+    def stream():
+        r = run_cycle(flagship_scheduler(), allocatable_scenario(
+            SANITIZE_STREAM["n_nodes"], SANITIZE_STREAM["n_pods"]),
+            now=1000, stream_chunk=SANITIZE_STREAM["stream_chunk"],
+            device=device)
+        return r.bound, r.failed, r.sanitize_checked, r.sanitize_errors
+
+    t0 = time.perf_counter()
+    off, on, _ = twice(stream)
+    print(f"[sanitize] streamed_cycle checked={on[2]} errors={on[3]} "
+          f"equal={off[:2] == on[:2]} s={time.perf_counter() - t0}",
+          flush=True)
+    if off[:2] != on[:2] or not on[2] or on[3]:
+        raise AssertionError("the sanitized streamed cycle")
+
+    def batch():
+        cluster = gang_quota_scenario(**CONFIG4)
+        sched = flagship_scheduler()
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
+        sched.prepare(meta, cluster)
+        return [t.cpu() for t in profile_batch_solve(sched, snap,
+                                                     device=device)]
+
+    t0 = time.perf_counter()
+    off, on, reports = twice(batch)
+    same = all(torch.equal(a, b) for a, b in zip(off, on))
+    print(f"[sanitize] profile_batch reports={reports} equal={same} "
+          f"s={time.perf_counter() - t0}", flush=True)
+    if not same or reports != [{"sanitize": "profile_batch", "ok": True}]:
+        raise AssertionError("the sanitized batched solve")
+
+    def served():
+        pkg = _port_namespace()
+        shape = churn.SERVING_SHAPE
+        cluster = churn.churn_cluster(pkg, shape["n_nodes"],
+                                      shape["prefill"])
+        engine = ServeEngine().attach(cluster)
+        sched = Scheduler(load_profile(churn.CHURN_PROFILE))
+        rng = np.random.default_rng(1)
+        serial, out = 0, []
+        for cycle in range(2):
+            now = 1000 * (cycle + 1)
+            serial = churn.churn_events(pkg, cluster, rng, shape, cycle,
+                                        now, serial)
+            r = run_cycle(sched, cluster, now=now, serve=engine,
+                          device=device)
+            out.append((r.bound, r.failed, r.sanitize_checked,
+                         r.sanitize_errors))
+        return out
+
+    t0 = time.perf_counter()
+    off, on, _ = twice(served)
+    print(f"[sanitize] served checked={[o[2] for o in on]} "
+          f"errors={[o[3] for o in on]} "
+          f"equal={[o[:2] for o in off] == [o[:2] for o in on]} "
+          f"s={time.perf_counter() - t0}", flush=True)
+    if ([o[:2] for o in off] != [o[:2] for o in on] or not on[1][2]
+            or any(o[3] for o in on)):
+        raise AssertionError("the sanitized served refresh")
+
+    cluster = allocatable_scenario(SANITIZE_WAVE["n_nodes"],
+                                   SANITIZE_WAVE["n_pods"])
+    snap, meta = cluster.snapshot(
+        sorted(cluster.pending_pods(), key=lambda p: p.creation_ms),
+        device=device)
+    weights = meta.index.encode({"cpu": 1 << 20, "memory": 1})
+    launches = {}
+
+    def wave():
+        pk.reset_launches()
+        out = [t.cpu() for t in sharded_wave_solve(
+            snap, weights, S_BLOCKS, chunk=SANITIZE_WAVE["chunk"],
+            rescue_window=NORTH_STAR["rescue_window"])]
+        launches[len(launches)] = pk.launches()
+        return out
+
+    t0 = time.perf_counter()
+    off, on, reports = twice(wave)
+    same = all(torch.equal(a, b) for a, b in zip(off, on))
+    print(f"[sanitize] sharded_wave_solve S={S_BLOCKS} reports={reports} "
+          f"equal={same} launches_off={launches[0]} "
+          f"launches_on={launches[1]} s={time.perf_counter() - t0}",
+          flush=True)
+    # on the CPU the wrappers take their plain versions and count nothing
+    launched = device.type != "cuda" or all(launches[1].values())
+    if (not same or not launched
+            or reports != [{"sanitize": "sharded_wave_solve", "ok": True}]):
+        raise AssertionError("the sanitized sharded wave solve")
+
+    os.environ["SPT_SANITIZE"] = "1"
+    try:
+        target = torch.zeros((8, 4), dtype=torch.int64, device=device)
+        with sanitize.checked("planted_commit"):
+            out = add_rows(target,
+                           torch.tensor([1, 10 ** 6], device=device),
+                           torch.ones((2, 4), dtype=torch.int64,
+                                      device=device))
+        reports = sanitize.drain()
+    finally:
+        os.environ.pop("SPT_SANITIZE", None)
+    _sync(device)
+    after = int((torch.arange(4, device=device) + 1).sum())
+    rows = out.sum(dim=1).tolist()
+    print(f"[sanitize] planted reports={reports} rows={rows} "
+          f"card_after={after}", flush=True)
+    if (len(reports) != 1 or reports[0]["ok"]
+            or "out-of-bounds" not in reports[0]["error"]
+            or rows != [0, 4, 0, 0, 0, 0, 0, 0] or after != 10):
+        raise AssertionError("the planted out-of-range commit")
+
+
+def race_phase(device) -> None:
+    """Phase 22 (d): under `SPT_RACE=1`, the race composite
+    (`tests/torch_race_cases.py`) on the card with three seeds and once
+    without the checker: no violation, each checked run with wrapped
+    locks and Events and at least one lock-order edge, the hang fired,
+    every tick's decisions, the final store and the ledger's counts equal
+    (`[race]` lines)."""
+    import os
+
+    from scheduler_plugins_tpu_torch.utils import racecheck
+
+    import torch_race_cases as race
+
+    pkg = _record_namespace(device)
+    t0 = time.perf_counter()
+    control = race.race_composite(pkg, racecheck, race.RACE_SHAPE,
+                                  race=False)
+    os.environ["SPT_RACE"] = "1"
+    try:
+        runs = [race.race_composite(pkg, racecheck, race.RACE_SHAPE,
+                                    seed=s) for s in race.RACE_SEEDS]
+    finally:
+        os.environ.pop("SPT_RACE", None)
+    errors = race.race_gates(runs, control)
+    for seed, run in zip(race.RACE_SEEDS, runs):
+        rep = run["racecheck"]
+        print(f"[race] seed={seed} violations={len(rep['violations'])} "
+              f"locks={rep['locks_created']} events={rep['events_created']} "
+              f"edges={rep['order_edges']} yields={rep['yields']} "
+              f"fired={run['fired']} failovers={run['failovers']}",
+              flush=True)
+    print(f"[race] runs={len(runs) + 1} ticks={race.RACE_SHAPE['ticks']} "
+          f"bound={sum(len(b) for b, _, _ in control['ticks'])} "
+          f"errors={errors} s={time.perf_counter() - t0}", flush=True)
+    if errors:
+        raise AssertionError(f"race composite: {errors}")
+
+
+def recorder_off_phase(device) -> None:
+    """Phase 22 (e): one served `run_cycle` with the recorder off, its
+    stages run one by one: the record's opening, the solve's dispatch, the
+    post-solve stage (the outputs hook) and the finalize (the commit hook)
+    under `torch.cuda.set_sync_debug_mode("error")` (no new host sync);
+    the snapshot stage (the inputs hook), the fence and the bind stages
+    outside; its report equals a plain `run_cycle` of a twin cluster
+    (`[record_off]` lines)."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.api.config import load_profile
+    from scheduler_plugins_tpu_torch.framework import Scheduler, run_cycle
+    from scheduler_plugins_tpu_torch.framework import cycle as C
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+    from scheduler_plugins_tpu_torch.utils import flightrec
+
+    import torch_churn_cases as churn
+
+    flightrec.recorder.stop()
+    pkg = _port_namespace()
+    reports = []
+    for staged in (False, True):
+        cluster = churn.churn_cluster(pkg, 512, 4096)
+        engine = ServeEngine().attach(cluster)
+        sched = Scheduler(load_profile(churn.CHURN_PROFILE))
+        rng = np.random.default_rng(1)
+        serial = churn.churn_events(pkg, cluster, rng,
+                                    churn.SERVING_SHAPE, 0, 1000, 0)
+        run_cycle(sched, cluster, now=1000, serve=engine, device=device)
+        serial = churn.churn_events(pkg, cluster, rng,
+                                    churn.SERVING_SHAPE, 1, 2000, serial)
+        if not staged:
+            reports.append(run_cycle(sched, cluster, now=2000, serve=engine,
+                                     device=device))
+            continue
+        ctx = C._cycle_open(sched, cluster, 2000, device, serve=engine)
+        try:
+            C._cycle_pending(ctx)
+            with sync_errors(device):
+                C._cycle_arm(ctx)
+            # the snapshot stage's own copies (`prepare` stages the
+            # plugins' tensors from the host) are no hook's: outside
+            C._cycle_snapshot(ctx)
+            with sync_errors(device):
+                C._cycle_solve_dispatch(ctx)
+            C._cycle_solve_fence(ctx)
+            with sync_errors(device):
+                C._cycle_post_solve(ctx)
+            C._cycle_bind(ctx)
+            C._cycle_postbind(ctx)
+            with sync_errors(device):
+                C._cycle_finalize(ctx)
+        finally:
+            C.podledger.LEDGER.pop_scope(ctx.led)
+            C.podledger.LEDGER.cycle_close(ctx.led)
+        reports.append(ctx.report)
+    same = (reports[0].bound == reports[1].bound
+            and reports[0].failed == reports[1].failed)
+    print(f"[record_off] served={ctx.served} rec={ctx.rec} "
+          f"bound={len(reports[1].bound)} equal={same}", flush=True)
+    if not (same and ctx.served and ctx.rec is None and reports[1].bound):
+        raise AssertionError("the recorder-off cycle")
+
+
+def flightrec_phase(device) -> None:
+    """Phase 22: the flight recorder and the debug modes, (a) to (e)."""
+    _tests_on_path()
+    for label, fn in (("record", record_phase), ("golden", golden_phase),
+                      ("sanitize", sanitize_phase), ("race", race_phase),
+                      ("record_off", recorder_off_phase)):
+        t0 = time.perf_counter()
+        fn(device)
+        print(f"[flightrec] {label}_s={time.perf_counter() - t0}",
+              flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -4398,9 +5043,15 @@ def main() -> int:
 
     phase_done(21)
 
-    # 22. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 22. the flight recorder, the golden bundle, the sanitizer, the race
+    # checker and the recorder off
+    flightrec_phase(device)
+
     phase_done(22)
+
+    # 23. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(23)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,8 +67,17 @@ the pipelined engine (`framework.pipeline_cycle.PipelinedCycle`) composes
 the same ones with cycle N's solve in flight while cycle N-1's
 report-only finalize runs; `run_cycle` runs them strictly in order.
 
-Left out until their slices: the online tuner (`tuner`: passing one
-raises NotImplementedError), the flight recorder and the sanitizer.
+The flight recorder (`utils.flightrec.recorder`) records a cycle when it
+is on: the record opens before the snapshot, captures the inputs after
+`prepare` (with the serving engine's and the gang phase's provenance),
+the outputs after the fence (labelled "sequential", "streamed" or
+"packing") and commits in the finalize; a gang-only cycle records the
+gang solve alone. Under `SPT_SANITIZE=1` (`utils.sanitize`) the cycle
+drains foreign reports before the snapshot and fills
+`CycleReport.sanitize_errors` / `sanitize_checked` after the solve.
+
+Left out until its slice: the online tuner (`tuner`: passing one raises
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ from scheduler_plugins_tpu_torch.obs import ledger as podledger
 from scheduler_plugins_tpu_torch.parallel.pipeline import (
     streamed_profile_solve,
 )
+from scheduler_plugins_tpu_torch.parallel.solver import PackingSolveView
 from scheduler_plugins_tpu_torch.plugins.coscheduling import Coscheduling
 from scheduler_plugins_tpu_torch.resilience import faults
 from scheduler_plugins_tpu_torch.state.cluster import Cluster
@@ -106,7 +116,9 @@ from scheduler_plugins_tpu_torch.state.collector import (
     make_metrics_client,
 )
 from scheduler_plugins_tpu_torch.tuning.quality import cycle_quality_np
+from scheduler_plugins_tpu_torch.utils import flightrec
 from scheduler_plugins_tpu_torch.utils import observability as obs
+from scheduler_plugins_tpu_torch.utils import sanitize
 from scheduler_plugins_tpu_torch.utils.flightrec import explain_solver
 
 @dataclass
@@ -161,6 +173,13 @@ class CycleReport:
     #: count and the solve / fence wall ms (`LaneStats.as_dict`); None for
     #: every other engine
     lanes: Optional[dict] = None
+    #: the sanitizer's findings in this cycle's checked calls
+    #: (`SPT_SANITIZE=1`, `utils.sanitize`). Read with `sanitize_checked`:
+    #: no errors means "all checks passed" only when it is above 0
+    sanitize_errors: list[dict] = field(default_factory=list)
+    #: checked calls this cycle ran (None while the sanitizer is off; 0
+    #: when the solve took no checked path, as the sequential solve)
+    sanitize_checked: Optional[int] = None
 
     def explain(self, uid: str, top_k: int = 5) -> dict:
         """The "why this node" table for one pod of THIS cycle's pending
@@ -267,6 +286,9 @@ class CycleCtx:
     #: this cycle's ledger context (`obs.ledger.LedgerCycle`), None while
     #: the ledger is off
     led: object = None
+    #: this cycle's flight record (`utils.flightrec.CycleRecord`), None
+    #: while the recorder is off
+    rec: object = None
 
 
 def _cycle_open(scheduler, cluster, now, device, stream_chunk=None,
@@ -335,6 +357,13 @@ def _cycle_pending(ctx: CycleCtx) -> None:
             if ctx.serve is not None:
                 ctx.serve.refresh(cluster, [], now_ms=ctx.now,
                                   device=ctx.device)
+            # still recorded: the gang capture alone replays through the
+            # numpy twin
+            rec = flightrec.recorder.begin(
+                now_ms=ctx.now, profile=ctx.scheduler.profile.name)
+            if rec is not None:
+                gangs.annotate_record(rec)
+                rec.commit(report)
             obs.metrics.inc(obs.PODS_BOUND, len(report.bound))
             obs.metrics.inc(obs.PODS_FAILED, len(report.failed))
             obs.metrics.inc(obs.GANG_REJECTIONS, len(report.rejected_gangs))
@@ -348,10 +377,21 @@ def _cycle_pending(ctx: CycleCtx) -> None:
         ctx.led.batch = frozenset(p.uid for p in pending)
 
 
+def _cycle_arm(ctx: CycleCtx) -> None:
+    """Between the pending batch and the snapshot: drop the sanitizer
+    reports of calls outside this cycle (warm-ups, other schedulers), so
+    the post-solve drain counts only this cycle's, and open the flight
+    record."""
+    if sanitize.enabled():
+        sanitize.drain()
+    ctx.rec = flightrec.recorder.begin(now_ms=ctx.now,
+                                       profile=ctx.scheduler.profile.name)
+
+
 def _cycle_snapshot(ctx: CycleCtx) -> None:
     """The cycle's snapshot on its device, from the serving engine's
     resident columns when it can own the state, else lowered from the
-    store; then the plugins' prepare."""
+    store; then the plugins' prepare and the flight record's inputs."""
     with obs.tracer.span("Snapshot", tid="cycle", pending=len(ctx.pending)):
         refreshed = None
         if ctx.serve is not None:
@@ -363,6 +403,21 @@ def _cycle_snapshot(ctx: CycleCtx) -> None:
                                              device=ctx.device)
     ctx.snap, ctx.meta = refreshed
     ctx.scheduler.prepare(ctx.meta, ctx.cluster)
+    if ctx.rec is not None:
+        # the inputs land in the ring BEFORE the solve: the cycle that
+        # crashes the solve is the one worth replaying
+        t0 = time.perf_counter()
+        with obs.tracer.span("Record", tid="cycle"):
+            ctx.rec.capture_inputs(ctx.snap, ctx.meta, ctx.scheduler,
+                                   stream_chunk=ctx.stream_chunk)
+            if ctx.served:
+                # the resident generation, the base digest and the packed
+                # deltas that made this snapshot
+                ctx.serve.annotate_record(ctx.rec)
+            if ctx.gangs is not None:
+                # the gang solve's inputs and outputs
+                ctx.gangs.annotate_record(ctx.rec)
+        ctx.rec.capture_s += time.perf_counter() - t0
 
 
 def _cycle_solve_dispatch(ctx: CycleCtx) -> None:
@@ -440,25 +495,52 @@ def _quality_view(snap):
 
 
 def _cycle_post_solve(ctx: CycleCtx) -> None:
-    """After the fence: the degraded flag and the report's explain
-    context, with the plugins' `aux()` frozen here (the preemption pass
-    re-prepares the shared plugins for its own snapshot, and a later cycle
-    for its own). A served cycle keeps none."""
+    """After the fence: the degraded flag, the flight record's outputs,
+    the report's explain context, with the plugins' `aux()` frozen here
+    (the preemption pass re-prepares the shared plugins for its own
+    snapshot, and a later cycle for its own; a served cycle keeps none),
+    and the sanitizer's reports of this cycle."""
     ctx.report.degraded = (ctx.resilience is not None
                            and ctx.resilience.degraded)
     if ctx.led is not None:
         ctx.led.degraded = ctx.report.degraded
         ctx.led.solve_path = ctx.report.solve_path
+    if ctx.rec is not None:
+        t0 = time.perf_counter()
+        with obs.tracer.span("Record", tid="cycle"):
+            ctx.rec.capture_outputs(
+                _record_mode(ctx.result), ctx.assignment, ctx.admitted,
+                ctx.wait, failed_plugin=ctx.failed_plugin)
+        ctx.rec.capture_s += time.perf_counter() - t0
     if ctx.served:
         # a served snapshot's node columns are the engine's resident
         # tensors, which the next refresh updates in place: keep no
-        # explain context
+        # explain context (the flight recorder's host copies serve
+        # postmortems there)
         ctx.report._explain_ctx = _CTX_RELEASED
-        return
-    _attach_explain_ctx(ctx.report, (
-        ctx.scheduler, ctx.snap, ctx.meta, ctx.assignment,
-        tuple(p.aux() for p in ctx.scheduler.profile.plugins),
-    ))
+    else:
+        _attach_explain_ctx(ctx.report, (
+            ctx.scheduler, ctx.snap, ctx.meta, ctx.assignment,
+            tuple(p.aux() for p in ctx.scheduler.profile.plugins),
+        ))
+    if sanitize.enabled():
+        # the checked-call count beside the errors: "no errors" must not
+        # read as "checks ran" when the solve took an unchecked path
+        reports = sanitize.drain()
+        ctx.report.sanitize_checked = len(reports)
+        ctx.report.sanitize_errors = [r for r in reports if not r["ok"]]
+
+
+def _record_mode(result) -> str:
+    """The flight record's output label: "packing" (replayed as evidence
+    only: its soft order differs by design), "sequential" for a solve that
+    carried per-pod codes (the parity solve, the laned solve and the host
+    failover, which replay bit-identically), else "streamed"."""
+    if isinstance(result, PackingSolveView):
+        return "packing"
+    if getattr(result, "failed_plugin", None) is not None:
+        return "sequential"
+    return "streamed"
 
 
 def _cycle_bind(ctx: CycleCtx) -> None:
@@ -604,6 +686,8 @@ def _cycle_finalize(ctx: CycleCtx, attribution: bool = False) -> None:
                             led=ctx.led)
     _observe_quality(ctx.report, ctx.quality_view, ctx.assignment,
                      ctx.admitted, ctx.wait)
+    if ctx.rec is not None:
+        ctx.rec.commit(ctx.report)
 
 
 def _cycle_fence_and_post(ctx: CycleCtx) -> None:
@@ -683,6 +767,7 @@ def _run_stages(ctx: CycleCtx, clock, t0, timings) -> CycleReport:
         timings["pending"] = clock() - t1
     if ctx.done:
         return ctx.report
+    _cycle_arm(ctx)
     scheduler, cluster = ctx.scheduler, ctx.cluster
     stages = dict(_STAGES)
 

@@ -35,9 +35,11 @@ every K):
   the pipelined engine; a flush crossing an outside drain is counted late
   (`scheduler_cycle_late_binds_total`) and absorbed.
 
-Like the port's `run_cycle` and `PipelinedCycle`, the engine opens no
-flight-recorder record and drains no sanitizer; both come with their
-slice.
+The flight recorder and the sanitizer hook in as in `run_cycle`. The
+laned solve returns per-pod codes, so its record is labelled
+"sequential" and replays bit-identically through the parity solve; under
+`async_bind` the record commits on the "spt-lane-flusher" worker, in the
+finalize.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.framework.cycle import (
     CycleReport,
     SolveResultView,
+    _cycle_arm,
     _cycle_bind,
     _cycle_finalize,
     _cycle_open,
@@ -179,6 +182,7 @@ class LanedCycle:
         _cycle_pending(ctx)
         if ctx.done:
             return ctx.report
+        _cycle_arm(ctx)
 
         ctx.serve_t0 = (
             time.perf_counter() if self.serve is not None else None

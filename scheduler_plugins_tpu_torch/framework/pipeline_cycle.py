@@ -49,8 +49,11 @@ envelope is small, not because the solve overlaps the host work: the
 pipelined engine's gain over `run_cycle` comes from the streaming engine's
 fast verify and node-delete compaction, not from overlap.
 
-Like the port's `run_cycle`, the engine does not open flight-recorder
-records or drain the sanitizer; both come with their slice.
+The flight recorder and the sanitizer hook in as in `run_cycle`: the
+record opens and the foreign sanitizer reports drain at the ingest
+boundary, the inputs are captured with the snapshot, the outputs and this
+cycle's sanitizer reports after the fence, and the record commits in the
+deferred finalize, in the next tick's overlap window.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from typing import Optional
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.framework.cycle import (
     CycleReport,
+    _cycle_arm,
     _cycle_bind,
     _cycle_finalize,
     _cycle_open,
@@ -266,6 +270,7 @@ class PipelinedCycle:
                     tl.bind_done_s = clock() - tl.t0_s
                     self.timelines.append(tl)
                     return ctx.report
+                _cycle_arm(ctx)
                 ctx.serve_t0 = clock() if self.serve is not None else None
                 flow.enter_context(obs.flow(
                     "cycle",

@@ -195,6 +195,29 @@ class Plugin:
         Return them (read back via `self._presolve`) or None."""
         return None
 
+    def host_state(self):
+        """Cluster-derived host state that `prepare_cluster` sets and a
+        flight-recorder bundle cannot rebuild (a bundle carries the
+        snapshot's tensors, not the Cluster). The recorder packs it per
+        plugin; replay restores it with `restore_host_state` after
+        `prepare(meta, None)`, so the rebuilt plugin takes the branches
+        the recorded solve took. A tree of tensors, arrays and scalars, or
+        None (nothing to restore)."""
+        return None
+
+    def restore_host_state(self, state) -> None:
+        """Inverse of `host_state` (host arrays in, on the device
+        `prepare` used)."""
+
+    def static_key(self):
+        """Fingerprint of the Python-level branches this plugin selects
+        outside its tensors, the tuple the JAX package's returns. That
+        package keys its compiled programs on it; the port caches no
+        program, so here it is only the flight record's faithfulness
+        check: a replay whose rebuilt plugin gives another key reports an
+        unfaithful profile."""
+        return None
+
     def bind_presolve(self, ctx) -> None:
         """Called by the solve with this plugin's `prepare_solve` result."""
         self._presolve = ctx

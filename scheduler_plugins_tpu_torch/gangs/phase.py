@@ -26,12 +26,15 @@ Each cycle:
    ranks: the members park unschedulable with the standard backoff), and
    keep the resident rank ledger O(changed).
 
-The JAX phase also attaches its capture to the flight recorder
-(`annotate_record`); that waits for the port's recorder.
+`annotate_record` attaches the cycle's gang solve, inputs and outputs,
+to the flight recorder's record, so a recorded gang cycle replays bit for
+bit through `gangs.topology.gang_solve_np`; the elastic desired-width
+transitions the reconcile observed ride along.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -288,6 +291,12 @@ class GangPhase:
         #: the WORST drift over every solved cycle of this phase
         self.max_drift: Optional[float] = None
         self._grow_serial = 0
+        #: the last solved cycle's problem and outputs (`annotate_record`)
+        self._last: Optional[dict] = None
+        #: gang full_name -> the desired width the reconcile last saw
+        self._desired_seen: dict[str, int] = {}
+        #: this pass's desired-width transitions (`annotate_record`)
+        self._elastic_transitions: list = []
 
     # -- elastic reconcile ----------------------------------------------
     def reconcile(self, cluster, now) -> dict:
@@ -298,8 +307,18 @@ class GangPhase:
         selection. The block-cost view is lowered at most once a pass."""
         moved: dict[str, dict] = {}
         view = None  # (node_pos, zones, block_cost), lowered lazily once
+        self._elastic_transitions = []
         for pg in rank_gang_groups(cluster):
-            _lo, desired, _hi = E.elastic_bounds(pg)
+            lo, desired, hi = E.elastic_bounds(pg)
+            prev = self._desired_seen.get(pg.full_name)
+            if prev != desired:
+                # the first sighting records from=None: the initial width
+                # belongs to the width timeline too
+                self._elastic_transitions.append({
+                    "gang": pg.full_name, "from": prev, "to": desired,
+                    "min": lo, "max": hi,
+                })
+                self._desired_seen[pg.full_name] = desired
             members = cluster.gang_members(pg)
             live = [p for p in members if p.node_name is not None]
             total = len(members)
@@ -389,6 +408,7 @@ class GangPhase:
         to the per-pod solve). `serve` routes the problem's lowering
         through the serving engine's resident state."""
         device = resolve_device(device)
+        self._last = None
         moved = self.reconcile(cluster, now)
         if moved:
             # growth clones join THIS cycle's batch; shrink deletions
@@ -472,7 +492,40 @@ class GangPhase:
                 "sum_cost": int(sum_cost[g]),
             }
         report.rank_gangs = stats
+        self._last = {
+            "gangs": gangs,
+            "free0": prob["free0"],
+            "eq_used0": prob["eq_used0"],
+            "node_mask": prob["node_mask"],
+            "rank_nodes": rank_nodes,
+            "admitted": admitted,
+        }
         return remaining
+
+    def annotate_record(self, rec) -> None:
+        """Attach this cycle's gang solve, inputs and outputs, to a
+        flight-recorder record: re-running `gangs.topology.gang_solve_np`
+        on the captured arrays reproduces `rank_nodes` exactly. The
+        elastic desired-width transitions ride the manifest even on a
+        cycle with no gang solve (a shrink-only reconcile)."""
+        if rec is None:
+            return
+        if self._elastic_transitions:
+            rec.manifest["elastic_transitions"] = [
+                dict(t) for t in self._elastic_transitions
+            ]
+        if self._last is None:
+            return
+        from scheduler_plugins_tpu_torch.utils.flightrec import pack_pytree
+
+        gangs = self._last["gangs"]
+        spec = {
+            "gangs": {f.name: getattr(gangs, f.name)
+                      for f in dataclasses.fields(gangs)},
+            **{k: self._last[k] for k in ("free0", "eq_used0", "node_mask",
+                                          "rank_nodes", "admitted")},
+        }
+        rec.manifest["rank_gangs"] = pack_pytree(spec, rec.blobs)
 
     def _solve(self, prob, device):
         """(rank_nodes, admitted, placed_new) as numpy from the device

@@ -45,6 +45,7 @@ import torch
 
 from scheduler_plugins_tpu_torch.ops.fit import pod_fit_demand
 from scheduler_plugins_tpu_torch.parallel import kernels as pk
+from scheduler_plugins_tpu_torch.utils import sanitize
 
 #: next-fit probe depth of a lite wave (the JAX `LITE_PROBES`)
 LITE_PROBES = 4
@@ -188,6 +189,32 @@ def _commit(assignment, hopeless, idx, admitted, node_plus, hopeless_w):
     hopeless |= hop_add > 0
 
 
+def _commit_rows(index, src, size: int, site: str):
+    """(index, src) of a commit scatter-add into `size` rows; inside a
+    checked call (`utils.sanitize`) an out-of-range row is reported and
+    adds nothing."""
+    check = sanitize.current()
+    if check is None:
+        return index, src
+    return check.rows(index, size, site, src)
+
+
+def _guard_proposals(check, prop, N: int):
+    """Inside a checked call: a `fused_election` proposal outside [0, N]
+    (N = the no-candidate sentinel, the rank count) is reported and sent to
+    N before the launch, so the kernel never reads out of range."""
+    ok = (prop >= 0) & (prop <= N)
+    check.flag(~ok.all(), "out-of-bounds index in fused_election proposals")
+    return torch.where(ok, prop, N)
+
+
+def _check_winners(check, node_plus, n_real: int) -> None:
+    """Inside a checked call: a winner's node id (+1; 0 = none) outside
+    the real nodes is reported."""
+    check.flag(~((node_plus >= 0) & (node_plus <= n_real)).all(),
+               "out-of-bounds index in fused_election winners")
+
+
 def _run_phases(wave, P, max_waves, lite_window, rescue_window,
                 lite_choice, rescue_choice):
     """The three wave phases shared by both formulations. `wave(W,
@@ -264,10 +291,10 @@ def waterfill_assign_targeted(raw_scores, req, pod_mask, free0,
         admitted = _queue_order_admission_choice(choice, dem_w, free)
         _commit(assignment, hopeless, idx, admitted, choice + 1, hopeless_w)
         # the free carry is updated in place
-        free.index_add_(
-            0, torch.where(admitted, choice, 0),
+        free.index_add_(0, *_commit_rows(
+            torch.where(admitted, choice, 0),
             -torch.where(admitted[:, None], dem_w, 0),
-        )
+            free.shape[0], "waterfill commit"))
         remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
         return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
 
@@ -309,6 +336,9 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
     flat_free = rank_free.view(N, R)
     assignment = torch.full((P,), -1, dtype=torch.int64, device=device)
     hopeless = torch.zeros(P, dtype=torch.bool, device=device)
+    # inside a checked call (`utils.sanitize`) the data around each kernel
+    # launch is checked; the kernels themselves stay
+    check = sanitize.current()
 
     def local_rows(rank):
         """(owned (S, ...), local row (S, ...)) of global `rank` (...)
@@ -320,8 +350,12 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
     def lite_choice(idx, valid, dem_w):
         W = idx.shape[0]
         cumfree = torch.cumsum(torch.clamp(rank_free, min=0).to(F64), dim=1)
+        if check is not None:
+            check.nan(cumfree[:, -1, :], "block_offsets keys")
         # the block totals, read in place (row stride BS*R)
         base, _ = pk.block_offsets(cumfree[:, -1, :])
+        if check is not None:
+            check.nan(base, "block_offsets offsets")
         abs_cf = cumfree + base[:, None, :]  # (S, BS, R)
         cumdem = torch.cumsum(dem_w.to(F64), dim=0)  # (W, R)
         loc = torch.searchsorted(
@@ -343,7 +377,11 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         # first fitting probe == min fitting rank (ranks are nondecreasing
         # in probe order): each block proposes its min fitting owned rank
         prop = torch.where(fit, ranks[None], N).min(dim=1).values  # (S, W)
+        if check is not None:
+            prop = _guard_proposals(check, prop, N)
         rank, nid, win_row = pk.fused_election(prop, node_ids, rank_free)
+        if check is not None:
+            _check_winners(check, nid, n_real)
         choice = torch.where(valid & (rank < N), rank, -1)
         # lite misses prove nothing about feasibility: no hopeless delta
         return choice, torch.zeros_like(valid), nid, win_row
@@ -371,7 +409,11 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         )
         # whenever total > 0 exactly one block proposes the k-th feasible
         # rank, a real node, so the n_real clamp is a no-op there
+        if check is not None:
+            prop = _guard_proposals(check, prop, N)
         rank, nid, win_row = pk.fused_election(prop, node_ids, rank_free)
+        if check is not None:
+            _check_winners(check, nid, n_real)
         choice = torch.where(
             valid & (total > 0), torch.clamp(rank, max=n_real - 1), -1
         )
@@ -390,10 +432,10 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
         _commit(assignment, hopeless, idx, admitted, nid, hopeless_w)
         # commit into the owning block's rows of the resident carry, in
         # place (flat_free is a view of rank_free in global rank order)
-        flat_free.index_add_(
-            0, torch.where(admitted, choice, 0),
+        flat_free.index_add_(0, *_commit_rows(
+            torch.where(admitted, choice, 0),
             -torch.where(admitted[:, None], dem_w, 0),
-        )
+            N, "sharded waterfill commit"))
         remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
         return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
 
@@ -535,8 +577,10 @@ def waterfill_assign_stateful(batch_fn, commit_fn, guards, guard_demands,
         assignment = assignment.index_copy(
             0, idx, torch.where(admitted, choice, assignment[idx]))
         used = torch.zeros((N + 1, R), dtype=free.dtype, device=device)
-        used.index_add_(0, torch.where(admitted, choice, N),
-                        torch.where(admitted[:, None], dem, 0))
+        used.index_add_(0, *_commit_rows(
+            torch.where(admitted, choice, N),
+            torch.where(admitted[:, None], dem, 0), N + 1,
+            "stateful waterfill commit"))
         placed_full = torch.zeros(P, dtype=torch.bool,
                                   device=device).index_copy(0, idx, admitted)
         choice_full = torch.full((P,), -1, dtype=torch.int64,

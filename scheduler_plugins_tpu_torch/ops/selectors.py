@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from scheduler_plugins_tpu_torch.utils import sanitize
+
 
 def pod_column(table: torch.Tensor, p) -> torch.Tensor:
     """The pod columns `p` of an (X, P) table, (X, S): `p` a host int
@@ -52,8 +54,16 @@ def node_column(table: torch.Tensor, node) -> torch.Tensor:
 
 def _scatter_add_rows(carry, dom, add):
     """carry[r, dom[r]] += add[r] for every row r, as a new tensor; a row
-    whose `dom` is -1 adds nothing (its `add` is 0 there)."""
-    return carry.scatter_add(1, torch.clamp(dom, min=0), add.to(carry.dtype))
+    whose `dom` is -1 adds nothing (its `add` is 0 there). Inside a
+    checked call (`utils.sanitize`) a domain past the carry's columns is
+    reported and adds nothing."""
+    dom = torch.clamp(dom, min=0)
+    add = add.to(carry.dtype)
+    check = sanitize.current()
+    if check is not None:
+        dom, ok = check.index(dom, carry.shape[1], "_scatter_add_rows")
+        add = torch.where(ok, add, torch.zeros_like(add))
+    return carry.scatter_add(1, dom, add)
 
 
 def commit_tracks(state, sched, p, choice):

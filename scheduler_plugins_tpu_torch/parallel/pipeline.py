@@ -50,6 +50,7 @@ from scheduler_plugins_tpu_torch.parallel.solver import (
     finalize_assignment,
 )
 from scheduler_plugins_tpu_torch.utils import observability as obs
+from scheduler_plugins_tpu_torch.utils import sanitize
 
 
 @dataclass
@@ -255,6 +256,10 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
       (label ``pipeline-d2h``) and raises `BackendUnavailable` on a
       timeout instead of hanging the cycle. None keeps the direct call.
 
+    Under `SPT_SANITIZE=1` each chunk's solve is a checked program
+    "chunk:<solve_chunk's name>" (`utils.sanitize`), whose error read
+    waits for that chunk: a debug mode, with no overlap to keep.
+
     Returns ``(results, carry, done_s, timeline)``: ``results[k]`` is
     chunk k's result with its tensors fetched to numpy, ``done_s[k]`` the
     seconds from the start to that fetch's completion (observed one
@@ -275,6 +280,7 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
 
     device = resolve_device(device)
     clock = clock or time.perf_counter
+    program = f"chunk:{getattr(solve_chunk, '__name__', 'solve_chunk')}"
     stager = _Stager(device)
     n = len(chunk_inputs)
     results, done_s = [], []
@@ -290,7 +296,8 @@ def run_chunk_pipeline(solve_chunk, invariant_args, chunk_inputs, carry,
     for k in range(n):
         t0 = clock()
         stager.consume(*staged)
-        result, carry = solve_chunk(*invariant_args, *staged[0], carry)
+        with sanitize.checked(program):
+            result, carry = solve_chunk(*invariant_args, *staged[0], carry)
         started = start_fetch(result, device)
         timeline.add("dispatch", k, t0, clock())
         if k + 1 < n:

@@ -56,6 +56,7 @@ from scheduler_plugins_tpu_torch.ops.gang import gang_admit
 from scheduler_plugins_tpu_torch.ops.packing import packing_refine
 from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
 from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
+from scheduler_plugins_tpu_torch.utils import sanitize
 
 F64 = torch.float64
 
@@ -298,6 +299,7 @@ class PackingSolveView:
         self.stats = stats
 
 
+@sanitize.checked_call("profile_packing")
 def packing_profile_solve(scheduler, snap, mover_cap: int = 128,
                           max_waves: int = 8, *, device=None):
     """The packing-mode profile solve, `Scheduler.solve(mode="packing")`
@@ -314,7 +316,9 @@ def packing_profile_solve(scheduler, snap, mover_cap: int = 128,
     sound only when fit is the sole per-node constraint. Other profiles
     raise TypeError (`load_profile` refuses them at config time). Under
     `SPT_PACK_CERTIFY=1` the placements are replayed through the
-    `tuning.gates` oracles, and any violation raises AssertionError."""
+    `tuning.gates` oracles, and any violation raises AssertionError.
+    Under `SPT_SANITIZE=1` the call is the checked program
+    "profile_packing" (`utils.sanitize`)."""
     import os
 
     device = resolve_device(device)
@@ -372,6 +376,7 @@ def rank_order_inputs(raw_scores, free0, node_mask, n_shards: int):
     return node_ids, rank_free.contiguous()
 
 
+@sanitize.checked_call("sharded_wave_solve")
 def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
                        max_waves: int = 8, rescue_window: int = 512,
                        collect_stats: bool = False):
@@ -379,7 +384,12 @@ def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
     blocks (the JAX `sharded_wave_solve` takes a mesh; here the blocks are
     the leading dimension of one tensor on one card). Pods go through in
     queue-order chunks; the (S, BS, R) free carry is updated in place from
-    chunk to chunk. Returns (assignment, admitted, wait[, stats])."""
+    chunk to chunk. Returns (assignment, admitted, wait[, stats]).
+
+    Under `SPT_SANITIZE=1` the call is the checked program
+    "sharded_wave_solve" (`utils.sanitize`): the CUDA kernels stay, and
+    the data around each launch is checked (`ops.assign
+    .waterfill_targeted_sharded`)."""
     free0, admitted, raw = _solve_head(snap, weights)
     n_real = free0.shape[0]
     node_ids, rank_free = rank_order_inputs(
@@ -521,6 +531,7 @@ def _per_pod_rows(method, plugins, state, snap, skip=()):
     return out
 
 
+@sanitize.checked_call("profile_batch")
 def profile_batch_solve(scheduler, snap, max_waves: int = 8,
                         collect_stats: bool = False, *, device=None):
     """The batched solve of the scheduler's profile on `device` (None =
@@ -547,7 +558,11 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     re-check each wave's winners in queue order against the live carry,
     committing the selector carries (`ops.selectors.commit_tracks`) pod
     by pod; the other state-dependent plugins commit the kept winners in
-    one `commit_batch`."""
+    one `commit_batch`.
+
+    Under `SPT_SANITIZE=1` the call is the checked program
+    "profile_batch" (`utils.sanitize`): the commit scatters' indices, NaN
+    in a float score row and zero integer divisors are reported."""
     from scheduler_plugins_tpu_torch.framework.plugin import Plugin
     from scheduler_plugins_tpu_torch.framework.runtime import _fits_rows
 
@@ -620,6 +635,10 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
                if type(plugins[i]).normalize is Plugin.normalize]
     score_rows.update(_per_pod_rows("score", plugins, state0, snap,
                                     skip=score_rows))
+    check = sanitize.current()
+    if check is not None:
+        for i, raw in score_rows.items():
+            check.nan(raw, f"{plugins[i].name} score rows")
     total = torch.zeros((snap.num_pods, snap.num_nodes), dtype=torch.int64,
                         device=device)
     for i, plugin in enumerate(plugins):

@@ -409,6 +409,9 @@ class InterPodAffinity(Plugin):
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
         self.ignore_preferred = ignore_preferred_terms_of_existing_pods
 
+    def static_key(self):
+        return (self.hard_pod_affinity_weight, self.ignore_preferred)
+
     def _counts(self, state, snap):
         """(TR, D) domain-level counts: affinity has no node-inclusion
         policy, so it reads the domain mirror."""

@@ -106,6 +106,22 @@ class NetworkOverhead(Plugin):
         self._zone_cost, self._region_cost = aux or (None, None)
         self._memo = None
 
+    def host_state(self):
+        # the cost matrices come from the live Cluster's NetworkTopology
+        # CR; a replay's `prepare_cluster(meta, None)` bakes all -1
+        if self._zone_cost is None:
+            return None
+        return {"zone_cost": self._zone_cost,
+                "region_cost": self._region_cost}
+
+    def restore_host_state(self, state) -> None:
+        device = (self._zone_cost.device if self._zone_cost is not None
+                  else torch.device("cpu"))
+        self._zone_cost = torch.as_tensor(state["zone_cost"], device=device)
+        self._region_cost = torch.as_tensor(state["region_cost"],
+                                            device=device)
+        self._memo = None
+
     def _ready(self, snap) -> bool:
         return snap.network is not None and self._zone_cost is not None
 

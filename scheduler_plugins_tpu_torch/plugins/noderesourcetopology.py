@@ -180,6 +180,21 @@ class NodeResourceTopologyMatch(Plugin):
             if len(scopes) == 1:
                 self._uniform_scope = scopes.pop()
 
+    def static_key(self):
+        # the uniform-scope branch and the float32-weight guard are
+        # Python-level selections outside the tensors
+        return ("nrt_scope", self._uniform_scope,
+                "w_f32_ok", bool(self._w_f32_ok))
+
+    def host_state(self):
+        # the scope comes from the live Cluster's NRT CRs, which a replayed
+        # bundle lacks
+        return {"uniform_scope": self._uniform_scope}
+
+    def restore_host_state(self, state) -> None:
+        scope = state.get("uniform_scope")
+        self._uniform_scope = None if scope is None else int(scope)
+
     def prepare(self, meta):
         device = meta.device
         self._affine = torch.as_tensor(

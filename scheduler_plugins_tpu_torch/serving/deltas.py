@@ -44,6 +44,7 @@ import torch
 from scheduler_plugins_tpu_torch.api.resources import PODS, ResourceIndex
 from scheduler_plugins_tpu_torch.resilience import faults as _faults
 from scheduler_plugins_tpu_torch.state.snapshot import NodeState
+from scheduler_plugins_tpu_torch.utils import sanitize
 from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
 
 #: serve mode pins the resource axis to the canonical four; a pod or node
@@ -328,6 +329,7 @@ def stage(arrays, device) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+@sanitize.checked_call("serve_delta_apply")
 def apply_node_deltas(nodes: NodeState,
                       up_idx, up_valid, up_alloc, up_capacity, up_mask,
                       up_region, up_zone,
@@ -343,9 +345,20 @@ def apply_node_deltas(nodes: NodeState,
     back as a new tensor. Usage deltas are plain scatter-adds of signed
     contributions. The nominated column is zeroed: serve mode owns the
     snapshot only while no nomination exists anywhere
-    (`ServeEngine.compatible`)."""
+    (`ServeEngine.compatible`). Under `SPT_SANITIZE=1` the call is the
+    checked program "serve_delta_apply": a slot outside the resident rows
+    is reported and adds nothing."""
     gi = up_idx
     keep = up_valid
+    di = d_idx
+    check = sanitize.current()
+    if check is not None:
+        n = nodes.alloc.shape[0]
+        gi, ok = check.index(gi, n, "apply_node_deltas upserts")
+        keep = keep & ok
+        di, d_requested, d_limits, d_pod_count, d_terminating = check.rows(
+            di, n, "apply_node_deltas usage", d_requested, d_limits,
+            d_pod_count, d_terminating)
 
     def overwrite(cur, new):
         weight = keep[:, None] if cur.dim() == 2 else keep
@@ -358,7 +371,6 @@ def apply_node_deltas(nodes: NodeState,
     mask = nodes.mask.to(torch.int32)
     overwrite(mask, up_mask)
     nodes.nominated.zero_()
-    di = d_idx
     nodes.requested.index_add_(0, di, d_requested)
     nodes.limits.index_add_(0, di, d_limits)
     nodes.pod_count.index_add_(0, di, d_pod_count)
@@ -366,6 +378,7 @@ def apply_node_deltas(nodes: NodeState,
     return nodes.replace(mask=mask.bool())
 
 
+@sanitize.checked_call("serve_node_compact")
 def compact_node_rows(nodes: NodeState, gather_idx, valid) -> NodeState:
     """Delete node rows: gather the surviving rows into their shifted
     slots (`gather_idx`, (npad,) int64 built on the host) and re-pad the
@@ -380,7 +393,15 @@ def compact_node_rows(nodes: NodeState, gather_idx, valid) -> NodeState:
 
     Every column comes back as a NEW tensor (the gathers allocate), so a
     snapshot an earlier cycle still reads keeps its rows; the JAX package
-    donates the carry to the same gather instead."""
+    donates the carry to the same gather instead. Under `SPT_SANITIZE=1`
+    the call is the checked program "serve_node_compact": a gather index
+    outside the rows is reported and its slot re-padded."""
+    check = sanitize.current()
+    if check is not None:
+        gather_idx, ok = check.index(gather_idx, nodes.alloc.shape[0],
+                                     "compact_node_rows")
+        valid = valid & ok
+
     def take(cur, pad=0):
         out = cur.index_select(0, gather_idx)
         keep = valid.view((-1,) + (1,) * (out.dim() - 1))
@@ -496,10 +517,21 @@ class SideDeltas:
                 self.q_idx, self.q_used, self.q_count)
 
 
+@sanitize.checked_call("serve_side_apply")
 def apply_side_deltas(tables: SideTables, g_idx, g_assigned, g_gated,
                       g_slack, q_idx, q_used, q_count) -> SideTables:
     """Fold one packed side-table batch into the resident gang and quota
-    sums, in place (pad rows add zero at row 0); returns the carry."""
+    sums, in place (pad rows add zero at row 0); returns the carry. Under
+    `SPT_SANITIZE=1` the call is the checked program "serve_side_apply": a
+    row outside the tables is reported and adds nothing."""
+    check = sanitize.current()
+    if check is not None:
+        g_idx, g_assigned, g_gated, g_slack = check.rows(
+            g_idx, tables.gang_assigned.shape[0], "apply_side_deltas gangs",
+            g_assigned, g_gated, g_slack)
+        q_idx, q_used, q_count = check.rows(
+            q_idx, tables.quota_used.shape[0], "apply_side_deltas quotas",
+            q_used, q_count)
     tables.gang_assigned.index_add_(0, g_idx, g_assigned)
     tables.gang_gated.index_add_(0, g_idx, g_gated)
     tables.gang_slack.index_add_(0, g_idx, g_slack)

@@ -37,8 +37,12 @@ within one window and an exact one resumes with no rebase.
 `StreamingServeEngine`, the pipelined cycle engine's serving engine,
 compacts a deleted node's row out on the device instead of rebasing,
 memoizes the per-pod encodes and verifies against columns summed from the
-store. Deferred to its slice: the flight recorder's serve provenance
-(`annotate_record`).
+store.
+
+Flight recorder: `annotate_record` attaches a served cycle's provenance
+(the resident generation, the events since the base, the digest of the
+base columns taken at the last rebase while the recorder was on, and the
+packed deltas of this refresh) to the cycle's record.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     gang_object_tables,
     quota_object_tables,
 )
+from scheduler_plugins_tpu_torch.utils import flightrec
 from scheduler_plugins_tpu_torch.utils import observability as obs
 from scheduler_plugins_tpu_torch.utils.flightrec import pack_digest
 from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
@@ -128,6 +133,13 @@ class ServeEngine:
         #: quota sums are kept only once an ElasticQuota was seen, so a
         #: quota-less cluster pays no side rows
         self._quota_tracking = False
+        # -- flight-recorder provenance ------------------------------------
+        #: `pack_digest` of the base columns at the last rebase, taken only
+        #: while the recorder is on
+        self._base_digest: Optional[str] = None
+        #: the last refresh's mode ("rebase", "delta", "compact") and its
+        #: packed batch, or None when it served nothing
+        self._last: Optional[dict] = None
 
     @staticmethod
     def _verify_every_default() -> int:
@@ -264,6 +276,7 @@ class ServeEngine:
                 if grow:
                     self._grow(bucket_size(n_nodes))
                 self._apply_batch(upserts, usage, side)
+            self._last = None
             return None
 
         if rebase or self._nodes is None:
@@ -281,6 +294,7 @@ class ServeEngine:
                 and not self._ensure_side(cluster)):
             # the side tables could not be rebuilt (an extended-resource
             # assigned pod): serve this cycle from the full snapshot
+            self._last = None
             return None
         return self._assemble(cluster, pending, now_ms)
 
@@ -456,23 +470,29 @@ class ServeEngine:
             device = self._nodes.alloc.device
             self._nodes = D.apply_node_deltas(
                 self._nodes, *D.stage(ups.as_args() + use.as_args(), device))
-            self._apply_side(side)
+            side_packed = self._apply_side(side)
         self._generation += 1
-        self._staleness += len(upsert_rows) + len(usage_rows)
+        n_events = len(upsert_rows) + len(usage_rows)
+        self._staleness += n_events
+        self._last = {"mode": "delta", "events": n_events,
+                      "upserts": _fields(ups), "usage": _fields(use)}
+        if side_packed is not None:
+            self._last["side"] = _fields(side_packed)
         self._observe()
 
-    def _apply_side(self, side) -> None:
+    def _apply_side(self, side):
         """Fold this window's side-table rows into the resident gang and
         quota sums; skipped for windows without such rows and while the
-        tables are dirty (the pending rebuild supersedes them)."""
+        tables are dirty (the pending rebuild supersedes them). Returns
+        the packed `SideDeltas` applied, or None."""
         if side is None:
-            return
+            return None
         gang_rows, ns_rows = side
         if (not gang_rows and not ns_rows) or self._side_dirty:
-            return
+            return None
         if self._side is None:
             self._side_dirty = True
-            return
+            return None
         need_g = max((row for row, *_ in gang_rows), default=-1) + 1
         need_q = max((row for row, *_ in ns_rows), default=-1) + 1
         self._grow_side(need_g, need_q)
@@ -480,6 +500,7 @@ class ServeEngine:
         self._side = D.apply_side_deltas(
             self._side,
             *D.stage(packed.as_args(), self._side.gang_slack.device))
+        return packed
 
     def _grow_side(self, need_g: int, need_q: int) -> None:
         """Zero-pad the side tables to cover rows `need_g` / `need_q`."""
@@ -541,6 +562,7 @@ class ServeEngine:
             # snapshot and keep rebuilding until it goes
             self._nodes = None
             self._side_dirty = True
+            self._last = None
             self._observe()
             return snap, meta
         self._nodes = snap.nodes
@@ -560,6 +582,12 @@ class ServeEngine:
         # a rebase is O(cluster) already: rebuild the side tables to match
         # the fresh snapshot it serves
         self._rebuild_side_tables(cluster)
+        # the base a served record's deltas start from (a host read of the
+        # columns, taken only while the recorder is on)
+        self._base_digest = (
+            pack_digest(self._node_columns(self._nodes))
+            if flightrec.recorder.enabled else None)
+        self._last = {"mode": "rebase", "events": 0}
         self._observe()
         return snap, meta
 
@@ -840,6 +868,8 @@ class ServeEngine:
         self._gang_rows = {}
         self._ns_rows = {}
         self._quota_tracking = False
+        self._base_digest = None
+        self._last = None
         self.note_fault("checkpoint-restore")
         self._observe()
         return True
@@ -950,6 +980,38 @@ class ServeEngine:
     def _observe(self) -> None:
         obs.metrics.set_gauge(obs.SERVE_GENERATION, self._generation)
         obs.metrics.set_gauge(obs.SERVE_STALENESS, self._staleness)
+
+    # -- flight recorder ---------------------------------------------------
+    def annotate_record(self, rec) -> None:
+        """Attach the served cycle's provenance to a flight-recorder
+        record: the resident generation, the events since the base, the
+        base digest, the refresh's mode and, for a delta refresh, its
+        packed batch (plain dicts of arrays, so `unpack_pytree` reads them
+        back). The snapshot itself is captured in full, so the record
+        replays through the standard path; this block ties it to the
+        delta stream that made it."""
+        if self._last is None:
+            return
+        serve = {
+            "generation": self._generation,
+            "staleness_events": self._staleness,
+            "base_digest": self._base_digest,
+            "mode": self._last["mode"],
+            "events": self._last["events"],
+        }
+        if self._last["mode"] == "delta":
+            packed = {"upserts": self._last["upserts"],
+                      "usage": self._last["usage"]}
+            if "side" in self._last:
+                packed["side"] = self._last["side"]
+            serve["deltas"] = flightrec.pack_pytree(packed, rec.blobs)
+        rec.manifest["serve"] = serve
+
+
+def _fields(packed) -> dict:
+    """A packed delta batch (`NodeUpserts`, `UsageDeltas`, `SideDeltas`)
+    as a dict of its host arrays."""
+    return {name: getattr(packed, name) for name in type(packed).__slots__}
 
 
 def _shift_gather_args(npad: int, slot: int, survivors: int):
@@ -1108,6 +1170,7 @@ class StreamingServeEngine(ServeEngine):
             self.compactions += 1
             self._generation += 1
             self._staleness += 1
+            self._last = {"mode": "compact", "events": 1}
             self._observe()
 
     # -- O(nodes + assigned) anti-entropy --------------------------------

@@ -4,13 +4,21 @@ from __future__ import annotations
 
 import torch
 
+from scheduler_plugins_tpu_torch.utils import sanitize
+
 
 def go_div(a: torch.Tensor, b) -> torch.Tensor:
     """Integer division truncating toward zero (Go semantics), b > 0.
 
     `torch.div(..., rounding_mode="trunc")` is Go's truncation; Python's
     and PyTorch's `//` floor, which differs for negative numerators (the
-    Least-mode allocatable scores are negative)."""
+    Least-mode allocatable scores are negative). Inside a checked call
+    (`utils.sanitize`) a zero tensor divisor is reported and divides as 1
+    (an integer division by zero raises on the CPU and is undefined on
+    the card)."""
+    check = sanitize.current()
+    if check is not None:
+        b = check.divisor(b, "go_div")
     return torch.div(a, b, rounding_mode="trunc")
 
 
@@ -116,7 +124,12 @@ def add_rows(target: torch.Tensor, index: torch.Tensor,
     accumulating. Written as one `scatter_add` because under
     `torch.func.vmap` (the lane solve, `parallel.lanes`) `index_add`'s
     batching rule loops over the batch, one kernel a lane, while
-    `scatter_add`'s is one op. Exact for integer dtypes in any order."""
+    `scatter_add`'s is one op. Exact for integer dtypes in any order.
+    Inside a checked call (`utils.sanitize`) an index outside `target`'s
+    rows is reported and its row adds nothing."""
+    check = sanitize.current()
+    if check is not None:
+        index, src = check.rows(index, target.shape[0], "add_rows", src)
     if target.dim() > 1:
         index = index[:, None].expand(-1, *target.shape[1:])
     return torch.scatter_add(target, 0, index, src)

@@ -8,8 +8,8 @@ inputs. Integer outputs with tolerance 0.
   Tables, TestGangPhaseCycle, TestServingSeam, TestReviewRegressions) run
   again on the port, every JAX name they call swapped for the port's;
   their numpy twin calls run the port's device solve on the CPU beside
-  the port's twin and require the two equal. TestFlightRecorderSeam waits
-  for the port's flight recorder.
+  the port's twin and require the two equal. TestFlightRecorderSeam runs
+  the same way in `tests/test_torch_flightrec.py`.
 - The seeds of `tests/test_differential.py` TestRankGangDifferential and
   TestWaveGangDifferential: `gang_solve` equal to JAX's jitted
   `gang_solve_body` and to both twins on every output and final carry,

@@ -73,7 +73,10 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.obs.ledger",
         "scheduler_plugins_tpu_torch.framework.pipeline_cycle",
         "scheduler_plugins_tpu_torch.parallel.lanes",
-        "scheduler_plugins_tpu_torch.framework.laned_cycle"} <= set(names), names
+        "scheduler_plugins_tpu_torch.framework.laned_cycle",
+        "scheduler_plugins_tpu_torch.utils.sanitize",
+        "scheduler_plugins_tpu_torch.utils.racecheck",
+        "scheduler_plugins_tpu_torch.tools.replay"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -152,6 +155,20 @@ class TestDeviceDefault:
                              device="cpu")
         assert result.assignment.device.type == "cpu"
         assert (result.assignment >= 0).all()
+
+    def test_flightrec_entry_points_raise(self, no_cuda):
+        """The flight recorder's replay and explain of a bundle default to
+        the card too."""
+        from scheduler_plugins_tpu_torch.utils import flightrec
+
+        loaded = flightrec.load_bundle(
+            str(REPO / "tests" / "fixtures" / "flightrec"))[0]
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            flightrec.replay_cycle(loaded)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            flightrec.explain_record(loaded, "default/huge")
+        assert flightrec.replay_cycle(loaded, device="cpu")[
+            "placements_match"]
 
     def test_intree_entry_points_raise(self, no_cuda):
         """The in-tree slice's entry points (the snapshot with its

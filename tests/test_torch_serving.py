@@ -17,8 +17,8 @@ assertions, held on both packages.
 
 The cases mirror `tests/test_serving.py`'s `TestDeltaEquivalence` (seeds
 0-3), `TestServeEdgePaths`, `TestSinkLifecycle`, `TestEventKindTable` and
-`TestResidentGangQuota`; the flight-recorder case waits for the port's
-recorder. Unit cases hold the packed batches, the apply, the side tables,
+`TestResidentGangQuota`; the flight-recorder case (TestServeFlightRecorder)
+runs in `tests/test_torch_flightrec.py`. Unit cases hold the packed batches, the apply, the side tables,
 the fault transform and the snapshot's lowering helpers against JAX."""
 
 from dataclasses import fields

@@ -24,7 +24,6 @@ import scheduler_plugins_tpu_torch.framework.cycle as port_cycle
 from scheduler_plugins_tpu_torch.state import cluster as port_store
 from test_torch_cycle import (
     JAX,
-    JAX_ONLY_DEFAULTS,
     PORT,
     SCRIPTS,
     churn_script,
@@ -97,8 +96,6 @@ def run_streamed(script, monkeypatch):
             pmut(port, pc)
         jr, pr = jax.run(js, jc, now), port.run(ps, pc, now)
         assert report_diff(jr, pr) == [], (k, jr, pr)
-        assert [f for f, v in JAX_ONLY_DEFAULTS.items()
-                if getattr(jr, f) != v] == [], k
         assert store_diff(jc, pc) == [], (k, store_diff(jc, pc))
         reports.append(pr)
     assert served_p == served_j
