@@ -259,7 +259,29 @@ Phases (any failure exits non-zero and prints no result line):
    locks and Events and at least one lock-order edge, identical
    decisions; (e) a served `run_cycle` with the
    recorder off, its hook stages under sync-debug "error";
-23. the kernel table as one JSON line (times at the shapes, dtypes and
+23. the tuning observatory (`[tune]` lines): bench config 14, the
+   drifting mix, at `TUNE_LIVE_SHAPE` uncut (`tests/torch_tune_cases.py`:
+   96 nodes, 24 arrivals and 10 departures a cycle, 8 + 8 + 14 + 12 + 4
+   cycles, K = 16 candidates, a corpus of 3, a sweep every 2 cycles):
+   first a sweep step's work calls and device µs at K = 1 and K = 16
+   (`torch.profiler`, required equal) and a K = 16 sweep under sync-debug
+   "error"; (a) the static arm on the card, the tuned arm (the recorder
+   and a synchronous `ShadowTuner` through `run_cycle(tuner=)`) on the
+   card and on the CPU, each cycle's placements, failed pods and weights,
+   the promotions, the injected cycle and the rollback equal card == CPU,
+   the quality stamps within 1e-12 relative; (b) `tune_live_smoke`'s
+   checks on the card (promoted, the post-promotion quality win > 0 and
+   the overall one >= -0.002, no violation, no sweep failure, the
+   observe-only lane's placements equal, the rollback within 2 cycles of
+   the first detectable regression and no flapping, the per-tick overhead
+   of 9 interleaved pairs within max(5 %, their jitter floor)); (c) the
+   tuner chaos check (garbage sweep output, a sweep hang, a crash on
+   every promotion) with every cycle's placements equal to the no-tuner
+   control's; (d) the offline tuner's smoke (`tools/tune.py smoke`: a
+   96-node x 128-pod trimaran corpus of 3 cycles, 64 candidates, an
+   emitted profile with 0 violations, equal sweep ops at K = 1 and 64).
+   No election kernel lies on this path;
+24. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -4837,6 +4859,191 @@ def flightrec_phase(device) -> None:
               flush=True)
 
 
+def _tune_namespace(device):
+    """The port's names for `tests/torch_tune_cases.py`, its cycles and
+    sweeps on `device`."""
+    import functools
+    from types import SimpleNamespace
+
+    from scheduler_plugins_tpu_torch.framework import run_cycle
+    from scheduler_plugins_tpu_torch.resilience import faults
+    from scheduler_plugins_tpu_torch.tuning import quality
+    from scheduler_plugins_tpu_torch.tuning.shadow import ShadowTuner
+    from scheduler_plugins_tpu_torch.utils import flightrec
+
+    return SimpleNamespace(
+        **vars(_port_namespace()),
+        ShadowTuner=functools.partial(ShadowTuner, device=device),
+        run=lambda s, c, now, tuner: run_cycle(s, c, now=now, tuner=tuner,
+                                               device=device),
+        flightrec=flightrec, faults=faults, SENSE=quality.SENSE,
+    )
+
+
+#: the sweep widths whose step work is held equal
+TUNE_K = (1, 16)
+
+
+def tune_sweep_work(device) -> None:
+    """A sweep step's work at K = 1 and K = 16 on config 14's first
+    cycle: the drift profile's vmapped solve of the first 12 and of all 24
+    arrivals differ by 12 steps (`launches_per_step`'s method). The host
+    calls that enqueue device work a step must be equal at both K (one
+    program a step, not one a lane); a K = 16 sweep then runs under
+    sync-debug "error"."""
+    import torch
+
+    import torch_tune_cases as tune
+    from scheduler_plugins_tpu_torch.parallel.solver import sweep_solve_fn
+    from scheduler_plugins_tpu_torch.tuning.sweep import candidate_weights
+
+    pkg = _tune_namespace(device)
+    shape = tune.TUNE_LIVE_SHAPE
+    script, _ = tune._drift_script(shape)
+    cluster = tune._drift_cluster(pkg, shape)
+    phase, arrivals, departs = script[0]
+    tune._drift_apply_events(pkg, cluster, arrivals, departs, 1000)
+    tune._drift_metrics(pkg, cluster, shape, phase)
+    sched = tune._drift_profile(pkg)
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    half = len(pending) // 2
+    fn = sweep_solve_fn(sched)
+    per_k = {}
+    for k in TUNE_K:
+        W = torch.as_tensor(candidate_weights([1, 20], k, seed=0),
+                            device=device)
+        counts = {}
+        for n in (half, 2 * half):
+            snap, meta = cluster.snapshot(pending[:n], now_ms=1000,
+                                          device=device, pad_pods=n)
+            sched.prepare(meta, cluster)
+            state0 = sched.initial_state(snap)
+            events, work, device_us, _ = profiled_work(
+                lambda: fn(snap, state0, None, W), device)
+            counts[n] = (sum(work.values()), device_us, events)
+        (w1, us1, e1), (w2, us2, e2) = counts[half], counts[2 * half]
+        per_k[k] = ((w2 - w1) / half, (us2 - us1) / half, (e2 - e1) / half)
+        print(f"[tune] sweep_step K={k} work_calls_per_step={per_k[k][0]} "
+              f"device_us_per_step={per_k[k][1]} "
+              f"device_events_per_step={per_k[k][2]} (work calls {w1} / "
+              f"{w2}, device us {us1} / {us2} for {half} / {2 * half} "
+              f"pods)", flush=True)
+    if per_k[TUNE_K[0]][0] != per_k[TUNE_K[1]][0]:
+        raise AssertionError(f"sweep step work grows with K: {per_k}")
+    W = torch.as_tensor(candidate_weights([1, 20], TUNE_K[1], seed=0),
+                        device=device)
+    state0 = sched.initial_state(snap)
+    _sync(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(snap, state0, None, W)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync(device)
+
+
+def tune_arms(device) -> dict:
+    """(a) and (b): config 14's static arm on the card, its tuned arm on
+    the card and on the CPU (equal but for wall times), the overhead
+    pairs on the card, and `tune_live_smoke`'s checks."""
+    import torch
+
+    import torch_tune_cases as tune
+
+    shape = tune.TUNE_LIVE_SHAPE
+    card = _tune_namespace(device)
+    arms = {}
+    for label, pkg, tuned in (("static_card", card, False),
+                              ("tuned_card", card, True),
+                              ("tuned_cpu",
+                               _tune_namespace(torch.device("cpu")), True)):
+        t0 = time.perf_counter()
+        arms[label] = arm = tune.run_drift_arm(pkg, shape, tuned=tuned)
+        wall = time.perf_counter() - t0
+        t_idx = range(shape["warmup"], arm["b_end"])
+        serve_s = sum(arm["times"][i] for i in t_idx)
+        print(f"[tune] arm={label} wall_s={wall} cycles={len(arm['times'])} "
+              f"timed_cycles_per_s={len(t_idx) / serve_s} "
+              f"sweep_wall_s={arm['sweep_wall_s']} "
+              f"probe_wall_s={arm['probe_wall_s']} "
+              f"promotions={arm['promotions']} rollback={arm['rollback']} "
+              f"tuner={arm['tuner']}", flush=True)
+    got, want = arms["tuned_card"], arms["tuned_cpu"]
+    for key in ("bound", "failed", "weights_by_cycle", "promotions",
+                "injected_at", "rollback", "regress_seen_at", "decided"):
+        if got[key] != want[key]:
+            raise AssertionError(f"config 14 tuned arm: card != CPU in {key}")
+    for c, (g, w) in enumerate(zip(got["quality"], want["quality"])):
+        if set(g) != set(w) or any(
+                abs(g[k] - w[k]) > 1e-12 * max(abs(w[k]), 1e-300)
+                for k in g if g[k] != w[k]):
+            raise AssertionError(f"config 14 cycle {c}: quality card "
+                                 f"{g} != CPU {w}")
+    line = tune.drift_line(card, shape, arms["static_card"], got)
+    t0 = time.perf_counter()
+    pct, floor, match, overlap = tune.tune_overhead_pct(card, shape)
+    print(f"[tune] overhead_pairs={tune.TUNE_OVERHEAD_PAIRS} "
+          f"overhead_pct={pct} jitter_floor_pct={floor} "
+          f"observe_only_placements_match={match} "
+          f"background_sweep_overlap={json.dumps(overlap)} "
+          f"seconds={time.perf_counter() - t0}", flush=True)
+    line.update(overhead_pct=pct, overhead_jitter_floor_pct=floor,
+                observe_only_placements_match=match)
+    checks = tune.tune_live_checks(line)
+    print(f"[tune] line={json.dumps(line)}", flush=True)
+    print(f"[tune] checks={json.dumps(checks)}", flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"config 14: tune_live_smoke checks failed: "
+                             f"{failed}")
+    return line
+
+
+def tune_chaos(device) -> None:
+    """(c): the tuner chaos check on the card."""
+    import torch_tune_cases as tune
+
+    t0 = time.perf_counter()
+    line = tune.tuner_chaos_check(_tune_namespace(device))
+    print(f"[tune] chaos={json.dumps(line)} "
+          f"seconds={time.perf_counter() - t0}", flush=True)
+    if not line["ok"]:
+        raise AssertionError(f"tuner chaos check failed: {line}")
+
+
+def tune_offline_smoke(device) -> None:
+    """(d): `tools/tune.py smoke` on the card; its one JSON line must say
+    ok (an accepted, emitted profile with 0 violations and equal sweep
+    ops at K = 1 and 64)."""
+    import io
+    import tempfile
+
+    from scheduler_plugins_tpu_torch.tools import tune as offline
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="tune_smoke_") as tmp:
+        with contextlib.redirect_stdout(buf):
+            rc = offline.main(["smoke", "--device", str(device),
+                               "--out", str(Path(tmp) / "bundle")])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"[tune] offline_smoke rc={rc} seconds="
+          f"{time.perf_counter() - t0} {json.dumps(line)}", flush=True)
+    if rc != 0 or not line["ok"] or line["emitted_profile_violations"] != 0:
+        raise AssertionError(f"offline tune smoke failed: {line}")
+
+
+def tune_phase(device) -> None:
+    """Phase 23: the tuning observatory, bench config 14 uncut."""
+    _tests_on_path()
+    for label, fn in (("sweep_work", tune_sweep_work), ("arms", tune_arms),
+                      ("chaos", tune_chaos),
+                      ("offline_smoke", tune_offline_smoke)):
+        t0 = time.perf_counter()
+        fn(device)
+        print(f"[tune] {label}_s={time.perf_counter() - t0}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -5049,9 +5256,14 @@ def main() -> int:
 
     phase_done(22)
 
-    # 23. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 23. the tuning observatory: bench config 14
+    tune_phase(device)
+
     phase_done(23)
+
+    # 24. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(24)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -76,8 +76,9 @@ gang solve alone. Under `SPT_SANITIZE=1` (`utils.sanitize`) the cycle
 drains foreign reports before the snapshot and fills
 `CycleReport.sanitize_errors` / `sanitize_checked` after the solve.
 
-Left out until its slice: the online tuner (`tuner`: passing one raises
-NotImplementedError).
+The online tuner (`tuner`, a `tuning.shadow.ShadowTuner`) swaps weights
+only at `begin_cycle`, before the cycle reads the profile, and reads the
+finished report's quality stamp in `observe_report`.
 """
 
 from __future__ import annotations
@@ -735,22 +736,25 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     `resilience.BackendUnavailable` only when the backend is gone AND the
     profile has no host fallback. `gangs`, a `gangs.phase.GangPhase`,
     places rank-aware gangs whole ahead of the per-pod solve
-    (`CycleReport.rank_gangs`). The JAX package's `tuner` option is not
-    ported yet: passing one raises NotImplementedError."""
-    if tuner is not None:
-        raise NotImplementedError(
-            "run_cycle(tuner=...) comes with the online tuner "
-            "(tuning/shadow.py)"
-        )
+    (`CycleReport.rank_gangs`). `tuner`, a `tuning.shadow.ShadowTuner`,
+    hooks the guarded-rollout controller in at its two seams:
+    `begin_cycle` BEFORE anything reads the profile's weights (the one
+    point a staged promotion or a rollback may swap them), and
+    `observe_report` on the finished report, on both return paths."""
     device = resolve_device(device)
     if now is None:
         now = _now_ms()
+    if tuner is not None:
+        tuner.begin_cycle(now_ms=now)
     clock = time.perf_counter
     t0 = clock()
     ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve,
                       resilience, gangs)
     try:
-        return _run_stages(ctx, clock, t0, timings)
+        report = _run_stages(ctx, clock, t0, timings)
+        if tuner is not None:
+            tuner.observe_report(report)
+        return report
     finally:
         # the lane-0 scope `_cycle_open` pushed: popped here so an early
         # return or a raise cannot leak it, and events between cycles fall

@@ -322,11 +322,14 @@ class _Hoisted:
     node_index: torch.Tensor  # (N,) int64 arange
 
 
-def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
+def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted,
+                weights=None):
     """One pod of the sequential solve: PreFilter -> built-in fit (nominee
     holds) -> Filter chain -> Score/Normalize weighted sum -> argmax with
     the lowest-index tie-break -> Reserve commits. Returns (state, (choice,
-    ok, fail_code)), each output (1,)."""
+    ok, fail_code)), each output (1,). `weights`, an (L,) int64 tensor,
+    multiplies plugin i's normalized column in place of its `weight` int
+    (the weight sweep's counterfactual channel); None reads the ints."""
     # PreFilter, with per-plugin attribution
     ok0 = hoisted.ok0[p:p + 1]
     ok, admit_code = _admit_with_attribution(
@@ -343,12 +346,13 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     feasible = feasible & ok
     # Score + Normalize, weighted sum
     total = None
-    for plugin in plugins:
+    for i, plugin in enumerate(plugins):
         raw = plugin.score(state, snap, p)
         if raw is not None:
+            weight = plugin.weight if weights is None else weights[i]
             # int64 whatever the plugin's score dtype (LeastNUMANodes
             # scores int32); a no-op for the int64 scorers
-            col = (plugin.weight * plugin.normalize(raw, feasible)).to(
+            col = (weight * plugin.normalize(raw, feasible)).to(
                 torch.int64)
             total = col if total is None else total + col
     if total is None:
@@ -390,9 +394,13 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted):
     return state, (choice, ok, fail_code)
 
 
-def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
+def sequential_solve_body(plugins, snap, state0: SolverState,
+                          weights=None) -> SolveResult:
     """The sequential parity solve over one snapshot: hoist presolves, run
-    `_solve_step` pod by pod, reduce gang quorum. No host reads."""
+    `_solve_step` pod by pod, reduce gang quorum. No host reads. `weights`
+    (an (L,) int64 tensor, or None for the plugins' `weight` ints) is the
+    weight sweep's channel: `parallel.solver.sweep_solve_fn` maps this
+    body over K weight rows with `torch.func.vmap`."""
     for plugin in plugins:
         plugin.bind_presolve(plugin.prepare_solve(snap))
     hoisted = _Hoisted(
@@ -403,7 +411,7 @@ def sequential_solve_body(plugins, snap, state0: SolverState) -> SolveResult:
     choices, oks, fails = [], [], []
     for p in range(snap.num_pods):
         state, (choice, ok, fail) = _solve_step(plugins, state, p, snap,
-                                                hoisted)
+                                                hoisted, weights)
         choices.append(choice)
         oks.append(ok)
         fails.append(fail)

@@ -33,6 +33,10 @@ cross-node constraints in queue order (`validate_at`).
 `batch_explain_rows` explains pods through the whole-batch row hooks
 (`collapsed_batch_rows`); `profile_initial_scores` is the independent
 (P, N) objective the explain tables are held against.
+
+`sweep_solve_fn` is the weight sweep's solve: the sequential parity body
+under `torch.func.vmap` over K candidate weight vectors
+(`tuning.sweep.sweep_cycle`).
 """
 
 from __future__ import annotations
@@ -509,6 +513,57 @@ def profile_initial_scores(scheduler, snap, auxes=None, *, device=None):
             totals.append(total)
             feasibles.append(feasible)
     return torch.stack(totals), torch.stack(feasibles)
+
+
+def sweep_solve_fn(scheduler):
+    """The counterfactual weight sweep's solve: a function
+
+        fn(snap, state0, auxes, W (K, L) int64 tensor) ->
+            (assignment (K, P) int32, admitted (K, P), wait (K, P))
+
+    that runs the sequential parity body
+    (`framework.runtime.sequential_solve_body`) once per candidate weight
+    row under `torch.func.vmap` over the leading K axis. The carry (each
+    live `SolverState` field, expanded to K rows without a copy) and the
+    weight rows are batched; the snapshot, the auxes (bound for the call,
+    None = the plugins' own) and the pod index are shared, and so are the
+    presolves, computed once from the unbatched snapshot. Lane k equals
+    `Scheduler.solve` on a profile whose static weights are W[k]. The
+    built-in commit and the gang and quota plugins' commits scatter
+    (`utils.intmath.add_rows`), so a sweep step of those profiles (and of
+    the load-aware ones, which commit nothing) issues the same ATen ops at
+    every K: one program a step, not one a lane. A commit through
+    `index_add` (the selector carries, the NUMA plugin's) is still
+    exact, its batching rule looping over the lanes. The outputs stay on
+    the device; nothing is read on the host."""
+    from dataclasses import fields
+
+    from scheduler_plugins_tpu_torch.framework.plugin import SolverState
+    from scheduler_plugins_tpu_torch.framework.runtime import (
+        bound_auxes,
+        sequential_solve_body,
+    )
+
+    plugins = tuple(scheduler.profile.plugins)
+
+    def sweep(snap, state0, auxes, W):
+        K = W.shape[0]
+        carry = {
+            f.name: getattr(state0, f.name).expand(
+                K, *getattr(state0, f.name).shape)
+            for f in fields(SolverState)
+            if getattr(state0, f.name) is not None
+        }
+
+        def lane(w, carry):
+            r = sequential_solve_body(plugins, snap, SolverState(**carry),
+                                      weights=w)
+            return r.assignment, r.admitted, r.wait
+
+        with bound_auxes(plugins, auxes):
+            return torch.func.vmap(lane, in_dims=(0, 0))(W, carry)
+
+    return sweep
 
 
 def _per_pod_rows(method, plugins, state, snap, skip=()):

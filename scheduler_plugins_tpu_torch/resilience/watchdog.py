@@ -94,10 +94,10 @@ class _Worker:
     block process shutdown forever. A daemon thread dies with the
     process; an abandoned one idles on its own queue."""
 
-    def __init__(self):
+    def __init__(self, name: str = "solve-watchdog"):
         self._jobs: queue.SimpleQueue = queue.SimpleQueue()
         self._thread = threading.Thread(
-            target=self._loop, daemon=True, name="solve-watchdog"
+            target=self._loop, daemon=True, name=name
         )
         self._thread.start()
 

@@ -13,9 +13,17 @@ assignment, admitted, wait):
 
 Two forms, each with the JAX package's float64 arithmetic in its order:
 the tensor gauges (`placed_demand`, `fragmentation`, `packed_utilization`,
-`util_imbalance`, `cycle_quality`) on torch tensors on the snapshot's
-device, and `cycle_quality_np`, host numpy on one copy of the snapshot's
-columns, which `run_cycle` stamps on every report.
+`util_imbalance`, `cycle_quality`, `batch_quality` over K candidate
+placements of one cycle in one `torch.func.vmap`, `state_quality` of an
+accumulated cluster state) on torch tensors on the snapshot's device, and
+`cycle_quality_np`, host numpy on one copy of the snapshot's columns,
+which `run_cycle` stamps on every report.
+
+`SENSE` gives each objective's improvement direction; `score_drift` is
+the relative score-sum drift against an anchor's placements on a (P, N)
+cycle-initial score matrix. Objectives that need memory across cycles
+(gang admission latency, the preemption totals) live in
+`QualityAccumulator` and `gang_admission_latency`.
 """
 
 from __future__ import annotations
@@ -27,11 +35,30 @@ from scheduler_plugins_tpu_torch.api.resources import CANONICAL, CPU, MEMORY
 from scheduler_plugins_tpu_torch.ops import PODS_I
 from scheduler_plugins_tpu_torch.ops.fit import free_capacity, pod_fit_demand
 from scheduler_plugins_tpu_torch.tuning.gates import pod_fit_demand_np
+from scheduler_plugins_tpu_torch.utils.intmath import add_rows
 
 CPU_I = CANONICAL.index(CPU)
 MEM_I = CANONICAL.index(MEMORY)
 
 F64 = torch.float64
+
+#: objective -> +1 (higher is better) / -1 (lower is better)
+SENSE = {
+    "fragmentation": -1,
+    "util_imbalance": -1,
+    "packed_utilization": +1,
+    "gang_wait_frac": -1,
+    "unplaced_frac": -1,
+    "drift": +1,
+    "preemptions": -1,
+    "nominations": -1,
+    "gang_latency_cycles": -1,
+    # rank-aware gang placement (gangs.topology)
+    "gang_spread_cost": -1,
+    "rank_cost_max": -1,
+    "rank_cost_p99": -1,
+    "elastic_satisfaction": +1,
+}
 
 #: the objectives `cycle_quality` / `cycle_quality_np` emit per cycle
 CYCLE_OBJECTIVES = (
@@ -48,13 +75,16 @@ def _core(x):
 
 def placed_demand(req, assignment, n_nodes: int):
     """(N, R) demand committed by the placements: each placed pod's fit
-    demand scatter-added onto its node."""
+    demand scatter-added onto its node, out of place (so `batch_quality`
+    can map it over K candidate placements). A node index past the rows
+    adds nothing, as JAX drops an out-of-bounds scatter: the chaos
+    harness's garbage sweep lanes are scored, then failed by the gates."""
     demand = pod_fit_demand(req)
-    placed = assignment >= 0
+    placed = (assignment >= 0) & (assignment < n_nodes)
     add = torch.where(placed[:, None], demand, 0)
     out = torch.zeros((n_nodes, req.shape[1]), dtype=req.dtype,
                       device=req.device)
-    return out.index_add_(0, torch.clamp(assignment, min=0).long(), add)
+    return add_rows(out, torch.where(placed, assignment, 0).long(), add)
 
 
 def fragmentation(free, node_mask):
@@ -127,6 +157,40 @@ def cycle_quality(snap, assignment, admitted, wait) -> dict:
     return dict(zip(names, values))
 
 
+def batch_quality(snap, assignments, waits) -> dict:
+    """{objective: (K,) float64} for K candidate placements of ONE cycle
+    (`assignments` and `waits` (K, P), tensors or numpy) in one
+    `torch.func.vmap` of the cycle objectives on the snapshot's device, one
+    host copy: how the weight sweep scores every candidate at once."""
+    terms = torch.func.vmap(lambda a, w: _quality_terms(snap, a, w))(
+        torch.as_tensor(np.asarray(assignments), device=snap.device),
+        torch.as_tensor(np.asarray(waits), device=snap.device).to(
+            torch.bool))
+    names = tuple(terms)
+    values = torch.stack([terms[k] for k in names]).cpu().numpy()
+    return {name: values[i] for i, name in enumerate(names)}
+
+
+def state_quality(alloc, used, node_mask=None) -> dict:
+    """{fragmentation, util_imbalance, packed_utilization} of a CLUSTER
+    STATE (allocatable and used (N, R) matrices on the CANONICAL axis,
+    tensors or numpy): the multi-cycle benches score their accumulated end
+    state with this instead of one cycle's placements."""
+    alloc = torch.as_tensor(alloc)
+    used = torch.as_tensor(used, device=alloc.device)
+    node_mask = (torch.ones(alloc.shape[0], dtype=torch.bool,
+                            device=alloc.device) if node_mask is None
+                 else torch.as_tensor(node_mask, device=alloc.device))
+    free = torch.where(node_mask[:, None], alloc - used, 0)
+    values = torch.stack([
+        fragmentation(free, node_mask),
+        util_imbalance(alloc, free, node_mask),
+        packed_utilization(alloc, free, node_mask),
+    ]).tolist()
+    return dict(zip(("fragmentation", "util_imbalance",
+                     "packed_utilization"), values))
+
+
 def cycle_quality_np(snap, assignment, admitted, wait) -> dict:
     """The cycle objectives from host arrays: `snap` holds numpy
     `nodes.alloc/requested/mask` and `pods.req/mask`; `admitted` is part
@@ -177,6 +241,24 @@ def cycle_quality_np(snap, assignment, admitted, wait) -> dict:
         / max(int(placed.sum()), 1),
         "unplaced_frac": 1.0 - float(placed.sum()) / n_real,
     }
+
+
+def score_drift(scores, assignment, anchor) -> float:
+    """Relative score-sum drift of `assignment` against `anchor`'s
+    placements on a (P, N) cycle-initial score matrix, host numpy.
+    Out-of-range node indices (garbage placements, the chaos harness's
+    corrupted sweep output) contribute nothing instead of crashing the
+    scorer: the hard-constraint oracles are the gate that counts them."""
+    scores = np.asarray(scores)
+    a = np.asarray(assignment)
+    ref = np.asarray(anchor)
+
+    def ssum(x):
+        placed = (x >= 0) & (x < scores.shape[1])
+        return int(scores[np.nonzero(placed)[0], x[placed]].sum())
+
+    s_ref = ssum(ref)
+    return (ssum(a) - s_ref) / max(abs(s_ref), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -241,3 +323,81 @@ def elastic_satisfaction_quality(reports_or_counts) -> float:
     live = [v[0] for v in latest.values()]
     desired = [v[1] for v in latest.values()]
     return elastic_satisfaction(live, desired)
+
+
+# ---------------------------------------------------------------------------
+# multi-cycle: gang admission latency
+# ---------------------------------------------------------------------------
+
+
+class QualityAccumulator:
+    """Host accumulator for objectives that need memory across cycles:
+    gang admission latency (cycles from a gang's first pending appearance
+    to its first member binding; 0 = admitted the cycle it arrived) and
+    the preemption / nomination totals. Feed one `(cycle_no, report,
+    gang_of)` a cycle; `gang_of` maps a pod uid to its gang name (or
+    None)."""
+
+    def __init__(self):
+        self._first_pending: dict = {}
+        self.latencies: dict = {}  # gang -> cycles waited
+        self.preemptions = 0
+        self.nominations = 0
+
+    def observe(self, cycle_no: int, report, gang_of) -> None:
+        self.nominations += len(report.preempted)
+        self.preemptions += sum(
+            len(victims) for _, victims in report.preempted.values()
+        )
+        pending = set()
+        for uid in list(report.failed) + list(report.reserved):
+            g = gang_of(uid)
+            if g is not None:
+                pending.add(g)
+        admitted = set()
+        for uid in report.bound:
+            g = gang_of(uid)
+            if g is not None:
+                admitted.add(g)
+        for g in pending | admitted:
+            self._first_pending.setdefault(g, cycle_no)
+        for g in admitted:
+            if g not in self.latencies:
+                self.latencies[g] = cycle_no - self._first_pending[g]
+
+    def summary(self) -> dict:
+        lat = list(self.latencies.values())
+        return {
+            "gang_latency_cycles": (
+                float(np.mean(lat)) if lat else None
+            ),
+            "gangs_admitted": len(lat),
+            "gangs_still_waiting": len(self._first_pending)
+            - len(self.latencies),
+            "preemptions": self.preemptions,
+            "nominations": self.nominations,
+        }
+
+
+def gang_admission_latency(cycles) -> dict:
+    """Gang admission latency over a recorded-corpus replay: `cycles` is
+    an iterable of (gang_names, gang (P,), assignment (P,), wait (P,)) in
+    cycle order. A gang is pending while a member sits in the batch, and
+    admitted the first cycle a member places with quorum met (wait
+    False). Returns {gang: cycles waited} for the admitted gangs."""
+    first: dict = {}
+    admitted: dict = {}
+    for cycle_no, (gang_names, gang, assignment, wait) in enumerate(cycles):
+        gang = np.asarray(gang)
+        assignment = np.asarray(assignment)
+        wait = np.asarray(wait).astype(bool)
+        for g, name in enumerate(gang_names):
+            members = gang == g
+            if not members.any():
+                continue
+            first.setdefault(name, cycle_no)
+            if name not in admitted and (
+                members & (assignment >= 0) & ~wait
+            ).any():
+                admitted[name] = cycle_no - first[name]
+    return admitted

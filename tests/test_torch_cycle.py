@@ -1067,16 +1067,46 @@ def test_filter_verdicts_matches(jax_package):
 class TestUnportedOptions:
     @pytest.mark.parametrize("option", ["resilience", "gangs", "tuner"])
     def test_option_raises(self, option):
-        """`tuner` is not ported and raises NotImplementedError; the
-        ported `resilience` and `gangs` options raise on a value that is
-        not a `Resilience` / `GangPhase` before any bind, so the store is
-        untouched either way."""
+        """The `resilience`, `gangs` and `tuner` options raise on a value
+        that is not a `Resilience` / `GangPhase` / `ShadowTuner` before
+        any bind (the tuner at `begin_cycle`), so the store is
+        untouched."""
         c, s, _ = basic_binds_pending(PORT)
-        error = NotImplementedError if option == "tuner" else AttributeError
-        with pytest.raises(error, match=option if option == "tuner"
-                           else "object has no attribute"):
+        with pytest.raises(AttributeError, match="object has no attribute"):
             port_cycle.run_cycle(s, c, now=0, device=CPU, **{option: 4})
         assert all(p.node_name is None for p in c.pending_pods())
+
+    def test_observe_only_tuner_keeps_placements(self):
+        """An observe-only `ShadowTuner` through `run_cycle(tuner=)` with
+        the recorder on (it sweeps every cycle once the ring holds its
+        corpus) leaves every cycle's placements equal to a run with no
+        tuner."""
+        from scheduler_plugins_tpu_torch.tuning.shadow import ShadowTuner
+        from scheduler_plugins_tpu_torch.utils import flightrec
+
+        runs = []
+        for tuned in (False, True):
+            cluster, sched, steps = churn_script(5)(PORT)
+            tuner = None
+            if tuned:
+                flightrec.recorder.start(capacity=4)
+                tuner = ShadowTuner(sched, candidates=4, corpus_cycles=1,
+                                    sweep_every=1, observe_only=True,
+                                    sync=True, device=CPU)
+            bound = []
+            try:
+                for now, mutate in steps:
+                    mutate(PORT, cluster)
+                    report = port_cycle.run_cycle(
+                        sched, cluster, now=now, device=CPU, tuner=tuner)
+                    bound.append(dict(report.bound))
+            finally:
+                flightrec.recorder.stop()
+            runs.append((bound, tuner))
+        (plain, _), (observed, tuner) = runs
+        assert observed == plain and any(plain)
+        assert tuner.sweeps >= 1 and tuner.promotions == 0
+        assert tuner.sweep_failures == 0
 
     def test_serve_option_runs(self):
         """An attached engine serves the cycle; its first refresh builds

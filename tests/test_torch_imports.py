@@ -76,7 +76,11 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.framework.laned_cycle",
         "scheduler_plugins_tpu_torch.utils.sanitize",
         "scheduler_plugins_tpu_torch.utils.racecheck",
-        "scheduler_plugins_tpu_torch.tools.replay"} <= set(names), names
+        "scheduler_plugins_tpu_torch.tools.replay",
+        "scheduler_plugins_tpu_torch.tuning.sweep",
+        "scheduler_plugins_tpu_torch.tuning.promotion",
+        "scheduler_plugins_tpu_torch.tuning.shadow",
+        "scheduler_plugins_tpu_torch.tools.tune"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
