@@ -281,7 +281,28 @@ Phases (any failure exits non-zero and prints no result line):
    96-node x 128-pod trimaran corpus of 3 cycles, 64 candidates, an
    emitted profile with 0 violations, equal sweep ops at K = 1 and 64).
    No election kernel lies on this path;
-24. the kernel table as one JSON line (times at the shapes, dtypes and
+24. the edge (`[edge]` lines; whether PyYAML and grpcio are present is
+   printed first): (a) bench config 7 at `SERVING_SHAPE` uncut (2,000
+   nodes, 12,288 bound pods, 4 + 48 churn cycles) as feed-v2 events over
+   TCP (`tests/torch_edge_cases.py`) into three in-process daemons ticked
+   once a cycle, `--serve` and `--native-store` on the card and `--serve
+   --device cpu`: every tick's decisions equal across the three and to
+   phase 17's direct-mutation served run on the CPU, the final stores
+   equal, 0 capacity violations, the card daemon's `/healthz` reading the
+   allocator (`available`, bytes in use > 0), the native arm's mirror
+   snapshot equal to the Python one tensor by tensor; per arm the
+   bootstrap's ingest seconds and events/s, ticks/s and tick ms p50 /
+   p99; (b) `python -m scheduler_plugins_tpu_torch` on the card against a
+   fake apiserver serving `tools/demo_apiserver.py`'s workload (256
+   nodes, 1,024 pods), `--bind-back --native-store --leader-elect` (the
+   Lease acquired, `/healthz` naming the daemon leader), then `--pipeline
+   --serve --checkpoint`: every pod bound and POSTed back, no node over
+   its allocatable, `/metrics` served, rc 0 at SIGTERM, the checkpoint
+   read back; (c) a `--native-store` daemon fed over gRPC (`--grpc-port`;
+   the framed TCP transport when grpcio is absent): after one cycle
+   `drain_deltas` returns exactly the mirror rows its binds touched. No
+   election kernel lies on this path;
+25. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -304,6 +325,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3278,7 +3300,7 @@ def serving_bench_line(serve: dict, base: dict, cpu: dict) -> dict:
     }
 
 
-def serving_phase(device) -> None:
+def serving_phase(device) -> list:
     """Phase 17: the serving path. Bench config 7 at `SERVING_SHAPE`
     (2,000 nodes, 12,288 bound pods, 4 + 48 cycles of Poisson churn,
     uncut) served on the card, re-snapshotted on the card and served on
@@ -3286,7 +3308,8 @@ def serving_phase(device) -> None:
     capacity violations, the engines' rebases and generation equal; the
     steady-state refresh checks (`serving_refresh_checks`); the bench's
     line; then the flagship profile's thirty served churn cycles, card
-    == CPU (`[serving]` lines). No election kernel is launched."""
+    == CPU (`[serving]` lines). No election kernel is launched. Returns
+    the served CPU run's reports, which phase 24 holds the daemons to."""
     import torch
 
     from scheduler_plugins_tpu_torch.framework import run_cycle
@@ -3365,6 +3388,7 @@ def serving_phase(device) -> None:
         raise AssertionError("flagship churn: card != CPU")
     no_election_launches("serving", "serving_phase", pk.launches())
     print(f"[serving] phase_s={time.perf_counter() - t_phase}", flush=True)
+    return on_cpu["reports"]
 
 
 # ---------------------------------------------------------------------------
@@ -4418,6 +4442,9 @@ def record_paths(device) -> dict:
             serial = churn.churn_events(pkg, cluster, rng, cfg, tick, now,
                                         serial)
             eng.tick(now)
+            # the conflict fence before the next churn reads and mutates
+            # the store: the bind flush must not race the churn's events
+            eng.fence()
         eng.close()
         mark(label)
     recs = recorder.records()
@@ -4425,6 +4452,58 @@ def record_paths(device) -> dict:
     return {"records": recs, "labels": labels, "served": served,
             "engine": engine, "sched": served_sched, "rng": rng,
             "serial": serial, "gang_phase": phase}
+
+
+def _manifest_diffs(a, b, path=""):
+    """Paths where two record manifests differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = []
+        for k in sorted(set(a) | set(b)):
+            if k not in a or k not in b:
+                out.append(f"{path}/{k}")
+            else:
+                out += _manifest_diffs(a[k], b[k], f"{path}/{k}")
+        return out
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _manifest_diffs(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def record_differences(card: dict, host: dict) -> None:
+    """Print each card record that differs from its CPU twin: the manifest
+    paths, and for a differing array the first differing entries."""
+    import numpy as np
+
+    for label, a, b in zip(card["labels"], card["records"], host["records"]):
+        ma, mb = a.to_manifest(), b.to_manifest()
+        paths = [p for p in _manifest_diffs(ma, mb) if p != "/digest"]
+        if not paths:
+            continue
+        print(f"[record] differs {label} cycle={a.seq} paths={paths[:8]}",
+              flush=True)
+        for path in paths[:4]:
+            if not path.endswith("/a"):
+                continue
+            x, y = a.blobs.get(_lookup(ma, path)), b.blobs.get(
+                _lookup(mb, path))
+            if x is None or y is None or x.shape != y.shape:
+                continue
+            at = np.argwhere(x != y)[:4]
+            print(f"[record]   {path} {x.dtype}{list(x.shape)} at "
+                  f"{at.tolist()} card={[x[tuple(i)] for i in at]} "
+                  f"cpu={[y[tuple(i)] for i in at]}", flush=True)
+
+
+def _lookup(manifest, path: str):
+    node = manifest
+    for key in path.strip("/").split("/"):
+        name, _, index = key.partition("[")
+        if name:
+            node = node[name]
+        if index:
+            node = node[int(index[:-1])]
+    return node
 
 
 def record_phase(device) -> None:
@@ -4477,6 +4556,7 @@ def record_phase(device) -> None:
     if not all(r.complete for r in recs):
         raise AssertionError("an incomplete record")
     if digests != host_digests:
+        record_differences(card, host)
         raise AssertionError("card and CPU records differ")
 
     # the gang cycle's capture replays through the numpy twin
@@ -5044,6 +5124,372 @@ def tune_phase(device) -> None:
         print(f"[tune] {label}_s={time.perf_counter() - t0}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the edge
+# ---------------------------------------------------------------------------
+
+
+def _edge_namespace():
+    """The port's names for `tests/torch_edge_cases.py`."""
+    from types import SimpleNamespace
+
+    import scheduler_plugins_tpu_torch.__main__ as daemon_main
+    from scheduler_plugins_tpu_torch.api import objects
+    from scheduler_plugins_tpu_torch.bridge.feed import FeedClient
+
+    return SimpleNamespace(objects=objects, main=daemon_main,
+                           FeedClient=FeedClient)
+
+
+def _http_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def edge_native_equal(cluster) -> None:
+    """The native arm's store snapshotted on the CPU with the C++ mirror's
+    exports and through the Python accumulation: the fast path engaged and
+    every tensor equal."""
+    import numpy as np
+    import torch
+
+    exports = cluster._native_exports()
+    if exports is None:
+        raise AssertionError("native fast path not engaged on config 7")
+    pending = cluster.pending_pods()
+    with_mirror, _ = cluster.snapshot(pending, now_ms=0, device="cpu")
+    native, cluster._native = cluster._native, None
+    try:
+        plain, _ = cluster.snapshot(pending, now_ms=0, device="cpu")
+    finally:
+        cluster._native = native
+    a, b = with_mirror.numpy(), plain.numpy()
+    bad = [k for k, v in a["nodes"].items()
+           if not np.array_equal(v, b["nodes"][k])]
+    if bad or not all(torch.equal(getattr(with_mirror.pods, f), getattr(
+            plain.pods, f)) for f in with_mirror.pods.__dataclass_fields__):
+        raise AssertionError(f"native snapshot differs from the Python "
+                             f"one: {bad}")
+    print(f"[edge] native_snapshot_equal=True nodes={len(cluster.nodes)} "
+          f"pending={len(pending)}", flush=True)
+
+
+def edge_churn(device, reference) -> None:
+    """Part (a): bench config 7 at `SERVING_SHAPE` as feed-v2 events over
+    TCP into three in-process daemons ticked once a cycle: `--serve` on
+    the card, `--native-store` on the card and `--serve --device cpu`.
+    Every tick's decisions equal across the three and to `reference`
+    (phase 17's direct-mutation served run on the CPU), the final stores
+    equal, no capacity violation, `/healthz` of the card daemon reading
+    the allocator, no election kernel launched."""
+    import tempfile
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+
+    import torch_churn_cases as churn
+    import torch_edge_cases as edge
+
+    pkg = _edge_namespace()
+    shape = churn.SERVING_SHAPE
+    card = [] if device.type == "cuda" else ["--device", str(device)]
+    with tempfile.TemporaryDirectory() as tmp:
+        profile = edge.write_profile(tmp)
+        arms = []
+        try:
+            for label, flags in (("serve_card", ["--serve", *card]),
+                                 ("native_card", ["--native-store", *card]),
+                                 ("serve_cpu", ["--serve", "--device",
+                                                "cpu"])):
+                arms.append(edge.EdgeArm(label, pkg, edge.make_daemon(
+                    pkg, profile, flags)))
+            pk.reset_launches()
+            info = edge.run_edge_churn(pkg, arms, shape)
+            no_election_launches("edge", "config7_daemons", pk.launches())
+            for arm in arms:
+                print(f"[edge] arm {json.dumps(edge.arm_line(arm))}",
+                      flush=True)
+            print(f"[edge] bootstrap_events={info['bootstrap_events']} "
+                  f"cycle_events={sum(info['cycle_events'])} "
+                  f"ticks={len(info['cycle_events'])}", flush=True)
+            bad = edge.edge_gates(arms, reference)
+            print(f"[edge] config7_identical={not bad} gates={bad}",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"config 7 through the daemon: {bad}")
+            health = _http_json("http://%s:%d/healthz"
+                                % arms[0].daemon.health.address)
+            memory = health["memory"]
+            print(f"[edge] healthz_memory={json.dumps(memory)}", flush=True)
+            if device.type == "cuda" and not (
+                    memory["available"] and memory["bytes_in_use"] > 0):
+                raise AssertionError(f"/healthz memory block: {memory}")
+            edge_native_equal(arms[1].daemon.cluster)
+        finally:
+            for arm in arms:
+                arm.close()
+
+
+#: the CLI runs' workload: `tools/demo_apiserver.py`'s synthetic nodes and
+#: pending pods, at this count
+EDGE_CLI_NODES = 256
+EDGE_CLI_PODS = 1024
+
+
+def _edge_cli_run(label: str, tmp: str, flags: list, check) -> None:
+    """One `python -m scheduler_plugins_tpu_torch` subprocess on the card
+    (no `--device`) against a fake apiserver serving the demo workload:
+    every pod bound and POSTed back within the deadline, each node within
+    its allocatable, `/metrics` served, `check(srv, status)` while it
+    runs, then SIGTERM and rc 0."""
+    import signal
+    import urllib.request
+
+    from fake_apiserver import FakeApiServer
+    from tools.demo_apiserver import make_state
+
+    from scheduler_plugins_tpu_torch.bridge.agent import quantity_to_units
+
+    import torch_edge_cases as edge
+
+    nodes, pods = make_state(EDGE_CLI_NODES, EDGE_CLI_PODS)
+    profile = edge.write_profile(tmp)
+    stderr_path = os.path.join(tmp, f"{label}.stderr")
+    with FakeApiServer() as srv, open(stderr_path, "w") as err:
+        srv.lists["/api/v1/nodes"] = {
+            "kind": "NodeList", "metadata": {"resourceVersion": "1000"},
+            "items": nodes}
+        srv.lists["/api/v1/pods"] = {
+            "kind": "PodList", "metadata": {"resourceVersion": "1000"},
+            "items": pods}
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "scheduler_plugins_tpu_torch",
+             "--profile", profile, "--apiserver", srv.url,
+             "--watch-paths", "/api/v1/nodes,/api/v1/pods",
+             "--bind-back", "--health-port", "0",
+             "--cycle-interval-s", "0.2", *flags],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            ready = proc.stdout.readline()
+            if not ready.startswith("daemon ready "):
+                raise AssertionError(f"{label}: no ready line {ready!r}")
+            status = json.loads(ready[len("daemon ready "):])
+            ready_s = time.perf_counter() - t0
+
+            def bindings():
+                with srv.lock:
+                    return {p.rsplit("/pods/", 1)[1].split("/")[0]:
+                            body["target"]["name"]
+                            for p, body in srv.posts
+                            if p.endswith("/binding")}
+
+            deadline = time.monotonic() + 180
+            while (len(bindings()) < EDGE_CLI_PODS
+                   and time.monotonic() < deadline
+                   and proc.poll() is None):
+                time.sleep(0.2)
+            bound = bindings()
+            bound_s = time.perf_counter() - t0
+            health = _http_json(status["health"])
+            metrics_url = status["health"].replace("/healthz", "/metrics")
+            with urllib.request.urlopen(metrics_url, timeout=10) as r:
+                metrics_ok = r.status == 200 and b"scheduler_" in r.read()
+            check(srv, health)
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    summary = json.loads(out.strip().splitlines()[-1])
+    alloc = {n["metadata"]["name"]: {
+        r: quantity_to_units(r, q)
+        for r, q in n["status"]["allocatable"].items()} for n in nodes}
+    used: dict = {}
+    for p in pods:
+        node = bound.get(p["metadata"]["name"])
+        if node is None:
+            continue
+        u = used.setdefault(node, {"pods": 0})
+        u["pods"] += 1
+        for r, q in p["spec"]["containers"][0]["resources"][
+                "requests"].items():
+            u[r] = u.get(r, 0) + quantity_to_units(r, q)
+    over = sorted(n for n, u in used.items()
+                  if n not in alloc or any(q > alloc[n].get(r, 0)
+                                           for r, q in u.items()))
+    print(f"[edge] cli {label} ready_s={ready_s} bound_s={bound_s} "
+          f"bound_and_posted={len(bound)} "
+          f"cycles={summary['cycles']} bound_total={summary['bound_total']}"
+          f" fit_violations={len(over)} metrics={metrics_ok} "
+          f"rc={proc.returncode} device_memory="
+          f"{json.dumps(health.get('memory'))}", flush=True)
+    if (len(bound) != EDGE_CLI_PODS or over or not metrics_ok
+            or proc.returncode != 0):
+        with open(stderr_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"CLI {label}: bound {len(bound)}, over "
+                             f"{over[:5]}, metrics {metrics_ok}, rc "
+                             f"{proc.returncode}\n{tail}")
+
+
+def edge_cli() -> None:
+    """Part (b): the daemon's command line on the card: `--bind-back
+    --native-store --leader-elect` (the Lease acquired, `/healthz` naming
+    the daemon leader), then `--pipeline --serve --checkpoint` (a
+    checkpoint written at SIGTERM that the port's engine reads back)."""
+    import tempfile
+
+    from scheduler_plugins_tpu_torch.serving import ServeEngine
+
+    lease = ("/apis/coordination.k8s.io/v1/namespaces/kube-system/leases/"
+             "scheduler-plugins-tpu")
+
+    def leader_check(srv, health):
+        with srv.lock:
+            created = [body for p, body in srv.posts
+                       if p == lease.rsplit("/", 1)[0]]
+        holders = [(b.get("spec") or {}).get("holderIdentity")
+                   for b in created]
+        print(f"[edge] lease holders={holders} leader="
+              f"{health.get('leader')} holder={health.get('holder')}",
+              flush=True)
+        if holders != ["spt-smoke"] or health.get("leader") is not True:
+            raise AssertionError(f"lease not acquired: {holders} {health}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _edge_cli_run("native_leader", tmp, [
+            "--native-store", "--leader-elect", "--identity", "spt-smoke",
+            "--lease-duration-s", "10"], leader_check)
+        ckpt = os.path.join(tmp, "serve.ckpt")
+        _edge_cli_run("pipeline_serve", tmp, [
+            "--pipeline", "--serve", "--checkpoint", ckpt],
+            lambda srv, health: None)
+        engine = ServeEngine()
+        engine.restore_checkpoint(ckpt, device="cpu")
+        print(f"[edge] checkpoint bytes={os.path.getsize(ckpt)} "
+              f"generation={engine.generation} npad={engine.npad}",
+              flush=True)
+
+
+def edge_transport(device) -> None:
+    """Part (c): one in-process `--native-store` daemon on the card fed
+    over gRPC (`--grpc-port`; the gRPC-framed TCP transport when grpcio is
+    absent, printed as `grpc=absent`): a first drain is the full resync,
+    then after one cycle `drain_deltas` returns exactly the mirror rows
+    the cycle's bindings touched, with the mirror's current columns."""
+    import tempfile
+
+    from scheduler_plugins_tpu_torch.api import objects as o
+    from scheduler_plugins_tpu_torch.bridge.feed import FramedFeedClient
+
+    import torch_edge_cases as edge
+
+    pkg = _edge_namespace()
+    try:
+        import grpc  # noqa: F401 -- probe only
+
+        have_grpc = True
+    except ImportError:
+        have_grpc = False
+        print("[edge] grpc=absent (the framed TCP transport stands in)",
+              flush=True)
+    card = [] if device.type == "cuda" else ["--device", str(device)]
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = ["--native-store", *card]
+        if have_grpc:
+            flags += ["--grpc-port", "0"]
+        daemon = edge.make_daemon(pkg, edge.write_profile(tmp), flags)
+        try:
+            if have_grpc:
+                from scheduler_plugins_tpu_torch.bridge.grpc_feed import (
+                    GrpcFeedClient,
+                )
+
+                client = GrpcFeedClient(daemon.grpc_feed.host,
+                                        daemon.grpc_feed.port)
+                send_all = client.send_batch
+            else:
+                client = FramedFeedClient(*daemon.feed.address)
+
+                def send_all(events):
+                    return [client.send(e) for e in events]
+            boot = [edge.node_event(o.Node(name=f"t{i:03d}", allocatable={
+                "cpu": 8000, "memory": 32 << 30, "pods": 110}))
+                for i in range(64)]
+            for i in range(128):
+                pod = o.Pod(name=f"b{i}", creation_ms=i, containers=[
+                    o.Container(requests={"cpu": 500, "memory": 1 << 30})])
+                pod.node_name = f"t{i % 64:03d}"
+                boot.append(edge.pod_event(pod))
+            acks = send_all(boot)
+            first = client.send({"op": "drain_deltas"})
+            arrivals = [edge.pod_event(o.Pod(
+                name=f"a{i}", creation_ms=1000 + i, containers=[
+                    o.Container(requests={"cpu": 1500 + 10 * i,
+                                          "memory": 2 << 30})]))
+                for i in range(40)]
+            acks += send_all(arrivals)
+            report = daemon.tick(now_ms=5000)
+            deltas = client.send({"op": "drain_deltas"})
+            client.close()
+            ids = daemon.cluster._native_node_ids
+            touched = {ids[n] for n in report.bound.values()}
+            got = {row["id"] for row in deltas["nodes"]}
+            export = daemon.cluster.native.export_nodes()
+            pos = {int(i): k for k, i in enumerate(export["ids"])}
+            rows_ok = all(
+                row["requested"] == export["requested"][pos[row["id"]]]
+                .tolist() and row["pod_count"] == int(
+                    export["pod_count"][pos[row["id"]]])
+                for row in deltas["nodes"])
+            ok = (all(a.get("ok") for a in acks) and first["count"] == 64
+                  and len(report.bound) == 40 and got == touched
+                  and deltas["count"] == len(touched) and rows_ok)
+            print(f"[edge] transport={'grpc' if have_grpc else 'framed'} "
+                  f"events={len(acks)} first_drain={first['count']} "
+                  f"bound={len(report.bound)} touched={len(touched)} "
+                  f"drained={deltas['count']} "
+                  f"generation={deltas['generation']} rows_ok={rows_ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"drain_deltas: got {sorted(got)} touched "
+                    f"{sorted(touched)} first {first['count']}")
+        finally:
+            daemon.shutdown()
+
+
+def edge_phase(device, reference=None) -> None:
+    """Phase 24: the edge. (a) `edge_churn`, against phase 17's served CPU
+    reports (`reference`; recomputed when the phase runs alone), (b)
+    `edge_cli`, (c) `edge_transport`."""
+    _tests_on_path()
+    t_phase = time.perf_counter()
+    for module in ("yaml", "grpc"):
+        try:
+            __import__(module)
+            print(f"[edge] {module}=present", flush=True)
+        except ImportError:
+            print(f"[edge] {module}=absent", flush=True)
+    if reference is None:
+        import torch
+
+        reference = serving_run(torch.device("cpu"), True)["reports"]
+    for label, fn in (("churn", lambda: edge_churn(device, reference)),
+                      ("cli", edge_cli),
+                      ("transport", lambda: edge_transport(device))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[edge] {label}_s={time.perf_counter() - t0}", flush=True)
+    print(f"[edge] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -5225,7 +5671,7 @@ def main() -> int:
 
     # 17. the serving path: bench config 7 served, re-snapshotted and on
     # the CPU; the flagship profile's served churn
-    serving_phase(device)
+    serving_reference = serving_phase(device)
 
     phase_done(17)
 
@@ -5261,9 +5707,15 @@ def main() -> int:
 
     phase_done(23)
 
-    # 24. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 24. the edge: bench config 7 through the daemon, the CLI on the
+    # card, the gRPC feed and the mirror's delta drain
+    edge_phase(device, serving_reference)
+
     phase_done(24)
+
+    # 25. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(25)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

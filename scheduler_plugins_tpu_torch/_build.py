@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ library.
 
 `csrc/*.cu` files have a plain C interface, so each compiles with one
 `nvcc` call into a shared library loaded with `ctypes` — no PyTorch headers,
@@ -6,6 +6,10 @@ a build of seconds. Libraries go under `build/kernels/` at the root of the
 checkout (git-ignored), named by a hash of the source and the flags, so an
 edited source is never served by a stale library. Nothing is built when a
 module is imported: the first launch builds.
+
+The native columnar store (`bridge/snapshot_store.cc`) is host C++: one
+`g++` call builds it into `build/native/` under the same naming rule, on
+the first `bridge.NativeStore` or through `build_all`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ NVCC_FLAGS = (
 
 #: every kernel source of the port, by library name
 SOURCES = {"election": CSRC / "election.cu"}
+
+HOST_BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+#: every host C++ source of the port, by library name
+HOST_SOURCES = {"snapshot_store": PACKAGE_DIR / "bridge" / "snapshot_store.cc"}
 
 _LIBS: dict[str, ctypes.PyDLL] = {}
 
@@ -76,11 +85,42 @@ def build(name: str, verbose: bool = False) -> Path:
     return out
 
 
+def host_library_path(name: str) -> Path:
+    src = HOST_SOURCES[name]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(HOST_FLAGS).encode()
+    ).hexdigest()[:16]
+    return HOST_BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile one host C++ source with g++ unless its library is already
+    built; returns the library path."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [shutil.which("g++") or "g++", *HOST_FLAGS,
+           str(HOST_SOURCES[name]), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"g++ failed for {HOST_SOURCES[name]} (exit {proc.returncode}):"
+            f"\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
 def build_all(verbose: bool = False) -> dict[str, Path]:
-    """Compile every source at once, one `nvcc` each, in parallel."""
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        paths = pool.map(lambda n: build(n, verbose=verbose), SOURCES)
-    return dict(zip(SOURCES, paths))
+    """Compile every source at once, one `nvcc` or `g++` each, in
+    parallel."""
+    jobs = [(n, lambda n=n: build(n, verbose=verbose)) for n in SOURCES]
+    jobs += [(n, lambda n=n: build_host(n)) for n in HOST_SOURCES]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = [(n, pool.submit(job)) for n, job in jobs]
+        return {n: f.result() for n, f in futures}
 
 
 def load(name: str) -> ctypes.PyDLL:

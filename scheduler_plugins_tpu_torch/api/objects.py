@@ -464,6 +464,20 @@ class Node:
         return self.labels.get(ZONE_LABEL, "")
 
 
+class PodGroupPhase(enum.StrEnum):
+    """PodGroup status phase machine (apis/scheduling/v1alpha1/types.go
+    :120-150), driven by `controllers.podgroup`."""
+
+    PENDING = "Pending"
+    PRE_SCHEDULING = "PreScheduling"
+    SCHEDULING = "Scheduling"
+    SCHEDULED = "Scheduled"
+    RUNNING = "Running"
+    UNKNOWN = "Unknown"
+    FINISHED = "Finished"
+    FAILED = "Failed"
+
+
 @dataclass
 class PodGroup:
     name: str
@@ -488,6 +502,13 @@ class PodGroup:
     #: members between cycles (`gangs.elastic`)
     desired_replicas: Optional[int] = None
     max_replicas: Optional[int] = None
+    # status, written by `controllers.podgroup`
+    phase: PodGroupPhase = PodGroupPhase.PENDING
+    occupied_by: str = ""
+    running: int = 0
+    succeeded: int = 0
+    failed: int = 0
+    schedule_start_ms: int = 0
 
     @property
     def full_name(self) -> str:
@@ -502,6 +523,8 @@ class ElasticQuota:
     namespace: str = "default"
     min: Mapping[str, int] = field(default_factory=dict)
     max: Mapping[str, int] = field(default_factory=dict)
+    # status, written by `controllers.elasticquota`
+    used: Mapping[str, int] = field(default_factory=dict)
 
 
 @dataclass

@@ -21,6 +21,12 @@ PODS = "pods"
 #: The first four slots of every resource axis, in fixed order.
 CANONICAL = (CPU, MEMORY, EPHEMERAL_STORAGE, PODS)
 
+#: the upstream non-zero request defaults (k/k pkg/scheduler/util
+#: GetNonzeroRequests): a pod without a cpu or memory request is charged
+#: these in the snapshot's `nonzero_requested` column
+DEFAULT_MILLI_CPU_REQUEST = 100  # 0.1 core
+DEFAULT_MEMORY_REQUEST = 200 * 1024 * 1024  # 200 MiB
+
 
 class ResourceIndex:
     """Ordered resource-name <-> axis-position mapping for one snapshot.

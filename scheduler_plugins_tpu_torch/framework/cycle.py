@@ -409,8 +409,10 @@ def _cycle_snapshot(ctx: CycleCtx) -> None:
         # crashes the solve is the one worth replaying
         t0 = time.perf_counter()
         with obs.tracer.span("Record", tid="cycle"):
-            ctx.rec.capture_inputs(ctx.snap, ctx.meta, ctx.scheduler,
-                                   stream_chunk=ctx.stream_chunk)
+            ctx.rec.capture_inputs(
+                ctx.snap, ctx.meta, ctx.scheduler,
+                stream_chunk=ctx.stream_chunk,
+                profile_config=flightrec.recorder.profile_config)
             if ctx.served:
                 # the resident generation, the base digest and the packed
                 # deltas that made this snapshot

@@ -143,9 +143,9 @@ class PipelinedCycle:
     snapshots and solves on `device` (None = the CUDA card, raising
     without one; the CPU only when asked for with "cpu").
 
-    `tick(now)` runs one cycle and returns its `CycleReport`. The
-    report's bind and post-bind stage may still be flushing on the worker
-    thread when `tick` returns: call
+    `tick(now)` runs one cycle and returns its `CycleReport`. With
+    `async_bind` (the default) the report's bind and post-bind stage may
+    still be flushing on the worker thread when `tick` returns: call
     `fence()` (or run the next tick, whose ingest boundary fences) before
     reading the store or the report's decision fields (bound, reserved,
     failed, preempted). The report's deferred fields, `quality` and
@@ -158,7 +158,10 @@ class PipelinedCycle:
     solve watchdog, whose deadline needs a synchronous solve: a resilient
     tick fences inside the dispatch stage, and the overlap window covers
     only the previous cycle's finalize) and `stream_chunk` behave as in
-    `run_cycle`.
+    `run_cycle`. With `async_bind=False` the bind and post-bind stage run
+    on the caller's thread inside `tick` and no flusher thread is started:
+    the daemon's choice, whose tick holds the feed lock, so every store
+    mutation happens under it.
     """
 
     #: host stages in flight at once: cycle N's bind flush and cycle
@@ -170,7 +173,8 @@ class PipelinedCycle:
     TIMELINE_KEEP = 512
 
     def __init__(self, scheduler, cluster, serve=None, resilience=None,
-                 gangs=None, stream_chunk=None, *, device=None):
+                 gangs=None, stream_chunk=None, async_bind=True, *,
+                 device=None):
         self.scheduler = scheduler
         self.cluster = cluster
         self.serve = serve
@@ -179,8 +183,11 @@ class PipelinedCycle:
         self.stream_chunk = stream_chunk
         self.device = resolve_device(device)
         cluster.enable_pending_index()
-        self._flusher = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="spt-bind-flusher")
+        self._flusher = (
+            ThreadPoolExecutor(max_workers=1,
+                               thread_name_prefix="spt-bind-flusher")
+            if async_bind else None
+        )
         self._bind_future = None
         #: (ctx, attribution done in the bind stage) awaiting the deferred
         #: finalize
@@ -223,7 +230,8 @@ class PipelinedCycle:
 
     def close(self) -> None:
         self.flush()
-        self._flusher.shutdown(wait=True)
+        if self._flusher is not None:
+            self._flusher.shutdown(wait=True)
 
     # -- the tick --------------------------------------------------------
     def tick(self, now: Optional[int] = None) -> CycleReport:
@@ -331,7 +339,10 @@ class PipelinedCycle:
                 tl.late_bind = True
                 obs.metrics.inc(obs.CYCLE_LATE_BINDS)
 
-        self._bind_future = self._flusher.submit(bind_job)
+        if self._flusher is not None:
+            self._bind_future = self._flusher.submit(bind_job)
+        else:
+            bind_job()
 
         self._pending_finalize = (ctx, eager_attr)
         tl.total_ms = (clock() - tl.t0_s) * 1000.0

@@ -2,8 +2,10 @@
 `utils.observability`; port of `scheduler_plugins_tpu.obs`).
 
 `obs.ledger` follows a POD across scheduling cycles: first-seen, queued,
-backoff-held, gang-gated, nominated/reserved, bound-or-blamed. The JAX
-package's `obs.costmodel` reads XLA's cost analysis and has no PyTorch
+backoff-held, gang-gated, nominated/reserved, bound-or-blamed.
+`obs.memory` stamps the card's allocator watermarks once a cycle (the
+counterpart of the JAX package's `obs.costmodel.stamp_device_memory`);
+the rest of `obs.costmodel` reads XLA's cost analysis and has no PyTorch
 subject, so it is not carried over.
 """
 

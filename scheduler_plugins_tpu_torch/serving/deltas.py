@@ -13,16 +13,14 @@ cycle costs O(changed), not O(cluster).
   `new - current` under the valid mask, so pad rows add nothing. The host
   coalesces to one upsert a slot a batch, which makes the add exact.
 - `UsageDeltas` (a pod assigned, unassigned or turning terminating):
-  signed contributions to the usage columns (requested, limits,
-  pod_count, terminating), the per-pod sums `state.snapshot
-  .build_snapshot` accumulates. A slot may repeat; the adds sum.
+  signed contributions to the usage columns (requested,
+  nonzero_requested, limits, pod_count, terminating), the per-pod sums
+  `state.snapshot.build_snapshot` accumulates. A slot may repeat; the
+  adds sum.
 - Node/Delete, a region or zone change and an extended resource rebuild
   from a full snapshot instead (`api.events.SERVE_REBASE_EVENTS`), except
   under `StreamingServeEngine`, which compacts a deleted node's row out
   with `compact_node_rows`.
-
-The port's `NodeState` has no `nonzero_requested` column (no ported reader
-needs it), so the usage deltas carry requested and limits only.
 
 There is no jit and no donation: `apply_node_deltas` and
 `apply_side_deltas` add in place into the resident tensors they are given
@@ -43,7 +41,10 @@ import torch
 
 from scheduler_plugins_tpu_torch.api.resources import PODS, ResourceIndex
 from scheduler_plugins_tpu_torch.resilience import faults as _faults
-from scheduler_plugins_tpu_torch.state.snapshot import NodeState
+from scheduler_plugins_tpu_torch.state.snapshot import (
+    NodeState,
+    nonzero_request,
+)
 from scheduler_plugins_tpu_torch.utils import sanitize
 from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
 
@@ -80,17 +81,20 @@ def pod_quota_vector(pod) -> np.ndarray:
     return _encode(pod.effective_request())
 
 
-def pod_usage_vectors(pod) -> tuple[np.ndarray, np.ndarray]:
-    """(requested, limits) contribution of one assigned pod to its node's
-    usage columns, as `build_snapshot` accumulates them: limits clamped to
-    at least the requests (SetMaxLimits), and the requested pods slot
-    carrying the count contribution 1 (the snapshot writes pod_count
-    there). Raises `UnsupportedResource` on an extended resource."""
+def pod_usage_vectors(pod) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(requested, nonzero_requested, limits) contribution of one assigned
+    pod to its node's usage columns, as `build_snapshot` accumulates them:
+    the non-zero defaults applied, limits clamped to at least the requests
+    (SetMaxLimits), and the requested and non-zero pods slots carrying the
+    count contribution 1 (the snapshot writes pod_count there). Raises
+    `UnsupportedResource` on an extended resource."""
     req = _encode(pod.effective_request())
+    nz = nonzero_request(req, CANON_INDEX)
     lim = np.maximum(_encode(pod.effective_limits()), req)
     req = req.copy()
     req[PODS_I] = 1
-    return req, lim
+    nz[PODS_I] = 1
+    return req, nz, lim
 
 
 # ---------------------------------------------------------------------------
@@ -265,40 +269,45 @@ class UsageDeltas:
     """Packed signed usage contributions; slots may repeat (the adds sum),
     pad rows are zero."""
 
-    __slots__ = ("idx", "requested", "limits", "pod_count", "terminating")
+    __slots__ = ("idx", "requested", "nonzero", "limits", "pod_count",
+                 "terminating")
 
     #: bucket floor: steady churn wobbles around its Poisson mean, and one
     #: 64-row floor keeps a single shape for typical cycles
     MIN_BUCKET = 64
 
-    def __init__(self, idx, requested, limits, pod_count, terminating):
+    def __init__(self, idx, requested, nonzero, limits, pod_count,
+                 terminating):
         self.idx = idx
         self.requested = requested
+        self.nonzero = nonzero
         self.limits = limits
         self.pod_count = pod_count
         self.terminating = terminating
 
     @classmethod
     def pack(cls, rows: list[tuple], R: int) -> "UsageDeltas":
-        """`rows`: [(slot, req_vec, lim_vec, d_count, d_term)], the
-        vectors already carrying the event's sign."""
+        """`rows`: [(slot, req_vec, nz_vec, lim_vec, d_count, d_term)],
+        the vectors already carrying the event's sign."""
         K = bucket_size(max(len(rows), 1), minimum=cls.MIN_BUCKET)
         idx = np.zeros(K, I64)
         requested = np.zeros((K, R), I64)
+        nonzero = np.zeros((K, R), I64)
         limits = np.zeros((K, R), I64)
         pod_count = np.zeros(K, I32)
         terminating = np.zeros(K, I32)
-        for j, (slot, req, lim, d_count, d_term) in enumerate(rows):
+        for j, (slot, req, nz, lim, d_count, d_term) in enumerate(rows):
             idx[j] = slot
             requested[j] = req
+            nonzero[j] = nz
             limits[j] = lim
             pod_count[j] = d_count
             terminating[j] = d_term
-        return cls(idx, requested, limits, pod_count, terminating)
+        return cls(idx, requested, nonzero, limits, pod_count, terminating)
 
     def as_args(self) -> tuple:
-        return (self.idx, self.requested, self.limits, self.pod_count,
-                self.terminating)
+        return (self.idx, self.requested, self.nonzero, self.limits,
+                self.pod_count, self.terminating)
 
 
 def stage(arrays, device) -> tuple:
@@ -333,7 +342,7 @@ def stage(arrays, device) -> tuple:
 def apply_node_deltas(nodes: NodeState,
                       up_idx, up_valid, up_alloc, up_capacity, up_mask,
                       up_region, up_zone,
-                      d_idx, d_requested, d_limits, d_pod_count,
+                      d_idx, d_requested, d_nonzero, d_limits, d_pod_count,
                       d_terminating) -> NodeState:
     """Fold one packed delta batch into the resident `NodeState` columns,
     in place; the caller treats `nodes` as consumed and rebinds the
@@ -356,9 +365,10 @@ def apply_node_deltas(nodes: NodeState,
         n = nodes.alloc.shape[0]
         gi, ok = check.index(gi, n, "apply_node_deltas upserts")
         keep = keep & ok
-        di, d_requested, d_limits, d_pod_count, d_terminating = check.rows(
-            di, n, "apply_node_deltas usage", d_requested, d_limits,
-            d_pod_count, d_terminating)
+        (di, d_requested, d_nonzero, d_limits, d_pod_count,
+         d_terminating) = check.rows(
+            di, n, "apply_node_deltas usage", d_requested, d_nonzero,
+            d_limits, d_pod_count, d_terminating)
 
     def overwrite(cur, new):
         weight = keep[:, None] if cur.dim() == 2 else keep
@@ -372,6 +382,7 @@ def apply_node_deltas(nodes: NodeState,
     overwrite(mask, up_mask)
     nodes.nominated.zero_()
     nodes.requested.index_add_(0, di, d_requested)
+    nodes.nonzero_requested.index_add_(0, di, d_nonzero)
     nodes.limits.index_add_(0, di, d_limits)
     nodes.pod_count.index_add_(0, di, d_pod_count)
     nodes.terminating.index_add_(0, di, d_terminating)
@@ -411,6 +422,7 @@ def compact_node_rows(nodes: NodeState, gather_idx, valid) -> NodeState:
         alloc=take(nodes.alloc),
         capacity=take(nodes.capacity),
         requested=take(nodes.requested),
+        nonzero_requested=take(nodes.nonzero_requested),
         limits=take(nodes.limits),
         mask=take(nodes.mask, False),
         region=take(nodes.region, -1),

@@ -76,8 +76,9 @@ from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
 
 #: the resident node columns the anti-entropy digest covers (every
 #: column but `nominated`, which serve mode keeps zero)
-NODE_COLUMNS = ("alloc", "capacity", "requested", "limits", "mask",
-                "region", "zone", "pod_count", "terminating")
+NODE_COLUMNS = ("alloc", "capacity", "requested", "nonzero_requested",
+                "limits", "mask", "region", "zone", "pod_count",
+                "terminating")
 
 
 class ServeEngine:
@@ -306,7 +307,8 @@ class ServeEngine:
         return self._classify(events)
 
     def _pod_vectors(self, pod, final=False):
-        """One pod's (requested, limits, quota) contribution vectors. The
+        """One pod's (requested, nonzero, limits, quota) contribution
+        vectors. The
         streaming engine memoizes them per pod object (`final` marks the
         pod's last event, releasing its entry)."""
         return D.pod_usage_vectors(pod) + (D.pod_quota_vector(pod),)
@@ -427,11 +429,12 @@ class ServeEngine:
                     if slot is None:
                         fail("unknown-node")
                         continue
-                    usage.append((slot, D.ZERO_R, D.ZERO_R, 0, 1))
+                    usage.append((slot, D.ZERO_R, D.ZERO_R, D.ZERO_R, 0,
+                                  1))
                     continue
                 sign = 1 if kind == D.POD_ASSIGN else -1
                 try:
-                    req, lim, qreq = self._pod_vectors(
+                    req, nz, lim, qreq = self._pod_vectors(
                         pod, final=kind == D.POD_UNASSIGN)
                 except D.UnsupportedResource:
                     fail("extended-resource")
@@ -451,7 +454,7 @@ class ServeEngine:
                     continue
                 # the event-time flag, not pod.terminating (see deltas)
                 term = 1 if ev[3] else 0
-                usage.append((slot, sign * req, sign * lim, sign,
+                usage.append((slot, sign * req, sign * nz, sign * lim, sign,
                               sign * term))
         side = (
             [(row, a, g, s) for row, (a, g, s) in gang_acc.items()],
@@ -530,6 +533,7 @@ class ServeEngine:
             alloc=_pad_rows(n.alloc, new_npad),
             capacity=_pad_rows(n.capacity, new_npad),
             requested=_pad_rows(n.requested, new_npad),
+            nonzero_requested=_pad_rows(n.nonzero_requested, new_npad),
             limits=_pad_rows(n.limits, new_npad),
             mask=_pad_rows(n.mask, new_npad, False),
             region=_pad_rows(n.region, new_npad, -1),
@@ -618,7 +622,7 @@ class ServeEngine:
             held = pod.node_name or cluster.reserved.get(pod.uid)
             gang = pod.pod_group()
             if held is not None:
-                req, _lim, qreq = self._pod_vectors(pod)
+                req, _nz, _lim, qreq = self._pod_vectors(pod)
                 if self._quota_tracking:
                     acc = namespaces.get(pod.namespace)
                     if acc is None:
@@ -775,9 +779,8 @@ class ServeEngine:
 
     # -- checkpoint / restore -------------------------------------------
     #: checkpoint format version (bumped on a layout change; restore
-    #: refuses versions it does not know). The port's `NodeState` has no
-    #: `nonzero_requested` column, so a port checkpoint and a JAX one are
-    #: not interchangeable
+    #: refuses versions it does not know). The layout is the JAX
+    #: package's, column for column, so either package reads the other's
     CHECKPOINT_VERSION = 1
 
     def checkpoint_bytes(self) -> Optional[bytes]:
@@ -1259,6 +1262,7 @@ class StreamingServeEngine(ServeEngine):
         alloc = np.zeros((npad, R), np.int64)
         capacity = np.zeros((npad, R), np.int64)
         requested = np.zeros((npad, R), np.int64)
+        nonzero = np.zeros((npad, R), np.int64)
         limits = np.zeros((npad, R), np.int64)
         mask = np.zeros(npad, bool)
         region = np.full(npad, -1, np.int32)
@@ -1283,8 +1287,9 @@ class StreamingServeEngine(ServeEngine):
             if node.zone:
                 zone[i] = zones.setdefault(node.zone, len(zones))
 
-        def count(i, pod, req, lim):
+        def count(i, pod, req, nz, lim):
             requested[i] += req
+            nonzero[i] += nz
             limits[i] += lim
             pod_count[i] += 1
             if pod.terminating:
@@ -1308,26 +1313,26 @@ class StreamingServeEngine(ServeEngine):
                 if want_side:
                     # bound to a node the store no longer has: still in
                     # quota used and the gang count (never the slack)
-                    req, _lim, qreq = self._pod_vectors(pod)
+                    req, _nz, _lim, qreq = self._pod_vectors(pod)
                     side_assigned(pod, pod.node_name, req, qreq)
                 continue
-            req, lim, qreq = self._pod_vectors(pod)
-            count(i, pod, req, lim)
+            req, nz, lim, qreq = self._pod_vectors(pod)
+            count(i, pod, req, nz, lim)
             if want_side:
                 side_assigned(pod, pod.node_name, req, qreq)
         for uid, node in cluster.reserved.items():
             pod = cluster.pods.get(uid)
             if pod is None or pod.node_name is not None:
                 continue
-            req, lim, qreq = self._pod_vectors(pod)
+            req, nz, lim, qreq = self._pod_vectors(pod)
             if want_side:
                 side_assigned(pod, node, req, qreq)
             i = node_pos.get(node)
             if i is not None:
-                count(i, pod, req, lim)
+                count(i, pod, req, nz, lim)
         return {
             "alloc": alloc, "capacity": capacity, "requested": requested,
-            "limits": limits, "mask": mask, "region": region, "zone": zone,
+            "nonzero_requested": nonzero, "limits": limits, "mask": mask, "region": region, "zone": zone,
             "pod_count": pod_count, "terminating": terminating,
         }, ((side_gangs, side_ns) if want_side else None)
 

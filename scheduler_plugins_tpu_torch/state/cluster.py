@@ -28,7 +28,14 @@ re-snapshotting. The mutators also feed the pod-lifecycle ledger
 (`obs.ledger.LEDGER`, off by default: each hook is one branch then) and,
 once `enable_pending_index` turns it on, an O(changed) pending index that
 `pending_pods` reads in the scan's exact order (the pipelined engine's
-ingest path). The JAX store's native mirror comes with its slice.
+ingest path).
+
+`attach_native_store` mirrors the hot node columns into the C++ columnar
+store (`bridge.NativeStore`): every mutator then keeps the mirror
+incrementally, and `snapshot` takes the node usage columns from its
+exports instead of the O(assigned pods) Python accumulation whenever no
+table needs the assigned pod objects (the `native` fast path; the
+snapshot is equal either way, tensor by tensor).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from scheduler_plugins_tpu_torch.api import events as ev
+from scheduler_plugins_tpu_torch.api.resources import CANONICAL
 from scheduler_plugins_tpu_torch.api.objects import (
     DEFAULT_SCHEDULER_NAME,
     AppGroup,
@@ -161,6 +169,18 @@ class Cluster:
     #: end), so the indexed queue order equals the scan's, ties and all
     _pod_order: dict = field(default_factory=dict)
     _order_next: int = 0
+    #: the C++ columnar mirror (`attach_native_store`), or None
+    _native: Optional[object] = None
+    #: node name -> mirror row id, pod uid -> mirror pod id; pod ids are
+    #: never reused (a delete and re-add is a new incarnation)
+    _native_node_ids: dict = field(default_factory=dict)
+    _native_pod_ids: dict = field(default_factory=dict)
+    _native_next_pod_id: int = 0
+    #: keys ("node/<name>", "pod/<uid>") of live objects naming a resource
+    #: the 4-slot mirror cannot carry: the fast path stays off while any
+    #: exists, and deleting the object turns it back on
+    _native_incompat: set = field(default_factory=set)
+    _native_replaying: bool = False
 
     def note_event(self, kind: str) -> None:
         """Record a cluster event ("Resource/Action", `api.events`) for
@@ -210,12 +230,123 @@ class Cluster:
         self.pod_backoff_until_ms.pop(uid, None)
         self._pod_last_failure_ms.pop(uid, None)
 
+    # -- the native mirror ---------------------------------------------------
+    def attach_native_store(self):
+        """Mirror the hot node columns into the C++ columnar store
+        (`bridge.NativeStore`, built with g++ on first use), replaying the
+        current state; the mutators keep it incrementally from then on.
+        Returns the store."""
+        from scheduler_plugins_tpu_torch.bridge import NativeStore
+
+        self._native = NativeStore(len(CANONICAL))
+        self._native_node_ids = {}
+        self._native_pod_ids = {}
+        self._native_next_pod_id = 0
+        self._native_incompat = set()
+        self._native_replaying = True
+        try:
+            for node in self.nodes.values():
+                self._native_upsert_node(node)
+            for pod in self.pods.values():
+                self._native_upsert_pod(pod)  # re-binds live reservations
+        finally:
+            self._native_replaying = False
+        return self._native
+
+    @property
+    def native(self):
+        return self._native
+
+    def _canon_vecs(self, key: str, *quantity_maps) -> list:
+        """Each mapping as an int64 vector on the canonical axis; an
+        extended resource marks `key` incompatible (it is dropped from the
+        vector), a compatible update clears the mark."""
+        vecs = []
+        incompat = False
+        for quantities in quantity_maps:
+            vec = np.zeros(len(CANONICAL), np.int64)
+            for r, v in quantities.items():
+                if r in CANONICAL:
+                    vec[CANONICAL.index(r)] = v
+                else:
+                    incompat = True
+            vecs.append(vec)
+        if incompat:
+            self._native_incompat.add(key)
+        else:
+            self._native_incompat.discard(key)
+        return vecs
+
+    def _native_upsert_node(self, node: Node):
+        is_new = node.name not in self._native_node_ids
+        if is_new:
+            self._native_node_ids[node.name] = len(self._native_node_ids)
+        alloc, cap = self._canon_vecs(f"node/{node.name}", node.allocatable,
+                                      node.capacity)
+        self._native.upsert_node(self._native_node_ids[node.name], alloc, cap)
+        if not is_new or self._native_replaying:
+            # a status update of a known node, or the attach replay, which
+            # upserts every pod afterwards: nothing to re-link
+            return
+        # pods mirrored before their node arrived (watch streams are not
+        # ordered across kinds) were stored unbound: re-upsert them
+        for pod in self.pods.values():
+            if pod.node_name == node.name:
+                self._native_upsert_pod(pod)
+        for uid, rnode in self.reserved.items():
+            if rnode == node.name and uid in self._native_pod_ids:
+                self._native.bind(self._native_pod_ids[uid],
+                                  self._native_node_ids[node.name])
+
+    def _native_upsert_pod(self, pod: Pod):
+        if pod.uid not in self._native_pod_ids:
+            self._native_pod_ids[pod.uid] = self._native_next_pod_id
+            self._native_next_pod_id += 1
+        req, lim = self._canon_vecs(f"pod/{pod.uid}", pod.effective_request(),
+                                    pod.effective_limits())
+        self._native.upsert_pod(
+            self._native_pod_ids[pod.uid], req, limits=lim,
+            priority=pod.priority, creation_ms=pod.creation_ms,
+            node_id=self._native_node_ids.get(pod.node_name, -1),
+            terminating=pod.terminating,
+        )
+        # a re-upsert of a permit-reserved pod keeps its hold
+        rnode = self.reserved.get(pod.uid)
+        if rnode is not None and rnode in self._native_node_ids:
+            self._native.bind(self._native_pod_ids[pod.uid],
+                              self._native_node_ids[rnode])
+
+    def _native_rebuild(self):
+        """A node delete invalidates the mirror's row order: replay it from
+        scratch (a rare control-plane event; all else is incremental)."""
+        self._native.close()
+        self.attach_native_store()
+
+    def _native_exports(self) -> Optional[dict]:
+        """The mirror's node exports when the snapshot may take its node
+        columns from them, else None: no incompatible object, no table
+        that reads the assigned pod objects (gangs, quotas, the network
+        tables, the syscall tables, spread and inter-pod affinity), and
+        the mirror's rows in the store's node order."""
+        if (self._native is None or self._native_incompat or self.pod_groups
+                or self.quotas or self.app_groups or self.seccomp_profiles
+                or self._selector_spec_pods):
+            return None
+        exports = self._native.export_nodes()
+        if len(exports["ids"]) != len(self.nodes) or any(
+                self._native_node_ids.get(n) != i
+                for i, n in enumerate(self.nodes)):
+            return None
+        return exports
+
     # -- upserts and deletes -------------------------------------------------
     def add_node(self, node: Node):
         self.note_event(
             ev.NODE_UPDATE if node.name in self.nodes else ev.NODE_ADD
         )
         self.nodes[node.name] = node
+        if self._native is not None:
+            self._native_upsert_node(node)
         if self.delta_sink is not None:
             self.delta_sink.node_upsert(node)
 
@@ -224,6 +355,8 @@ class Cluster:
             self.note_event(ev.NODE_DELETE)
             if self.delta_sink is not None:
                 self.delta_sink.node_delete(name)
+        if self._native is not None:
+            self._native_rebuild()
 
     @staticmethod
     def _has_selector_specs(pod: Pod) -> bool:
@@ -293,6 +426,8 @@ class Cluster:
                                                   "track_pod"):
             # foreign-pod detection (cache/foreign_pods.go:42-99)
             self.nrt_cache.track_pod(pod)
+        if self._native is not None:
+            self._native_upsert_pod(pod)
         self._index_add_pod(pod, was_present=old is not None)
 
     def remove_pod(self, uid: str):
@@ -323,6 +458,11 @@ class Cluster:
             if pod.node_name is not None and self.nrt_cache is not None:
                 # a bound pod's assumed deduction must not outlive it
                 self.nrt_cache.unreserve(pod.node_name, pod)
+            if self._native is not None:
+                pod_id = self._native_pod_ids.pop(uid, None)
+                if pod_id is not None:
+                    self._native.delete_pod(pod_id)
+                self._native_incompat.discard(f"pod/{uid}")
 
     def mark_terminating(self, uid: str, now_ms: int):
         """DELETE issued (a preemption victim): the pod turns terminating
@@ -346,6 +486,8 @@ class Cluster:
             self.delta_sink.gang_gated(gated, -1)
         self._index_drop_pod(uid)
         self.note_event(ev.POD_UPDATE)
+        if self._native is not None:
+            self._native_upsert_pod(pod)
         if self.delta_sink is not None and not was_terminating:
             # at the held node, binding or reservation: a reserved
             # victim's flag counts at its reserved node, and the release
@@ -569,6 +711,10 @@ class Cluster:
             # the NRT cache's Reserve -> bind -> PostBind lifecycle
             self.nrt_cache.reserve(node_name, self.pods[uid])
             self.nrt_cache.post_bind(node_name, self.pods[uid])
+        if self._native is not None:
+            # a no-op when the reservation bound it to this node already
+            self._native.bind(self._native_pod_ids[uid],
+                              self._native_node_ids[node_name])
 
     def reserve(self, uid: str, node_name: str):
         """Permit said Wait: hold the placement without binding."""
@@ -582,6 +728,10 @@ class Cluster:
             self.delta_sink.pod_assigned(self.pods[uid], node_name)
         if self.nrt_cache is not None:
             self.nrt_cache.reserve(node_name, self.pods[uid])
+        if self._native is not None:
+            # a reservation holds capacity exactly like a binding
+            self._native.bind(self._native_pod_ids[uid],
+                              self._native_node_ids[node_name])
 
     def release_reservation(self, uid: str):
         self.pod_deadline_ms.pop(uid, None)
@@ -590,6 +740,9 @@ class Cluster:
             self.delta_sink.pod_unassigned(self.pods[uid], node)
         if node is not None and self.nrt_cache is not None:
             self.nrt_cache.unreserve(node, self.pods[uid])
+        if node is not None and self._native is not None:
+            # re-upserted unbound: the hold's contribution leaves
+            self._native_upsert_pod(self.pods[uid])
         if node is not None:
             self.reindex_pod(uid)
 
@@ -659,7 +812,11 @@ class Cluster:
         missing-CPU compensation at `now_ms`; the zone tables are the NRT
         CRs as published, or the cache tier's adjusted view with its
         stale nodes when a cache is installed. The SeccompProfile CRs
-        and the default profile become the syscall tables."""
+        and the default profile become the syscall tables. With the native
+        mirror attached and no table reading the assigned pod objects, the
+        node usage columns come from the mirror's exports."""
+        native = self._native_exports()
+        assigned = [] if native is not None else self._assigned_pods()
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -672,7 +829,7 @@ class Cluster:
         return build_snapshot(
             list(self.nodes.values()),
             pending,
-            assigned_pods=self._assigned_pods(),
+            assigned_pods=assigned,
             pod_groups=list(self.pod_groups.values()),
             quotas=list(self.quotas.values()),
             nrts=nrt_list,
@@ -686,6 +843,7 @@ class Cluster:
             namespaces=list(self.namespaces.values()),
             seccomp_profiles=list(self.seccomp_profiles.values()),
             sysched_default_profile=self.sysched_default_profile,
+            native_nodes=native,
             **kwargs,
         )
 

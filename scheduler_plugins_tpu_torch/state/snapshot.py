@@ -53,7 +53,15 @@ from scheduler_plugins_tpu_torch.api.objects import (
     Pod,
     PodGroup,
 )
-from scheduler_plugins_tpu_torch.api.resources import PODS, ResourceIndex
+from scheduler_plugins_tpu_torch.api.resources import (
+    CANONICAL,
+    CPU,
+    DEFAULT_MEMORY_REQUEST,
+    DEFAULT_MILLI_CPU_REQUEST,
+    MEMORY,
+    PODS,
+    ResourceIndex,
+)
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.ops.quota import nominee_contribution
 from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
@@ -106,6 +114,10 @@ class NodeState(_Tensors):
     alloc: torch.Tensor  # (N, R) int64 allocatable
     capacity: torch.Tensor  # (N, R) int64
     requested: torch.Tensor  # (N, R) int64 sum of assigned pods' requests
+    #: (N, R) int64 the same sum with the upstream non-zero defaults
+    #: (`nonzero_request`); resident state no solve reads, kept so the
+    #: snapshot, checkpoints and flight bundles match the JAX package's
+    nonzero_requested: torch.Tensor
     #: (N, R) int64 sum of assigned pods' effective limits, each pod's
     #: clamped to >= its requests (trimaran SetMaxLimits,
     #: resourcestats.go:225-231)
@@ -352,6 +364,19 @@ class _Interner:
         return self.pos.get(name, -1)
 
 
+def nonzero_request(req: np.ndarray, index: ResourceIndex) -> np.ndarray:
+    """`req` with the upstream non-zero defaults applied: a pod without a
+    cpu or memory request is charged 100m / 200Mi."""
+    out = req.copy()
+    cpu_i = index.position(CPU)
+    mem_i = index.position(MEMORY)
+    if out[cpu_i] == 0:
+        out[cpu_i] = DEFAULT_MILLI_CPU_REQUEST
+    if out[mem_i] == 0:
+        out[mem_i] = DEFAULT_MEMORY_REQUEST
+    return out
+
+
 class _PodRow:
     """One pod's cached lowering pieces for `build_pod_state`: everything
     its spec alone gives (request and limit encodes, container rows, QoS,
@@ -530,6 +555,7 @@ def build_snapshot(
     namespaces: Sequence = (),
     seccomp_profiles: Sequence = (),
     sysched_default_profile: Optional[str] = None,
+    native_nodes: Optional[dict] = None,
 ) -> tuple[ClusterSnapshot, SnapshotMeta]:
     """Lower host objects into a `ClusterSnapshot` on `device`.
 
@@ -545,7 +571,14 @@ def build_snapshot(
     store's Namespace objects, the namespaceSelector targets) feed the
     in-tree scheduling tables, None when nothing makes them relevant;
     `seccomp_profiles` the syscall tables (None without any), a pod
-    naming no profile taking `sysched_default_profile`'s set. Codes and
+    naming no profile taking `sysched_default_profile`'s set.
+    `native_nodes`, when given, is a `bridge.NativeStore.export_nodes()`
+    dict whose rows are in the order of `nodes`: the hot node columns
+    (alloc, capacity, requested, nonzero_requested, limits, pod_count,
+    terminating) are taken from it as they are, the caller guaranteeing
+    that the store accounts every assigned and reserved pod (so
+    `assigned_pods` should be empty); it is used only when the resource
+    axis is exactly the canonical four (the store's layout). Codes and
     padding follow the JAX builder (`build_snapshot`,
     scheduler_plugins_tpu/state/snapshot.py:552) line for line."""
     device = resolve_device(device)
@@ -577,6 +610,7 @@ def build_snapshot(
     alloc = np.zeros((N, R), I64)
     capacity = np.zeros((N, R), I64)
     requested = np.zeros((N, R), I64)
+    nonzero_req = np.zeros((N, R), I64)
     node_limits = np.zeros((N, R), I64)
     node_mask = np.zeros(N, bool)
     region = np.full(N, -1, I32)
@@ -584,30 +618,46 @@ def build_snapshot(
     pod_count = np.zeros(N, I32)
     terminating = np.zeros(N, I32)
     nominated = np.zeros(N, I32)
+    use_native = native_nodes is not None and tuple(index.names) == CANONICAL
     node_pos = {}
     for i, node in enumerate(nodes):
         node_pos[node.name] = i
-        alloc[i] = index.encode(node.allocatable)
-        capacity[i] = index.encode(node.capacity)
+        if not use_native:
+            alloc[i] = index.encode(node.allocatable)
+            capacity[i] = index.encode(node.capacity)
         node_mask[i] = not node.unschedulable
         if node.region:
             region[i] = regions_in.code(node.region)
         if node.zone:
             zone[i] = zones_in.code(node.zone)
-    for pod in assigned_pods:
-        if pod.node_name not in node_pos:
-            continue
-        i = node_pos[pod.node_name]
-        req = index.encode(requests[pod.uid])
-        requested[i] += req
-        # limits clamped to >= requests per pod (SetMaxLimits)
-        node_limits[i] += np.maximum(index.encode(pod.effective_limits()),
-                                     req)
-        pod_count[i] += 1
-        if pod.terminating:
-            terminating[i] += 1
-    # the "pods" resource is accounted as a count, not a request sum
-    requested[:, pods_i] = pod_count
+    if use_native:
+        # the hot columns straight from the C++ store's exports (it
+        # accounts every assigned and reserved pod, the pods slot too)
+        n_act = len(nodes)
+        alloc[:n_act] = native_nodes["alloc"]
+        capacity[:n_act] = native_nodes["capacity"]
+        requested[:n_act] = native_nodes["requested"]
+        nonzero_req[:n_act] = native_nodes["nonzero_requested"]
+        node_limits[:n_act] = native_nodes["limits"]
+        pod_count[:n_act] = native_nodes["pod_count"]
+        terminating[:n_act] = native_nodes["terminating"]
+    else:
+        for pod in assigned_pods:
+            if pod.node_name not in node_pos:
+                continue
+            i = node_pos[pod.node_name]
+            req = index.encode(requests[pod.uid])
+            requested[i] += req
+            nonzero_req[i] += nonzero_request(req, index)
+            # limits clamped to >= requests per pod (SetMaxLimits)
+            node_limits[i] += np.maximum(
+                index.encode(pod.effective_limits()), req)
+            pod_count[i] += 1
+            if pod.terminating:
+                terminating[i] += 1
+        # the "pods" resource is accounted as a count, not a request sum
+        requested[:, pods_i] = pod_count
+        nonzero_req[:, pods_i] = pod_count
 
     # nominee capacity holds and PodState's nominated count: every unbound
     # pod nominated to a known node, wherever it lives, once by uid
@@ -623,8 +673,8 @@ def build_snapshot(
             nominee_pods.append(pod)
     node_state = NodeState(
         alloc=alloc, capacity=capacity, requested=requested,
-        limits=node_limits, mask=node_mask, region=region, zone=zone,
-        pod_count=pod_count, terminating=terminating, nominated=nominated,
+        nonzero_requested=nonzero_req, limits=node_limits, mask=node_mask,
+        region=region, zone=zone, pod_count=pod_count, terminating=terminating, nominated=nominated,
     )
 
     # --- gangs ---------------------------------------------------------

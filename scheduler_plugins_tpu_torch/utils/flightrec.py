@@ -20,9 +20,9 @@ Three layers:
   a kill mid-save never leaves a manifest naming missing blobs.
   `load_bundle(dir)` and `replay_cycle(loaded, device=)` re-run a record
   through the sequential parity solve (`Scheduler.solve`) with the
-  recorded aux tensors bound and diff the placements. A bundle the JAX
-  package wrote replays here: its `NodeState.nonzero_requested` column,
-  which the port's snapshot does not carry, is dropped on load.
+  recorded aux tensors bound and diff the placements. The snapshot's
+  structs are the JAX package's, field for field, so a bundle either
+  package wrote loads and replays in the other.
 - **Explain**: `explain_solver` formats the per-(pod, cycle) score table
   from `Scheduler.explain_rows` (or `parallel.solver.batch_explain_rows`);
   `explain_record` rebuilds it for a ring record or a bundle cycle.
@@ -70,10 +70,6 @@ FORMAT = 1
 #: the shift that ranks infeasible nodes after every feasible one
 MARGIN_MASKED = -(2 ** 62)
 
-#: snapshot fields of a JAX bundle the port's snapshot does not carry,
-#: by struct: dropped by `unpack_pytree`, every other unknown field raises
-#: (`NodeState.nonzero_requested` is read only by JAX's `bridge/`)
-FOREIGN_FIELDS = {"NodeState": frozenset({"nonzero_requested"})}
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +144,8 @@ def pack_pytree(value, blobs: Optional[dict]) -> object:
 
 
 def unpack_pytree(spec, blobs: dict, registry: Optional[dict] = None):
-    """Inverse of `pack_pytree`; arrays come back as host numpy. A field in
-    `FOREIGN_FIELDS` is dropped; any other unknown struct or field
-    raises."""
+    """Inverse of `pack_pytree`; arrays come back as host numpy. An unknown
+    struct or field raises."""
     if spec is None:
         return None
     if registry is None:
@@ -177,14 +172,12 @@ def unpack_pytree(spec, blobs: dict, registry: Optional[dict] = None):
     if cls is None:
         raise ValueError(f"unknown struct {name!r} in bundle")
     known = {f.name for f in dataclasses.fields(cls)}
-    dropped = FOREIGN_FIELDS.get(name, frozenset())
-    unknown = set(spec["f"]) - known - dropped
+    unknown = set(spec["f"]) - known
     if unknown:
         raise ValueError(f"unknown fields {sorted(unknown)} of struct "
                          f"{name!r} in bundle")
     return cls(**{
-        k: unpack_pytree(v, blobs, registry)
-        for k, v in spec["f"].items() if k in known
+        k: unpack_pytree(v, blobs, registry) for k, v in spec["f"].items()
     })
 
 
@@ -268,18 +261,23 @@ class CycleRecord:
     #: manifest, so it does not enter the digest)
     capture_s: float = 0.0
 
-    def capture_inputs(self, snap, meta, scheduler,
-                       stream_chunk=None) -> None:
+    def capture_inputs(self, snap, meta, scheduler, stream_chunk=None,
+                       profile_config=None) -> None:
         """Record the full solver input surface of the cycle. Runs AFTER
         `scheduler.prepare(meta, ...)`, so the captured `aux()` tensors are
-        what the solve reads. "plugins" is written last: `find` takes a
-        record without it for one still being captured."""
+        what the solve reads. `profile_config` is the exact profile
+        mapping when the caller knows it (the daemon's decoded profile
+        file), else `api.config.profile_spec` exports it. "plugins" is
+        written last: `find` takes a record without it for one still being
+        captured."""
         self.manifest["snapshot"] = pack_pytree(snap, self.blobs)
         self.manifest["meta"] = pack_meta(meta)
         self.manifest["stream_chunk"] = stream_chunk
-        from scheduler_plugins_tpu_torch.api.config import profile_spec
+        if profile_config is None:
+            from scheduler_plugins_tpu_torch.api.config import profile_spec
 
-        self.manifest["profile_config"] = profile_spec(scheduler.profile)
+            profile_config = profile_spec(scheduler.profile)
+        self.manifest["profile_config"] = profile_config
         self.manifest["plugins"] = [
             {
                 "name": p.name,
@@ -373,6 +371,10 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=8)
         self._seq = 0
         self._lock = threading.Lock()
+        #: the exact profile config, when the caller knows it (the daemon
+        #: sets its decoded profile file here); None exports it through
+        #: `api.config.profile_spec`
+        self.profile_config: Optional[dict] = None
 
     @property
     def enabled(self) -> bool:

@@ -450,7 +450,7 @@ POD_SCHEDULING_SLI_MS = "scheduler_pod_scheduling_sli_duration_ms"
 #: gauge: device-memory bytes currently allocated across local devices
 #: (backend allocator stats, summed; absent on backends without stats —
 #: the CPU fallback — so the gauge simply never appears there). Stamped
-#: once per cycle by the daemon via obs.costmodel.stamp_device_memory.
+#: once per cycle by the daemon via obs.memory.stamp_device_memory.
 DEVICE_BYTES_IN_USE = "scheduler_device_bytes_in_use"
 #: gauge: device-memory high-water mark across local devices (allocator
 #: peak_bytes_in_use, summed) — the runtime companion of the STATIC peak

@@ -72,12 +72,7 @@ GIB = 1 << 30
 
 #: manifest fields a port record and a JAX record of the same cycle may
 #: differ in, each with its reason; every other field must be equal
-NAMED_DIFFERENCES = {
-    "/snapshot/f/nodes/f/nonzero_requested":
-        "the port's NodeState has no nonzero_requested column (JAX "
-        "bridge/ reads it; ROADMAP Queue 1 item 5)",
-    "/digest": "covers the snapshot spec above, so it differs with it",
-}
+NAMED_DIFFERENCES: dict = {}
 
 
 @pytest.fixture

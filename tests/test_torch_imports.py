@@ -80,11 +80,49 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.tuning.sweep",
         "scheduler_plugins_tpu_torch.tuning.promotion",
         "scheduler_plugins_tpu_torch.tuning.shadow",
-        "scheduler_plugins_tpu_torch.tools.tune"} <= set(names), names
+        "scheduler_plugins_tpu_torch.tools.tune",
+        "scheduler_plugins_tpu_torch.utils.httptls",
+        "scheduler_plugins_tpu_torch.controllers",
+        "scheduler_plugins_tpu_torch.controllers.podgroup",
+        "scheduler_plugins_tpu_torch.controllers.elasticquota",
+        "scheduler_plugins_tpu_torch.bridge",
+        "scheduler_plugins_tpu_torch.bridge.feed",
+        "scheduler_plugins_tpu_torch.bridge.grpc_feed",
+        "scheduler_plugins_tpu_torch.bridge.agent",
+        "scheduler_plugins_tpu_torch.bridge.leader",
+        "scheduler_plugins_tpu_torch.obs.memory",
+        "scheduler_plugins_tpu_torch.__main__"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
 """
+
+
+DAEMON_HELP = """
+import runpy, sys
+sys.argv = ["scheduler_plugins_tpu_torch", "--help"]
+try:
+    runpy.run_module("scheduler_plugins_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
+assert not bad, bad
+assert "scheduler_plugins_tpu_torch.bridge.feed" in sys.modules
+print("clean")
+"""
+
+
+def test_daemon_help_loads_no_jax():
+    """`python -m scheduler_plugins_tpu_torch --help` prints its usage and
+    loads neither JAX nor the JAX package."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", DAEMON_HELP], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and proc.stdout.rstrip().endswith(
+        "clean")
 
 
 def test_no_jax_anywhere():

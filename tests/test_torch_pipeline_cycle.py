@@ -229,7 +229,7 @@ class TestRewrittenCases:
         replacement = pod(900)  # the same uid, a new object
         v2 = engine._pod_vectors(replacement)
         assert v2[0][0] == 900
-        assert v2[2][0] == 900  # the quota vector rides the same memo
+        assert v2[3][0] == 900  # the quota vector rides the same memo
         engine._pod_vectors(replacement, final=True)
         assert "default/x" not in engine._vec_cache
 
@@ -520,8 +520,7 @@ class TestCompactionAgainstJax:
             j_snapshot.NodeState(**{k: jnp.asarray(v)
                                     for k, v in cols.items()}),
             jnp.asarray(jidx), jnp.asarray(jvalid))
-        port_cols = {k: torch.from_numpy(v.copy()) for k, v in cols.items()
-                     if k != "nonzero_requested"}
+        port_cols = {k: torch.from_numpy(v.copy()) for k, v in cols.items()}
         got = port_deltas.compact_node_rows(
             port_snapshot.NodeState(**port_cols), torch.from_numpy(idx),
             torch.from_numpy(valid))

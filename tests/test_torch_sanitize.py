@@ -349,7 +349,8 @@ def _node_batch(n, slots_up, slots_use):
     ups = D.NodeUpserts.pack([(s, np.full(R, 7), np.full(R, 7), True, -1, -1)
                               for s in slots_up], R)
     use = D.UsageDeltas.pack([(s, np.ones(R, np.int64), np.ones(R, np.int64),
-                               1, 0) for s in slots_use], R)
+                               np.ones(R, np.int64), 1, 0)
+                              for s in slots_use], R)
     return D.stage(ups.as_args() + use.as_args(), torch.device(CPU))
 
 
@@ -381,8 +382,9 @@ def test_delta_apply_clean_equals_unchecked(monkeypatch):
         return D.apply_node_deltas(_resident(8), *_node_batch(8, [1, 5],
                                                               [0, 5, 5]))
     off, on, reports = _both(monkeypatch, apply)
-    for k in ("alloc", "capacity", "requested", "limits", "mask", "region",
-              "zone", "pod_count", "terminating", "nominated"):
+    for k in ("alloc", "capacity", "requested", "nonzero_requested",
+              "limits", "mask", "region", "zone", "pod_count", "terminating",
+              "nominated"):
         assert torch.equal(getattr(off, k), getattr(on, k)), k
     assert reports == [{"sanitize": "serve_delta_apply", "ok": True}]
 

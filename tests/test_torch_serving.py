@@ -68,10 +68,10 @@ GIB = 1 << 30
 EXT = "example.com/gpu"
 CPU = "cpu"
 
-#: the resident NodeState columns both packages have, compared bit-exact
+#: the resident NodeState columns, compared bit-exact
 NODE_COLUMNS = (
-    "alloc", "capacity", "requested", "limits", "mask", "region", "zone",
-    "pod_count", "terminating", "nominated",
+    "alloc", "capacity", "requested", "nonzero_requested", "limits", "mask",
+    "region", "zone", "pod_count", "terminating", "nominated",
 )
 
 
@@ -901,8 +901,9 @@ def _sample_rows(rng, R, n_up, n_use):
            int(rng.integers(-1, 3)))
           for s in rng.choice(12, size=n_up, replace=False)]
     use = [(int(rng.integers(0, 12)), rng.integers(-5, 9, R),
-            rng.integers(-5, 9, R), int(rng.integers(-1, 2)),
-            int(rng.integers(-1, 2))) for _ in range(n_use)]
+            rng.integers(-5, 9, R), rng.integers(-5, 9, R),
+            int(rng.integers(-1, 2)), int(rng.integers(-1, 2)))
+           for _ in range(n_use)]
     return up, use
 
 
@@ -910,7 +911,7 @@ class TestDeltasAgainstJax:
     @pytest.mark.parametrize("seed", [0, 1, 2])
     def test_pack_and_apply(self, jax_package, seed):
         """The packed batches pad to JAX's buckets, and folding them into
-        a node state gives JAX's columns (the shared ones)."""
+        a node state gives JAX's columns."""
         rng = np.random.default_rng(seed)
         R = len(port_deltas.CANON_INDEX)
         up, use = _sample_rows(rng, R, int(rng.integers(0, 12)),
@@ -920,10 +921,8 @@ class TestDeltasAgainstJax:
         for a, b in zip(p_up.as_args(), j_up.as_args()):
             np.testing.assert_array_equal(a, b)
         p_use = port_deltas.UsageDeltas.pack(use, R)
-        j_use = jax_deltas.UsageDeltas.pack(
-            [(s, q, q, lim, c, t) for s, q, lim, c, t in use], R)
-        j_args = j_use.as_args()
-        for a, b in zip(p_use.as_args(), j_args[:2] + j_args[3:]):
+        j_use = jax_deltas.UsageDeltas.pack(use, R)
+        for a, b in zip(p_use.as_args(), j_use.as_args()):
             np.testing.assert_array_equal(a, b)
 
         cluster = make_cluster(PORT, 10)
@@ -973,9 +972,10 @@ class TestDeltasAgainstJax:
                     requests={"cpu": pkg_cpu, "memory": mem}, limits=lim)])
                 vecs.append((pkg.deltas.pod_usage_vectors(pod),
                              pkg.deltas.pod_quota_vector(pod)))
-            (p_req, p_lim), p_q = vecs[0]
-            (j_req, _j_nz, j_lim), j_q = vecs[1]
-            for a, b in ((p_req, j_req), (p_lim, j_lim), (p_q, j_q)):
+            (p_req, p_nz, p_lim), p_q = vecs[0]
+            (j_req, j_nz, j_lim), j_q = vecs[1]
+            for a, b in ((p_req, j_req), (p_nz, j_nz), (p_lim, j_lim),
+                         (p_q, j_q)):
                 np.testing.assert_array_equal(a, b)
         with pytest.raises(port_deltas.UnsupportedResource):
             port_deltas.pod_usage_vectors(port_objects.Pod(
