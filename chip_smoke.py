@@ -217,7 +217,7 @@ Phases (any failure exits non-zero and prints no result line):
    `LANE_SHAPE`'s full width (`tests/torch_lane_cases.py`: 64 deep nodes
    and `node-hot`, 64 tenants over 8 zones, R = 12, 12,288 bound pods,
    12,288 arrivals and departures a cycle, 16 hot bidders for 8 slots),
-   its depth cut to one warm-up, one timed and one contended cycle: the
+   its depth cut to one timed and one contended cycle (no warm-up): the
    serial `Scheduler.solve` and `LaneSolver` K = 4 and K = 8 fused on the
    card every cycle, K = 4 sequential on the card and the serial solve and
    K = 4 fused on the CPU on the timed cycle, every digest equal to the
@@ -302,7 +302,22 @@ Phases (any failure exits non-zero and prints no result line):
    the framed TCP transport when grpcio is absent): after one cycle
    `drain_deltas` returns exactly the mirror rows its binds touched. No
    election kernel lies on this path;
-25. the kernel table as one JSON line (times at the shapes, dtypes and
+25. the rank-split path across processes (`[ranks]` lines): (a) the
+   compiled reference-shaped baselines (`bridge/ref_baseline.py`, host
+   C++) on bench configs 1-6 (config 1 at `FLAGSHIP_SHAPE`, config 6 at
+   the north star), each snapshot lowered on the card and on the CPU with
+   equal (placed, assignment), their pods/s beside the card's batched
+   solve; (b) the north star across 8 gloo ranks sharing the card: rank 0
+   builds the cluster and broadcasts the snapshot, every rank runs
+   `sharded_wave_solve(snap, mesh, weights)` with its own rank block, each
+   equal to phase 4's one-card result and each launching all three
+   kernels, with the collectives a wave and their seconds; (c) on a 2 x 4
+   mesh `sharded_profile_batch_solve` and `sharded_batch_solve` of the
+   mixed roster at `MIXED_FULL` and the metric roster at `METRIC_1K`, and
+   `wave_gang_solve(mesh=)` over 4 ranks at config 12's size, each equal
+   to its one-card result. A rank that fails or hangs past its deadline
+   fails the run. The parent launches no election kernel;
+26. the kernel table as one JSON line (times at the shapes, dtypes and
    strides the north-star path launched), then the card's line, then the
    result line `{"ok": true, "device": {...}}` last.
 
@@ -4233,7 +4248,7 @@ def lane_threads_overlap(device, ns, lc, sched, pending, cluster,
 
 def lanes_phase(device) -> None:
     """Phase 21: bench config 15 at `LANE_SHAPE`'s full width, its depth
-    cut to one warm-up, one timed and one contended cycle
+    cut to one timed and one contended cycle (no warm-up)
     (`torch_lane_cases.LANE_CARD_SHAPE`): every cycle the serial
     `Scheduler.solve` on the CPU (the reference) and `LaneSolver` K = 4
     and K = 8 fused on the card; on the timed and contended cycles the
@@ -5490,6 +5505,292 @@ def edge_phase(device, reference=None) -> None:
     print(f"[edge] phase_s={time.perf_counter() - t_phase}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the rank-split path across processes
+# ---------------------------------------------------------------------------
+
+#: bench config 1 (`bench.py:540` FLAGSHIP_SHAPE): the allocatable profile
+#: at 1,024 nodes x 8,192 pods
+FLAGSHIP_SHAPE = dict(n_nodes=1024, n_pods=8192)
+#: gloo ranks of the north star across processes, all on the one card
+RANKS = 8
+#: a rank spawn's deadline, seconds: a rank that raises or hangs fails
+#: the phase, and every rank still alive is killed
+RANK_TIMEOUT_S = 420
+
+
+def compiled_baselines(device) -> None:
+    """Phase 25 (a): the compiled reference-shaped baselines
+    (`bridge/ref_baseline.py`, g++-built host C++) on bench configs 1-6 at
+    the sizes `bench.py` feeds them (config 1 at `FLAGSHIP_SHAPE`, config
+    6 at the north star, configs 2-5 at the parity phases' sizes): each
+    snapshot lowered on the card and on the CPU, the same (placed,
+    assignment) from both; the scan's pods/s (the card machine's host
+    CPU) beside the card's own batched solve of the card-lowered snapshot
+    (`batch_solve` for the flagship configs, `profile_batch_solve` for the
+    others). `[ranks] baseline` lines."""
+    import numpy as np
+    import torch
+
+    from scheduler_plugins_tpu_torch.bridge import ref_baseline as rb
+    from scheduler_plugins_tpu_torch.models import (
+        allocatable_scenario,
+        gang_quota_scenario,
+    )
+    from scheduler_plugins_tpu_torch.parallel.solver import (
+        batch_solve,
+        profile_batch_solve,
+    )
+
+    cpu = torch.device("cpu")
+
+    def weights(meta):
+        return meta.index.encode({"cpu": 1 << 20, "memory": 1})
+
+    def network(snap, meta, sched):
+        net = next(p for p in sched.profile.plugins
+                   if type(p).__name__ == "NetworkOverhead")
+        return rb.compiled_network_baseline(
+            snap, net._zone_cost, net._region_cost,
+            n_nodes=len(meta.node_names), n_pods=len(meta.pod_names))
+
+    def real(fn):
+        return lambda snap, meta, sched: fn(
+            snap, meta, n_nodes=len(meta.node_names),
+            n_pods=len(meta.pod_names))
+
+    configs = [
+        ("config1", lambda: allocatable_scenario(**FLAGSHIP_SHAPE),
+         flagship_scheduler, real(lambda s, m, **kw: rb
+                                  .compiled_alloc_baseline(s, weights(m),
+                                                           **kw)), True),
+        ("config2", config2_cluster, config2_scheduler,
+         real(lambda s, m, **kw: rb.compiled_trimaran_baseline(s, **kw)),
+         False),
+        ("config3", config3_cluster, config3_scheduler,
+         real(lambda s, m, **kw: rb.compiled_numa_baseline(s, **kw)), False),
+        ("config4", lambda: gang_quota_scenario(**CONFIG4),
+         flagship_scheduler, real(lambda s, m, **kw: rb
+                                  .compiled_gang_quota_baseline(
+                                      s, weights(m), **kw)), False),
+        ("config5", config5_cluster, config5_scheduler, network, False),
+        ("config6", lambda: allocatable_scenario(NORTH_STAR["n_nodes"],
+                                                 NORTH_STAR["n_pods"]),
+         flagship_scheduler, real(lambda s, m, **kw: rb
+                                  .compiled_alloc_baseline(s, weights(m),
+                                                           **kw)), True),
+    ]
+    for label, make_cluster, make_sched, baseline, flagship in configs:
+        cluster = make_cluster()
+        sched = make_sched()
+        for plugin in sched.profile.plugins:
+            plugin.configure_cluster(cluster)
+        pending = sched.sort_pending(cluster.pending_pods(), cluster)
+        runs = []
+        for dev in (cpu, device):
+            snap, meta = cluster.snapshot(pending, now_ms=0, device=dev)
+            sched.prepare(meta, cluster)
+            runs.append(baseline(snap, meta, sched))
+        card_snap, card_meta = snap, meta  # the card's, prepared last
+        _sync(device)
+        t0 = time.perf_counter()
+        if flagship:
+            out = batch_solve(card_snap, weights(card_meta))
+        else:
+            out = profile_batch_solve(sched, card_snap, device=device)
+        _sync(device)
+        card_s = time.perf_counter() - t0
+        (rate_c, placed_c, a_c), (rate_g, placed_g, a_g) = runs
+        same = placed_g == placed_c and np.array_equal(a_g, a_c)
+        n_pods = len(meta.pod_names)
+        print(f"[ranks] baseline {label} nodes={len(meta.node_names)} "
+              f"pods={n_pods} placed={placed_g} "
+              f"card_lowered_equals_cpu_lowered={same} "
+              f"compiled_pods_per_s_card_lowered={rate_g} "
+              f"compiled_pods_per_s_cpu_lowered={rate_c} "
+              f"card_batch_s={card_s} card_batch_pods_per_s={n_pods / card_s} "
+              f"card_batch_placed={int((out[0] >= 0).sum())}", flush=True)
+        if not same or placed_g == 0:
+            raise AssertionError(f"compiled baseline {label}: card-lowered "
+                                 f"!= CPU-lowered or nothing placed")
+
+
+def rank_north_star(north: dict, results: list) -> None:
+    """Phase 25 (b): the north star across `RANKS` gloo ranks sharing the
+    card (`torch_rank_cases.broadcast_wave_rank`; `results` its ranks'
+    returns): rank 0 built the cluster and broadcast its snapshot, every
+    rank ran the rank-split `sharded_wave_solve` with its own block of the
+    carry. Each rank's assignment, admitted and wait must equal phase 4's
+    one-card `n_blocks=8` result, and each rank must have launched
+    `block_offsets`, `elect_min` and `fused_election` (counted from just
+    before its solve to just after) at least once on the card.
+    `[ranks] north_star` lines: per rank the launches, the solve's wall
+    seconds, the collectives a wave and their host seconds a wave."""
+    import numpy as np
+
+    want = {k: north[k].cpu().numpy() for k in ("assignment", "admitted",
+                                                 "wait")}
+    on_card = north["assignment"].is_cuda
+    bad = []
+    for rank, res in enumerate(results):
+        same = all(np.array_equal(res[k], want[k]) for k in want)
+        ex = res["exchanges"]
+        print(f"[ranks] north_star rank={rank} ranks={len(results)} "
+              f"waves={res['waves']} solve_s={res['solve_s']} "
+              f"broadcast_s={res['broadcast_s']} "
+              f"launches={res['launches']} collectives={ex['calls']} "
+              f"collectives_per_wave={ex['calls'] / res['waves']} "
+              f"exchange_s={ex['seconds']} "
+              f"exchange_ms_per_wave={1e3 * ex['seconds'] / res['waves']} "
+              f"bytes_sent={ex['bytes']} equals_one_card={same}",
+              flush=True)
+        if not same:
+            bad.append(f"rank {rank} differs from the one-card solve")
+        if on_card and not all(res["launches"].values()):
+            bad.append(f"rank {rank} launched {res['launches']}")
+    if bad:
+        raise AssertionError(f"north star across ranks: {bad}")
+
+
+#: phase 25 (c)'s rosters on the 2 x 4 mesh, at phases 14-15's shapes:
+#: (roster, nodes, pods)
+RANK_ROSTERS = (("mixed", MIXED_FULL["n_nodes"], MIXED_FULL["n_pods"]),
+                ("metric", METRIC_1K["n_nodes"], METRIC_1K["n_pods"]))
+
+
+def rank_roster_checks(results: list) -> None:
+    """Phase 25 (c), rosters (`torch_rank_cases.batch_rank`'s returns): on
+    the 2 x 4 mesh, `sharded_profile_batch_solve` and `sharded_batch_solve`
+    of each roster equal on every rank to rank 0's one-card
+    `profile_batch_solve` / `batch_solve`. `[ranks] roster` lines."""
+    import numpy as np
+
+    bad = []
+    for name, n_nodes, n_pods in RANK_ROSTERS:
+        want_profile, want_batch = results[0]["one_card"][name]
+        for rank, res in enumerate(results):
+            same = [all(np.array_equal(g, w) for g, w in zip(got, want))
+                    for got, want in ((res["roster"][name], want_profile),
+                                      (res["roster_batch"][name],
+                                       want_batch))]
+            sec = res["seconds"]
+            print(f"[ranks] roster {name} rank={rank} "
+                  f"coords={res['coords']} nodes={n_nodes} pods={n_pods} "
+                  f"profile_s={sec[f'roster_{name}']} "
+                  f"batch_s={sec[f'roster_batch_{name}']} "
+                  f"profile_equals_one_card={same[0]} "
+                  f"batch_equals_one_card={same[1]}", flush=True)
+            if not all(same):
+                bad.append((name, rank, same))
+        sec = results[0]["seconds"]
+        print(f"[ranks] roster {name} one_card_profile_s="
+              f"{sec[f'one_card_roster_{name}']} one_card_batch_s="
+              f"{sec[f'one_card_batch_{name}']} placed="
+              f"{int((want_profile[0] >= 0).sum())}", flush=True)
+    if bad:
+        raise AssertionError(f"roster solves across ranks: {bad}")
+
+
+def rank_gangs(device, workdir) -> None:
+    """Phase 25 (c), gangs: `wave_gang_solve(mesh=)` over 4 gloo ranks at
+    bench config 12's full size, equal on every rank (outputs and wave
+    stats) to the one-card wave solve. `[ranks] gangs` lines."""
+    import numpy as np
+
+    from scheduler_plugins_tpu_torch.gangs import topology as T
+    from scheduler_plugins_tpu_torch.gangs import waves as GW
+    from scheduler_plugins_tpu_torch.parallel.launch import run_ranks
+
+    import torch_gang_cases as gcases
+    import torch_rank_cases as cases
+
+    shape = gcases.MEGA_GANG_SHAPE
+    problem = gcases.mega_gang_problem(shape, T.RankGangState)
+    gangs = problem["gangs"]
+    args = (problem["free0"], problem["eq_used0"], problem["node_mask"])
+    st = {}
+    want = GW.wave_gang_solve(gangs, *args, wave=shape["wave"], stats=st,
+                              device=device)
+    fields = {f: np.asarray(getattr(gangs, f))
+              for f in gangs.__dataclass_fields__}
+    gang_ranks = 4
+    t0 = time.perf_counter()
+    results = run_ranks(
+        cases.gang_rank, gang_ranks,
+        ([("config12", fields, *args, shape["wave"])], str(device)),
+        workdir=workdir, timeout_s=RANK_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    bad = []
+    for rank, res in enumerate(results):
+        got = res["config12"]
+        same = all(np.array_equal(g, w) for g, w in zip(got[:5], want))
+        print(f"[ranks] gangs config12 rank={rank} ranks={gang_ranks} "
+              f"nodes={shape['n_nodes']} gangs={shape['n_gangs']} "
+              f"waves={got[5]['waves']} one_card_waves={st['waves']} "
+              f"host_solves={got[5]['host_solves']} "
+              f"solve_s={got[6]} equals_one_card={same}", flush=True)
+        if not same or got[5] != st:
+            bad.append(rank)
+    print(f"[ranks] gangs spawn_s={spawn_s}", flush=True)
+    if bad:
+        raise AssertionError(f"gang wave solve across ranks: {bad}")
+
+
+def ranks_phase(device, north: dict) -> None:
+    """Phase 25: the compiled baselines (`compiled_baselines`), then the
+    rank-split path across processes on the one card: one spawn of
+    `RANKS` gloo ranks runs the north star (`rank_north_star`) and the
+    2 x 4 roster solves (`rank_roster_checks`), a second of 4 ranks the
+    gang wave solve (`rank_gangs`). The election kernels launch only in
+    the ranks: the parent's counts stay 0."""
+    import tempfile
+
+    from scheduler_plugins_tpu_torch.parallel import kernels as pk
+    from scheduler_plugins_tpu_torch.parallel.launch import run_ranks
+
+    _tests_on_path()
+    import torch_rank_cases as cases
+
+    t_phase = time.perf_counter()
+    pk.reset_launches()
+    compiled_baselines(device)
+    print(f"[ranks] baselines_s={time.perf_counter() - t_phase}", flush=True)
+    calls = [("broadcast_wave_rank", (
+                  NORTH_STAR["n_nodes"], NORTH_STAR["n_pods"],
+                  NORTH_STAR["chunk"], NORTH_STAR["rescue_window"],
+                  str(device))),
+             ("batch_rank", ((), RANK_ROSTERS, (), str(device), False,
+                             True))]
+    with tempfile.TemporaryDirectory(prefix="spt-ranks-") as tmp:
+        t0 = time.perf_counter()
+        results = run_ranks(cases.run_all, RANKS, (calls,), workdir=tmp,
+                            timeout_s=RANK_TIMEOUT_S)
+        print(f"[ranks] spawn ranks={RANKS} spawn_s="
+              f"{time.perf_counter() - t0}", flush=True)
+        rank_north_star(north, [r[0] for r in results])
+        rank_roster_checks([r[1] for r in results])
+        rank_gangs(device, tmp)
+    no_election_launches("ranks", "ranks_phase", pk.launches())
+    print(f"[ranks] phase_s={time.perf_counter() - t_phase}", flush=True)
+
+
+def ranks_alone(device) -> None:
+    """Phase 25 by itself: build the kernels, solve phase 4's one-card
+    north star (the ranks' reference), then `ranks_phase`."""
+    from scheduler_plugins_tpu_torch import _build
+    from scheduler_plugins_tpu_torch.models import allocatable_scenario
+
+    _build.build_all()
+    cluster = allocatable_scenario(NORTH_STAR["n_nodes"],
+                                   NORTH_STAR["n_pods"])
+    north = drive("north_star", cluster, device, S_BLOCKS,
+                  chunk=NORTH_STAR["chunk"],
+                  rescue_window=NORTH_STAR["rescue_window"],
+                  pad_to=NORTH_STAR["chunk"])
+    del cluster
+    ranks_phase(device, north)
+
+
 def kernel_table(north: dict, device) -> list:
     """One row per kernel: launches on the north-star path, and times
     averaged per launch over the shapes, dtypes and strides that path gave
@@ -5713,9 +6014,16 @@ def main() -> int:
 
     phase_done(24)
 
-    # 25. the kernel table, the card, the result
-    kernels = kernel_table(north, device)
+    # 25. the rank-split path across processes: the compiled baselines,
+    # the north star across 8 gloo ranks on the card, the 2 x 4 roster
+    # solves and the 4-rank gang wave solve
+    ranks_phase(device, north)
+
     phase_done(25)
+
+    # 26. the kernel table, the card, the result
+    kernels = kernel_table(north, device)
+    phase_done(26)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ checkout (git-ignored), named by a hash of the source and the flags, so an
 edited source is never served by a stale library. Nothing is built when a
 module is imported: the first launch builds.
 
-The native columnar store (`bridge/snapshot_store.cc`) is host C++: one
-`g++` call builds it into `build/native/` under the same naming rule, on
-the first `bridge.NativeStore` or through `build_all`.
+The host C++ sources (the native columnar store `bridge/snapshot_store.cc`
+and the compiled baselines `bridge/ref_baseline.cc`) build with one `g++`
+call each into `build/native/` under the same naming rule, on first use
+or through `build_all`. Without `g++` that build raises: nothing falls
+back to Python.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ SOURCES = {"election": CSRC / "election.cu"}
 HOST_BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 #: every host C++ source of the port, by library name
-HOST_SOURCES = {"snapshot_store": PACKAGE_DIR / "bridge" / "snapshot_store.cc"}
+HOST_SOURCES = {
+    "snapshot_store": PACKAGE_DIR / "bridge" / "snapshot_store.cc",
+    "ref_baseline": PACKAGE_DIR / "bridge" / "ref_baseline.cc",
+}
 
 _LIBS: dict[str, ctypes.PyDLL] = {}
 
@@ -99,9 +104,13 @@ def build_host(name: str) -> Path:
     out = host_library_path(name)
     if out.exists():
         return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(
+            f"g++ not found: {HOST_SOURCES[name]} needs a host C++ compiler")
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [shutil.which("g++") or "g++", *HOST_FLAGS,
+    cmd = [gxx, *HOST_FLAGS,
            str(HOST_SOURCES[name]), "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -32,9 +32,13 @@ re-solved on the host against the committed state and validation goes
 on, so the worst case is the numpy twin plus G / W device calls.
 
 `wave_gang_solve` is bit-identical to `gang_solve_np` (and so to
-`gang_solve`). The JAX package can shard the wave axis over a ("gangs",)
-device mesh; here `mesh=` raises NotImplementedError until the port runs
-across GPUs.
+`gang_solve`). With a ("gangs",) rank `mesh` (`parallel.mesh
+.make_axis_mesh(GANGS_AXIS)`) the wave axis splits over the ranks: the
+wave width rounds up to a multiple of the ranks, each rank solves its W / S
+lanes against the replicated problem and state, and one gather of the lane
+outputs gives every rank the whole wave, so every rank runs the same host
+validator and returns the same result (JAX's shard_map over a ("gangs",)
+device mesh).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.gangs import topology as T
+from scheduler_plugins_tpu_torch.parallel.mesh import GANGS_AXIS, all_gather
 from scheduler_plugins_tpu_torch.serving.deltas import stage
 
 I64 = np.int64
@@ -90,13 +95,9 @@ def wave_gang_solve(gangs: T.RankGangState, free0, eq_used0, node_mask,
     (G, M) int32, admitted (G,) bool, placed_new (G,) int32, free (N, R)
     int64, eq_used (Q, R) int64) as numpy: the twin's exact contract.
     `stats`, when given, collects {"waves", "accepted" (per-wave
-    acceptance counts), "host_solves"}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "wave_gang_solve(mesh=...) shards the wave axis over a "
-            "multi-GPU mesh, which comes with ROADMAP Queue 1 item 1 "
-            "(across GPUs); one card runs the unsharded wave solve"
-        )
+    acceptance counts), "host_solves"}. With a ("gangs",) rank `mesh` every
+    rank of it calls this with the same problem; each solves its share of
+    each wave's lanes and all return the same result."""
     device = resolve_device(device)
     gangs_np = gangs.numpy()
     rank_req = gangs_np.rank_req
@@ -129,6 +130,12 @@ def wave_gang_solve(gangs: T.RankGangState, free0, eq_used0, node_mask,
                                      prev[g], -1)
 
     W = wave
+    n_ranks = 1 if mesh is None else mesh.axis_size(GANGS_AXIS)
+    if n_ranks > 1:
+        W = max(W, n_ranks)
+        W = ((W + n_ranks - 1) // n_ranks) * n_ranks
+    lanes = W // n_ranks
+    first = lanes * (0 if mesh is None else mesh.coordinate(GANGS_AXIS))
     # the problem goes to the card once; every wave re-reads it
     gangs_dev = gangs.to(device)
     (mask_dev,) = stage((node_mask_np,), device)
@@ -142,16 +149,21 @@ def wave_gang_solve(gangs: T.RankGangState, free0, eq_used0, node_mask,
         ids = np.zeros(W, I64)  # pad lanes re-solve gang batch[0]: ignored
         ids[:len(batch)] = batch  # by the host acceptance loop
         ids[len(batch):] = batch[0]
-        free_dev, eq_dev, ids_dev = stage((free, eq_used, ids), device)
+        free_dev, eq_dev, ids_dev = stage(
+            (free, eq_used, ids[first:first + lanes]), device)
         choices_t, adm_t, qn_t, prim_t, res_t = wave_solve_body(
             gangs_dev, free_dev, eq_dev, mask_dev, ids_dev)
-        # the wave's one host copy
         packed = torch.cat((choices_t.to(torch.int64),
                             torch.stack((adm_t.to(torch.int64),
                                          qn_t.to(torch.int64),
                                          prim_t.to(torch.int64),
                                          res_t.to(torch.int64)), dim=1)),
-                           dim=1).cpu().numpy()
+                           dim=1)
+        if n_ranks > 1:
+            # every rank's lanes, in lane order
+            packed = all_gather(packed, mesh, GANGS_AXIS).flatten(0, 1)
+        # the wave's one host copy
+        packed = packed.cpu().numpy()
         choices = packed[:, :M]
         adm, q_new, primary, has_res = (packed[:, M + k] for k in range(4))
         n_waves += 1

@@ -16,7 +16,11 @@ formulations returning identical placements:
   cut into S contiguous rank blocks held as one (S, BS, R) tensor (the JAX
   shard_map body `waterfill_targeted_sharded`, ops/assign.py:804, in its
   kernel formulation). Each cross-block exchange is one launch of a
-  `parallel.kernels` CUDA kernel.
+  `parallel.kernels` CUDA kernel;
+- `waterfill_targeted_ranked` — the same rank blocks, one per process:
+  each rank holds its own (BS, R) block, and each exchange gathers the
+  ranks' O(window) rows through the process group before the same kernels
+  run on every rank.
 
 Per solve: one whole-queue lite wave, then lite waves over straggler
 windows of `lite_window` pods, then rescue waves over windows of
@@ -436,6 +440,140 @@ def waterfill_targeted_sharded(rank_free, node_ids, req, pod_mask,
             torch.where(admitted, choice, 0),
             -torch.where(admitted[:, None], dem_w, 0),
             N, "sharded waterfill commit"))
+        remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
+        return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
+
+    stats = _run_phases(
+        wave, P, max_waves, lite_window, rescue_window, lite_choice,
+        rescue_choice,
+    )
+    return assignment.to(torch.int32), stats
+
+
+def waterfill_targeted_ranked(block_free, block_ids, req, pod_mask,
+                              n_real: int, gather, rank: int, n_ranks: int,
+                              max_waves: int = 8, rescue_window: int = 512,
+                              lite_window: int = 1024):
+    """`waterfill_targeted_sharded` with each rank holding only its own
+    rank block: the rank-split form of the JAX shard_map body
+    (ops/assign.py:804) across processes.
+
+    `block_free` (BS, R) is this rank's block of the rank-ordered free
+    carry (block `rank` of `n_ranks`, global ranks [rank*BS, (rank+1)*BS)),
+    UPDATED IN PLACE; `block_ids` (BS,) its node ids (-1 = padding).
+    `gather(t)` is the collective over the node axis: every rank's `t`,
+    stacked (S, ...) in rank order (`parallel.mesh.all_gather`). The pod
+    axis (window, assignment, admission) is replicated: every rank computes
+    it from the same gathered rows, so every rank reads the same wave
+    counts on the host and the ranks never part ways.
+
+    Each exchange point gathers the rank's O(window) rows, then the same
+    kernels run on the (S, ...) rows on every rank: the lite wave gathers
+    its block's cumulative-free total (`block_offsets`, JAX
+    `ring_exclusive_scan`), its bucket candidates (`elect_min`, the
+    `pmin`) and its first-fit proposals with their node ids and free rows
+    (`gathered_election`); the rescue wave its feasible counts
+    (`block_offsets`, `block_exclusive_offsets`) and its proposals. A rank
+    commits only the admitted rows it owns. Returns (assignment (P,) int32,
+    stats) equal to the stacked form's on the same carry."""
+    BS, R = block_free.shape
+    S = n_ranks
+    P = req.shape[0]
+    N = S * BS
+    lo = rank * BS
+    device = req.device
+    demand = pod_fit_demand(req)
+    assignment = torch.full((P,), -1, dtype=torch.int64, device=device)
+    hopeless = torch.zeros(P, dtype=torch.bool, device=device)
+    check = sanitize.current()
+
+    def elect(prop):
+        """(rank, node id + 1, free row) of each column's winner: this
+        rank's proposals (W,) gathered with their payload."""
+        if check is not None:
+            prop = _guard_proposals(check, prop, N)
+        has = prop < N
+        local = torch.clamp(prop - lo, 0, BS - 1)
+        nid = torch.where(has, block_ids[local].to(torch.int64) + 1, 0)
+        row = torch.where(has[:, None], block_free[local], 0)
+        payload = torch.cat((prop[:, None], nid[:, None], row), dim=1)
+        out = pk.gathered_election(gather(payload), N)
+        if check is not None:
+            _check_winners(check, out[1], n_real)
+        return out
+
+    def lite_choice(idx, valid, dem_w):
+        cumfree = torch.cumsum(torch.clamp(block_free, min=0).to(F64), dim=0)
+        if check is not None:
+            check.nan(cumfree[-1], "block_offsets keys")
+        base, _ = pk.block_offsets(gather(cumfree[-1]))  # (S, R)
+        if check is not None:
+            check.nan(base, "block_offsets offsets")
+        abs_cf = cumfree + base[rank]  # (BS, R)
+        cumdem = torch.cumsum(dem_w.to(F64), dim=0)  # (W, R)
+        loc = torch.searchsorted(
+            abs_cf.T.contiguous(), cumdem.T.contiguous(), right=False
+        )  # (R, W) local positions
+        cand = torch.where(loc < BS, lo + loc, N)
+        pos = pk.elect_min(gather(cand)).max(dim=0).values  # (W,)
+        ranks = torch.clamp(
+            pos[None, :] + torch.arange(LITE_PROBES, device=device)[:, None],
+            max=n_real - 1,
+        )  # (LP, W): saturate at the worst real rank, never the padding
+        local = ranks - lo
+        owned = (local >= 0) & (local < BS)
+        row = block_free[torch.clamp(local, 0, BS - 1)]  # (LP, W, R)
+        fit = owned & valid & torch.all(dem_w <= row, dim=2)
+        # the first fitting probe is the min fitting rank: this rank
+        # proposes its min fitting owned rank
+        prop = torch.where(fit, ranks, N).min(dim=0).values  # (W,)
+        rank_w, nid, win_row = elect(prop)
+        choice = torch.where(valid & (rank_w < N), rank_w, -1)
+        return choice, torch.zeros_like(valid), nid, win_row
+
+    def rescue_choice(idx, valid, dem_w):
+        W = idx.shape[0]
+        feasible = torch.all(
+            dem_w[:, None, :] <= block_free[None, :, :], dim=2
+        ) & valid[:, None]  # (W, BS)
+        counts = feasible.sum(dim=1)  # (W,) int64
+        base_all, total = pk.block_offsets(gather(counts))
+        k = torch.where(
+            total > 0,
+            torch.arange(W, device=device) % torch.clamp(total, min=1),
+            0,
+        )
+        k_local = k - base_all[rank]
+        c = torch.cumsum(feasible.to(torch.int32), dim=1)  # (W, BS)
+        locpos = torch.searchsorted(
+            c, k_local.to(torch.int32)[:, None], right=True
+        )[:, 0]
+        mine = (k_local >= 0) & (k_local < counts)
+        prop = torch.where(mine & valid & (total > 0), lo + locpos, N)
+        rank_w, nid, win_row = elect(prop)
+        choice = torch.where(
+            valid & (total > 0), torch.clamp(rank_w, max=n_real - 1), -1
+        )
+        return choice, valid & (total == 0), nid, win_row
+
+    def wave(W, choice_fn):
+        idx, valid, dem_w = _straggler_window(
+            demand, pod_mask, assignment, hopeless, W
+        )
+        choice, hopeless_w, nid, win_row = choice_fn(idx, valid, dem_w)
+        order, seg, within = _segments(choice, dem_w, N)
+        ok_sorted = (seg < N) & torch.all(
+            within <= win_row[order].to(F64), dim=1
+        )
+        admitted = _scatter_verdicts(order, ok_sorted, choice)
+        _commit(assignment, hopeless, idx, admitted, nid, hopeless_w)
+        # commit the admitted rows this rank owns into its block, in place
+        local = choice - lo
+        mine = admitted & (local >= 0) & (local < BS)
+        block_free.index_add_(0, *_commit_rows(
+            torch.where(mine, local, 0),
+            -torch.where(mine[:, None], dem_w, 0),
+            BS, "ranked waterfill commit"))
         remaining = ((assignment == -1) & pod_mask & ~hopeless).sum()
         return torch.stack([admitted.sum(), hopeless_w.sum(), remaining])
 

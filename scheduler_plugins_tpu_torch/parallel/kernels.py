@@ -263,3 +263,32 @@ def fused_election(prop: torch.Tensor, node_ids: torch.Tensor,
     # `split_with_sizes` is bound in C++; `Tensor.split` wraps it in Python
     rank, node_plus, rows = out.split_with_sizes((W, W, R * W))
     return rank, node_plus, rows.view(W, R)
+
+
+def gathered_election(payload: torch.Tensor, n: int):
+    """`fused_election` over proposals gathered from S ranks, each rank
+    holding only its own block of the carry (the rank-split solve,
+    `ops.assign.waterfill_targeted_ranked`). `payload` (S, W, 2 + R) int64
+    holds, per rank and window column, [proposed global rank or the
+    sentinel `n`, the proposed rank's node id + 1 (0 for none), its free
+    row (R)]. Block s owns ranks [s*BS, (s+1)*BS) and proposes only its
+    own, so the first block proposing wins a column, as in the stacked
+    election.
+
+    The same kernel runs on the gathered rows, re-addressed: proposal
+    (s, w) becomes s*W + w (the sentinel S*W for none), so the winner's
+    payload is read at row (src, w) of the gathered tables, with the
+    proposed rank carried as one more payload column. Returns (rank (W,),
+    node id + 1 (W,), free row (W, R)), what `fused_election` gives on the
+    stacked carry. One launch (or its plain version on the CPU)."""
+    S, W, C = payload.shape
+    R = C - 2
+    prop = payload[:, :, 0]
+    col = torch.arange(W, device=payload.device)
+    base = torch.arange(S, device=payload.device)[:, None] * W
+    remap = torch.where(prop < n, base + col, S * W)
+    ids = (payload[:, :, 1] - 1).to(torch.int32)
+    rows = torch.cat((payload[:, :, 2:], prop[:, :, None]), dim=2)
+    rank_w, node_plus, win = fused_election(remap, ids, rows)
+    rank = torch.where(rank_w < S * W, win[:, R], n)
+    return rank, node_plus, win[:, :R]

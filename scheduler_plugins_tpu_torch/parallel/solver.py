@@ -13,6 +13,14 @@ every cross-block exchange is a CUDA kernel launch (`parallel.kernels`).
 The two give bit-identical results. Hard constraints (fit, queue-order node
 admission, quota caps, gang quorum) hold in both.
 
+Across the ranks of a `parallel.mesh.Mesh` (one process each), the JAX
+package's mesh solves: `sharded_wave_solve(snap, mesh, weights)` and its
+chunk program `sharded_wave_chunk_solver`, `sharded_batch_solve` and
+`sharded_profile_batch_solve`. Each rank holds its block of the node axis
+and every exchange gathers the ranks' rows through the process group
+(`ops.assign.waterfill_targeted_ranked`); every rank gets the one-process
+result.
+
 `fast_path_scoring` and `fast_solve_head` are the profile-driven head the
 streamed solve (`parallel.pipeline.streamed_profile_solve`) runs instead
 of the fixed allocatable head of the two solvers above.
@@ -53,6 +61,7 @@ from scheduler_plugins_tpu_torch.ops.assign import (
     _segment_prefix,
     waterfill_assign_stateful,
     waterfill_assign_targeted,
+    waterfill_targeted_ranked,
     waterfill_targeted_sharded,
 )
 from scheduler_plugins_tpu_torch.ops.fit import fits, free_capacity
@@ -60,6 +69,13 @@ from scheduler_plugins_tpu_torch.ops.gang import gang_admit
 from scheduler_plugins_tpu_torch.ops.packing import packing_refine
 from scheduler_plugins_tpu_torch.ops.quota import nominee_sums, quota_admit
 from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
+from scheduler_plugins_tpu_torch.parallel import mesh as rank_mesh
+from scheduler_plugins_tpu_torch.parallel.mesh import (
+    NODES_AXIS,
+    PODS_AXIS,
+    Mesh,
+    pad_to_shards,
+)
 from scheduler_plugins_tpu_torch.utils import sanitize
 
 F64 = torch.float64
@@ -75,17 +91,24 @@ def nominated_aggregates_batch(quota):
             nominee_sums(quota.nom_total_mask, quota.nom_req))
 
 
-def batch_admission(snap, free, eq_used=None):
-    """(P,) PreFilter verdicts for the batch against the carried state."""
-    ok = snap.pods.mask & ~snap.pods.gated
+def batch_admission(snap, free, eq_used=None, rows=None):
+    """(P,) PreFilter verdicts for the batch against the carried state;
+    with `rows` (a slice), the verdicts of those pod rows only."""
+    pods = snap.pods
+    if rows is not None:
+        pods = pods.replace(**{k: getattr(pods, k)[rows] for k in (
+            "mask", "gated", "gang", "ns", "req")})
+    ok = pods.mask & ~pods.gated
     if snap.gangs is not None:
-        ok &= gang_admit(snap.gangs, free, snap.pods.gang)
+        ok &= gang_admit(snap.gangs, free, pods.gang)
     if snap.quota is not None:
         used = eq_used if eq_used is not None else snap.quota.used
         nom_in_eq, nom_total = nominated_aggregates_batch(snap.quota)
+        if rows is not None:
+            nom_in_eq, nom_total = nom_in_eq[rows], nom_total[rows]
         ok &= quota_admit(
             used, snap.quota.min, snap.quota.max, snap.quota.has_quota,
-            snap.pods.ns, snap.pods.req, nom_in_eq, nom_total,
+            pods.ns, pods.req, nom_in_eq, nom_total,
         )
     return ok
 
@@ -356,12 +379,6 @@ def packing_profile_solve(scheduler, snap, mover_cap: int = 128,
     return view
 
 
-def pad_to_shards(n: int, n_shards: int) -> int:
-    """Smallest multiple of `n_shards` >= n (the JAX
-    `parallel.mesh.pad_to_shards`)."""
-    return ((n + n_shards - 1) // n_shards) * n_shards
-
-
 def rank_order_inputs(raw_scores, free0, node_mask, n_shards: int):
     """(node_ids (N',) int32, rank_free (N', R)) — the node axis permuted
     into global score-rank order (stable argsort: the lowest index wins a
@@ -380,20 +397,150 @@ def rank_order_inputs(raw_scores, free0, node_mask, n_shards: int):
     return node_ids, rank_free.contiguous()
 
 
-@sanitize.checked_call("sharded_wave_solve")
-def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
-                       max_waves: int = 8, rescue_window: int = 512,
-                       collect_stats: bool = False):
-    """`batch_solve`'s semantics with the node axis in `n_blocks` rank
-    blocks (the JAX `sharded_wave_solve` takes a mesh; here the blocks are
-    the leading dimension of one tensor on one card). Pods go through in
-    queue-order chunks; the (S, BS, R) free carry is updated in place from
-    chunk to chunk. Returns (assignment, admitted, wait[, stats]).
+def _rank_head(snap, mesh: Mesh, weights):
+    """(admitted (P,), node ids (BS,), free block (BS, R), n_real) of this
+    rank: `batch_solve`'s head with the node axis split over `mesh`'s
+    "nodes" ranks and the pod axis over its "pods" ranks. Each rank lowers
+    its own node rows (free capacity, raw allocatable score, schedulable
+    mask) and its own pod rows' PreFilter verdicts; one gather along each
+    axis assembles the columns the global score ranking and the gang
+    capacity check read. Every rank then holds the same ranking
+    (`rank_order_inputs`) and keeps its block of it."""
+    view = rank_mesh.shard_snapshot(snap, mesh)
+    N, R = snap.nodes.alloc.shape
+    w = torch.as_tensor(weights, dtype=torch.int64, device=snap.device)
+    cols = torch.cat([
+        free_capacity(view.nodes.alloc, view.nodes.requested),
+        allocatable_scores(view.nodes.alloc, w, MODE_LEAST)[:, None],
+        view.nodes.mask[:, None].to(torch.int64),
+    ], dim=1)
+    cols = rank_mesh.gather_blocks(cols, N, mesh, NODES_AXIS)
+    free0, mask = cols[:, :R], cols[:, R + 1] > 0
+    raw = demote_scores_int32(cols[:, R]).to(torch.int64)
+    P = snap.num_pods
+    lo, hi = rank_mesh.block_bounds(P, mesh.axis_size(PODS_AXIS),
+                                    mesh.coordinate(PODS_AXIS))
+    admitted = rank_mesh.gather_blocks(
+        batch_admission(snap, free0, rows=slice(lo, hi)), P, mesh,
+        PODS_AXIS)
+    return (admitted, *_rank_block(raw, free0, mask, mesh), N)
 
-    Under `SPT_SANITIZE=1` the call is the checked program
-    "sharded_wave_solve" (`utils.sanitize`): the CUDA kernels stay, and
-    the data around each launch is checked (`ops.assign
-    .waterfill_targeted_sharded`)."""
+
+def _rank_block(raw, free0, node_mask, mesh: Mesh):
+    """(node ids (BS,), free rows (BS, R)): this rank's block of the
+    rank-ordered carry (`rank_order_inputs` over `mesh`'s "nodes" ranks),
+    copied so that the rank's solve updates its own rows only."""
+    S = mesh.axis_size(NODES_AXIS)
+    node_ids, rank_free = rank_order_inputs(raw, free0, node_mask, S)
+    BS = rank_free.shape[0] // S
+    rows = slice(mesh.coordinate(NODES_AXIS) * BS,
+                 (mesh.coordinate(NODES_AXIS) + 1) * BS)
+    return node_ids[rows].clone(), rank_free[rows].clone()
+
+
+def sharded_wave_chunk_solver(mesh: Mesh, n_nodes: int, max_waves: int = 8,
+                              rescue_window: int = 512,
+                              lite_window: int = 1024,
+                              collect_stats: bool = True):
+    """The rank-split wave chunk solve over `mesh`'s "nodes" ranks (the JAX
+    `sharded_wave_chunk_solver`, parallel/solver.py:1164), with the
+    pipeline calling convention:
+
+        fn(node_ids, req_chunk, mask_chunk, rank_free)
+            -> ((assignment[, stats]), rank_free)
+
+    `node_ids` (BS,) and `rank_free` (BS, R) are this rank's block of the
+    rank-ordered carry (`rank_order_inputs`, padded to the rank count),
+    updated in place; `n_nodes` is the pre-padding node count; the chunks
+    are replicated. Every rank of the line calls it with its own block and
+    gets the same assignment (`ops.assign.waterfill_targeted_ranked`)."""
+    S = mesh.axis_size(NODES_AXIS)
+    s = mesh.coordinate(NODES_AXIS)
+
+    def gather(t):
+        return rank_mesh.all_gather(t, mesh, NODES_AXIS)
+
+    def sharded_wave_chunk(node_ids, req_chunk, mask_chunk, rank_free):
+        assignment, stats = waterfill_targeted_ranked(
+            rank_free, node_ids, req_chunk, mask_chunk, n_nodes, gather, s,
+            S, max_waves=max_waves, rescue_window=rescue_window,
+            lite_window=lite_window,
+        )
+        out = (assignment, stats) if collect_stats else (assignment,)
+        return out, rank_free
+
+    return sharded_wave_chunk
+
+
+def _ranked_targeted(raw, req, admitted, free0, node_mask, mesh: Mesh,
+                     max_waves: int):
+    """`waterfill_assign_targeted`'s (assignment, stats) from the
+    rank-split waterfill over `mesh`'s "nodes" ranks, every rank holding
+    the whole (replicated) head."""
+    node_ids, rank_free = _rank_block(raw, free0, node_mask, mesh)
+    solve = sharded_wave_chunk_solver(mesh, free0.shape[0],
+                                      max_waves=max_waves)
+    (assignment, stats), _ = solve(node_ids, req, admitted, rank_free)
+    return assignment, stats
+
+
+def _ranked_wave_solve(snap, mesh: Mesh, weights, chunk, max_waves: int,
+                       rescue_window: int, collect_stats: bool):
+    admitted, node_ids, rank_free, n_real = _rank_head(snap, mesh, weights)
+    solve_chunk = sharded_wave_chunk_solver(
+        mesh, n_real, max_waves=max_waves, rescue_window=rescue_window)
+    P = snap.num_pods
+    starts, chunk = _chunks(P, chunk)
+    parts, stats = [], []
+    for lo in starts:
+        (a, st), rank_free = solve_chunk(
+            node_ids, snap.pods.req[lo:lo + chunk], admitted[lo:lo + chunk],
+            rank_free)
+        parts.append(a)
+        stats.append(st)
+    assignment, wait = finalize_assignment(torch.cat(parts), snap)
+    if collect_stats:
+        return assignment, admitted, wait, {
+            "waves": sum(st["waves"] for st in stats),
+            "chunks": stats,
+            "rank_free": rank_free,
+            "node_ids": node_ids,
+        }
+    return assignment, admitted, wait
+
+
+@sanitize.checked_call("sharded_wave_solve")
+def sharded_wave_solve(snap, weights_or_mesh, n_blocks_or_weights,
+                       chunk=None, max_waves: int = 8,
+                       rescue_window: int = 512,
+                       collect_stats: bool = False):
+    """`batch_solve`'s semantics with the node axis in S rank blocks, in
+    one of two forms. Pods go through in queue-order chunks with the free
+    carry threading from chunk to chunk. Returns (assignment, admitted,
+    wait[, stats]).
+
+    - `sharded_wave_solve(snap, weights, n_blocks, ...)`: one card, the
+      `n_blocks` blocks the leading dimension of one (S, BS, R) carry,
+      updated in place; each exchange is one kernel launch
+      (`ops.assign.waterfill_targeted_sharded`).
+    - `sharded_wave_solve(snap, mesh, weights, ...)`: the JAX signature
+      (parallel/solver.py:1248), across the ranks of a
+      `parallel.mesh.Mesh`: each rank of the "nodes" axis holds one block
+      and every exchange gathers the ranks' window rows through the
+      process group before the same kernels run on every rank
+      (`ops.assign.waterfill_targeted_ranked`). Every rank calls it with
+      the same snapshot (`parallel.launch.broadcast_snapshot`) and gets
+      the same outputs; its stats hold its own block.
+
+    Both forms give `batch_solve`'s placements bit for bit. Under
+    `SPT_SANITIZE=1` either is the checked program "sharded_wave_solve"
+    (`utils.sanitize`): the CUDA kernels stay, and the data around each
+    launch is checked."""
+    if isinstance(weights_or_mesh, Mesh):
+        return _ranked_wave_solve(
+            snap, weights_or_mesh, n_blocks_or_weights, chunk, max_waves,
+            rescue_window, collect_stats)
+    weights, n_blocks = weights_or_mesh, n_blocks_or_weights
     free0, admitted, raw = _solve_head(snap, weights)
     n_real = free0.shape[0]
     node_ids, rank_free = rank_order_inputs(
@@ -422,6 +569,33 @@ def sharded_wave_solve(snap, weights, n_blocks: int, chunk=None,
             "node_ids": node_ids,
         }
     return assignment, admitted, wait
+
+
+def sharded_batch_solve(snap, mesh: Mesh, weights, max_waves: int = 8):
+    """`batch_solve` with the node axis split over `mesh`'s ranks (the JAX
+    `sharded_batch_solve`, parallel/solver.py:1095, where XLA partitions
+    `batch_solve`): the head lowers each rank's node rows and pod rows and
+    gathers them once (`_rank_head`), then the placement runs as the
+    rank-split waterfill over the "nodes" axis (the "pods" lines solve the
+    same placement side by side). Every rank passes the same snapshot and
+    gets `batch_solve`'s (assignment, admitted, wait)."""
+    return _ranked_wave_solve(snap, mesh, weights, None, max_waves, 512,
+                              False)
+
+
+def sharded_profile_batch_solve(scheduler, snap, mesh: Mesh,
+                                max_waves: int = 8, *, device=None):
+    """`profile_batch_solve` across `mesh`'s ranks (the JAX
+    `sharded_profile_batch_solve`, parallel/solver.py:1109): the profile's
+    per-pod Filter and Score rows are built with the pod axis split over
+    every rank of the mesh and gathered, the whole-batch hooks run on
+    every rank (a plugin's batch rows read across nodes: spread domains,
+    network dependencies), and a profile on the targeted fast path places
+    through the rank-split waterfill over the "nodes" axis. Every rank
+    passes the same snapshot and gets `profile_batch_solve`'s
+    (assignment, admitted, wait)."""
+    return profile_batch_solve(scheduler, snap, max_waves=max_waves,
+                               device=device, mesh=mesh)
 
 
 def collapsed_batch_rows(plugins, state0, snap):
@@ -566,13 +740,19 @@ def sweep_solve_fn(scheduler):
     return sweep
 
 
-def _per_pod_rows(method, plugins, state, snap, skip=()):
+def _per_pod_rows(method, plugins, state, snap, skip=(), mesh=None):
     """plugin position -> the plugin's per-pod `method` ("filter" or
     "score") stacked over the pods, for the plugins outside `skip` that
     override it and do not opt out with None on pod 0: the JAX package's
-    vmap of the per-pod hook."""
+    vmap of the per-pod hook. With a rank `mesh`, each rank calls the hook
+    for its block of the pods and the blocks are gathered from every rank
+    of the mesh."""
     from scheduler_plugins_tpu_torch.framework.plugin import Plugin
 
+    P = snap.num_pods
+    lo, hi = 0, P
+    if mesh is not None:
+        lo, hi = rank_mesh.block_bounds(P, mesh.size, mesh.rank)
     out = {}
     for i, plugin in enumerate(plugins):
         if i in skip or (getattr(type(plugin), method)
@@ -580,15 +760,23 @@ def _per_pod_rows(method, plugins, state, snap, skip=()):
             continue
         call = getattr(plugin, method)
         first = call(state, snap, 0)
-        if first is not None:
+        if first is None:
+            continue
+        if mesh is None:
             out[i] = torch.stack([first] + [
-                call(state, snap, p) for p in range(1, snap.num_pods)])
+                call(state, snap, p) for p in range(1, P)])
+            continue
+        rows = [call(state, snap, p) for p in range(lo, hi)]
+        block = (torch.stack(rows) if rows
+                 else first.new_zeros((0,) + tuple(first.shape)))
+        out[i] = rank_mesh.gather_blocks(block, P, mesh, None)
     return out
 
 
 @sanitize.checked_call("profile_batch")
 def profile_batch_solve(scheduler, snap, max_waves: int = 8,
-                        collect_stats: bool = False, *, device=None):
+                        collect_stats: bool = False, *, device=None,
+                        mesh=None):
     """The batched solve of the scheduler's profile on `device` (None =
     the CUDA card; the snapshot moves there if it lives elsewhere): the
     JAX `profile_batch_solve` (parallel/solver.py:433). Returns
@@ -614,6 +802,10 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     committing the selector carries (`ops.selectors.commit_tracks`) pod
     by pod; the other state-dependent plugins commit the kept winners in
     one `commit_batch`.
+
+    With a rank `mesh` (`sharded_profile_batch_solve`) the per-pod rows
+    are built with the pod axis split over the ranks and the targeted
+    waterfill runs split over the "nodes" ranks; the result is the same.
 
     Under `SPT_SANITIZE=1` the call is the checked program
     "profile_batch" (`utils.sanitize`): the commit scatters' indices, NaN
@@ -643,8 +835,13 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     if scoring is not None:
         admitted, raw, free0 = fast_solve_head(plugins, scoring, snap,
                                                state0)
-        assignment, _, stats = waterfill_assign_targeted(
-            raw, snap.pods.req, admitted, free0, max_waves=max_waves)
+        if mesh is None:
+            assignment, _, stats = waterfill_assign_targeted(
+                raw, snap.pods.req, admitted, free0, max_waves=max_waves)
+        else:
+            assignment, stats = _ranked_targeted(
+                raw, snap.pods.req, admitted, free0, snap.nodes.mask, mesh,
+                max_waves)
         assignment, wait = finalize_assignment(assignment, snap)
         if not collect_stats:
             return assignment, admitted, wait
@@ -659,7 +856,7 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     filter0, score_rows = collapsed_batch_rows(plugins, state0, snap)
     # the per-pod hooks stand in for the plugins without whole-batch rows
     filter0.update(_per_pod_rows("filter", plugins, state0, snap,
-                                 skip=filter0))
+                                 skip=filter0, mesh=mesh))
 
     # PreFilter against the cycle-initial state
     rows = torch.arange(snap.num_pods, device=device)
@@ -689,7 +886,7 @@ def profile_batch_solve(scheduler, snap, max_waves: int = 8,
     pre_ids = [i for i in sorted(score_rows)
                if type(plugins[i]).normalize is Plugin.normalize]
     score_rows.update(_per_pod_rows("score", plugins, state0, snap,
-                                    skip=score_rows))
+                                    skip=score_rows, mesh=mesh))
     check = sanitize.current()
     if check is not None:
         for i, raw in score_rows.items():

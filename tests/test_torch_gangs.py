@@ -298,10 +298,25 @@ class TestWaveGangDifferential:
         assert stats == jstats
 
     def test_mesh_names_the_multi_gpu_slice(self):
+        """`mesh=` takes a ("gangs",) rank mesh; a single process is its
+        one rank and solves every lane (the ranks' own cases are
+        `tests/test_torch_ranks.py`)."""
+        from scheduler_plugins_tpu_torch.parallel.mesh import (
+            GANGS_AXIS,
+            make_axis_mesh,
+        )
+
         gangs, free0, eq_used0, node_mask = mega_problem_small(8, 4)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            p_waves.wave_gang_solve(gangs, free0, eq_used0, node_mask,
-                                    mesh=object(), device=CPU)
+        mesh = make_axis_mesh(GANGS_AXIS)
+        assert mesh.shape == {GANGS_AXIS: 1}
+        stats, ref_stats = {}, {}
+        got = p_waves.wave_gang_solve(gangs, free0, eq_used0, node_mask,
+                                      wave=2, mesh=mesh, stats=stats,
+                                      device=CPU)
+        ref = p_waves.wave_gang_solve(gangs, free0, eq_used0, node_mask,
+                                      wave=2, stats=ref_stats, device=CPU)
+        assert_outputs_equal(got, ref, "one-rank mesh")
+        assert stats == ref_stats and stats["waves"] == 2
 
 
 def mega_problem_small(n_nodes, n_gangs):

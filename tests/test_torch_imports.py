@@ -91,7 +91,10 @@ assert {"scheduler_plugins_tpu_torch.framework.runtime",
         "scheduler_plugins_tpu_torch.bridge.agent",
         "scheduler_plugins_tpu_torch.bridge.leader",
         "scheduler_plugins_tpu_torch.obs.memory",
-        "scheduler_plugins_tpu_torch.__main__"} <= set(names), names
+        "scheduler_plugins_tpu_torch.__main__",
+        "scheduler_plugins_tpu_torch.bridge.ref_baseline",
+        "scheduler_plugins_tpu_torch.parallel.mesh",
+        "scheduler_plugins_tpu_torch.parallel.launch"} <= set(names), names
 bad = sorted(m for m in sys.modules if m in ("jax", "scheduler_plugins_tpu") or m.startswith(("jax.", "scheduler_plugins_tpu.")))
 assert not bad, bad
 print("clean", len(names))
@@ -147,6 +150,26 @@ def test_case_helpers_import_no_package(helper):
     assert imports
     assert not [line for line in imports
                 if "jax" in line or "scheduler_plugins_tpu" in line], imports
+
+
+def test_spawned_ranks_load_no_jax(tmp_path):
+    """A spawned rank of the rank-split path (`parallel.launch.run_ranks`
+    running a `tests/torch_rank_cases.py` body) solves with the port alone:
+    after a rank-split wave solve it has loaded neither JAX nor the JAX
+    package."""
+    import torch_rank_cases as cases
+    from scheduler_plugins_tpu_torch.parallel.launch import run_ranks
+
+    cluster = allocatable_scenario(8, 16)
+    snap, meta = cluster.snapshot(cluster.pending_pods(), device="cpu")
+    weights = meta.index.encode({"cpu": 1 << 20, "memory": 1})
+    calls = [("wave_rank", ([("flagship", snap.numpy(), weights, {})],)),
+             ("jax_modules", ())]
+    results = run_ranks(cases.run_all, 2, (calls,), workdir=tmp_path,
+                        timeout_s=120)
+    for solved, loaded in results:
+        assert (solved["flagship"][0] >= 0).all()
+        assert loaded == []
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -62,9 +62,10 @@ LANE_MICRO_SHAPE = dict(
 )
 #: the card's cut: LANE_SHAPE's full width (65 nodes, 64 tenants, 12
 #: axes, 12,288 prefill, 12,288 arrivals and departures a cycle, 16 hot
-#: bidders for 8 slots), its depth cut to 1 warm-up, 1 timed disjoint and
-#: 1 contended cycle with one rep
-LANE_CARD_SHAPE = dict(LANE_SHAPE, cycles=2, warmup=1, contend_cycles=1,
+#: bidders for 8 slots), its depth cut to 1 timed disjoint and 1
+#: contended cycle with one rep (no warm-up cycle: the first cycle is
+#: the timed one)
+LANE_CARD_SHAPE = dict(LANE_SHAPE, cycles=2, warmup=0, contend_cycles=1,
                        ks=(4, 8), reps=1)
 
 
