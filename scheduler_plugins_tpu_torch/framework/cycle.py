@@ -730,7 +730,8 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
     receives each stage's wall seconds (`open`, `pending`, then `_STAGES`'
     names), and `scheduling_tables`: the host seconds of the in-tree
     scheduling tables (`state.scheduling.build_scheduling`) inside the
-    snapshot stage.
+    snapshot stage. The same clock reads make the stages' `Cycle/<name>`
+    spans on the tracer's "cycle" row.
 
     `resilience`, a `resilience.watchdog.Resilience`, routes the solve
     through the watchdog: retries, then failover to the host parity solve
@@ -748,12 +749,12 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         now = _now_ms()
     if tuner is not None:
         tuner.begin_cycle(now_ms=now)
-    clock = time.perf_counter
-    t0 = clock()
+    timed = timings is not None or obs.tracer.enabled
+    t0 = obs.tracer.now_ns() if timed else None
     ctx = _cycle_open(scheduler, cluster, now, device, stream_chunk, serve,
                       resilience, gangs)
     try:
-        report = _run_stages(ctx, clock, t0, timings)
+        report = _run_stages(ctx, t0, timings)
         if tuner is not None:
             tuner.observe_report(report)
         return report
@@ -765,12 +766,28 @@ def run_cycle(scheduler: Scheduler, cluster: Cluster,
         podledger.LEDGER.cycle_close(ctx.led)
 
 
-def _run_stages(ctx: CycleCtx, clock, t0, timings) -> CycleReport:
-    t1 = clock()
-    _cycle_pending(ctx)
+def _stage_timed(timings, name: str, start_ns: int, end_ns: int) -> None:
+    """One stage's `Cycle/<name>` span and its `timings` seconds, from the
+    same two tracer-clock reads."""
+    obs.tracer.complete(f"Cycle/{name}", start_ns, end_ns - start_ns,
+                        tid="cycle")
     if timings is not None:
-        timings["open"] = t1 - t0
-        timings["pending"] = clock() - t1
+        timings[name] = (end_ns - start_ns) / 1e9
+
+
+def _run_stages(ctx: CycleCtx, t0, timings) -> CycleReport:
+    """The cycle after its prologue. `t0`, the tracer clock before
+    `_cycle_open`, is None when neither `timings` nor the tracer wants
+    the stages timed: then no clock is read."""
+    clock = obs.tracer.now_ns
+    if t0 is not None:
+        # a read of its own for each end: spans that share a stamp can
+        # round into a partial overlap in the export's microseconds
+        _stage_timed(timings, "open", t0, clock())
+        t1 = clock()
+    _cycle_pending(ctx)
+    if t0 is not None:
+        _stage_timed(timings, "pending", t1, clock())
     if ctx.done:
         return ctx.report
     _cycle_arm(ctx)
@@ -778,15 +795,17 @@ def _run_stages(ctx: CycleCtx, clock, t0, timings) -> CycleReport:
     stages = dict(_STAGES)
 
     def run(name):
-        t0 = clock()
+        if t0 is None:
+            stages[name](ctx)
+            return
+        start = clock()
         stages[name](ctx)
-        if timings is not None:
-            timings[name] = clock() - t0
-            if name == "snapshot":
-                timings["scheduling_tables"] = ctx.meta.scheduling_s
+        _stage_timed(timings, name, start, clock())
+        if timings is not None and name == "snapshot":
+            timings["scheduling_tables"] = ctx.meta.scheduling_s
 
     if ctx.serve is not None:
-        ctx.serve_t0 = clock()
+        ctx.serve_t0 = time.perf_counter()
     with obs.flow("cycle",
                   generation=getattr(cluster.nrt_cache, "generation", None),
                   pending=len(ctx.pending)):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -394,27 +395,42 @@ def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted,
     return state, (choice, ok, fail_code)
 
 
+def _solve_row() -> str:
+    """The tracer row of the parity solve's spans: the cycle's on the main
+    thread, a row of its own on any other (the watchdog's worker, the
+    shadow tuner's sweep), whose solve may overlap the cycle's spans."""
+    thread = threading.current_thread()
+    if thread is threading.main_thread():
+        return "cycle"
+    return f"solve/{thread.name}"
+
+
 def sequential_solve_body(plugins, snap, state0: SolverState,
                           weights=None) -> SolveResult:
     """The sequential parity solve over one snapshot: hoist presolves, run
     `_solve_step` pod by pod, reduce gang quorum. No host reads. `weights`
     (an (L,) int64 tensor, or None for the plugins' `weight` ints) is the
     weight sweep's channel: `parallel.solver.sweep_solve_fn` maps this
-    body over K weight rows with `torch.func.vmap`."""
-    for plugin in plugins:
-        plugin.bind_presolve(plugin.prepare_solve(snap))
-    hoisted = _Hoisted(
-        ok0=snap.pods.mask & ~snap.pods.gated,
-        node_index=torch.arange(snap.num_nodes, device=snap.device),
-    )
+    body over K weight rows with `torch.func.vmap`. Traced: the hoist is
+    `Solve/presolve` and the pod loop one `Solve/steps` span (`steps`:
+    the pods stepped), the host's time to enqueue them."""
+    row = _solve_row() if obs.tracer.enabled else None
+    with obs.tracer.span("Solve/presolve", tid=row):
+        for plugin in plugins:
+            plugin.bind_presolve(plugin.prepare_solve(snap))
+        hoisted = _Hoisted(
+            ok0=snap.pods.mask & ~snap.pods.gated,
+            node_index=torch.arange(snap.num_nodes, device=snap.device),
+        )
     state = state0
     choices, oks, fails = [], [], []
-    for p in range(snap.num_pods):
-        state, (choice, ok, fail) = _solve_step(plugins, state, p, snap,
-                                                hoisted, weights)
-        choices.append(choice)
-        oks.append(ok)
-        fails.append(fail)
+    with obs.tracer.span("Solve/steps", tid=row, steps=snap.num_pods):
+        for p in range(snap.num_pods):
+            state, (choice, ok, fail) = _solve_step(plugins, state, p, snap,
+                                                    hoisted, weights)
+            choices.append(choice)
+            oks.append(ok)
+            fails.append(fail)
     assignment = torch.cat(choices)
     admitted = torch.cat(oks)
     failed_plugin = torch.cat(fails)

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import copy
 import hashlib
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -67,6 +68,7 @@ from scheduler_plugins_tpu_torch.api.objects import (
 )
 from scheduler_plugins_tpu_torch.obs import ledger as podledger
 from scheduler_plugins_tpu_torch.state.snapshot import build_snapshot
+from scheduler_plugins_tpu_torch.utils import observability as obs
 
 #: upstream podMaxInUnschedulablePodsDuration: a parked pod re-enters the
 #: batch after this long even with no event
@@ -392,6 +394,7 @@ class Cluster:
         return f"{pod.namespace}/{name}"
 
     def add_pod(self, pod: Pod):
+        t0 = time.perf_counter_ns() if obs.tracer.enabled else 0
         old = self.pods.get(pod.uid)
         self.note_event(ev.POD_UPDATE if old is not None else ev.POD_ADD)
         if old is None and pod.node_name is None:
@@ -429,8 +432,12 @@ class Cluster:
         if self._native is not None:
             self._native_upsert_pod(pod)
         self._index_add_pod(pod, was_present=old is not None)
+        if t0:
+            # a counter, not a span: a span would cost more than the call
+            obs.tracer.add_ns("store.add_pod", time.perf_counter_ns() - t0)
 
     def remove_pod(self, uid: str):
+        t0 = time.perf_counter_ns() if obs.tracer.enabled else 0
         self.release_reservation(uid)  # notifies the NRT cache too
         self._selector_spec_pods.discard(uid)
         self.unschedulable_since.pop(uid, None)
@@ -463,6 +470,8 @@ class Cluster:
                 if pod_id is not None:
                     self._native.delete_pod(pod_id)
                 self._native_incompat.discard(f"pod/{uid}")
+        if t0:
+            obs.tracer.add_ns("store.remove_pod", time.perf_counter_ns() - t0)
 
     def mark_terminating(self, uid: str, now_ms: int):
         """DELETE issued (a preemption victim): the pod turns terminating
@@ -814,9 +823,20 @@ class Cluster:
         stale nodes when a cache is installed. The SeccompProfile CRs
         and the default profile become the syscall tables. With the native
         mirror attached and no table reading the assigned pod objects, the
-        node usage columns come from the mirror's exports."""
+        node usage columns come from the mirror's exports. Traced: the
+        binding cache's walk, the assigned-pod walk and the lowering are
+        `Snapshot/binding_cache`, `Snapshot/assigned` and `Snapshot/lower`
+        on the "cycle" row."""
+        with obs.tracer.span("Snapshot/binding_cache", tid="cycle",
+                             entries=len(self.recent_bindings)):
+            node_metrics = self._metrics_with_missing(now_ms)
         native = self._native_exports()
-        assigned = [] if native is not None else self._assigned_pods()
+        assigned = []
+        if native is None:
+            with obs.tracer.span("Snapshot/assigned", tid="cycle") as span:
+                assigned = self._assigned_pods()
+                if span is not None:
+                    span.args["pods"] = len(assigned)
         backed_off = [
             name for name, until in self.gang_backoff_until_ms.items()
             if until > now_ms
@@ -826,26 +846,27 @@ class Cluster:
         if self.nrt_cache is not None:
             nrt_list, stale = self.nrt_cache.view()
             stale_nodes = list(stale)
-        return build_snapshot(
-            list(self.nodes.values()),
-            pending,
-            assigned_pods=assigned,
-            pod_groups=list(self.pod_groups.values()),
-            quotas=list(self.quotas.values()),
-            nrts=nrt_list,
-            stale_nrt_nodes=stale_nodes,
-            app_groups=list(self.app_groups.values()),
-            backed_off_gangs=backed_off,
-            extra_pods=self.gated_pods(),
-            device=device,
-            node_metrics=self._metrics_with_missing(now_ms),
-            tlp_prediction=self.tlp_prediction,
-            namespaces=list(self.namespaces.values()),
-            seccomp_profiles=list(self.seccomp_profiles.values()),
-            sysched_default_profile=self.sysched_default_profile,
-            native_nodes=native,
-            **kwargs,
-        )
+        with obs.tracer.span("Snapshot/lower", tid="cycle"):
+            return build_snapshot(
+                list(self.nodes.values()),
+                pending,
+                assigned_pods=assigned,
+                pod_groups=list(self.pod_groups.values()),
+                quotas=list(self.quotas.values()),
+                nrts=nrt_list,
+                stale_nrt_nodes=stale_nodes,
+                app_groups=list(self.app_groups.values()),
+                backed_off_gangs=backed_off,
+                extra_pods=self.gated_pods(),
+                device=device,
+                node_metrics=node_metrics,
+                tlp_prediction=self.tlp_prediction,
+                namespaces=list(self.namespaces.values()),
+                seccomp_profiles=list(self.seccomp_profiles.values()),
+                sysched_default_profile=self.sysched_default_profile,
+                native_nodes=native,
+                **kwargs,
+            )
 
     def post_eviction_tables(self, snap, meta, exclude_uids):
         """The pod-derived side tables with `exclude_uids` evicted: the

@@ -38,7 +38,6 @@ tensors) and moves the result to the requested device once.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field, fields
 from typing import Optional, Sequence
 
@@ -64,6 +63,7 @@ from scheduler_plugins_tpu_torch.api.resources import (
 )
 from scheduler_plugins_tpu_torch.device import resolve_device
 from scheduler_plugins_tpu_torch.ops.quota import nominee_contribution
+from scheduler_plugins_tpu_torch.utils import observability as obs
 from scheduler_plugins_tpu_torch.utils.intmath import bucket_size
 
 I64 = np.int64
@@ -800,12 +800,15 @@ def build_snapshot(
         build_scheduling,
     )
 
-    t0 = time.perf_counter()
+    t0 = obs.tracer.now_ns()
     scheduling_state = build_scheduling(
         nodes, pending_pods, N, P, assigned=assigned_pods,
         namespaces=namespaces,
     )
-    meta.scheduling_s = time.perf_counter() - t0
+    t1 = obs.tracer.now_ns()
+    meta.scheduling_s = (t1 - t0) / 1e9
+    obs.tracer.complete("Snapshot/scheduling_tables", t0, t1 - t0,
+                        tid="cycle")
 
     syscall_state = None
     if seccomp_profiles:

@@ -14,14 +14,16 @@ flow logging, metrics with histograms, and a cycle tracer.
 - a `Tracer` recording host-side spans as Chrome-trace-event / Perfetto
   JSON ("traceEvents" with X complete events and M thread-name metadata),
   so one scheduling cycle or one chunk-pipeline run loads as a timeline in
-  ui.perfetto.dev. Spans bracket host sync points only; device time comes
-  from CUDA events or the profiler, never from a span.
+  ui.perfetto.dev, and counters where a span per call would cost too
+  much. Spans bracket host sync points only; device time comes from CUDA
+  events or the profiler, never from a span. The export carries the
+  profiler's clock at the tracer's origin, so the spans lay over a
+  `torch.profiler` trace of the same run.
 
-Everything here is host-side and cheap: the tracer is off by default and a
-disabled span returns before taking a timestamp. The JAX module's compile
-watch (`CompileWatch`, `compile_watch`) has no counterpart: eager PyTorch
-keeps no jit cache. Its metric names (`JIT_COMPILE`, `JIT_CACHE_MISS`)
-stay, so the two registries name the same families.
+Everything here is host-side and cheap: the tracer is off by default, and
+a disabled span or counter returns before taking a timestamp. The JAX
+module's compile watch (`CompileWatch`, `compile_watch`) and its two
+metric families have no counterpart: eager PyTorch keeps no jit cache.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import logging
 import os
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 logger = logging.getLogger("scheduler_plugins_tpu_torch")
 
@@ -321,13 +323,6 @@ UNSCHEDULABLE_BY_PLUGIN = "scheduler_unschedulable_by_plugin_total"
 #: per-plugin, per-extension-point latency histogram (labels: plugin,
 #: extension_point) — the upstream plugin_execution_duration_seconds shape
 PLUGIN_EXECUTION = "scheduler_plugin_execution_ms"
-#: compile wall-time histogram (labels: program) of the JAX package's
-#: compile watch; eager PyTorch compiles nothing, so the port never feeds
-#: it (kept so the two registries name the same families)
-JIT_COMPILE = "scheduler_jit_compile_ms"
-#: jit-cache misses per program (labels: program), the JAX package's;
-#: never fed by the port
-JIT_CACHE_MISS = "scheduler_jit_cache_misses_total"
 #: cycles captured by the flight recorder (utils.flightrec)
 FLIGHTREC_CYCLES = "scheduler_flightrec_cycles_total"
 #: serve-mode decision latency histogram: wall ms from delta ingest to
@@ -474,8 +469,6 @@ HELP: dict[str, str] = {
         "(upstream UnschedulablePlugins).",
     PLUGIN_EXECUTION:
         "Per-plugin, per-extension-point execution latency in ms.",
-    JIT_COMPILE: "XLA compile wall time per program in ms.",
-    JIT_CACHE_MISS: "Jit-cache misses per program.",
     FLIGHTREC_CYCLES: "Cycles captured by the flight recorder.",
     SERVE_DECISION_LATENCY:
         "Delta ingest to host-visible bind decisions, per cycle, in ms.",
@@ -545,6 +538,29 @@ HELP: dict[str, str] = {
 # ---------------------------------------------------------------------------
 
 
+class _Span:
+    """One open span of an enabled tracer (`Tracer.span`)."""
+
+    __slots__ = ("tracer", "name", "tid", "args", "start_ns")
+
+    def __init__(self, tracer, name: str, tid: str, args: dict):
+        self.tracer, self.name, self.tid, self.args = tracer, name, tid, args
+
+    def __enter__(self):
+        self.start_ns = self.tracer.now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer.complete(self.name, self.start_ns,
+                             self.tracer.now_ns() - self.start_ns,
+                             tid=self.tid, args=self.args or None)
+        return False
+
+
+#: what `Tracer.span` returns while the tracer is off: one shared no-op
+_OFF = nullcontext()
+
+
 class Tracer:
     """Host-side span recorder exporting Chrome trace-event JSON (the
     "traceEvents" array Perfetto and chrome://tracing load).
@@ -554,9 +570,18 @@ class Tracer:
       to `start()`.
     - tids are logical row names ("cycle", "pipeline/h2d/buf0", ...) mapped
       to small ints, with "M" thread_name metadata events naming each row.
-    - OFF by default; `span()` short-circuits to a no-op context (no clock
-      read, no allocation beyond the generator frame) when disabled, so
-      always-instrumented code paths stay within the ≤2% overhead budget.
+    - `start()` reads the profiler's clock right after its origin: the
+      export's `otherData.origin_profiler_ns`. `torch.profiler`'s records
+      stamp `time.time_ns()` (kineto's clock, on the CPU and the card
+      alike), so a span starts at `origin_profiler_ns + 1000 * ts` there.
+    - Counters (`count`, `add_ns`: a count and a time in ns) total what a
+      span per call would cost too much to record, such as the store's
+      mutators; they export under `otherData.counters` as
+      {name: {"count", "ns"}}.
+    - OFF by default; `span()`, `count()` and `add_ns()` return at once
+      when disabled (no clock read; a span is one shared no-op context),
+      so always-instrumented code paths stay within the ≤2% overhead
+      budget.
     - Device work is never timed from a span: spans bracket host-sync
       points (a call returning, a staging copy enqueued, a fetch
       completing), the only clocks the host can read honestly.
@@ -566,8 +591,10 @@ class Tracer:
         self._enabled = False
         self._events: list[dict] = []
         self._tids: dict[str, int] = {}
+        self._counters: dict[str, list] = {}  # name -> [count, ns]
         self._lock = threading.Lock()
         self._origin_ns = 0
+        self._origin_profiler_ns = 0
 
     @property
     def enabled(self) -> bool:
@@ -578,7 +605,9 @@ class Tracer:
             if clear:
                 self._events.clear()
                 self._tids.clear()
+                self._counters.clear()
             self._origin_ns = time.perf_counter_ns()
+            self._origin_profiler_ns = time.time_ns()
             self._enabled = True
 
     def stop(self) -> None:
@@ -613,22 +642,44 @@ class Tracer:
             event["tid"] = self._tid(tid)
             self._events.append(event)
 
-    @contextmanager
     def span(self, name: str, tid: str = "host", **args):
+        """A context manager recording one complete event on row `tid`
+        around its block."""
         if not self._enabled:
-            yield
-            return
-        start_ns = self.now_ns()
-        try:
-            yield
-        finally:
-            self.complete(
-                name, start_ns, self.now_ns() - start_ns, tid=tid,
-                args=args or None,
-            )
+            return _OFF
+        return _Span(self, name, tid, args)
+
+    def count(self, name: str, value: int = 1) -> None:
+        """Add `value` to counter `name`'s count (while enabled)."""
+        if self._enabled:
+            self._add(name, value, 0)
+
+    def add_ns(self, name: str, ns: int) -> None:
+        """One timed occurrence of counter `name` (while enabled): its
+        count goes up by one and its time by `ns` nanoseconds."""
+        if self._enabled:
+            self._add(name, 1, ns)
+
+    def _add(self, name: str, count: int, ns: int) -> None:
+        with self._lock:
+            total = self._counters.get(name)
+            if total is None:
+                self._counters[name] = [count, ns]
+            else:
+                total[0] += count
+                total[1] += ns
+
+    def counters(self) -> dict:
+        """{name: {"count", "ns"}}: the totals since `start()`."""
+        with self._lock:
+            return {name: {"count": count, "ns": ns}
+                    for name, (count, ns) in sorted(self._counters.items())}
 
     def export(self) -> dict:
-        """{"traceEvents": [...]} — X spans plus M thread_name metadata."""
+        """{"traceEvents": [...], "otherData": {...}}: X spans plus M
+        thread_name metadata; the profiler clock at the origin and the
+        counters."""
+        counters = self.counters()
         with self._lock:
             events = list(self._events)
             tids = dict(self._tids)
@@ -643,7 +694,9 @@ class Tracer:
             }
             for row, tid in sorted(tids.items(), key=lambda kv: kv[1])
         ]
-        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+                "otherData": {"origin_profiler_ns": self._origin_profiler_ns,
+                              "counters": counters}}
 
     def write(self, path: str) -> None:
         """Export to `path` atomically (temp file + `os.replace`): a crash —

@@ -13,12 +13,15 @@ package's.
   FlowEnd lines.
 - The cycle: a traced `run_cycle` emits the JAX package's span names
   (QueueSort, Prepare, Solve, Snapshot, Bind, Permit, PostFilter,
-  Attribution, ...), a traced serve cycle the engine's `ServeRefresh/*`
-  rows, a traced chunk pipeline its replayed rows; after
+  Attribution, ...) and the port's own (`PORT_ONLY_SPANS`: the stages,
+  the snapshot's and the parity solve's parts), a traced serve cycle the
+  engine's `ServeRefresh/*` rows, a traced chunk pipeline its replayed
+  rows; after
   `tests/torch_cycle_scripts.py`'s script (plain and served) the cycle
   counters and gauges equal JAX's. Counters compare with tolerance 0;
-  left out are the JAX-only compile-watch families (`scheduler_jit_*`)
-  and the wall-time sums and maxima of the duration histograms.
+  left out are the JAX-only compile-watch families (`scheduler_jit_*`,
+  which the port's registry does not declare) and the wall-time sums and
+  maxima of the duration histograms.
 """
 
 import json
@@ -233,6 +236,11 @@ def metrics_script(m, o):
     m._set_max("scheduler_max_probe", 9)
 
 
+#: the JAX package's compile-watch families: eager PyTorch keeps no jit
+#: cache, so the port's registry does not declare them
+JAX_ONLY_FAMILIES = ("JIT_COMPILE", "JIT_CACHE_MISS")
+
+
 class TestParityWithJax:
     def test_same_calls_same_exposition(self, jax_package):
         pm, jm = Metrics(), jax_obs.Metrics()
@@ -245,9 +253,13 @@ class TestParityWithJax:
     def test_names_and_help_equal_jax(self, jax_package):
         names = {n for n in dir(jax_obs)
                  if n.isupper() and isinstance(getattr(jax_obs, n), str)}
-        for n in names:
+        for n in names - set(JAX_ONLY_FAMILIES):
             assert getattr(obs, n) == getattr(jax_obs, n), n
-        assert obs.HELP == jax_obs.HELP
+        jax_only = {getattr(jax_obs, n) for n in JAX_ONLY_FAMILIES}
+        assert not any(hasattr(obs, n) for n in JAX_ONLY_FAMILIES)
+        assert obs.HELP == {k: v for k, v in jax_obs.HELP.items()
+                            if k not in jax_only}
+        assert jax_only <= jax_obs.HELP.keys()
         assert obs.HIST_BUCKETS_MS == jax_obs.HIST_BUCKETS_MS
 
 
@@ -429,6 +441,15 @@ class TestTracer:
                                 extension_point="Score") == 1
 
 
+#: the spans the port traces and the JAX package does not: the cycle's
+#: stages, the snapshot's and the parity solve's parts
+PORT_ONLY_SPANS = (
+    "Cycle/open", "Cycle/pending", "Cycle/snapshot", "Cycle/solve",
+    "Cycle/fence", "Cycle/bind", "Cycle/postbind", "Cycle/finalize",
+    "Snapshot/binding_cache", "Snapshot/assigned", "Snapshot/lower",
+    "Snapshot/scheduling_tables", "Solve/presolve", "Solve/steps",
+)
+
 CYCLE_SPANS = ("ExpireGangs", "NRTResync", "Collectors", "Requeue",
                "QueueSort/PrioritySort", "Snapshot",
                "Prepare/NodeResourcesAllocatable", "Solve/tpu-scheduler",
@@ -470,7 +491,8 @@ class TestCycleTrace:
         port, jax = (span_names(traced(pkg, lambda: pkg.run(
             alloc_scheduler(pkg), small_cluster(pkg), 1000)))
             for pkg in (PORT, JAX))
-        assert port == jax
+        assert not jax & set(PORT_ONLY_SPANS)
+        assert port == jax | set(PORT_ONLY_SPANS)
 
     def test_untraced_cycle_is_silent(self):
         before = len(obs.tracer.export()["traceEvents"])
@@ -506,7 +528,8 @@ class TestCycleTrace:
                          "ServeRefresh/rebase", "ServeRefresh/apply",
                          "ServeRefresh/assemble"):
             assert expected in names[0], expected
-        assert names[0] == names[1]
+        assert not names[1] & set(PORT_ONLY_SPANS)
+        assert names[0] == names[1] | set(PORT_ONLY_SPANS)
 
     def test_pipeline_rows_replayed(self):
         """`run_chunk_pipeline` replays its timeline as Perfetto rows
