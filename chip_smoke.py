@@ -43,7 +43,10 @@ Phases (any failure exits non-zero and prints no result line):
    `torch.cuda.set_sync_debug_mode("error")` (a host sync inside the loop
    raises) and on the CPU, with every output and final carry identical,
    hard constraints checked on the host, and the device work a step
-   enqueues counted with `torch.profiler`; then config 4 with spread node
+   enqueues counted with `torch.profiler`; config 4's queue cut to one
+   512-pod key solved five times by one scheduler (eager, captured as a
+   CUDA graph, then replayed over other pods), each equal to the CPU,
+   with the graph counters; then config 4 with spread node
    sizes (`spread_config4`: on config 4's identical nodes every score
    column is 0) after `set_live_weights([3, 1, 1])`: on the card under
    sync-debug "error", equal to the CPU under the same vector, to a
@@ -796,6 +799,77 @@ def parity_violations(snap, result) -> dict:
         short = count < snap.gangs.min_member.cpu().numpy()
         out["gang"] = int((member & ~wait & short[np.maximum(g, 0)]).sum())
     return out
+
+
+def graph_replay_drive(label: str, cluster, device, pods: int,
+                       make_scheduler=flagship_scheduler,
+                       variants: int = 4) -> None:
+    """The parity solve replayed from its CUDA graph
+    (`framework.solvegraph`) at bench size: one scheduler solves, on the
+    card, `variants` snapshots of one key, the cluster's queue cut to
+    `pods`, `pods` - 8, `pods` - 16, ... pods in `pods` rows (other pods
+    and sums in the same shapes), the first of them twice: its first
+    sighting eager, its second captured and replayed, the rest replayed.
+    Every output and final carry must equal the CPU's solve of the same
+    snapshot (tolerance 0); prints each solve's path and seconds and the
+    graph counters."""
+    import torch
+
+    from scheduler_plugins_tpu_torch.utils import observability as obs
+
+    _tests_on_path()
+    from torch_parity_cases import parity_outputs
+
+    sched, sched_cpu = make_scheduler(), make_scheduler()
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    cuts = [pods] + [pods - 8 * i for i in range(variants)]
+    traced = not obs.tracer.enabled
+    if traced:
+        obs.tracer.start()
+    paths, seconds, differ = [], [], []
+    try:
+        for n in cuts:
+            before = obs.tracer.counters()
+            runs = {}
+            for dev, s in ((device, sched), (torch.device("cpu"),
+                                             sched_cpu)):
+                snap, meta = cluster.snapshot(pending[:n], now_ms=0,
+                                              device=dev, pad_pods=pods)
+                s.prepare(meta, cluster)
+                t0 = time.perf_counter()
+                runs[dev.type] = s.solve(snap, device=dev)
+                _sync(dev)
+                if dev.type == "cuda":
+                    seconds.append(time.perf_counter() - t0)
+            after = obs.tracer.counters()
+            paths.append(next(
+                (name.split(".")[1] for name in (
+                    "solve.graph_capture", "solve.graph_replay",
+                    "solve.eager")
+                 if after.get(name, {}).get("count", 0)
+                 > before.get(name, {}).get("count", 0)), "none"))
+            got = parity_outputs(runs["cuda"])
+            want = parity_outputs(runs["cpu"])
+            differ += [f"{n}:{k}" for k in got if (got[k] is None) != (
+                want[k] is None) or (got[k] is not None and not torch.equal(
+                    got[k].cpu(), want[k]))]
+        counters = {name: obs.tracer.counters().get(name, {})
+                    for name in ("solve.eager", "solve.graph_capture",
+                                 "solve.graph_replay")}
+    finally:
+        if traced:
+            obs.tracer.stop()
+    print(
+        f"[parity] graph_{label} pods={cuts} paths={paths} "
+        f"seconds={[round(x, 4) for x in seconds]} counters={counters} "
+        f"identical={not differ}",
+        flush=True,
+    )
+    if differ:
+        raise AssertionError(f"graph_{label}: card != CPU in {differ}")
+    if paths != ["eager", "graph_capture"] + ["graph_replay"] * (
+            variants - 1):
+        raise AssertionError(f"graph_{label}: paths {paths}")
 
 
 def parity_drive(label: str, cluster, device,
@@ -5917,6 +5991,7 @@ def main() -> int:
 
     config4 = gang_quota_scenario(**CONFIG4)
     parity_drive("parity_config4", config4, device)
+    graph_replay_drive("config4", config4, device, pods=512)
     parity_drive("parity_entry", allocatable_scenario(16, 32), device)
     parity_drive("parity_nominees", nominee_cluster(objects, Cluster), device)
     live_weights_phase(device, config4, launches_per_step(config4, device))

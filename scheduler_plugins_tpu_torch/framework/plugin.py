@@ -143,6 +143,17 @@ class Plugin:
     #: carry, and the pod commits (`ops.selectors.commit_tracks`, then
     #: `commit`) only when every validator agrees.
     validate_at = None
+    #: True when the step methods (`admit`, `filter`, `score`,
+    #: `normalize`, `commit`) read no tensor but the snapshot's, the
+    #: carried state's and this plugin's own `prepare_solve` result:
+    #: nothing `prepare(meta)` or `aux()` holds. On a card the parity
+    #: solve then replays its steps from a CUDA graph whose buffers stand
+    #: in for exactly those tensors (`framework.solvegraph`), over the
+    #: snapshot with its gang, namespace and nominee rows padded to their
+    #: buckets (`ClusterSnapshot.bucketed`), whose pad rows the plugin
+    #: treats as absent; a profile with any plugin that does not declare
+    #: it solves eagerly.
+    step_reads_inputs_only: bool = False
 
     # -- per-solve context, kept per thread -----------------------------
     # `_presolve` (the `prepare_solve` result) and `_memo` (a plugin's

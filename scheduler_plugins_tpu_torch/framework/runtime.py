@@ -13,6 +13,9 @@ Each step issues device work only. Every per-pod value (verdicts, the
 chosen node, attribution codes) stays a tensor combined with
 `torch.where`, and a pod's codes are read through one-element slices, so
 the loop never reads a tensor on the host and never waits for the card.
+On a card `Scheduler.solve` therefore replays the loop from one CUDA
+graph an input structure (`framework.solvegraph`) instead of launching
+its kernels one by one from the host.
 
 Permit is evaluated after the loop as a reduction over gangs (quorum =
 assigned before + scheduled this cycle >= MinMember, upstream
@@ -37,6 +40,7 @@ from scheduler_plugins_tpu_torch.device import (
     start_fetch,
     to_device,
 )
+from scheduler_plugins_tpu_torch.framework import solvegraph
 from scheduler_plugins_tpu_torch.framework.plugin import Plugin, SolverState
 from scheduler_plugins_tpu_torch.ops.numa import live_avail_init
 from scheduler_plugins_tpu_torch.ops.selectors import commit_tracks
@@ -322,6 +326,13 @@ class _Hoisted:
     ok0: torch.Tensor  # (P,) bool: a real, ungated pod
     node_index: torch.Tensor  # (N,) int64 arange
 
+    @classmethod
+    def of(cls, snap) -> "_Hoisted":
+        return cls(
+            ok0=snap.pods.mask & ~snap.pods.gated,
+            node_index=torch.arange(snap.num_nodes, device=snap.device),
+        )
+
 
 def _solve_step(plugins, state, p: int, snap, hoisted: _Hoisted,
                 weights=None):
@@ -405,32 +416,25 @@ def _solve_row() -> str:
     return f"solve/{thread.name}"
 
 
-def sequential_solve_body(plugins, snap, state0: SolverState,
-                          weights=None) -> SolveResult:
-    """The sequential parity solve over one snapshot: hoist presolves, run
-    `_solve_step` pod by pod, reduce gang quorum. No host reads. `weights`
-    (an (L,) int64 tensor, or None for the plugins' `weight` ints) is the
-    weight sweep's channel: `parallel.solver.sweep_solve_fn` maps this
-    body over K weight rows with `torch.func.vmap`. Traced: the hoist is
-    `Solve/presolve` and the pod loop one `Solve/steps` span (`steps`:
-    the pods stepped), the host's time to enqueue them."""
-    row = _solve_row() if obs.tracer.enabled else None
-    with obs.tracer.span("Solve/presolve", tid=row):
-        for plugin in plugins:
-            plugin.bind_presolve(plugin.prepare_solve(snap))
-        hoisted = _Hoisted(
-            ok0=snap.pods.mask & ~snap.pods.gated,
-            node_index=torch.arange(snap.num_nodes, device=snap.device),
-        )
+def solve_steps(plugins, snap, state0: SolverState, weights=None,
+                first_step=None) -> SolveResult:
+    """The parity solve after its presolve is bound: `_solve_step` pod by
+    pod, then the Permit quorum over gangs. No host reads. On a card
+    `framework.solvegraph` captures this function as one CUDA graph and
+    replays it; everywhere else it runs as it is. `first_step`, a context
+    manager, is entered around the first pod's step (the graph cache
+    counts that step's torch calls there)."""
+    hoisted = _Hoisted.of(snap)
     state = state0
     choices, oks, fails = [], [], []
-    with obs.tracer.span("Solve/steps", tid=row, steps=snap.num_pods):
-        for p in range(snap.num_pods):
+    for p in range(snap.num_pods):
+        with (first_step if p == 0 and first_step is not None
+              else contextlib.nullcontext()):
             state, (choice, ok, fail) = _solve_step(plugins, state, p, snap,
                                                     hoisted, weights)
-            choices.append(choice)
-            oks.append(ok)
-            fails.append(fail)
+        choices.append(choice)
+        oks.append(ok)
+        fails.append(fail)
     assignment = torch.cat(choices)
     admitted = torch.cat(oks)
     failed_plugin = torch.cat(fails)
@@ -448,6 +452,42 @@ def sequential_solve_body(plugins, snap, state0: SolverState,
         assignment=assignment, admitted=admitted, wait=wait, state=state,
         failed_plugin=failed_plugin,
     )
+
+
+def sequential_solve_body(plugins, snap, state0: SolverState,
+                          weights=None, graphs=None) -> SolveResult:
+    """The sequential parity solve over one snapshot: bind the presolves,
+    then `solve_steps`. No host reads. `weights` (an (L,) int64 tensor,
+    or None for the plugins' `weight` ints) is the weight sweep's channel:
+    `parallel.solver.sweep_solve_fn` maps this body over K weight rows
+    with `torch.func.vmap`. `graphs` (a `solvegraph.SolveGraphs`, with
+    `weights` None) replays `solve_steps` from a CUDA graph where it can,
+    over the snapshot with its gang, namespace and nominee rows padded to
+    their buckets (`ClusterSnapshot.bucketed`; the carries come back cut
+    to `state0`'s rows). Traced: the presolve is `Solve/presolve` and the
+    rest one `Solve/steps` span (`steps`: the pods stepped), the host's
+    time to enqueue them."""
+    row = _solve_row() if obs.tracer.enabled else None
+    held = state0
+    padded = graphs is not None and solvegraph.eligible(plugins)
+    if padded:
+        snap, state0 = solvegraph.bucketed(snap, state0)
+    with obs.tracer.span("Solve/presolve", tid=row):
+        presolves = []
+        for plugin in plugins:
+            presolves.append(plugin.prepare_solve(snap))
+            plugin.bind_presolve(presolves[-1])
+    with obs.tracer.span("Solve/steps", tid=row, steps=snap.num_pods):
+        if graphs is None:
+            return solve_steps(plugins, snap, state0, weights)
+        result = graphs.solve(plugins, snap, state0, tuple(presolves),
+                              solve_steps)
+    if padded:
+        # the bound presolves are the padded snapshot's: a later reader of
+        # the caller's snapshot derives its own
+        for plugin in plugins:
+            plugin.bind_presolve(None)
+    return solvegraph.trimmed(result, held)
 
 
 #: the solve modes a profile may select (`Profile.solve_mode`): the
@@ -549,6 +589,8 @@ class Scheduler:
         #: (L,) int64 live per-plugin weight vector, or None (the static
         #: profile weights); set by `set_live_weights`
         self._live_weights = None
+        #: the CUDA graphs the sequential solve replays on a card
+        self.solve_graphs = solvegraph.SolveGraphs()
 
     def sort_pending(self, pods, cluster=None):
         """QueueSort: order the pending list with the profile's comparator
@@ -671,7 +713,9 @@ class Scheduler:
         """Run the profile's plugins over the snapshot's pending batch on
         `device` (None = the CUDA card; the snapshot and `state0` move
         there if they live elsewhere). Returns device tensors; nothing is
-        read on the host. Neither `snap` nor `state0` is modified.
+        read on the host. Neither `snap` nor `state0` is modified. On a
+        card the sequential solve's pod loop replays from a CUDA graph
+        when the profile allows it (`framework.solvegraph`).
 
         `mode` selects the solve (None = the profile's `solve_mode`):
         "sequential" is the parity scan (a `SolveResult`); "packing"
@@ -707,8 +751,9 @@ class Scheduler:
             state0 = self.initial_state(snap)
         elif state0.free.device != device:
             state0 = state0.to(device)
+        graphs = self.solve_graphs if device.type == "cuda" else None
         return sequential_solve_body(tuple(self.profile.plugins), snap,
-                                     state0)
+                                     state0, graphs=graphs)
 
     def filter_verdicts(self, snap, pod_index: int) -> torch.Tensor:
         """(N,) AND of the enabled plugins' Filter verdicts for one pod

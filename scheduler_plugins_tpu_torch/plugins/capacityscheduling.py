@@ -28,6 +28,7 @@ from scheduler_plugins_tpu_torch.ops.quota import (
 
 class CapacityScheduling(Plugin):
     name = "CapacityScheduling"
+    step_reads_inputs_only = True
 
     def __init__(self, min_candidate_nodes_percentage: int = None,
                  min_candidate_nodes_absolute: int = None):

@@ -33,6 +33,7 @@ DEFAULT_REJECT_PERCENTAGE = 10
 
 class Coscheduling(Plugin):
     name = "Coscheduling"
+    step_reads_inputs_only = True
 
     def __init__(
         self,

@@ -217,6 +217,7 @@ class PodTopologySpread(Plugin):
     #: the Filter reads the carried counts, and domains SPAN nodes, so the
     #: batched solve also re-checks each wave's winners (`validate_at`)
     state_dependent_filter = True
+    step_reads_inputs_only = True
 
     def __init__(self):
         self._memo = None

@@ -30,6 +30,9 @@ DEFAULT_RESOURCES = ((CPU, 1 << 20), (MEMORY, 1))
 
 class NodeResourcesAllocatable(Plugin):
     name = "NodeResourcesAllocatable"
+    #: the step scores from the presolve alone (`_weights` is read by
+    #: `prepare_solve`, outside the loop)
+    step_reads_inputs_only = True
 
     def __init__(
         self,

@@ -67,6 +67,7 @@ from scheduler_plugins_tpu_torch.state.snapshot import (
     build_pod_state,
     empty_quota_nominees,
     gang_object_tables,
+    pad_rows,
     quota_object_tables,
 )
 from scheduler_plugins_tpu_torch.utils import flightrec
@@ -513,11 +514,11 @@ class ServeEngine:
             return
         side = self._side
         self._side = side.replace(
-            gang_assigned=_pad_rows(side.gang_assigned, new_g),
-            gang_gated=_pad_rows(side.gang_gated, new_g),
-            gang_slack=_pad_rows(side.gang_slack, new_g),
-            quota_used=_pad_rows(side.quota_used, new_q),
-            ns_assigned=_pad_rows(side.ns_assigned, new_q),
+            gang_assigned=pad_rows(side.gang_assigned, new_g),
+            gang_gated=pad_rows(side.gang_gated, new_g),
+            gang_slack=pad_rows(side.gang_slack, new_g),
+            quota_used=pad_rows(side.quota_used, new_q),
+            ns_assigned=pad_rows(side.ns_assigned, new_q),
         )
         self._side_gpad = new_g
         self._side_qpad = new_q
@@ -530,17 +531,17 @@ class ServeEngine:
             return
         n = self._nodes
         self._nodes = n.replace(
-            alloc=_pad_rows(n.alloc, new_npad),
-            capacity=_pad_rows(n.capacity, new_npad),
-            requested=_pad_rows(n.requested, new_npad),
-            nonzero_requested=_pad_rows(n.nonzero_requested, new_npad),
-            limits=_pad_rows(n.limits, new_npad),
-            mask=_pad_rows(n.mask, new_npad, False),
-            region=_pad_rows(n.region, new_npad, -1),
-            zone=_pad_rows(n.zone, new_npad, -1),
-            pod_count=_pad_rows(n.pod_count, new_npad),
-            terminating=_pad_rows(n.terminating, new_npad),
-            nominated=_pad_rows(n.nominated, new_npad),
+            alloc=pad_rows(n.alloc, new_npad),
+            capacity=pad_rows(n.capacity, new_npad),
+            requested=pad_rows(n.requested, new_npad),
+            nonzero_requested=pad_rows(n.nonzero_requested, new_npad),
+            limits=pad_rows(n.limits, new_npad),
+            mask=pad_rows(n.mask, new_npad, False),
+            region=pad_rows(n.region, new_npad, -1),
+            zone=pad_rows(n.zone, new_npad, -1),
+            pod_count=pad_rows(n.pod_count, new_npad),
+            terminating=pad_rows(n.terminating, new_npad),
+            nominated=pad_rows(n.nominated, new_npad),
         )
         self._npad = new_npad
 
@@ -1335,12 +1336,6 @@ class StreamingServeEngine(ServeEngine):
             "nonzero_requested": nonzero, "limits": limits, "mask": mask, "region": region, "zone": zone,
             "pod_count": pod_count, "terminating": terminating,
         }, ((side_gangs, side_ns) if want_side else None)
-
-
-def _pad_rows(t, n: int, value=0):
-    """`t` with rows appended up to `n`, filled with `value`."""
-    pad = t.new_full((n - t.shape[0],) + tuple(t.shape[1:]), value)
-    return torch.cat((t, pad))
 
 
 def _stage_struct(state, device):

@@ -324,6 +324,54 @@ class ClusterSnapshot(_Tensors):
     def device(self) -> torch.device:
         return self.nodes.alloc.device
 
+    def bucketed(self) -> "ClusterSnapshot":
+        """The snapshot with its gang, namespace and nominee rows padded
+        to their `bucket_size`, each pad row as a fresh snapshot pads its
+        own (a gang of MinMember 1, no members and mask off; a namespace
+        with no quota and an unbounded Max; a nominee masked off, at batch
+        index -1, with no demand). The rows it had are unchanged, so a
+        solve reads the same; only its shapes move less, which the solve's
+        CUDA graphs key on (`framework.solvegraph`)."""
+        gangs, quota, nominees = self.gangs, self.quota, self.nominees
+        if gangs is not None:
+            G = bucket_size(gangs.mask.shape[0])
+            gangs = GangState(**{
+                f.name: pad_rows(getattr(gangs, f.name), G,
+                                 1 if f.name == "min_member" else 0)
+                for f in fields(gangs)})
+        if quota is not None:
+            Q = bucket_size(quota.has_quota.shape[0])
+            M = bucket_size(quota.nom_batch_idx.shape[0])
+            quota = QuotaState(
+                min=pad_rows(quota.min, Q),
+                max=pad_rows(quota.max, Q, np.iinfo(I64).max),
+                used=pad_rows(quota.used, Q),
+                has_quota=pad_rows(quota.has_quota, Q),
+                nom_req=pad_rows(quota.nom_req, M),
+                nom_in_eq_mask=pad_rows(quota.nom_in_eq_mask, M),
+                nom_total_mask=pad_rows(quota.nom_total_mask, M),
+                nom_batch_idx=pad_rows(quota.nom_batch_idx, M, -1),
+            )
+        if nominees is not None:
+            M = bucket_size(nominees.mask.shape[0])
+            nominees = NomineeState(
+                node=pad_rows(nominees.node, M),
+                demand=pad_rows(nominees.demand, M),
+                priority=pad_rows(nominees.priority, M),
+                batch_idx=pad_rows(nominees.batch_idx, M, -1),
+                mask=pad_rows(nominees.mask, M),
+            )
+        return self.replace(gangs=gangs, quota=quota, nominees=nominees)
+
+
+def pad_rows(t: torch.Tensor, n: int, value=0) -> torch.Tensor:
+    """`t` with rows appended up to `n`, filled with `value` (`t` itself
+    when it has `n` rows)."""
+    if t.shape[0] == n:
+        return t
+    pad = t.new_full((n - t.shape[0],) + tuple(t.shape[1:]), value)
+    return torch.cat((t, pad))
+
 
 @dataclass
 class SnapshotMeta:

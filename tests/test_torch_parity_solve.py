@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from scheduler_plugins_tpu_torch.api import objects as port_objects
 from scheduler_plugins_tpu_torch.convert import (
     snapshot_from_numpy,
     state_from_numpy,
@@ -32,18 +33,22 @@ from scheduler_plugins_tpu_torch.framework import (
     SolverState,
 )
 from scheduler_plugins_tpu_torch.framework import runtime as t_runtime
+from scheduler_plugins_tpu_torch.framework import solvegraph
 from scheduler_plugins_tpu_torch.models import allocatable_scenario
 from scheduler_plugins_tpu_torch.ops import fit as t_fit
 from scheduler_plugins_tpu_torch.ops import gang as t_gang
 from scheduler_plugins_tpu_torch.ops import normalize as t_norm
 from scheduler_plugins_tpu_torch.ops import quota as t_quota
+from scheduler_plugins_tpu_torch.state.cluster import Cluster as PortCluster
 from scheduler_plugins_tpu_torch.plugins import (
     CapacityScheduling,
     Coscheduling,
     NodeResourcesAllocatable,
 )
 from scheduler_plugins_tpu_torch.utils import intmath as t_intmath
-from torch_parity_cases import nominee_cluster
+from scheduler_plugins_tpu_torch.utils import observability as obs
+from scheduler_plugins_tpu_torch.utils import sanitize
+from torch_parity_cases import mixed_cluster, nominee_cluster
 
 try:
     import jax
@@ -87,6 +92,9 @@ PORT_PLUGINS = {
     "CapacityScheduling": CapacityScheduling,
 }
 STATE_FIELDS = [f.name for f in fields(SolverState)]
+#: the port's objects and store, for the cases built without JAX
+PORT_NS = SimpleNamespace(objects=port_objects, Cluster=PortCluster)
+GRAPH_COUNTERS = ("solve.graph_capture", "solve.graph_replay", "solve.eager")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -608,6 +616,296 @@ class TestFramework:
                 *(a.numpy() for a in args), N) and got is not None
 
 
+# --- the solve's CUDA graph cache (framework.solvegraph) -------------------
+
+def flagship():
+    return Scheduler(Profile(plugins=[PORT_PLUGINS[n]() for n in FLAGSHIP]))
+
+
+def port_snapshot(cluster, sched, device):
+    """The QueueSorted, prepared snapshot of a port cluster."""
+    pending = sched.sort_pending(cluster.pending_pods(), cluster)
+    snap, meta = cluster.snapshot(pending, now_ms=0, device=device)
+    sched.prepare(meta, cluster)
+    return snap
+
+
+def eager_solve(sched, snap):
+    return t_runtime.sequential_solve_body(
+        tuple(sched.profile.plugins), snap, sched.initial_state(snap))
+
+
+def graph_solve(graphs, sched, snap):
+    return t_runtime.sequential_solve_body(
+        tuple(sched.profile.plugins), snap, sched.initial_state(snap),
+        graphs=graphs)
+
+
+def solve_inputs(sched, snap):
+    """(plugins, snap, state0, presolves) as the solve hands them to the
+    graph cache."""
+    plugins = tuple(sched.profile.plugins)
+    return (plugins, snap, sched.initial_state(snap),
+            tuple(p.prepare_solve(snap) for p in plugins))
+
+
+def assert_same_solve(got, want):
+    """Every output and every final carry equal: shape, dtype, values."""
+    for k in ("assignment", "admitted", "wait", "failed_plugin"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    for k in STATE_FIELDS:
+        a, b = getattr(got.state, k), getattr(want.state, k)
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def graph_counts() -> dict:
+    """The three graph counters of the running tracer (0 when absent)."""
+    counters = obs.tracer.counters()
+    return {name.split(".")[1]: counters.get(name, {}).get("count", 0)
+            for name in GRAPH_COUNTERS}
+
+
+@pytest.fixture
+def traced():
+    obs.tracer.start()
+    try:
+        yield obs.tracer
+    finally:
+        obs.tracer.stop()
+
+
+@pytest.fixture
+def stub_graphs():
+    """`make(**policy)`: a CPU graph cache (`slots`, `node_limit` set as
+    given) whose graph is a stand-in that runs the steps on its own
+    buffers, at capture and at every replay, writing into the same output
+    tensors as a graph's replay does; with the stand-ins captured and
+    released, in order."""
+    captured, released = [], []
+
+    class EagerGraph(solvegraph.Graph):
+        def _capture(self, run):
+            self.run = run
+            captured.append(self)
+            return run()
+
+        def _launch(self):
+            fresh = []
+            solvegraph._spec(self.run(), fresh)
+            for out, new in zip(self.outputs, fresh):
+                out.copy_(new)
+
+        def release(self):
+            released.append(self)
+            super().release()
+
+    def make(**policy):
+        graphs = solvegraph.SolveGraphs(device_type="cpu", graph=EagerGraph)
+        for name, value in policy.items():
+            setattr(graphs, name, value)
+        return graphs
+
+    return SimpleNamespace(make=make, captured=captured, released=released)
+
+
+def gang_snapshot(sched, seed, **kw):
+    return port_snapshot(mixed_cluster(PORT_NS, seed, gangs=True, **kw),
+                         sched, CPU)
+
+
+class TestSolveGraphOnCPU:
+    """The graph cache's key and policy on the CPU, where `Scheduler.solve`
+    never builds a graph; the cache's policy runs with a stand-in graph
+    (`stub_graphs`). The card tests replay real graphs (`TestOnCard`)."""
+
+    def test_cpu_solve_builds_no_graph(self, solved, traced):
+        s = solved("mixed_gangs")
+        for _ in range(3):
+            assert_result_equal(s.lo.ps.solve(s.lo.snap_p, device="cpu"),
+                                s.res_j)
+        graphs = s.lo.ps.solve_graphs
+        assert len(graphs) == 0 and not graphs._seen
+        assert not [name for name in traced.counters()
+                    if name.startswith("solve.")]
+
+    def test_key_tracks_what_the_step_bakes_in(self, monkeypatch):
+        sched = flagship()
+
+        def key(sched, snap, state0=None, device_type="cpu"):
+            plugins, snap, s0, presolves = solve_inputs(sched, snap)
+            found = solvegraph.graph_key(
+                plugins, snap, s0 if state0 is None else state0, presolves,
+                device_type)
+            return None if found is None else found[0]
+
+        snap = gang_snapshot(sched, 1)
+        base = key(sched, snap)
+        assert base is not None
+        # other values, the same structure: the same graph
+        other = gang_snapshot(sched, 2)
+        assert not torch.equal(other.pods.req, snap.pods.req)
+        assert key(sched, other) == base
+        # a shape: another pod bucket
+        bigger = gang_snapshot(sched, 1, n_pods=400)
+        assert bigger.num_pods != snap.num_pods
+        assert key(sched, bigger) != base
+        # None-ness of a snapshot field and of a carry
+        assert key(sched, snap.replace(nominees=None)) != base
+        state0 = sched.initial_state(snap)
+        assert key(sched, snap, state0) == base
+        assert key(sched, snap, state0.replace(placed_mask=None)) != base
+        # the weight ints, and back
+        sched.set_live_weights([2, 1, 1])
+        assert key(sched, snap) != base
+        sched.set_live_weights([1, 1, 1])
+        assert key(sched, snap) == base
+        # the plugin tuple: other instances, or one plugin fewer
+        fresh = flagship()
+        assert key(fresh, gang_snapshot(fresh, 1)) != base
+        fewer = Scheduler(Profile(plugins=list(sched.profile.plugins[:2])))
+        assert key(fewer, snap) != base
+        # not eligible: a plugin that does not declare its step's reads,
+        # an open sanitizer call, tensors off the graph's device
+        class Undeclared(NodeResourcesAllocatable):
+            step_reads_inputs_only = False
+
+        mixed = Scheduler(Profile(plugins=[Undeclared(), Coscheduling(),
+                                           CapacityScheduling()]))
+        assert key(mixed, port_snapshot(
+            mixed_cluster(PORT_NS, 1, gangs=True), mixed, CPU)) is None
+        monkeypatch.setenv("SPT_SANITIZE", "1")
+        with sanitize.checked("test"):
+            assert sanitize.current() is not None
+            assert key(sched, snap) is None
+        sanitize.drain()
+        assert key(sched, snap, device_type="cuda") is None
+
+    def test_second_sighting_captures_and_replays_equal_eager(
+            self, stub_graphs, traced):
+        graphs = stub_graphs.make()
+        sched = flagship()
+        for k, seed in enumerate((1, 2, 3, 4)):
+            snap = gang_snapshot(sched, seed)
+            want = eager_solve(sched, snap)
+            assert_same_solve(graph_solve(graphs, sched, snap), want)
+            assert len(stub_graphs.captured) == (0 if k == 0 else 1)
+        assert graph_counts() == {"graph_capture": 1, "graph_replay": 3,
+                                  "eager": 1}
+        # the presolves bound were the padded snapshot's: none is left
+        assert all(p._presolve is None for p in sched.profile.plugins)
+
+    def test_node_limit_keeps_a_large_solve_eager(self, stub_graphs,
+                                                  traced):
+        sched = flagship()
+        snap = gang_snapshot(sched, 1)
+        want = eager_solve(sched, snap)
+        # the first sighting counts the torch calls of its first pod's
+        # step, times the pods, in the eager solve it runs anyway
+        graphs = stub_graphs.make()
+        graph_solve(graphs, sched, snap)
+        (calls,) = graphs._seen.values()
+        assert calls % snap.num_pods == 0
+        assert calls >= 40 * snap.num_pods
+        assert graph_counts() == {"graph_capture": 0, "graph_replay": 0,
+                                  "eager": 1}
+        for limit, captures in ((calls - 1, 0), (calls, 1)):
+            stub_graphs.captured.clear()
+            graphs = stub_graphs.make(node_limit=limit)
+            for _ in range(3):
+                assert_same_solve(graph_solve(graphs, sched, snap), want)
+            assert len(stub_graphs.captured) == captures
+        # the limit holds SLOTS graphs to the cache's host memory, with
+        # churn's graph (512 pods, 66 calls a step) well inside it
+        assert (solvegraph.SLOTS * solvegraph.NODE_LIMIT
+                * solvegraph.NODE_BYTES <= solvegraph.CACHE_BYTES)
+        assert 512 * 66 * 3 <= solvegraph.NODE_LIMIT
+
+    @pytest.mark.parametrize("case", ["gangs", "nominees"])
+    def test_bucketed_rows_leave_the_solve_unchanged(self, case):
+        """The graph's solve runs over the snapshot with its gang,
+        namespace and nominee rows padded to their buckets; every output
+        and carry, cut back, is the unpadded solve's."""
+        sched = flagship()
+        for seed in range(4):
+            if case == "gangs":
+                snap = gang_snapshot(sched, seed, n_pods=200 + 40 * seed)
+            else:
+                snap = port_snapshot(nominee_cluster(
+                    port_objects, PortCluster, n_pods=72 + 8 * seed,
+                    seed=seed), sched, CPU)
+            state0 = sched.initial_state(snap)
+            big, big0 = solvegraph.bucketed(snap, state0)
+            rows = {"G": (snap.gangs, big.gangs, "mask"),
+                    "Q": (snap.quota, big.quota, "has_quota"),
+                    "M": (snap.quota, big.quota, "nom_batch_idx"),
+                    "Mn": (snap.nominees, big.nominees, "mask")}
+            padded = 0
+            for small, large, field in rows.values():
+                if small is None:
+                    assert large is None
+                    continue
+                n = getattr(small, field).shape[0]
+                assert getattr(large, field).shape[0] == (
+                    t_intmath.bucket_size(n))
+                padded += getattr(large, field).shape[0] > n
+            assert padded
+            got = solvegraph.trimmed(t_runtime.sequential_solve_body(
+                tuple(sched.profile.plugins), big, big0), state0)
+            assert_same_solve(got, eager_solve(sched, snap))
+
+    def test_bucketed_key_holds_across_counts_in_a_bucket(self):
+        sched = flagship()
+        keys = {}
+        for n_pods in (72, 80, 88):
+            snap = port_snapshot(nominee_cluster(
+                port_objects, PortCluster, n_pods=n_pods), sched, CPU)
+            plugins, snap, state0, _ = solve_inputs(sched, snap)
+            big, big0 = solvegraph.bucketed(snap, state0)
+            keys[n_pods] = tuple(
+                solvegraph.graph_key(plugins, s, s0, tuple(
+                    p.prepare_solve(s) for p in plugins), "cpu")[0]
+                for s, s0 in ((snap, state0), (big, big0)))
+            assert snap.nominees.mask.shape[0] == 4 + (n_pods + 4) // 8
+        # 13, 14 and 15 nominees: three keys, one once bucketed
+        assert len({raw for raw, _ in keys.values()}) == 3
+        assert len({big for _, big in keys.values()}) == 1
+
+    def test_least_recently_used_graph_is_released(self, stub_graphs):
+        graphs = stub_graphs.make(slots=2)
+        sched = flagship()
+        snaps = {n: port_snapshot(allocatable_scenario(24, n, seed=n),
+                                  sched, CPU) for n in (40, 100, 200)}
+        assert len({s.num_pods for s in snaps.values()}) == 3
+        for n in (40, 100, 200):
+            for _ in range(2):
+                graph_solve(graphs, sched, snaps[n])
+        first, second, third = stub_graphs.captured
+        assert stub_graphs.released == [first] and len(graphs) == 2
+        assert first.graph is None and not first.inputs
+        # the released key starts over: one eager solve, then a capture
+        # that evicts the least recently used graph
+        graph_solve(graphs, sched, snaps[100])  # a replay: 100 is newest
+        graph_solve(graphs, sched, snaps[40])
+        assert len(stub_graphs.captured) == 3
+        assert_same_solve(graph_solve(graphs, sched, snaps[40]),
+                          eager_solve(sched, snaps[40]))
+        assert len(stub_graphs.captured) == 4
+        assert stub_graphs.released == [first, third]
+
+    def test_result_held_survives_a_later_replay(self, stub_graphs):
+        graphs = stub_graphs.make()
+        sched = flagship()
+        snaps = [gang_snapshot(sched, seed) for seed in (1, 2, 3)]
+        held = [graph_solve(graphs, sched, snap) for snap in snaps]
+        assert len(stub_graphs.captured) == 1
+        assert not torch.equal(held[1].assignment, held[2].assignment)
+        for snap, got in zip(snaps, held):
+            assert_same_solve(got, eager_solve(sched, snap))
+
+
 @pytest.mark.cuda
 class TestOnCard:
     @pytest.fixture
@@ -637,3 +935,117 @@ class TestOnCard:
                 if device.type == "cuda":
                     torch.cuda.set_sync_debug_mode("default")
         assert_result_equal(results["cuda"], results["cpu"])
+
+    # --- the solve's CUDA graph (framework.solvegraph) on the card --------
+
+    @pytest.fixture
+    def graphs(self, card, traced):
+        """The tracer counting; each test solves with a scheduler of its
+        own, so with graphs of its own."""
+        return traced
+
+    @staticmethod
+    def churn_cluster(seed, n_nodes=5000, n_pending=500, n_bound=5000):
+        """Churn's shape (5,120 node rows, 512 pod rows): `n_pending`
+        pending pods and `n_bound` bound ones on nodes drawn from the
+        seed, so the pods and the node usage differ from seed to seed."""
+        cluster = allocatable_scenario(n_nodes, n_pending, seed=seed)
+        rng = np.random.default_rng(seed + 1000)
+        nodes = rng.integers(0, n_nodes, n_bound)
+        cpus = rng.integers(100, 8000, n_bound)
+        for i in range(n_bound):
+            cluster.add_pod(port_objects.Pod(
+                name=f"bound-{i:05d}", node_name=f"node-{nodes[i]:05d}",
+                containers=[port_objects.Container(requests={
+                    "cpu": int(cpus[i]), "memory": GIB})]))
+        return cluster
+
+    @staticmethod
+    def graph_solve_checked(sched, snap, card):
+        """`Scheduler.solve` on the card with host syncs raising."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sched.solve(snap, device=card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def test_graph_replays_equal_eager_at_churn_shape(self, card, graphs):
+        sched = flagship()
+        for seed in range(5):
+            snap = port_snapshot(self.churn_cluster(seed), sched, card)
+            assert (snap.num_nodes, snap.num_pods) == (5120, 512)
+            want = eager_solve(sched, snap)
+            got = self.graph_solve_checked(sched, snap, card)
+            assert_same_solve(got, want)
+            assert int((want.assignment >= 0).sum()) == 500
+        # eager, then a capture, then three replays
+        assert graph_counts() == {"graph_capture": 1, "graph_replay": 4,
+                                  "eager": 1}
+
+    def test_graph_replays_mixed_gangs(self, card, graphs):
+        sched = flagship()
+        for seed in (1, 2, 3, 1):
+            snap = port_snapshot(mixed_cluster(PORT_NS, seed, gangs=True),
+                                 sched, card)
+            assert snap.gangs is not None and snap.quota is not None
+            assert snap.nominees is not None
+            want = eager_solve(sched, snap)
+            assert_same_solve(self.graph_solve_checked(sched, snap, card),
+                              want)
+        assert graph_counts() == {"graph_capture": 1, "graph_replay": 3,
+                                  "eager": 1}
+
+    def test_new_bucket_and_live_weights_capture_once_each(self, card,
+                                                           graphs):
+        sched = flagship()
+        expected = {"graph_capture": 0, "graph_replay": 0, "eager": 0}
+        for step, n_pods in (("base", 60), ("bucket", 100),
+                             ("weights", 60)):
+            if step == "weights":
+                sched.set_live_weights([3, 1, 1])
+            for seed in range(3):
+                snap = port_snapshot(allocatable_scenario(64, n_pods, seed),
+                                     sched, card)
+                assert_same_solve(sched.solve(snap, device=card),
+                                  eager_solve(sched, snap))
+            # each: one eager sighting, one capture, then a replay
+            expected = {k: v + (1 if k != "graph_replay" else 2)
+                        for k, v in expected.items()}
+            assert graph_counts() == expected, step
+        assert len(sched.solve_graphs) == min(3, solvegraph.SLOTS)
+
+    def test_nominee_counts_in_a_bucket_share_a_graph(self, card, graphs):
+        """13, 14 and 15 nominees: one key once the rows are bucketed, so
+        one capture, and every result equal to the unpadded eager solve."""
+        sched = flagship()
+        for n_pods in (72, 80, 88, 72):
+            snap = port_snapshot(nominee_cluster(
+                port_objects, PortCluster, n_pods=n_pods), sched, card)
+            assert_same_solve(self.graph_solve_checked(sched, snap, card),
+                              eager_solve(sched, snap))
+        assert graph_counts() == {"graph_capture": 1, "graph_replay": 3,
+                                  "eager": 1}
+
+    def test_result_held_survives_a_later_replay(self, card, graphs):
+        sched = flagship()
+        snaps = [port_snapshot(mixed_cluster(PORT_NS, seed, gangs=True),
+                               sched, card) for seed in (1, 2, 3)]
+        held = [sched.solve(snap, device=card) for snap in snaps]
+        assert graph_counts()["graph_replay"] == 2
+        assert not torch.equal(held[1].assignment, held[2].assignment)
+        for snap, got in zip(snaps, held):
+            assert_same_solve(got, eager_solve(sched, snap))
+
+    def test_least_recently_used_graph_is_released(self, card, graphs):
+        sched = flagship()
+        sched.solve_graphs.slots = 2
+        snaps = {n: port_snapshot(allocatable_scenario(64, n, seed=n),
+                                  sched, card) for n in (40, 100, 200)}
+        for n in (40, 100, 200, 40, 40):
+            for _ in range(2):
+                assert_same_solve(sched.solve(snaps[n], device=card),
+                                  eager_solve(sched, snaps[n]))
+        # 40, 100 and 200 captured in turn (40 evicted by 200), then 40
+        # seen again and captured anew, evicting 100
+        assert graph_counts()["graph_capture"] == 4
+        assert len(sched.solve_graphs) == 2
