@@ -2,24 +2,28 @@
 (`reference/`), once the window has closed and the program's state is
 freed.
 
-The reference replays the run from the generator's records: the nodes,
-the pods bound at set-up, and each iteration's completions and arrivals.
-For every cycle it takes the program's placements (read from the store
-after the cycle) and counts
+The reference (the configuration's `reference`, `reference/<name>.py`)
+replays the run from the generator's records, made again from the seed
+and each iteration's key: the nodes, the records of set-up, and each
+iteration's removals and records, in the order the program got them. For
+every cycle it is handed the program's outcome (read from the store after
+the cycle: the binds, the standing Permit reservations, the preemptions
+with their nominated nodes and victims) and counts
 
 - `overcommitted_pods`: pods the program bound to an unknown node, or to
   a node whose usage then exceeds its allocatable;
 - `stranded_pods`: pods the program left pending although, after its
-  binds, some node still fits them (counted only for profiles whose
-  filters do not depend on the cycle's own placements: there a pod that
-  fails at its turn cannot fit later);
+  binds, some node still fits them (where the reference can tell: it
+  says so itself, by giving no count where it cannot);
 
 and for a sample of cycles drawn from the seed (the last always among
 them, until their pods reach the mix's `exact_pods`) it schedules the
 cycle itself and counts
 
-- `placement_mismatch`: pods whose outcome (the node, or pending) differs
-  from the reference's.
+- `placement_mismatch`: pods whose outcome (bound at a node, reserved at
+  a node, or pending) differs from the reference's;
+- `victim_mismatch`: pods that one side's preemptions made victims and
+  the other's did not.
 
 Once the run is over it counts
 
@@ -35,7 +39,6 @@ fault can move in its cells (see PERF.md) is left out."""
 
 from __future__ import annotations
 
-import importlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,27 +49,27 @@ LIMITS = {
     "stranded_pods": 0,
     "usage_gap_nodes": 0,
     "store_gap_pods": 0,
+    "victim_mismatch": 0,
 }
 
 
 @dataclass
 class Iteration:
-    """One iteration as the run applied it: the uids it completed, the
-    pods that arrived ((first generator serial, count): `Traffic.rebuild`
-    makes them again), and the program's outcome for the pods pending
-    before its cycle ({uid: node} of those bound). Only strings and ints:
-    the run's record adds nothing for the garbage collector to walk."""
+    """One iteration as the run applied it: the uids it removed, the key
+    of the records it added (the generator's `rebuild` makes them again),
+    and the program's outcome: {uid: node} of the pods pending before its
+    cycle that it bound, {uid: node} of the Permit reservations standing
+    after it, {preemptor uid: (nominated node, [victim uids])} of its
+    preemptions. Only strings and ints: the run's record adds nothing for
+    the garbage collector to walk."""
 
     kind: str  # "warmup", "window" or "trace"
     removed: list
     added: tuple
     bound: dict
+    reserved: dict
+    preempted: dict
     attempted: int
-
-
-def reference_module(config: dict):
-    return importlib.import_module(
-        f"portbench.reference.{config['reference']}")
 
 
 def exact_cycles(budget: int, sizes: list, seed: int) -> set:
@@ -87,10 +90,6 @@ def exact_cycles(budget: int, sizes: list, seed: int) -> set:
     return picked
 
 
-def has_state_dependent_filter(config: dict) -> bool:
-    return "PodTopologySpread" in config["profile"]["plugins"]
-
-
 def decide(cell, seed: int, iterations, snapshot_usage,
            store_placements) -> dict:
     """{number: value} of the comparison of a run of `cell`
@@ -99,33 +98,36 @@ def decide(cell, seed: int, iterations, snapshot_usage,
     again from the seed."""
     config, mix = cell.config, cell.mix
     traffic, generator = cell.traffic(seed)
-    ref_mod = reference_module(config)
-    ref = ref_mod.Reference(traffic.nodes, config["profile"]["plugins"])
-    for pod in generator.fill():
-        ref.add(pod)
+    ref = cell.reference.Reference(traffic.nodes,
+                                   config["profile"]["plugins"])
+    for rec in generator.fill():
+        ref.add(rec)
     n = len(iterations)
     exact = exact_cycles(int(mix["exact_pods"]),
                          [it.attempted for it in iterations], seed)
-    fit_only = not has_state_dependent_filter(config)
     out = dict.fromkeys(LIMITS, 0)
     usage_before_last = None
     for k, it in enumerate(iterations):
         for uid in it.removed:
             ref.remove(uid)
-        for pod in traffic.rebuild(*it.added):
-            ref.add(pod)
+        for rec in generator.rebuild(it.added):
+            ref.add(rec)
         if k == n - 1:
             usage_before_last = ref.usage()
         pending = [p.uid for p in ref.pending()]
-        over, stranded = ref.judge(it.bound, pending)
+        over, stranded = ref.judge(it.bound, it.reserved, it.preempted,
+                                   pending)
         out["overcommitted_pods"] += over
-        if fit_only:
+        if stranded is not None:
             out["stranded_pods"] += stranded
         if k in exact:
-            mine, _ = ref.cycle()
-            out["placement_mismatch"] += ref_mod.compare(mine, it.bound)
+            bound, reserved, preempted = ref.cycle()
+            out["placement_mismatch"] += placement_gap(
+                bound, reserved, it.bound, it.reserved)
+            out["victim_mismatch"] += len(victims(preempted)
+                                          ^ victims(it.preempted))
         else:
-            ref.apply(it.bound)
+            ref.apply(it.bound, it.reserved, it.preempted)
     out["usage_gap_nodes"] = usage_gap(ref, snapshot_usage,
                                        usage_before_last)
     out["store_gap_pods"] = sum(
@@ -135,6 +137,22 @@ def decide(cell, seed: int, iterations, snapshot_usage,
     out["cycles_compared_exactly"] = len(exact)
     out["cycles"] = n
     return out
+
+
+def placement_gap(bound_a: dict, reserved_a: dict, bound_b: dict,
+                  reserved_b: dict) -> int:
+    """Pods whose outcome differs between two cycles: bound at another
+    node, reserved at another node, or bound, reserved or pending on one
+    side and not on the other."""
+    uids = set(bound_a) | set(bound_b) | set(reserved_a) | set(reserved_b)
+    return sum(1 for u in uids
+               if (bound_a.get(u), reserved_a.get(u))
+               != (bound_b.get(u), reserved_b.get(u)))
+
+
+def victims(preempted: dict) -> set:
+    """The victim uids of a cycle's preemptions."""
+    return {uid for _, doomed in preempted.values() for uid in doomed}
 
 
 def usage_gap(ref, snapshot_usage, expected) -> int:

@@ -20,33 +20,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
+
 class ControlSystem:
     """`program.System`'s interface over a reference with one guarantee
     broken (the configuration's `control`, the reference's `broken`
     switch): it keeps its own model, places each cycle itself, and
     reports its usage and placements as the program's would be read."""
 
-    def __init__(self, config, mix, nodes, fill, device):
-        from portbench import check
-
-        ref_mod = check.reference_module(config)
-        self.ref = ref_mod.Reference(
+    def __init__(self, cell, nodes, fill, device):
+        config = cell.config
+        self.ref = cell.reference.Reference(
             nodes, config["profile"]["plugins"],
             broken=config["control"])
-        for pod in fill:
-            self.ref.add(pod)
+        for rec in fill:
+            self.ref.add(rec)
         self._usage = None
 
-    def ingest(self, removals, arrivals) -> None:
+    def ingest(self, removals, records) -> None:
         for uid in removals:
             self.ref.remove(uid)
-        for pod in arrivals:
-            self.ref.add(pod)
+        for rec in records:
+            self.ref.add(rec)
 
     def cycle(self, now_ms, candidates, timings=None):
         self._usage = self.ref.usage()
-        bound, _ = self.ref.cycle()
-        return None, bound
+        return self.ref.cycle()
 
     def snapshot_usage(self):
         return list(self.ref.names), self._usage

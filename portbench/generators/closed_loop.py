@@ -17,10 +17,17 @@ A mix sets
   that the set-up's warm-up iterations add: the window's own shape, cut.
 
 A generator module has `make(traffic, mix)`, whose object gives
-`fill()` (the pods bound at set-up, each with its `node`) and
-`events(loop)` (an iteration's (completed uids, arriving pods));
-`harness.Loop` says what `loop` holds. Arrivals come from
-`traffic.arrivals`, so the comparison can make them again."""
+- `fill()`: the records applied at set-up, in order (`traffic` names the
+  kinds): the pods bound at set-up, each with its `node`, and whatever
+  objects they need;
+- `events(loop)`: an iteration's (removals, arrivals, key): the uids of
+  the pods it deletes, the records it adds, in order, and a key of ints
+  and strings (tuples of them) from which
+- `rebuild(key)` makes the same arrivals again, for the comparison, with
+  no draw and no state of the run: every draw is made in `events`, and
+  the key keeps it.
+`harness.Loop` says what `loop` holds. Here the arrivals come from
+`traffic.arrivals` and the key is (first serial, count)."""
 
 from __future__ import annotations
 
@@ -69,7 +76,12 @@ class ClosedLoop:
 
     def events(self, loop) -> tuple:
         removals = self.completions(loop)
-        return removals, self.traffic.arrivals(self.arrival_count(loop))
+        arrivals = self.traffic.arrivals(self.arrival_count(loop))
+        first = arrivals[0].creation_ms if arrivals else 0
+        return removals, arrivals, (first, len(arrivals))
+
+    def rebuild(self, key) -> list:
+        return self.traffic.rebuild(*key)
 
 
 def make(traffic, mix: dict) -> ClosedLoop:

@@ -3,12 +3,15 @@ seed, warm up, measure for `seconds`, profile one more iteration when
 tracing, and hand the record to the comparison.
 
 A cell (`BENCHMARK.json` `workloads`) names a configuration
-(`configs/<file>`, from the `configs` entry) and a traffic mix
+(`configs/<file>`, from the `configs` entry), whose `reference` key names
+its plain reference (`reference/<name>.py`), and a traffic mix
 (`mixes/<traffic>.json`), whose `generator` key names its generator
 (`generators/<name>.py`, default `closed_loop`); each metric is
 `metrics/<name>.py`, a reader with `read(record) -> float | None`. Adding
-a cell, a configuration, a mix, a generator or a metric is adding files
-and entries: nothing here names one."""
+a cell, a configuration, a mix, a generator, a reference or a metric is
+adding files and entries: nothing here names one. The records a
+generator may make (pods with their namespace, priority and PodGroup,
+PodGroups, ElasticQuotas, node adds and deletes) are `traffic`'s."""
 
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ class Cell:
     end_to_end: list  # BENCHMARK.json metric entries this cell reports
     per_layer: list
     generator: object  # the mix's generator module
+    reference: object  # the configuration's reference module
 
     def traffic(self, seed: int):
         """(the `Traffic` of `seed`, the mix's generator over it)"""
@@ -74,7 +78,8 @@ def load_cell(name: str, bench_path: Path = None, overrides=None) -> Cell:
     return Cell(name, int(cell["chips"]), config, mix,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)],
-                generator)
+                generator, load_module(root, "reference",
+                                       config["reference"]))
 
 
 def load_module(root: Path, folder: str, name: str):
@@ -142,17 +147,24 @@ class GcClock:
 
 
 class Loop:
-    """The loop of one run: each iteration completes pods and adds
-    arrivals, both as the mix's generator chooses and through the store's
-    mutators, then runs one cycle.
-    It keeps uids and counts only: the generator's records are made for an
-    iteration and dropped, and the comparison makes them again.
+    """The loop of one run: each iteration deletes pods and adds records,
+    both as the mix's generator chooses and through the store's mutators,
+    then runs one cycle.
+    It keeps uids, counts and the generator's keys only: the generator's
+    records are made for an iteration and dropped, and the comparison
+    makes them again from the keys.
 
     The mix's generator reads from it: `warming` (set-up's warm-up
-    iterations), `pending` (uids arrived and not bound), `bound` (the
-    bound pods' `BoundSet`), `prev_arrivals` (the uids the last iteration
+    iterations), `pending` (uids of pods arrived and not bound: those the
+    store holds reserved for Permit among them), `bound` (the bound pods'
+    `BoundSet`), `prev_arrivals` (the uids of the pods the last iteration
     added), `last_bound` (pods the last cycle bound), `iterations` and
     `elapsed_s()` (seconds since the run started).
+
+    The harness plays the kubelet: the victims a cycle's preemptions mark
+    terminating leave `bound` and `pending` at once, so no completion
+    draws them, and are deleted through `remove_pod` at the start of the
+    next iteration's ingest, first among its removals.
 
     The store's clock is the run's own: the milliseconds since it
     started, as a daemon's tick passes the time it runs at."""
@@ -162,60 +174,76 @@ class Loop:
         self.t_start = t_start
         self.traffic, self.generator = cell.traffic(seed)
         fill = self.generator.fill()
-        self.system = system_factory(cell.config, cell.mix,
-                                     self.traffic.nodes, fill, device)
+        self.system = system_factory(cell, self.traffic.nodes, fill, device)
         self.bound = BoundSet()
-        for pod in fill:
-            self.bound.add(pod.uid)
+        for rec in fill:
+            if rec.kind == "pod":
+                self.bound.add(rec.uid)
         self.pending: dict = {}  # uid -> None: arrived and not bound
         self.iterations: list = []
         self.prev_arrivals: list = []  # uids
         self.last_bound = 0
+        self.victims: list = []  # uids the last cycle marked terminating
         self.warming = False
 
     def elapsed_s(self) -> float:
         return time.perf_counter() - self.t_start
 
     def events(self) -> tuple:
-        """The next iteration's (completions, arrivals)."""
-        return self.generator.events(self)
+        """The next iteration's (removals, arrivals, key): the
+        generator's, the last cycle's victims first among the removals."""
+        removals, arrivals, key = self.generator.events(self)
+        if self.victims:
+            doomed = set(self.victims)
+            removals = self.victims + [u for u in removals
+                                       if u not in doomed]
+            self.victims = []
+        return removals, arrivals, key
 
-    def ingest(self, removals, arrivals) -> float:
+    def ingest(self, removals, arrivals) -> tuple:
+        """(seconds in the store's mutators, uids of the pods among the
+        arrivals)"""
         t0 = time.perf_counter()
         self.system.ingest(removals, arrivals)
         spent = time.perf_counter() - t0
         for uid in removals:
             self.pending.pop(uid, None)
             self.bound.discard(uid)
-        for pod in arrivals:
-            self.pending[pod.uid] = None
-        return spent
+        pods = [rec.uid for rec in arrivals if rec.kind == "pod"]
+        for uid in pods:
+            self.pending[uid] = None
+        return spent, pods
 
-    def cycle(self, kind: str, removals, arrivals, timings=None) -> int:
+    def cycle(self, kind: str, removals, key, pods, timings=None) -> int:
         candidates = list(self.pending)
         now = int(self.elapsed_s() * 1e3)
-        _, bound = self.system.cycle(now, candidates, timings)
+        bound, reserved, preempted = self.system.cycle(now, candidates,
+                                                       timings)
         for uid in bound:
             self.pending.pop(uid, None)
             self.bound.add(uid)
-        first = arrivals[0].creation_ms if arrivals else 0
+        for _, doomed in preempted.values():
+            for uid in doomed:
+                self.pending.pop(uid, None)
+                self.bound.discard(uid)
+                self.victims.append(uid)
         self.iterations.append(check.Iteration(
-            kind, list(removals), (first, len(arrivals)), bound,
+            kind, list(removals), key, bound, reserved, preempted,
             len(candidates)))
-        self.prev_arrivals = [p.uid for p in arrivals]
+        self.prev_arrivals = pods
         self.last_bound = len(bound)
         return len(bound)
 
     def iterate(self, kind: str, record: Record | None = None) -> int:
         t0 = time.perf_counter()
-        removals, arrivals = self.events()
-        spent = self.ingest(removals, arrivals)
+        removals, arrivals, key = self.events()
+        spent, pods = self.ingest(removals, arrivals)
         timings = {} if record is not None else None
-        placed = self.cycle(kind, removals, arrivals, timings)
+        placed = self.cycle(kind, removals, key, pods, timings)
         if record is not None:
             record.iteration_s.append(time.perf_counter() - t0)
             record.ingest_s += spent
-            record.ingest_pods += len(arrivals)
+            record.ingest_pods += len(pods)
             record.window_cycles.append(timings)
             record.window_bound += placed
             record.window_attempted += self.iterations[-1].attempted
@@ -234,13 +262,13 @@ class Loop:
         if on_card:
             activities.append(ProfilerActivity.CUDA)
             torch.cuda.synchronize(device)
-        removals, arrivals = self.events()
+        removals, arrivals, key = self.events()
         timings = {}
         with profile(activities=activities) as prof:
             with record_function("portbench.ingest"):
-                self.ingest(removals, arrivals)
+                _, pods = self.ingest(removals, arrivals)
             with record_function("portbench.cycle"):
-                placed = self.cycle("trace", removals, arrivals, timings)
+                placed = self.cycle("trace", removals, key, pods, timings)
                 if on_card:
                     torch.cuda.synchronize(device)
         records = profiling.profile_records(prof)
@@ -319,8 +347,9 @@ def drive(cell: Cell, seed: int, seconds: float, trace: bool, device,
     t_check = time.perf_counter()
     numbers = check.decide(cell, seed, loop.iterations, usage, store)
     record.check_s = time.perf_counter() - t_check
-    failed = sum(it.attempted - len(it.bound) for it in loop.iterations
-                 if it.kind == "window")
+    # pods neither bound nor held by a Permit reservation
+    failed = sum(it.attempted - len(it.bound) - len(it.reserved)
+                 for it in loop.iterations if it.kind == "window")
     return {"record": record, "peak": peak, "numbers": numbers,
             "correct": check.correct(numbers, cell.config),
             "attempted": record.window_attempted, "failed": failed}

@@ -22,8 +22,12 @@ def make_node(spec):
 
 
 def make_pod(spec, objects, res):
-    """A port `Pod` of one container whose requests equal its limits."""
+    """A port `Pod` of one container whose requests equal its limits,
+    labelled with its PodGroup when it names one."""
     requests = {res.CPU: spec.cpu_millis, res.MEMORY: spec.memory_bytes}
+    labels = dict(spec.labels)
+    if spec.group is not None:
+        labels[objects.POD_GROUP_LABEL] = spec.group
     spread = [
         objects.TopologySpreadConstraint(
             max_skew=c.max_skew, topology_key=c.topology_key,
@@ -35,30 +39,49 @@ def make_pod(spec, objects, res):
     return objects.Pod(
         name=spec.name, namespace=spec.namespace, uid=spec.uid,
         priority=spec.priority, creation_ms=spec.creation_ms,
-        labels=dict(spec.labels), node_name=spec.node,
+        labels=labels, node_name=spec.node,
         containers=[objects.Container(requests=requests,
                                       limits=dict(requests))],
         topology_spread=spread,
     )
 
 
+def make_pod_group(spec, objects):
+    return objects.PodGroup(
+        name=spec.name, namespace=spec.namespace,
+        min_member=spec.min_member, creation_ms=spec.creation_ms,
+        schedule_timeout_seconds=spec.schedule_timeout_seconds)
+
+
+def make_quota(spec, objects, res):
+    """The namespace's ElasticQuota, named after it (the store keeps one
+    a namespace)."""
+    return objects.ElasticQuota(
+        name=spec.namespace, namespace=spec.namespace,
+        min={res.CPU: spec.min_cpu_millis, res.MEMORY: spec.min_memory_bytes},
+        max={res.CPU: spec.max_cpu_millis, res.MEMORY: spec.max_memory_bytes})
+
+
 class System:
     """One store, one scheduler, optionally one serve engine, on `device`.
 
-    `ingest` applies an iteration's completions and arrivals through the
-    store's mutators; `cycle` runs one `run_cycle` and returns where each
-    of `candidates` (uids pending before it) stands in the store after
-    it: {uid: node name} of those bound, as the store holds them. The
-    last snapshot the cycle took is kept (`last_snapshot`) so its node
-    usage can be compared once the run is over."""
+    `ingest` applies an iteration's removals and the generator's records
+    through the store's mutators; `cycle` runs one `run_cycle` and returns
+    its outcome as the store holds it after the cycle: ({uid: node name}
+    of the `candidates` (uids pending before it) bound, {uid: node name}
+    of every standing Permit reservation, {preemptor uid: (nominated node,
+    [victim uids])} of the preemptions it made). The last snapshot the
+    cycle took is kept (`last_snapshot`) so its node usage can be compared
+    once the run is over."""
 
-    def __init__(self, config: dict, mix: dict, nodes, fill, device):
+    def __init__(self, cell, nodes, fill, device):
         from scheduler_plugins_tpu_torch.api import objects, resources
         from scheduler_plugins_tpu_torch.api.config import load_profile
         from scheduler_plugins_tpu_torch.framework import Scheduler
         from scheduler_plugins_tpu_torch.framework.cycle import run_cycle
         from scheduler_plugins_tpu_torch.state.cluster import Cluster
 
+        mix = cell.mix
         self._objects, self._res = objects, resources
         self._run_cycle = run_cycle
         self.device = device
@@ -66,9 +89,8 @@ class System:
         self.cluster = Cluster()
         for spec in nodes:
             self.cluster.add_node(make_node(spec))
-        for spec in fill:
-            self.cluster.add_pod(make_pod(spec, objects, resources))
-        self.scheduler = Scheduler(load_profile(config["profile"]))
+        self.ingest((), fill)
+        self.scheduler = Scheduler(load_profile(cell.config["profile"]))
         self.engine = None
         if mix.get("serve"):
             from scheduler_plugins_tpu_torch.serving.engine import ServeEngine
@@ -94,12 +116,27 @@ class System:
         if self.engine is not None:
             self.engine.refresh = keep(self.engine.refresh)
 
-    def ingest(self, removals, arrivals) -> None:
+    def ingest(self, removals, records) -> None:
+        """Each removed uid through `remove_pod`, then each record, in
+        order, through the store's mutator for its kind, as the feed's
+        `apply_event` applies the same objects."""
         cluster, objects, res = self.cluster, self._objects, self._res
         for uid in removals:
             cluster.remove_pod(uid)
-        for spec in arrivals:
-            cluster.add_pod(make_pod(spec, objects, res))
+        for spec in records:
+            kind = spec.kind
+            if kind == "pod":
+                cluster.add_pod(make_pod(spec, objects, res))
+            elif kind == "node":
+                cluster.add_node(make_node(spec))
+            elif kind == "node_delete":
+                cluster.remove_node(spec.name)
+            elif kind == "pod_group":
+                cluster.add_pod_group(make_pod_group(spec, objects))
+            elif kind == "quota":
+                cluster.add_quota(make_quota(spec, objects, res))
+            else:
+                raise ValueError(f"unknown record kind {kind!r}")
 
     def cycle(self, now_ms: int, candidates, timings=None):
         report = self._run_cycle(self.scheduler, self.cluster, now_ms,
@@ -111,7 +148,9 @@ class System:
             pod = pods.get(uid)
             if pod is not None and pod.node_name is not None:
                 bound[uid] = pod.node_name
-        return report, bound
+        preempted = {uid: (node, list(victims))
+                     for uid, (node, victims) in report.preempted.items()}
+        return bound, dict(self.cluster.reserved), preempted
 
     def placements(self) -> dict:
         """{uid: node name} of every bound pod in the store."""

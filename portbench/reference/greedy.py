@@ -2,13 +2,14 @@
 the semantics the configurations state and from nothing of the program.
 
 It holds a model of the cluster (each node's allocatable and usage, each
-pod's node) built from the generator's `NodeSpec` / `PodSpec` records and
-the events the run applied, and schedules a cycle as kube-scheduler's
-framework does, pod by pod in queue order:
+pod's node) built from the nodes at set-up, the generator's pod records
+and the removals the run applied, and schedules a cycle as
+kube-scheduler's framework does, pod by pod in queue order:
 
 - PreFilter: Coscheduling and CapacityScheduling admit every pod (the
-  configurations hold no PodGroup and no ElasticQuota; `Reference` refuses
-  a pod that names a pod group);
+  configurations hold no PodGroup and no ElasticQuota; `Reference.add`
+  refuses a pod that names a pod group, and every record that is not a
+  pod: PodGroups, ElasticQuotas, node adds and deletes);
 - Filter: resource fit (cpu, memory and one pod slot against the node's
   allocatable less its usage), then PodTopologySpread's DoNotSchedule
   constraints: the node carries the constraint's key, and the matching
@@ -20,12 +21,18 @@ framework does, pod by pod in queue order:
   so PodTopologySpread adds the same score to every node;
 - Select: the highest score, the lowest node index on a tie;
 - Reserve: the node's usage grows by the pod's requests.
+
+It never waits in Permit and never preempts: its cycles reserve nothing
+and make no victims, so a program's reservation or preemption in its
+cells shows as a mismatch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+#: the label naming a pod's PodGroup (Coscheduling)
+POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
 #: NodeResourcesAllocatable's default resource weights (cpu, memory)
 ALLOCATABLE_WEIGHTS = np.array([1 << 20, 1, 0], dtype=np.int64)
 MAX_NODE_SCORE = 100
@@ -106,8 +113,13 @@ class Reference:
                     pod.labels.get(k) == v for k, v in selector):
                 counts[i] += sign
 
-    def add(self, pod) -> None:
-        if "scheduling.x-k8s.io/pod-group" in pod.labels:
+    def add(self, record) -> None:
+        """A record of the generator, in the order the program got it."""
+        if record.kind != "pod":
+            raise NotImplementedError(
+                f"the reference does not model {record.kind} records")
+        pod = record
+        if pod.group is not None or POD_GROUP_LABEL in pod.labels:
             raise NotImplementedError("the reference holds no pod groups")
         self.pods[pod.uid] = pod
         if pod.node is not None:
@@ -173,24 +185,31 @@ class Reference:
 
     def cycle(self) -> tuple:
         """Schedule every pending pod in queue order, committing each
-        placement before the next pod: ({uid: node name}, [failed uid])."""
-        bound, failed = {}, []
+        placement before the next pod: the outcome ({uid: node name} of
+        the pods bound, {} reserved, {} preempted); a pod that fits
+        nowhere stays pending."""
+        bound = {}
         for pod in self.pending():
             i = self.choose(pod)
-            if i < 0:
-                failed.append(pod.uid)
-                continue
-            self.bind(pod.uid, i)
-            bound[pod.uid] = self.names[i]
-        return bound, failed
+            if i >= 0:
+                self.bind(pod.uid, i)
+                bound[pod.uid] = self.names[i]
+        return bound, {}, {}
 
     # -- checks of a placement made elsewhere --------------------------------
-    def judge(self, binds: dict, pending) -> tuple:
+    def judge(self, bound: dict, reserved: dict, preempted: dict,
+              pending) -> tuple:
         """Another scheduler's cycle outcome ({uid: node name} of the pods
-        it bound out of `pending`, the uids pending before it), judged on
-        the model without committing it: (pods bound to an unknown node
-        or to a node whose usage then exceeds its allocatable, pods left
-        pending that some node still fits by resources)."""
+        it bound out of `pending`, the uids pending before it; its
+        standing reservations, which hold capacity as binds do; its
+        preemptions, whose victims the next iteration's removals delete),
+        judged on the model without committing it: (pods bound or
+        reserved to an unknown node or to a node whose usage then exceeds
+        its allocatable, pods left pending that some node still fits by
+        resources). The second is None under spread constraints: a pod
+        that failed at its turn may fit once the cycle's later pods are
+        placed, so a fit by resources says nothing."""
+        binds = {**reserved, **bound}
         used = self.used.copy()
         bad, rows = set(), []
         for uid, name in binds.items():
@@ -203,25 +222,21 @@ class Reference:
             rows.append((uid, i))
         over = (used > self.alloc).any(axis=1)
         bad.update(uid for uid, i in rows if over[i])
+        if self.spread_on:
+            return len(bad), None
         free = self.alloc - used
         stranded = sum(
             int((free >= self._demand(self.pods[u])).all(axis=1).any())
             for u in pending if u not in binds)
         return len(bad), stranded
 
-    def apply(self, binds: dict) -> None:
-        """Commit another scheduler's placements to the model."""
-        for uid, name in binds.items():
+    def apply(self, bound: dict, reserved: dict, preempted: dict) -> None:
+        """Commit another scheduler's binds to the model (it holds no
+        reservations and no nominations)."""
+        for uid, name in bound.items():
             i = self.index.get(name)
             if i is not None and uid in self.pods and uid not in self.where:
                 self.bind(uid, i)
 
     def usage(self) -> np.ndarray:
         return self.used.copy()
-
-
-def compare(mine: dict, theirs: dict) -> int:
-    """Pods whose outcome differs between two cycles' binds ({uid: node
-    name}): another node, or bound on one side and pending on the other."""
-    return sum(1 for u in set(mine) | set(theirs)
-               if mine.get(u) != theirs.get(u))

@@ -20,7 +20,8 @@ SMALL_BACKLOG = 64
 #: cells whose configuration and mix stay under portbench/ but that
 #: BENCHMARK.json does not list (PERF.md says why): name -> (configuration
 #: file, mix)
-UNLISTED = {"spread_5k.burst": ("sched_perf_spread_5k", "burst")}
+UNLISTED = {"basic_5k.burst": ("sched_perf_basic_5k", "burst"),
+            "spread_5k.burst": ("sched_perf_spread_5k", "burst")}
 
 
 def unlisted_cell(name, overrides):
@@ -34,7 +35,9 @@ def unlisted_cell(name, overrides):
     generator = harness.load_module(
         harness.ROOT, "generators",
         mix.get("generator", harness.DEFAULT_GENERATOR))
-    return harness.Cell(name, 1, config, mix, [], [], generator)
+    reference = harness.load_module(harness.ROOT, "reference",
+                                    config["reference"])
+    return harness.Cell(name, 1, config, mix, [], [], generator, reference)
 
 
 def small_cell(name, bench_path=None):

@@ -1,5 +1,6 @@
-"""On the card: a short run of each cell through `run.py` prints a
-correct result line (`python -m pytest portbench/tests -m cuda`)."""
+"""On the card: a short run of each cell `BENCHMARK.json` lists, through
+`run.py`, prints a correct result line (`python -m pytest portbench/tests
+-m cuda`)."""
 
 import json
 import subprocess
@@ -8,10 +9,14 @@ import sys
 import pytest
 
 from portbench import harness
+from portbench.traffic import load_json
+
+LISTED = [w["name"] for w in
+          load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["basic_5k.burst", "basic_5k.churn"])
+@pytest.mark.parametrize("name", LISTED)
 def test_short_run_is_correct(card, name):
     out = subprocess.run(
         [sys.executable, "portbench/run.py", "--workload", name, "--seed",

@@ -36,7 +36,7 @@ def test_stage_spans_follow_the_cycle_order():
 
 
 def test_traced_iteration_on_the_cpu():
-    cell = small_cell("basic_5k.burst")
+    cell = small_cell("basic_5k.churn")
     out = harness.drive(cell, 4, 0.2, True, "cpu", time.perf_counter())
     prof = out["record"].profile
     assert out["correct"]

@@ -6,9 +6,17 @@ generator's: `generators/<name>.py`, named by the mix's `generator` key
 (default `closed_loop`).
 
 Nothing here imports the program or the reference: both sides are handed
-the same `NodeSpec` / `PodSpec` records. Every draw comes from `--seed`
-through independent NumPy streams, so one seed gives one cluster and one
-event sequence.
+the same records, in the same order. A record is one of
+- `NodeSpec`: a node added (the cluster's nodes at set-up are these too);
+- `NodeDelete`: a node deleted;
+- `PodSpec`: a pod added, in its namespace, at its priority, a member of
+  the PodGroup it names (`group`), bound at set-up when it has a `node`;
+- `PodGroupSpec`: a PodGroup (Coscheduling's gang and its quorum);
+- `QuotaSpec`: a namespace's ElasticQuota (CapacityScheduling's `min`
+  and `max`, cpu and memory);
+and says which by its `kind`. A pod's deletion is its uid among an
+iteration's removals. Every draw comes from `--seed` through independent
+NumPy streams, so one seed gives one cluster and one event sequence.
 
 The scenario patterns follow `scheduler_plugins_tpu_torch.models.scenarios`
 (`_nodes` / `_pods`: named nodes with an allocatable map, one-container pods
@@ -21,6 +29,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import ClassVar
 
 import numpy as np
 
@@ -39,6 +48,7 @@ class SpreadSpec:
 
 @dataclass(frozen=True)
 class NodeSpec:
+    kind: ClassVar[str] = "node"
     name: str
     cpu_millis: int
     memory_bytes: int
@@ -46,8 +56,36 @@ class NodeSpec:
     labels: dict
 
 
+@dataclass(frozen=True)
+class NodeDelete:
+    kind: ClassVar[str] = "node_delete"
+    name: str
+
+
+@dataclass(frozen=True)
+class PodGroupSpec:
+    kind: ClassVar[str] = "pod_group"
+    namespace: str
+    name: str
+    min_member: int
+    creation_ms: int
+    #: the Permit wait of each member; None: Coscheduling's default
+    schedule_timeout_seconds: int | None = None
+
+
+@dataclass(frozen=True)
+class QuotaSpec:
+    kind: ClassVar[str] = "quota"
+    namespace: str
+    min_cpu_millis: int
+    min_memory_bytes: int
+    max_cpu_millis: int
+    max_memory_bytes: int
+
+
 @dataclass
 class PodSpec:
+    kind: ClassVar[str] = "pod"
     uid: str
     name: str
     namespace: str
@@ -58,6 +96,7 @@ class PodSpec:
     labels: dict
     spread: tuple = ()  # SpreadSpec, ...
     node: str | None = None  # bound at set-up (fill pods)
+    group: str | None = None  # the name of its PodGroup, in its namespace
 
     def queue_key(self):
         """Upstream PrioritySort: priority descending, then creation
@@ -87,8 +126,12 @@ class Traffic:
 
     `nodes` are built at construction; `pod(template, node)` makes the
     next pod of a template (its generator serial, and creation time, one
-    more than the last), `arrivals(n)` the next `n` pods of the measured
-    template, and `rebuild` makes arrivals again from their first serial.
+    more than the last), `pod_at` the pod of a given serial, in a PodGroup
+    when `group` names one, `arrivals(n)` the next `n` pods of the
+    measured template, and `rebuild` makes arrivals again from their first
+    serial. A template sets the pods' `name_prefix`, `cpu_millis`,
+    `memory_bytes`, and optionally `labels`, `spread`, `namespace`
+    (default "default") and `priority` (default 0).
     `rng[name]` is the stream `name` of `STREAMS`: a generator draws from
     "fill" and "events"."""
 
@@ -129,23 +172,25 @@ class Traffic:
         return self.pod_at(template, self._serial, node)
 
     @staticmethod
-    def pod_at(template: dict, serial: int,
-               node: str | None = None) -> PodSpec:
+    def pod_at(template: dict, serial: int, node: str | None = None,
+               group: str | None = None) -> PodSpec:
         """The pod of generator serial `serial` (its creation time, in
         ms of the store's clock, is the serial too)."""
         name = f"{template['name_prefix']}{serial:08d}"
+        namespace = template.get("namespace", "default")
         spread = tuple(
             SpreadSpec(int(c["max_skew"]), c["topology_key"],
                        c["when_unsatisfiable"],
                        tuple(sorted(c["match_labels"].items())))
             for c in template.get("spread", ())
         )
-        return PodSpec(uid=f"default/{name}", name=name, namespace="default",
-                       creation_ms=serial, priority=0,
+        return PodSpec(uid=f"{namespace}/{name}", name=name,
+                       namespace=namespace, creation_ms=serial,
+                       priority=int(template.get("priority", 0)),
                        cpu_millis=int(template["cpu_millis"]),
                        memory_bytes=int(template["memory_bytes"]),
                        labels=dict(template.get("labels", {})),
-                       spread=spread, node=node)
+                       spread=spread, node=node, group=group)
 
     def arrivals(self, n: int) -> list:
         tpl = self.config["measure_pod_template"]
